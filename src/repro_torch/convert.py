@@ -1,0 +1,46 @@
+"""Carry entrusted state between the JAX package and the port.
+
+The JAX store holds each state leaf OWNER-MAJOR: a ``(T * rows, ...)``
+array whose block ``t`` is trustee ``t``'s shard (what
+``trust.trustee_state()`` returns, as numpy after ``np.asarray``).  The
+port holds the same leaf STACKED, ``(T, rows, ...)``, on one device.  The
+two are one reshape apart; these functions make it, so a test can start
+both stores from the same table and compare them row by row.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def stacked_from_owner_major(host_state: Dict[str, np.ndarray],
+                             n_trustees: int,
+                             device=None) -> Dict[str, torch.Tensor]:
+    """Owner-major numpy leaves ``(T * rows, ...)`` -> stacked tensors
+    ``(T, rows, ...)`` on ``device`` (the port's default device when
+    None), copied: they never alias the caller's arrays."""
+    from .core.meshctx import resolve_device
+    dev = resolve_device(device)
+    out = {}
+    for name, leaf in host_state.items():
+        a = np.asarray(leaf)
+        if a.shape[0] % n_trustees:
+            raise ValueError(
+                f"state leaf {name!r}: {a.shape[0]} rows do not split over "
+                f"{n_trustees} trustees")
+        out[name] = torch.tensor(
+            np.ascontiguousarray(a.reshape((n_trustees, -1) + a.shape[1:])),
+            device=dev)
+    return out
+
+
+def owner_major_from_stacked(state: Dict[str, torch.Tensor]
+                             ) -> Dict[str, np.ndarray]:
+    """Stacked tensors ``(T, rows, ...)`` -> owner-major numpy leaves
+    ``(T * rows, ...)``, copied: a store's state is live (its serve writes
+    in place), and the result is a snapshot of it."""
+    return {name: leaf.detach().cpu().numpy().copy().reshape(
+                (-1,) + tuple(leaf.shape[2:]))
+            for name, leaf in state.items()}

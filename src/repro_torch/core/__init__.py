@@ -1,0 +1,37 @@
+# repro_torch.core — Trust<T> delegation over stacked shards on one device.
+#
+# meshctx.py   StackedMesh (the JAX mesh's shards as a leading tensor dim),
+#              default device, ambient mesh + TrustSession
+# routing.py   key -> trustee routers + workload generators
+# opspec.py    Field/OpSpec/TrustSchema, typed op handles, call-time checks
+# channel.py   pack/transmit/serve/respond/unpack over stacked shards
+# trust.py     TrusteeGroup / Trust / TrustFuture
+# engine.py    DelegationEngine / TrustSession — executes the rounds
+# kvstore.py   DelegatedKVStore + make_kv_schema (paper §6.3)
+# lockstore.py SequentialKVReference oracle + conflict_ranks
+from .opspec import Combine, Field, OpSpec, SchemaError, TrustSchema
+from .channel import (ChannelConfig, ChannelInfo, DelegatedOp, Grouping,
+                      Packed, Received, check_response_structs,
+                      collect_impl_events, delegate, make_grouping, pack,
+                      report_impl_event, respond, serve_optable, transmit,
+                      unpack)
+from .engine import DelegationEngine, TrustSession, check_payload_fields
+from .trust import Trust, TrusteeGroup, TrustFuture, local_trustees
+from .kvstore import DelegatedKVStore, kv_reshard, make_kv_schema
+from .lockstore import SequentialKVReference, conflict_ranks
+from .meshctx import (StackedMesh, current_mesh, current_session,
+                      resolve_device, set_mesh, set_session, use_mesh,
+                      use_session)
+
+__all__ = [
+    "Combine", "Field", "OpSpec", "SchemaError", "TrustSchema",
+    "ChannelConfig", "ChannelInfo", "DelegatedOp", "Grouping", "Packed",
+    "Received", "check_response_structs", "collect_impl_events", "delegate",
+    "make_grouping", "pack", "report_impl_event", "respond",
+    "serve_optable", "transmit", "unpack", "DelegationEngine",
+    "TrustSession", "check_payload_fields", "Trust", "TrusteeGroup",
+    "TrustFuture", "local_trustees", "DelegatedKVStore", "kv_reshard",
+    "make_kv_schema", "SequentialKVReference", "conflict_ranks",
+    "StackedMesh", "current_mesh", "current_session", "resolve_device",
+    "set_mesh", "set_session", "use_mesh", "use_session",
+]

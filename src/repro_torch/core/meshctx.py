@@ -1,0 +1,133 @@
+"""The stacked-shard mesh and the ambient session/mesh context.
+
+JAX runs the delegation channel inside ``shard_map`` over a device mesh.
+The port keeps every shard of that mesh on ONE device, stacked along a
+leading tensor dimension: a ``StackedMesh(shape=(2, 4))`` stands for the
+2x4 JAX mesh, and every per-shard array of the JAX program becomes one
+``(8, ...)`` tensor.  The channel's collectives follow from that layout:
+``all_to_all`` is a (src, dst) block transpose, ``psum`` a sum over the
+leading dimension, and ``axis_index`` an ``arange``.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+asking for the card where there is none raises instead of falling back.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, Sequence
+
+import torch
+
+_state = threading.local()
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` by default.  Raises
+    ``RuntimeError`` when CUDA is asked for (explicitly or by default) and
+    no CUDA device is present — nothing silently falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch paths")
+    return dev
+
+
+class StackedMesh:
+    """A JAX-style named mesh whose shards are stacked on one device.
+
+    ``shape`` gives the axis sizes (row-major over ``axis_names``, like
+    ``jax.sharding.Mesh``); ``size`` is the number of stacked shards, and
+    shard ``i`` is the flat row-major index ``i`` — the same slot a leading
+    dimension sharded with ``P(axis_names)`` lands on in JAX."""
+
+    def __init__(self, shape: Sequence[int] = (1, 1),
+                 axis_names: Sequence[str] = ("data", "model"),
+                 device=None):
+        shape = tuple(int(s) for s in shape)
+        axis_names = tuple(axis_names)
+        if len(shape) != len(axis_names):
+            raise ValueError(
+                f"mesh shape {shape} and axis names {axis_names} differ in "
+                f"length")
+        if any(s < 1 for s in shape):
+            raise ValueError(f"mesh axis sizes must be >= 1, got {shape}")
+        self.dims = shape
+        self.axis_names = axis_names
+        self.shape: Dict[str, int] = dict(zip(axis_names, shape))
+        self.device = resolve_device(device)
+        size = 1
+        for s in shape:
+            size *= s
+        self.size = size
+
+    def _key(self):
+        return (self.dims, self.axis_names, self.device)
+
+    def __eq__(self, other):
+        return isinstance(other, StackedMesh) and self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __repr__(self):
+        return (f"StackedMesh(shape={self.dims}, axis_names="
+                f"{self.axis_names}, device={str(self.device)!r})")
+
+
+def current_mesh() -> StackedMesh:
+    """The ambient mesh (a ``(1, 1)`` mesh on the default device when none
+    was installed)."""
+    m = getattr(_state, "mesh", None)
+    if m is None:
+        m = StackedMesh((1, 1))
+        _state.mesh = m
+    return m
+
+
+def set_mesh(mesh: StackedMesh) -> None:
+    _state.mesh = mesh
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: StackedMesh):
+    prev = getattr(_state, "mesh", None)
+    _state.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _state.mesh = prev
+
+
+def current_session():
+    """The ambient ``TrustSession`` (``core.engine.DelegationEngine``),
+    created lazily per thread.  Every ``entrust`` registers its Trust here
+    unless given a session."""
+    s = getattr(_state, "session", None)
+    if s is None:
+        from .engine import DelegationEngine
+        s = DelegationEngine()
+        _state.session = s
+    return s
+
+
+def set_session(session) -> None:
+    """Install ``session`` as the ambient TrustSession for this thread."""
+    _state.session = session
+
+
+@contextlib.contextmanager
+def use_session(session=None):
+    """Scope an (optionally fresh) TrustSession: trusts entrusted inside the
+    block register with it; the previous session is restored on exit."""
+    if session is None:
+        from .engine import DelegationEngine
+        session = DelegationEngine()
+    prev = getattr(_state, "session", None)
+    _state.session = session
+    try:
+        yield session
+    finally:
+        _state.session = prev
+

@@ -1,0 +1,316 @@
+"""Trust — the user-facing handle to entrusted state (paper §3, §4).
+
+The torch counterpart of ``repro.core.trust``.  ``TrusteeGroup.entrust``
+places a dict of STACKED state tensors (leading dimension: the trustee
+shard) under the care of the trustees of a ``StackedMesh``; the state is
+then only reachable through the delegation channel, through the typed op
+handles a ``TrustSchema`` generates:
+
+    group = TrusteeGroup(mesh, axis=("data", "model"))
+    trust = group.entrust({"table": table}, schema=kv_schema)
+    vals  = trust.op.get(keys)                 # sync apply()
+    fut   = trust.op.put.then(keys, values)    # apply_then()
+    session.step()                             # flush pending batches
+
+Execution lives in the session's ``DelegationEngine`` (engine.py).  This
+slice of the port carries the shared trustee mode over the whole mesh;
+the other knobs of the JAX package raise ``NotImplementedError`` naming
+their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from .channel import ChannelConfig, DelegatedOp
+from .meshctx import StackedMesh
+from .opspec import OpNamespace, TrustSchema
+
+Pytree = Any
+
+
+def _axes_tuple(axis) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue A: "
+        f"{item})")
+
+
+@dataclass
+class TrusteeGroup:
+    """The trustees of ``mesh`` along ``axis``.  Shared mode over the whole
+    mesh: every stacked shard is both a client and a trustee."""
+    mesh: StackedMesh
+    axis: Any = "model"
+    mode: str = "shared"
+    n_dedicated: int = 0
+
+    def __post_init__(self):
+        if self.mode not in ("shared", "dedicated"):
+            raise ValueError(f"unknown trustee mode {self.mode!r}")
+        if self.mode == "dedicated":
+            raise _not_ported("mode='dedicated'", "dedicated mode")
+        unknown = [a for a in self.axes if a not in self.mesh.shape]
+        if unknown:
+            raise ValueError(f"axis {unknown} not in mesh axes "
+                             f"{self.mesh.axis_names}")
+        if self.mesh.size != self.axis_size:
+            raise _not_ported(
+                f"a trustee group over the sub-axis {self.axes} of a "
+                f"{self.mesh.dims} mesh (state replicated over the other "
+                f"axes)", "sub-axis trustee groups")
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return _axes_tuple(self.axis)
+
+    @property
+    def axis_size(self) -> int:
+        n = 1
+        for a in self.axes:
+            n *= int(self.mesh.shape[a])
+        return n
+
+    @property
+    def n_trustees(self) -> int:
+        return self.axis_size
+
+    @property
+    def n_clients(self) -> int:
+        return self.axis_size
+
+    def entrust(self, state: Dict[str, torch.Tensor],
+                ops: Optional[Sequence[DelegatedOp]] = None,
+                resp_like: Optional[Pytree] = None,
+                capacity: Optional[int] = None,
+                overflow: str = "second_round", overflow_capacity: int = 0,
+                local_shortcut: bool = True, max_rounds: int = 1,
+                pack_impl: str = "kernel", serve_impl: str = "kernel",
+                name: Optional[str] = None, plan_capacity: bool = False,
+                session=None, schema: Optional[TrustSchema] = None,
+                strict_impl: bool = False, serve_blocks: Any = None,
+                pack_blocks: Any = None,
+                combine: str = "off") -> "Trust":
+        """Move ``state`` (a dict of (T, rows, ...) tensors) under trustee
+        ownership and return the Trust handle; see
+        ``repro.core.trust.TrusteeGroup.entrust`` for every knob.  The
+        state is copied onto the mesh's device, so the caller's tensors
+        are never updated in place."""
+        if combine not in ("off", "ref"):
+            raise ValueError(
+                f"combine must be 'off' or 'ref', got {combine!r}")
+        if combine != "off":
+            raise _not_ported("request combining (combine='ref')",
+                              "request combining")
+        if overflow not in ("drop", "second_round", "defer"):
+            raise ValueError(f"unknown overflow policy {overflow!r}")
+        if overflow == "defer" or max_rounds > 1:
+            raise _not_ported("overflow='defer' / max_rounds > 1",
+                              "defer drain")
+        if plan_capacity:
+            raise _not_ported("plan_capacity=True", "capacity planner")
+        if serve_blocks is not None or pack_blocks is not None:
+            # the Pallas tile sizes, fixed or "auto"; the CUDA kernels pick
+            # their own launch shapes
+            raise _not_ported("serve_blocks / pack_blocks (fixed or 'auto')",
+                              "'auto' kernel blocks")
+        if pack_impl not in ("ref", "kernel"):
+            raise ValueError(f"pack_impl must be 'ref' or 'kernel', got "
+                             f"{pack_impl!r}")
+        if serve_impl not in ("ref", "kernel", "masked"):
+            raise ValueError(f"serve_impl must be 'ref', 'kernel' or "
+                             f"'masked', got {serve_impl!r}")
+        if schema is not None:
+            if ops is not None or resp_like is not None:
+                raise ValueError(
+                    "entrust takes EITHER schema= (typed, derives ops and "
+                    "resp_like) OR ops=/resp_like= (legacy), not both")
+            schema.validate_state(state)
+            ops = schema.delegated_ops()
+            resp_like = schema.resp_like()
+        elif ops is None or resp_like is None:
+            raise ValueError(
+                "entrust needs a schema= (typed path) or both ops= and "
+                "resp_like= (legacy path)")
+        t = self.n_trustees
+        placed = {}
+        for k, v in state.items():
+            if v.dim() < 2 or v.shape[0] != t:
+                raise ValueError(
+                    f"state leaf {k!r} of shape {list(v.shape)} is not "
+                    f"stacked over the {t} trustee shards (T, rows, ...)")
+            placed[k] = v.to(self.mesh.device, copy=True,
+                             memory_format=torch.contiguous_format)
+        cfg = ChannelConfig(
+            axis=self.axis if len(self.axes) > 1 else self.axes[0],
+            capacity=0 if not capacity else capacity, overflow=overflow,
+            overflow_capacity=overflow_capacity,
+            local_shortcut=local_shortcut, pack_impl=pack_impl,
+            serve_impl=serve_impl, mode=self.mode, max_rounds=max_rounds,
+            strict_impl=strict_impl, combine_impl=combine)
+        return Trust(self, placed, tuple(ops), resp_like, cfg, name=name,
+                     session=session, schema=schema)
+
+
+@dataclass
+class TrustFuture:
+    """Host-level future for ``submit`` (apply_then analog)."""
+    _result: Optional[Pytree] = None
+    _then: Optional[Callable[[Pytree], None]] = None
+    trust: str = ""
+    op: str = ""
+
+    def ready(self) -> bool:
+        return self._result is not None
+
+    def result(self) -> Pytree:
+        if self._result is None:
+            raise RuntimeError(
+                f"result of op {self.op!r} on trust {self.trust!r} is not "
+                f"ready: the submitted batch has not been served — flush() "
+                f"the trust (or run session.step()) first")
+        return self._result
+
+    def _fulfil(self, value: Pytree) -> None:
+        self._result = value
+        if self._then is not None:
+            self._then(value)
+
+
+class Trust:
+    """Reference to entrusted state.  A schema'd Trust exposes the typed
+    surface as ``trust.op``; ``apply``/``submit`` remain stringly shims
+    over the same machinery."""
+
+    def __init__(self, group: TrusteeGroup, state: Pytree,
+                 ops: Tuple[DelegatedOp, ...], resp_like: Pytree,
+                 cfg: ChannelConfig, name: Optional[str] = None,
+                 session=None, schema: Optional[TrustSchema] = None):
+        self.group = group
+        self._state = state
+        self.ops = ops
+        self.op_index = {o.name: i for i, o in enumerate(ops)}
+        self.resp_like = resp_like
+        self.cfg = cfg
+        self.schema = schema
+        self.op = OpNamespace(self, schema) if schema is not None else None
+        self._pending: List[Tuple[int, torch.Tensor, Pytree, TrustFuture]] = []
+        if session is None:
+            from . import meshctx
+            session = meshctx.current_session()
+        self.session = session
+        self.token = session.register(self)
+        self.name = name if name else f"trust{self.token}"
+
+    @property
+    def n_trustees(self) -> int:
+        return self.group.n_trustees
+
+    @property
+    def device(self) -> torch.device:
+        return self.group.mesh.device
+
+    def state(self) -> Pytree:
+        """The live state: the kernel serve updates these tensors in place,
+        so later rounds change them.  Clone to keep a snapshot."""
+        return self._state
+
+    def set_state(self, state: Pytree) -> None:
+        self._state = state
+
+    def trustee_state(self) -> Pytree:
+        """The logical (stacked) state, live as ``state()`` is."""
+        return self._state
+
+    # -- core API ------------------------------------------------------------
+    def _apply_validated(self, op_id: int, dst: torch.Tensor,
+                         payload: Pytree,
+                         capacity: Optional[int] = None) -> Pytree:
+        self.flush()
+        return self.session.run_solo(self, [(op_id, dst, payload)],
+                                     capacity)[0]
+
+    def _submit_validated(self, op_id: int, dst: torch.Tensor,
+                          payload: Pytree,
+                          then: Optional[Callable] = None) -> TrustFuture:
+        fut = TrustFuture(_then=then, trust=self.name,
+                          op=self.ops[op_id].name)
+        self._pending.append((op_id, dst, payload, fut))
+        self.session.notify(self)
+        return fut
+
+    def _shim(self, op: str, payload: Pytree) -> Tuple[int, Pytree]:
+        if self.schema is not None:
+            payload = self.schema.bind_payload(op, payload, self.device)
+        elif op not in self.op_index:
+            raise KeyError(
+                f"trust {self.name!r} has no op {op!r} "
+                f"(ops: {[o.name for o in self.ops]})")
+        return self.op_index[op], payload
+
+    def apply(self, op: str, dst: torch.Tensor, payload: Pytree,
+              capacity: Optional[int] = None) -> Pytree:
+        """Synchronous delegation (the paper's apply())."""
+        op_id, payload = self._shim(op, payload)
+        return self._apply_validated(op_id, dst.to(self.device), payload,
+                                     capacity)
+
+    def submit(self, op: str, dst: torch.Tensor, payload: Pytree,
+               then: Optional[Callable] = None) -> TrustFuture:
+        """apply_then(): queue the batch for flush() or session.step()."""
+        op_id, payload = self._shim(op, payload)
+        return self._submit_validated(op_id, dst.to(self.device), payload,
+                                      then)
+
+    def flush(self, capacity: Optional[int] = None) -> None:
+        """Run this trust's queued batches as ONE solo channel round."""
+        if not self._pending:
+            return
+        pending, self._pending = self._pending, []
+        self.session.unnotify(self)
+        try:
+            resps = self.session.run_solo(
+                self, [(o, d, p) for (o, d, p, _) in pending], capacity)
+        except Exception:
+            # keep the queued batches so the caller can drop the offending
+            # submit and flush again
+            self._pending = pending + self._pending
+            self.session.notify(self)
+            raise
+        for (_, _, _, fut), resp in zip(pending, resps):
+            fut._fulfil(resp)
+
+    # -- execution -----------------------------------------------------------
+    def _auto_capacity(self, r_total: int) -> int:
+        # mean load per (client, trustee) pair with 2x headroom, min 4 rows
+        per_client = max(1, r_total // max(1, self.group.mesh.size))
+        mean = max(1, per_client // self.n_trustees)
+        return max(4, 2 * mean)
+
+    def _cfg_for(self, r_total: int, capacity: Optional[int]) -> ChannelConfig:
+        if capacity is None:
+            capacity = self.cfg.capacity
+        cap = capacity if capacity > 0 else self._auto_capacity(r_total)
+        over = cap if self.cfg.overflow == "second_round" else 0
+        return dataclasses.replace(
+            self.cfg, capacity=cap,
+            overflow_capacity=self.cfg.overflow_capacity or over)
+
+    def fuse_signature(self) -> Tuple:
+        g = self.group
+        return (g.mesh, g.axes, g.mode, g.n_dedicated) \
+            + self.cfg.fuse_sig()
+
+
+def local_trustees(axis=None) -> TrusteeGroup:
+    """Shared-mode TrusteeGroup over the ambient mesh, along ``axis``
+    (default "model", as in JAX)."""
+    from . import meshctx
+    return TrusteeGroup(meshctx.current_mesh(),
+                        "model" if axis is None else axis)

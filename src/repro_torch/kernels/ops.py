@@ -1,0 +1,83 @@
+"""Public wrappers for the main path's kernels.
+
+Every op takes ``impl`` in {"ref", "kernel"} (the JAX package's "ref" and
+"pallas"):
+
+  * "ref"    — the plain PyTorch version from ``ref.py``, on any device;
+  * "kernel" — the CUDA kernel on CUDA tensors (built at first use); on
+               CPU tensors its plain version, which is how the CPU tests
+               reach the kernel path.
+
+``launch_counts()`` reads each kernel wrapper's launch counter and
+``reset_launch_counts()`` zeroes them, so a run can show that its main
+path went through the kernels.  ``check(name, ...)`` runs a serve
+kernel's pre-launch checks on the arguments of its call, so a caller
+that writes in place can check a whole round before its first launch.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from . import ref
+from .delegation_pack import delegation_pack as _pack_kernel
+from .delegation_serve import gather as _gather_kernel
+from .delegation_serve import scatter_last as _scatter_last_kernel
+from .delegation_serve import segmented_add as _segmented_add_kernel
+from .delegation_serve import (check_gather, check_scatter_last,
+                               check_segmented_add)
+
+KERNELS = {"delegation_pack": _pack_kernel, "gather": _gather_kernel,
+           "scatter_last": _scatter_last_kernel,
+           "segmented_add": _segmented_add_kernel}
+CHECKS = {"gather": check_gather, "scatter_last": check_scatter_last,
+          "segmented_add": check_segmented_add}
+
+
+def _pick(impl: str, kernel, plain):
+    if impl == "kernel":
+        return kernel
+    if impl == "ref":
+        return plain
+    raise ValueError(f"unknown impl {impl!r} (want 'ref' or 'kernel')")
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def check(name: str, *args, **kwargs) -> None:
+    """Raise now whatever the serve op ``name`` would raise before its
+    launch, given the arguments of its call."""
+    CHECKS[name](*args, **kwargs)
+
+
+def delegation_pack(dst, words, n_trustees: int, capacity: int,
+                    capacity2: int = 0, impl: str = "kernel"):
+    """Stacked pack of int32 payload words; see ``ref.pack_stacked``."""
+    return _pick(impl, _pack_kernel, ref.pack_stacked)(
+        dst, words, n_trustees, capacity, capacity2)
+
+
+def gather(table, keys, lane, which: int, out,
+           expect: Optional[torch.Tensor] = None,
+           flag: Optional[torch.Tensor] = None, impl: str = "kernel"):
+    return _pick(impl, _gather_kernel, ref.gather)(
+        table, keys, lane, which, out, expect, flag)
+
+
+def scatter_last(table, keys, order, sid, flag, value, impl: str = "kernel"):
+    return _pick(impl, _scatter_last_kernel, ref.scatter_last)(
+        table, keys, order, sid, flag, value)
+
+
+def segmented_add(table, keys, lane, order, sid, seg_end, value, resp,
+                  impl: str = "kernel"):
+    return _pick(impl, _segmented_add_kernel, ref.segmented_add)(
+        table, keys, lane, order, sid, seg_end, value, resp)

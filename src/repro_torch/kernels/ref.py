@@ -1,0 +1,166 @@
+"""Plain PyTorch versions of the main path's kernels.
+
+Each function here computes exactly what its CUDA kernel computes, on any
+device, and is what the kernel wrappers run for CPU tensors.  The tests
+hold these against the JAX package; ``chip_smoke.py`` holds each CUDA
+kernel against them on the card.
+
+All serve functions take STACKED trustee tensors — a leading ``T`` shard
+dimension — and update ``table`` / ``resp`` in place, as the kernels do.
+Row arrays (``keys``, ``lane``, ``value``, ``expect``, ``flag``) are in
+request coordinates; ``order`` / ``sid`` / ``seg_end`` are the per-shard
+grouping in sorted coordinates (``channel.Grouping``).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+LANE_GET, LANE_PUT, LANE_ADD, LANE_CAS = 0, 1, 2, 3
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-shard row gather: ``x`` (B, N, ...), ``idx`` (B, M) ->
+    (B, M, ...) with ``out[b, m] = x[b, idx[b, m]]``."""
+    b = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[b, idx.long()]
+
+
+# ---------------------------------------------------------------------------
+# pack
+# ---------------------------------------------------------------------------
+
+def delegation_pack(dst: torch.Tensor, payload: torch.Tensor, n_trustees: int,
+                    capacity: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bin rows by destination with per-destination capacity, FIFO within
+    each destination (``repro.kernels.ref.delegation_pack``).
+
+    dst: (R,) int32 in [-1, T); payload: (R, W) of any dtype — or both with
+    one extra leading shard dimension.  Returns (slots (T*C, W),
+    counts (T,) clamped at C, request_slot (R,) with -1 for inactive or
+    over-capacity rows)."""
+    squeeze = dst.dim() == 1
+    if squeeze:
+        dst, payload = dst[None], payload[None]
+    t, c = n_trustees, capacity
+    b, r = dst.shape
+    dev = dst.device
+    key = torch.where(dst < 0, torch.full_like(dst, t), dst).to(torch.int32)
+    key_s, order = torch.sort(key, dim=-1, stable=True)
+    grid = torch.arange(t + 1, dtype=torch.int32, device=dev).expand(b, t + 1)
+    starts = torch.searchsorted(key_s, grid.contiguous()).to(torch.int32)
+    pos_s = torch.arange(r, dtype=torch.int32, device=dev) \
+        - starts.gather(-1, key_s.long())
+    ok = (key_s < t) & (pos_s < c)
+    rows = key_s * c + torch.clamp(pos_s, max=c - 1)
+    idx = torch.where(ok, rows, torch.full_like(rows, t * c))
+    slots = torch.zeros((b, t * c + 1) + tuple(payload.shape[2:]),
+                        dtype=payload.dtype, device=dev)
+    slots[torch.arange(b, device=dev)[:, None], idx.long()] = \
+        take_rows(payload, order)
+    slots = slots[:, :t * c]
+    counts = torch.clamp(starts[:, 1:] - starts[:, :-1], max=c)
+    request_slot = torch.empty_like(key).scatter_(
+        -1, order, torch.where(ok, rows, torch.full_like(rows, -1)))
+    if squeeze:
+        return slots[0], counts[0], request_slot[0]
+    return slots, counts, request_slot
+
+
+def pack_stacked(dst: torch.Tensor, words: torch.Tensor, n_trustees: int,
+                 capacity: int, capacity2: int = 0):
+    """The pack kernel's function over every client shard at once.
+
+    dst (D, R) int32, words (D, R, W) int32.  A row's FIFO rank r within
+    its destination t places it in the primary block at slot t*C + r when
+    r < C, in the second_round block at t*C2 + (r - C) when
+    C <= r < C + C2, and nowhere otherwise — the same placement as the
+    JAX channel's rerun of the pack on the rows the primary block
+    rejected.  Returns (slots (D, T*C, W), slots2 (D, T*C2, W),
+    counts (D, T), counts2 (D, T), request_slot (D, R) in [0, T*C + T*C2)
+    or -1, totals (D, T) — the pre-capacity demand)."""
+    t, c, c2 = n_trustees, capacity, capacity2
+    d, r = dst.shape
+    w = words.shape[-1]
+    cc = c + c2
+    slots_all, _, req_all = delegation_pack(dst, words, t, cc)
+    blocks = slots_all.reshape(d, t, cc, w)
+    slots = blocks[:, :, :c].reshape(d, t * c, w)
+    slots2 = blocks[:, :, c:].reshape(d, t * c2, w)
+    dest, rank = torch.div(req_all, cc, rounding_mode="floor"), req_all % cc
+    request_slot = torch.where(
+        req_all < 0, req_all,
+        torch.where(rank < c, dest * c + rank, t * c + dest * c2 + rank - c))
+    active = dst >= 0
+    totals = torch.zeros((d, t + 1), dtype=torch.int32, device=dst.device) \
+        .scatter_add_(1, torch.where(active, dst, t).long(),
+                      torch.ones_like(dst))[:, :t]
+    counts = torch.clamp(totals, max=c)
+    counts2 = torch.clamp(totals - c, min=0, max=c2)
+    return slots, slots2, counts, counts2, request_slot, totals
+
+
+# ---------------------------------------------------------------------------
+# trustee serve (the three serve kernels)
+# ---------------------------------------------------------------------------
+
+def gather(table: torch.Tensor, keys: torch.Tensor, lane: torch.Tensor,
+           which: int, out: torch.Tensor,
+           expect: Optional[torch.Tensor] = None,
+           flag: Optional[torch.Tensor] = None) -> None:
+    """Rows of lane ``which`` read their table line into ``out``; with
+    ``expect`` (the CAS lane) they also set ``flag = all(cur == expect)``.
+    Rows of other lanes are left untouched.  table (T, K, W); keys, lane
+    (T, N) int32; out, expect (T, N, W); flag (T, N) int32."""
+    k = table.shape[1]
+    m = lane == which
+    cur = take_rows(table, torch.clamp(keys, 0, k - 1))
+    out[m] = cur[m]
+    if expect is not None:
+        flag[m] = torch.all(cur == expect, dim=-1)[m].to(flag.dtype)
+
+
+def scatter_last(table: torch.Tensor, keys: torch.Tensor,
+                 order: torch.Tensor, sid: torch.Tensor, flag: torch.Tensor,
+                 value: torch.Tensor) -> None:
+    """Last-writer-wins commit: in every segment, the flagged row with the
+    greatest sorted position (the last in request order) writes its whole
+    value row into its key's table line.  One lane per call, so each key
+    has at most one winner."""
+    t, n = keys.shape
+    pos = torch.arange(n, dtype=torch.int32, device=keys.device).expand(t, n)
+    flagged = take_rows(flag[..., None], order)[..., 0] != 0
+    last = torch.full((t, n), -1, dtype=torch.int32, device=keys.device) \
+        .scatter_reduce_(1, sid.long(),
+                         torch.where(flagged, pos, torch.full_like(pos, -1)),
+                         "amax")
+    ti, pi = torch.nonzero((sid == pos) & (last >= 0), as_tuple=True)
+    rows = order[ti, last[ti, pi].long()].long()
+    table[ti, keys[ti, rows].long()] = value[ti, rows]
+
+
+def segmented_add(table: torch.Tensor, keys: torch.Tensor, lane: torch.Tensor,
+                  order: torch.Tensor, sid: torch.Tensor,
+                  seg_end: torch.Tensor, value: torch.Tensor,
+                  resp: torch.Tensor) -> None:
+    """Fetch-and-add over the sorted segments: every ADD row adds its
+    segment-exclusive prefix of deltas (its prior) to ``resp`` — which
+    holds the ADD base read after the PUT commit — and each segment's last
+    row adds the segment total to its table line."""
+    t, n = keys.shape
+    is_add = take_rows(lane[..., None], order)[..., 0] == LANE_ADD
+    vs = take_rows(value, order)
+    delta = torch.where(is_add[..., None], vs, torch.zeros_like(vs))
+    incl = torch.cumsum(delta, dim=1)
+    excl = incl - delta
+    prior = excl - take_rows(excl, sid)
+    ti, pi = torch.nonzero(is_add, as_tuple=True)
+    rows = order[ti, pi].long()
+    resp[ti, rows] += prior[ti, pi]
+    pos = torch.arange(n, device=keys.device)
+    lt, lp = torch.nonzero(is_add & (seg_end.long() - 1 == pos),
+                           as_tuple=True)
+    lrows = order[lt, lp].long()
+    table[lt, keys[lt, lrows].long()] += prior[lt, lp] + delta[lt, lp]
