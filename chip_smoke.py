@@ -5,12 +5,19 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
-  1. device and build — the card's name and power limit, then the four
+  1. device and build — the card's name and power limit, then the six
      CUDA kernels built from csrc/ with nvcc (in parallel);
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at adversarial ones (a hot segment spanning
-     many scan blocks, all-distinct keys, ragged row counts, capacity 1,
-     int32 words above 2^24), exact on integer-exact payloads;
+     main path's shapes and at adversarial ones: for the KV kernels a hot
+     segment spanning many scan blocks, all-distinct keys, ragged row
+     counts, capacity 1, int32 words above 2^24, exact on integer-exact
+     payloads; paged_attention in bf16 and f32 (length 1, lengths on and
+     one past page boundaries, -1 pads inside and past the length,
+     MP*PS == length, Hkv == Hq) within the tolerance stated in
+     kernels/paged_attention.py;
+     pagetable_serve bit for bit on a stress trace (eviction cascades,
+     infeasible requests, appends that heal an evicted chain, free and
+     alloc in one wave), the local shortcut on and off;
   3. kv_paper — the paper's KV store (Fig. 8/9 as benchmarks/kv_store.py
      runs it): 1,000,000 keys x 4 f32, a 2x4 stacked mesh (8 trustees),
      shared mode with the local shortcut, second_round overflow, 8192
@@ -22,14 +29,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   4. kv_mixed — all four ops every round (65,536 rows, GET/PUT/ADD/CAS
      40/20/20/20, Zipf(1), integer-valued payloads), against the oracle,
      with the local shortcut on and off;
-  5. times — each kernel with CUDA events at the main path's shapes,
-     beside its bound (bytes over 3.35 TB/s), its plain version and a
-     library call where one PyTorch call computes the same function; and
-     each phase's ops/s on a host clock.
+  5. paged decode — repro_torch.launch.paged_decode at qwen2.5-3b attention
+     width (16 query / 2 KV heads of 128, QKV bias, bf16 weights,
+     activations and pool), a 4096-page pool of 16-token pages, 64-page
+     chains, 64 sequences over 8 trustees (2x4, shared, shortcut on),
+     driver depth 2, 256 requests (prompts 16-255 tokens, 64-511 generated):
+     a check run (every request completes, zero leaked pages, every wave's
+     page-table responses == the oracle replayed in serve order, every
+     attention call == the plain version), then the timed run;
+  6. times — each kernel at the main path's shapes: the median of five
+     profiler readings of its own kernels (their spread and the records
+     the profiler kept beside it) and CUDA events with the host ahead of
+     the card, beside its bound (bytes over 3.35 TB/s), its plain version
+     and a library call where one PyTorch call computes the same
+     function; each path's ops/s or tokens/s on a host clock; the device's
+     busy share.
 
-Launch counters are zeroed just before phases 3-4 (the main path) and
-read just after; every kernel must have launched there.  The line before
-the last is {"kernels": [...]}; the last is the device line.
+Launch counters are zeroed just before each main path (phases 3, 4 and
+the timed run of 5) and read just after; every kernel of a path must have
+launched there.  The line before the last is {"kernels": [...]}; the last
+is the device line.
 """
 import argparse
 import json
@@ -54,7 +73,28 @@ SOURCES = {
                      "src/repro/kernels/delegation_serve.py:83"),
     "segmented_add": ("src/repro_torch/csrc/segmented_add.cu",
                       "src/repro/kernels/delegation_serve.py:116"),
+    "pagetable_serve": ("src/repro_torch/csrc/pagetable_serve.cu",
+                        "src/repro/core/pagetable.py:250"),
+    "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:31"),
 }
+KV_KERNELS = ("delegation_pack", "gather", "scatter_last", "segmented_add")
+# what each kernel's launches are called in a profiler trace (scatter_last
+# launches two kernels a call, segmented_add three)
+KERNEL_NAMES = {"delegation_pack": "delegation_pack_kernel",
+                "gather": "gather_kernel", "scatter_last": "scatter_last_",
+                "segmented_add": "seg_add_",
+                "pagetable_serve": "pagetable_serve_kernel",
+                "paged_attention": "paged_attention_kernel"}
+PAGED_KERNELS = ("delegation_pack", "pagetable_serve", "paged_attention")
+# the paged-decode main path: one qwen2.5-3b attention layer (16 query / 2
+# KV heads of 128, QKV bias, rope 1e6) in bf16 over a 4096-page pool of
+# 16-token pages, 8 trustees, the driver and admission of
+# benchmarks/paged_decode.py
+PAGED = dict(n_pages=4096, page_size=16, max_pages=64, max_seqs=64,
+             capacity=4 * 64, mesh_shape=MESH, depth=2,
+             admission=(16 * 64, 8 * 64))
+N_REQUESTS, PROMPT, GEN = 256, (16, 256), (64, 512)
 
 
 def say(*parts):
@@ -463,26 +503,10 @@ def phase_mixed(torch, dev, report):
 # phase 5: times
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, iters=50, warmup=5):
-    """CUDA-event time per call over back-to-back calls: the card's time
-    when the host issues faster than the card runs, else the host's."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
-def device_ms(torch, fn, iters=20):
-    """Device time per call: the sum of the CUDA kernels, memsets and
-    copies the call puts on the card, from torch.profiler (CUPTI).  0.0
-    when the profiler records no device activity."""
+def device_events(torch, fn, iters=20, name=None):
+    """The CUDA activity (kernels, memsets, copies) of ``iters`` calls —
+    with ``name``, only the kernels whose name holds it — from
+    torch.profiler (CUPTI), as key averages."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -492,18 +516,74 @@ def device_ms(torch, fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / iters / 1e3
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and (name is None or name in e.key)]
+
+
+def device_ms(torch, fn, iters=20):
+    """Device time per call: all the call's CUDA activity (see
+    ``device_events``).  0.0 when the profiler records none."""
+    evs = device_events(torch, fn, iters)
+    return sum(e.self_device_time_total for e in evs) / iters / 1e3
+
+
+def device_readings(torch, fn, name, n=5, iters=20):
+    """``n`` profiler readings of the ``name`` kernels' device time per
+    call, each over ``iters`` calls: (median, min, max, the kernel records
+    the profiler kept in each reading — ``iters`` for a one-launch call
+    unless records were lost)."""
+    xs, seen = [], []
+    for _ in range(n):
+        evs = device_events(torch, fn, iters, name)
+        xs.append(sum(e.self_device_time_total for e in evs) / iters / 1e3)
+        seen.append(sum(e.count for e in evs))
+    xs.sort()
+    return xs[n // 2], xs[0], xs[-1], seen
+
+
+def ahead_ms(torch, fn, iters=50, sleep_cycles=40_000_000):
+    """CUDA-event time per call with the host ahead of the card: the stream
+    first spins ``sleep_cycles`` clocks (some 20 ms) while the host issues
+    every call, so the events time the card's back-to-back work and not
+    the host's issue rate.  Returns (device ms per call, host ms per call
+    to issue, whether the host finished issuing before the spin ended)."""
+    fn()
+    torch.cuda.synchronize()
+    e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    e0.record()
+    torch.cuda._sleep(sleep_cycles)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters, host / iters, host < e0.elapsed_time(a)
+
+
+def sm_clock_under(torch, fn, calls):
+    """The card's SM clock and its maximum, MHz, from nvidia-smi, queried
+    while the card works through ``calls`` calls of ``fn`` issued just
+    before."""
+    for _ in range(calls):
+        fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    return out
 
 
 def kernel_ms(torch, fn, iters=20):
     """(ms, how): device time per call from the profiler, or — where the
-    profiler saw no device activity — the CUDA-event time."""
+    profiler saw no device activity — CUDA events with the host ahead."""
     ms = device_ms(torch, fn, iters)
     if ms > 0:
         return ms, "profiler device time"
-    return time_ms(torch, fn, iters), "CUDA events"
+    return ahead_ms(torch, fn, iters)[0], "CUDA events, host ahead"
 
 
 def pack_bytes(args):
@@ -536,9 +616,11 @@ def serve_bytes(torch, name, case):
     return 4 * idx + 3 * 4 * adds * w + 2 * 4 * segs * w
 
 
-def busy_share(torch, run_round, rounds):
+def busy_share(torch, run_round, rounds, top=0):
     """Device busy share of whole rounds: device time (profiler) over the
-    host wall time of ``rounds`` rounds ending in a synchronize."""
+    host wall time of ``rounds`` rounds ending in a synchronize.  With
+    ``top``, also returns the ``top`` device ops by total time as
+    (name, ms, calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run_round()
@@ -550,9 +632,14 @@ def busy_share(torch, run_round, rounds):
             run_round()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e6
-    return busy, wall
+    dev_ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_ops) / 1e6
+    if not top:
+        return busy, wall
+    dev_ops.sort(key=lambda e: -e.self_device_time_total)
+    return busy, wall, [(e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in dev_ops[:top]]
 
 
 def phase_times(torch, dev, shapes, errs, per_round, gpu):
@@ -562,14 +649,20 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
     measured = {}
 
     def emit(name, label, fn_kernel, fn_plain, fn_lib, nbytes):
-        ms, how = kernel_ms(torch, fn_kernel)
+        ms, lo, hi, seen = device_readings(torch, fn_kernel,
+                                           KERNEL_NAMES[name])
         plain, _ = kernel_ms(torch, fn_plain, iters=5)
         lib = kernel_ms(torch, fn_lib)[0] if fn_lib is not None else None
-        ev = time_ms(torch, fn_kernel)
+        ev, host, ahead = ahead_ms(torch, fn_kernel)
+        if ms == 0:                 # the profiler kept no kernel record
+            ms = ev
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        say(f"[times] {gpu} | {name} @ {label}: {ms:.6f} ms/call "
-            f"({how}; {ev:.6f} ms/call by CUDA events over back-to-back "
-            f"calls), plain {plain:.6f} ms, bound {bound:.6f} ms "
+        say(f"[times] {gpu} | {name} @ {label}: {ms:.6f} ms/call (median "
+            f"of 5 profiler readings of its kernels, {lo:.6f}..{hi:.6f}, "
+            f"records kept per reading of 20 calls {seen}; CUDA events with "
+            f"the host {'ahead' if ahead else 'NOT ahead'} {ev:.6f} ms/call,"
+            f" host issue {host:.6f} ms/call), plain {plain:.6f} ms, bound "
+            f"{bound:.6f} ms "
             f"({nbytes} bytes), library "
             f"{'n/a' if lib is None else f'{lib:.6f} ms'}, "
             f"{per_round[label][name]:.3f} calls/round on the main path")
@@ -626,7 +719,7 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
                  library[name], serve_bytes(torch, name, case))
 
     rows = []
-    for name in SOURCES:
+    for name in KV_KERNELS:
         # the JSON line carries kv_paper's shapes; segmented_add runs only
         # in kv_mixed's ADD rounds, so it carries kv_mixed's
         label = "kv_mixed" if name == "segmented_add" else "kv_paper"
@@ -694,9 +787,404 @@ def phase_busy(torch, dev, gpu):
                  "no device activity)"))
 
 
+# ---------------------------------------------------------------------------
+# phase 2, paged: the paged-decode kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+PA_MAIN = dict(b=64, hq=16, hkv=2, d=128, p=4096, ps=16, mp=64)
+
+
+def pa_case(torch, dev, dtype, b, hq, hkv, d, p, ps, mp, lengths, seed,
+            pad_inside=False):
+    """Random q and pools; each chain a run of distinct random pages
+    covering its length, -1 past it (and, with ``pad_inside``, one -1
+    inside it, which the kernel reads as page 0)."""
+    rng = np.random.default_rng(seed)
+    tbl = np.full((b, mp), -1, np.int32)
+    for i, n in enumerate(lengths):
+        live = min(-(-int(n) // ps), mp)
+        tbl[i, :live] = rng.choice(p, live, replace=False)
+        if pad_inside and live > 1:
+            tbl[i, rng.integers(0, live)] = -1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev,
+                                     dtype=torch.float32).to(dtype)
+    return (rnd(b, hq, d), rnd(p, hkv, ps, d), rnd(p, hkv, ps, d),
+            torch.as_tensor(tbl, device=dev),
+            torch.as_tensor(np.asarray(lengths, np.int32), device=dev))
+
+
+def pa_tolerance(torch, dtname):
+    """The kernel against its plain version, compared in the working dtype
+    (``kernels/paged_attention.py::TOLERANCE`` states why)."""
+    from repro_torch.kernels.paged_attention import TOLERANCE
+    return TOLERANCE[getattr(torch, dtname)]
+
+
+def pa_within(torch, got, want, dtname):
+    rtol, atol = pa_tolerance(torch, dtname)
+    err = (got.float() - want.float()).abs()
+    return bool((err <= atol + rtol * want.float().abs()).all()), \
+        float(err.max())
+
+
+def phase_paged_kernels(torch, dev, errs):
+    """paged_attention (bf16 and f32) and pagetable_serve against their
+    plain versions: the main path's shapes and the edge cases."""
+    from repro_torch.core import DelegatedPageTable, StackedMesh, use_session
+    from repro_torch.testing.pagetable import (
+        STRESS_GEOMETRY, replay_waves, stress_waves, submit_waves)
+    from repro_torch.kernels import ops as kops
+    g16 = dict(hq=16, hkv=2, d=128, ps=16)
+    cases = [
+        ("main path shapes", dict(**PA_MAIN, lengths=list(range(1, 1025, 16))),
+         True),
+        ("length 1", dict(b=8, p=64, mp=4, lengths=[1] * 8, **g16), False),
+        ("on and one past page boundaries",
+         dict(b=6, p=64, mp=4, lengths=[16, 17, 32, 33, 48, 49], **g16),
+         False),
+        ("-1 pads inside and past the length",
+         dict(b=5, p=80, mp=8, lengths=[128, 100, 50, 17, 2],
+              pad_inside=True, **g16), False),
+        ("MP*PS == length", dict(b=4, p=64, mp=4, lengths=[64] * 4, **g16),
+         False),
+        ("Hkv == Hq (rep 1)", dict(b=4, hq=4, hkv=4, d=64, p=40, ps=8, mp=5,
+                                   lengths=[40, 1, 9, 39]), False),
+    ]
+    errs["paged_attention"] = 0.0
+    for dtname in ("bfloat16", "float32"):
+        for i, (label, kw, main) in enumerate(cases):
+            args = pa_case(torch, dev, getattr(torch, dtname), seed=40 + i,
+                           **kw)
+            got = kops.paged_attention(*args)
+            torch.cuda.synchronize()
+            want = kops.paged_attention(*args, impl="ref")
+            ok, err = pa_within(torch, got, want, dtname)
+            rtol, atol = pa_tolerance(torch, dtname)
+            require(ok, f"paged_attention [{label}, {dtname}]: max abs err "
+                    f"{err} beyond {atol} + {rtol} * |plain|")
+            if main and dtname == "bfloat16":
+                errs["paged_attention"] = max(errs["paged_attention"], err)
+            say(f"[kernels] paged_attention [{label}, {dtname}] == plain "
+                f"(max abs err {err:.3g}; |err| <= {atol:g} + {rtol:g} "
+                f"* |plain|)")
+
+    g = STRESS_GEOMETRY
+    for shortcut in (True, False):
+        runs = {}
+        for side, d in (("card", dev), ("plain", torch.device("cpu"))):
+            with use_session():
+                pt = DelegatedPageTable(StackedMesh(MESH, device=d),
+                                        g["n_pages"], max_seqs=g["max_seqs"],
+                                        page_size=g["page_size"],
+                                        max_pages=g["max_pages"],
+                                        capacity=256, local_shortcut=shortcut)
+                rec = submit_waves(pt, stress_waves(61))
+                rows = replay_waves(pt, rec)
+                resps = [[(op, pt.globalize(f.result(), s))
+                          for op, s, _, f in w] for w in rec]
+                runs[side] = (resps, pt.dump(), pt.audit())
+        (gw, gs, ga), (ww, ws, _) = runs["card"], runs["plain"]
+        for i, (a, b) in enumerate(zip(gw, ww)):
+            for (op, ra), (_, rb) in zip(a, b):
+                require(all(np.array_equal(ra[k], rb[k]) for k in rb),
+                        f"pagetable_serve [stress, shortcut={shortcut}] wave "
+                        f"{i} {op}: the card differs from the plain version")
+        require(all(np.array_equal(gs[k], ws[k]) for k in ws),
+                f"pagetable_serve [stress, shortcut={shortcut}]: final state "
+                f"differs from the plain version")
+        flags = lambda o: np.concatenate([r["flag"] for w in gw
+                                          for op, r in w if op == o])
+        say(f"[kernels] pagetable_serve [stress trace, shortcut={shortcut}] "
+            f"== plain bit for bit and == the sequential oracle in serve "
+            f"order ({rows} rows, {ga['evictions']} evictions, "
+            f"{int((flags('alloc') == 0).sum())} infeasible allocs, "
+            f"{int((flags('append') > 1).sum())} healing appends)")
+    errs["pagetable_serve"] = 0.0
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the paged-decode main path
+# ---------------------------------------------------------------------------
+
+def paged_inputs(torch, dev, seed=2026):
+    """qwen2.5-3b attention weights (bf16, random from ``seed``; QKV biases
+    zero as the JAX init makes them), the token stream made on the card,
+    and 256 requests."""
+    from repro_torch.configs.qwen2_5_3b import CONFIG
+    from repro_torch.launch.paged_decode import make_requests
+    from repro_torch.models.attention import init_attention
+    params = init_attention(CONFIG, torch.bfloat16, dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn((PAGED["max_seqs"],
+                      PAGED["max_pages"] * PAGED["page_size"],
+                      CONFIG.d_model), generator=gen, device=dev,
+                     dtype=torch.bfloat16)
+    reqs = make_requests(np.random.default_rng(seed), N_REQUESTS, PROMPT,
+                         GEN)
+    return CONFIG, params, xs, reqs
+
+
+def paged_run(torch, dev, inputs, check=False, n_requests=None):
+    from repro_torch.launch.paged_decode import run_decode
+    cfg, params, xs, reqs = inputs
+    return run_decode(cfg, requests=reqs[:n_requests], dtype=torch.bfloat16,
+                      device=dev, params=params, xs=xs, check=check,
+                      **PAGED)
+
+
+class KernelRecorder:
+    """During the check run: keeps, per page-table op, the pass with the
+    most valid rows (state before and after, rows, responses), and the
+    paged_attention call over the most live pages — the main path's own
+    inputs, for the bit-for-bit check and the timings."""
+
+    def __init__(self, kops):
+        self.kops = kops
+        self.passes, self.attention, self.best_pages = {}, None, -1
+        self._pt, self._pa = kops.pagetable_serve, kops.paged_attention
+
+    def __enter__(self):
+        self.kops.pagetable_serve = self.pagetable_serve
+        self.kops.paged_attention = self.paged_attention
+        return self
+
+    def __exit__(self, *exc):
+        self.kops.pagetable_serve = self._pt
+        self.kops.paged_attention = self._pa
+
+    def pagetable_serve(self, op, state, seq, arg, valid, t, ps, **kw):
+        n = int(valid.sum())
+        if n <= self.passes.get(op, (0,))[0]:
+            return self._pt(op, state, seq, arg, valid, t, ps, **kw)
+        before = {k: v.clone() for k, v in state.items()}
+        out = self._pt(op, state, seq, arg, valid, t, ps, **kw)
+        self.passes[op] = (n, before, (seq.clone(), arg.clone(),
+                                       valid.clone(), t, ps),
+                           [o.clone() for o in out],
+                           {k: v.clone() for k, v in state.items()})
+        return out
+
+    def paged_attention(self, q, k, v, tbl, lengths, scale=None,
+                        impl="kernel"):
+        if impl == "kernel":
+            ps = k.shape[2]
+            pages = int(((lengths.long() + ps - 1) // ps).sum())
+            if pages > self.best_pages:
+                self.best_pages = pages
+                self.attention = (q.clone(), k, v, tbl.clone(),
+                                  lengths.clone())
+        return self._pa(q, k, v, tbl, lengths, scale, impl=impl)
+
+
+def phase_paged(torch, dev, gpu, report, errs):
+    """The slice's main path: run_decode at qwen2.5-3b attention width.
+    (a) a check run: every request completes, the audit is clean, every
+    wave's page-table responses equal the oracle replayed in serve order,
+    every attention call's kernel output equals the plain version, and
+    the page-table passes with the most rows equal the plain serve bit for
+    bit; (b) the timed run, counters zeroed just before it."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    inputs = paged_inputs(torch, dev)
+    with KernelRecorder(kops) as rec:
+        stats = paged_run(torch, dev, inputs, check=True)
+    chk = stats["check"]
+    a = stats["audit"]
+    require(stats["completed"] == N_REQUESTS and stats["failed"] == 0,
+            f"paged decode: {stats['completed']} of {N_REQUESTS} requests "
+            f"completed, {stats['failed']} failed")
+    require(a["consistent"] and a["leaked"] == 0 and a["allocated"] == 0,
+            f"paged decode: audit {a}")
+    require(chk["rows_replayed"] == stats["pt_rows"],
+            "paged decode: not every page-table row was replayed")
+    require(chk["attention_out_of_tolerance"] == 0,
+            f"paged decode: {chk['attention_out_of_tolerance']} attention "
+            f"outputs beyond the bf16 tolerance (max abs err "
+            f"{chk['attention_max_abs_err']})")
+    errs["paged_attention"] = max(errs.get("paged_attention", 0.0),
+                                  chk["attention_max_abs_err"])
+    for op, (n, before, args, out, after) in sorted(rec.passes.items()):
+        state = {k: v.clone() for k, v in before.items()}
+        want = ref.pagetable_serve(op, *[state[k] for k in (
+            "used", "chains", "chain_len", "last_used", "clock",
+            "evictions")], *args)
+        valid = args[2]          # the kernel leaves other rows unwritten
+        require(all(torch.equal(x[valid], y[valid])
+                    for x, y in zip(out, want)) and
+                all(torch.equal(after[k], state[k]) for k in state),
+                f"pagetable_serve: main-path pass of op {op} ({n} rows) "
+                f"differs from the plain version")
+    say(f"[paged check] {N_REQUESTS}/{N_REQUESTS} requests, "
+        f"{stats['tokens']} tokens, {stats['restarts']} restarts, "
+        f"{a['evictions']} evictions, audit clean; {chk['waves']} waves, "
+        f"{chk['rows_replayed']} page-table rows == the sequential oracle "
+        f"in serve order; {chk['attention_calls']} attention calls == plain "
+        f"(bf16, max abs err {chk['attention_max_abs_err']:.3g}); the "
+        f"largest main-path pass of each op == plain bit for bit ("
+        + ", ".join(f"op {o}: {v[0]} rows"
+                    for o, v in sorted(rec.passes.items())) + ")")
+
+    kops.reset_launch_counts()
+    stats = paged_run(torch, dev, inputs)
+    counts = kops.launch_counts()
+    say(f"[main path] paged decode launches: {json.dumps(counts)}")
+    for k in PAGED_KERNELS:
+        require(counts[k] > 0, f"kernel {k} was not launched on the paged "
+                f"main path")
+    require(stats["completed"] == N_REQUESTS and stats["failed"] == 0,
+            "paged decode (timed run): requests failed")
+    say(f"[paged] {gpu} | {stats['tokens']} tokens in "
+        f"{stats['wall_s']:.3f} s: {stats['tokens_per_s']:.1f} tokens/s, "
+        f"{stats['pt_rows_per_s']:.1f} page-table rows/s "
+        f"({stats['pt_rows']} rows, {stats['waves']} waves), request "
+        f"latency p50 {stats['p50_ms']:.1f} ms p99 {stats['p99_ms']:.1f} ms, "
+        f"{stats['restarts']} restarts, {stats['kv_writes']} KV writes; "
+        f"host time issuing the model: prefill replay "
+        f"{stats['host']['prefill_s']:.3f} s over "
+        f"{stats['host']['prefill_calls']} one-position steps, decode "
+        f"{stats['host']['decode_s']:.3f} s over "
+        f"{stats['host']['decode_calls']} steps; the rest of the wall time "
+        f"is the page-table waves and the driver")
+    report["paged"] = stats
+    return counts, rec, stats["waves"], inputs
+
+
+def pt_bytes(op, state, args):
+    """What one op pass needs: the state read once and written once, every
+    row's valid byte, the valid rows' seq (and arg, for alloc and append)
+    and their responses (MP pages, page, n, flag).  The rows that are not
+    valid cost their valid byte only."""
+    from repro_torch.kernels.ref import PT_OPS
+    seq, arg, valid = args[:3]
+    n = int(valid.sum())
+    mp = state["chains"].shape[-1]
+    st = sum(v.numel() for v in state.values())
+    reads_arg = op in (PT_OPS["alloc"], PT_OPS["append"])
+    return 2 * 4 * st + valid.numel() + 4 * n * (1 + reads_arg) \
+        + 4 * n * (mp + 3)
+
+
+def pa_bytes(q, k, lengths):
+    """Live K and V pages of every (sequence, KV head) once, q and out."""
+    _, hkv, ps, d = k.shape
+    live = int(((lengths.long() + ps - 1) // ps).sum())
+    return 2 * live * hkv * ps * d * k.element_size() \
+        + 2 * q.numel() * q.element_size()
+
+
+def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
+    """The paged kernels at the main path's own inputs (recorded in the
+    check run): device time, plain time, bound, and for attention the
+    library yardstick; then the device busy share of paged waves."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    rows = []
+    # pagetable_serve: the append pass with the most rows (it carries the
+    # allocation path); every call restores the pass's entry state first.
+    # The kernel's own time comes from the profiler's kernel events (the
+    # restore's copies are not among them); the plain version's is all its
+    # device work, the restore timed alone and subtracted
+    op, (n, before, args, out, _) = 1, rec.passes[1]
+    work = {k: v.clone() for k, v in before.items()}
+    names = ("used", "chains", "chain_len", "last_used", "clock", "evictions")
+
+    def restore():
+        for k in names:
+            work[k].copy_(before[k])
+    st = [work[k] for k in names]
+    ms, lo, hi, seen = device_readings(
+        torch, lambda: (restore(), kops.pagetable_serve(op, work, *args)),
+        KERNEL_NAMES["pagetable_serve"])
+    ms_restore = kernel_ms(torch, restore)[0]
+    plain = kernel_ms(torch, lambda: (restore(), ref.pagetable_serve(
+        op, *st, *args)), iters=5)[0] - ms_restore
+    t0 = time.perf_counter()
+    for _ in range(3):
+        restore()
+        ref.pagetable_serve(op, *st, *args)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / 3 * 1e3
+    nbytes = pt_bytes(op, before, args)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    t_, n_rows = args[0].shape
+    say(f"[times] {gpu} | pagetable_serve @ paged decode (append pass, "
+        f"{n} valid of {t_} x {n_rows} received rows): {ms:.6f} ms/launch "
+        f"(median of 5 profiler readings of the kernel, {lo:.6f}..{hi:.6f},"
+        f" kernel records kept per reading of 20 calls {seen}), plain "
+        f"{plain:.6f} ms device / {plain_wall:.3f} ms wall, bound "
+        f"{bound:.6f} ms ({nbytes} bytes), library n/a, "
+        f"{counts['pagetable_serve'] / waves:.3f} launches/wave")
+    rows.append(("pagetable_serve", counts["pagetable_serve"], ms, plain,
+                 bound, None, "paged decode, append pass"))
+
+    # paged_attention: the decode call with the most live pages.  Device
+    # time as the median of five profiler readings (their spread beside
+    # it), the same with the L2 flushed before every call (a 256 MiB fill:
+    # the call's live K/V fit in the 50 MB L2 when calls run back to back),
+    # and CUDA events with the host ahead of the card
+    q, k, v, tbl, lengths = rec.attention
+    pa = lambda: kops.paged_attention(q, k, v, tbl, lengths)
+    ms, lo, hi, seen = device_readings(torch, pa,
+                                       KERNEL_NAMES["paged_attention"])
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    cold, cold_lo, cold_hi, _ = device_readings(
+        torch, lambda: (flush.zero_(), pa()),
+        KERNEL_NAMES["paged_attention"])
+    del flush
+    ev, host, ahead = ahead_ms(torch, pa)
+    # the SM clock while the card runs some 0.8 s of back-to-back calls
+    clk = sm_clock_under(torch, pa, max(1, int(800 / max(ev, 1e-3))))
+    plain = kernel_ms(torch, lambda: kops.paged_attention(
+        q, k, v, tbl, lengths, impl="ref"), iters=5)[0]
+    # library yardstick (timed here only; the port never calls it):
+    # scaled_dot_product_attention over the already-gathered dense K/V of
+    # the same live lengths; it excludes the gather
+    b, hq, d = q.shape
+    _, hkv, ps, _ = k.shape
+    lmax = int(lengths.max())
+    mp_live = -(-lmax // ps)
+    safe = tbl[:, :mp_live].clamp(min=0).long()
+    kd = k[safe].transpose(1, 2).reshape(b, hkv, mp_live * ps, d)
+    vd = v[safe].transpose(1, 2).reshape(b, hkv, mp_live * ps, d)
+    mask = (torch.arange(mp_live * ps, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = kernel_ms(torch, lambda: sdpa(q4, kd, vd, attn_mask=mask,
+                                        enable_gqa=True))[0]
+    nbytes = pa_bytes(q, k, lengths)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"[times] {gpu} | paged_attention @ paged decode (B={b}, "
+        f"{int(lengths.sum())} live positions, lengths "
+        f"{int(lengths.min())}..{lmax}): {ms:.6f} ms/call (median of 5 "
+        f"profiler readings of the kernel, {lo:.6f}..{hi:.6f}, kernel "
+        f"records kept per reading of 20 calls {seen}; L2 flushed "
+        f"before each call {cold:.6f}, {cold_lo:.6f}..{cold_hi:.6f}; CUDA "
+        f"events with the host ahead {ev:.6f} ms/call, host issue "
+        f"{host:.6f} ms/call, host {'ahead' if ahead else 'NOT ahead'}; SM "
+        f"clock under back-to-back calls, max: {clk}), plain "
+        f"{plain:.6f} ms, bound {bound:.6f} ms ({nbytes} bytes), library "
+        f"{lib:.6f} ms (scaled_dot_product_attention over the gathered "
+        f"dense K/V, excludes the gather), "
+        f"{counts['paged_attention'] / waves:.3f} calls/wave")
+    rows.append(("paged_attention", counts["paged_attention"], ms, plain,
+                 bound, lib, "paged decode, largest decode call"))
+
+    busy, wall, tops = busy_share(
+        torch, lambda: paged_run(torch, dev, inputs, n_requests=32), 1, 12)
+    say(f"[busy] {gpu} | paged decode (32 requests): " + (
+        f"device busy {busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
+        f"({100 * busy / wall:.1f}% busy); top device ops: " + "; ".join(
+            f"{n} {ms:.3f} ms / {c} calls" for n, ms, c in tops)
+        if busy > 0 else "device busy share not measured (the profiler "
+                         "recorded no device activity)"))
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -720,8 +1208,8 @@ def main(argv=None):
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
     built = _build.build_all()
-    say(f"[build] nvcc (sm_90a, 4 sources in parallel): {built:.2f} s "
-        f"compiling, {time.perf_counter() - t0:.2f} s in all")
+    say(f"[build] nvcc (sm_90a, {len(_build.SOURCES)} sources in parallel): "
+        f"{built:.2f} s compiling, {time.perf_counter() - t0:.2f} s in all")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     n_dev = MESH[0] * MESH[1]
@@ -741,41 +1229,60 @@ def main(argv=None):
     }
     report = {}
 
-    errs = phase_kernels(torch, dev, shapes) if 2 in phases else None
+    errs = {}
+    if 2 in phases:
+        errs = phase_kernels(torch, dev, shapes)
+        phase_paged_kernels(torch, dev, errs)
 
-    # the main path: counters zeroed just before, read just after; the
-    # kernel-path rounds are kv_paper (a) and (b), 40 each (the (a) ref
-    # path launches none), and kv_mixed, 8 with the shortcut, 8 without
-    kops.reset_launch_counts()
+    # the main paths, each with the counters zeroed just before it and read
+    # just after: kv_paper (a) and (b), 40 kernel-path rounds each (the (a)
+    # ref path launches none); kv_mixed, 8 rounds with the shortcut and 8
+    # without; the paged decode's timed run
+    launches = {k: 0 for k in SOURCES}
     per_round = {"kv_paper": {}, "kv_mixed": {}}
-    if 3 in phases:
-        phase_paper(torch, dev, report)
-        per_round["kv_paper"] = {k: v / 80 for k, v
-                                 in kops.launch_counts().items()}
-        say(f"[main path] kv_paper launches over 80 kernel-path rounds: "
-            f"{json.dumps(kops.launch_counts())}")
-    paper_counts = kops.launch_counts()
-    if 4 in phases:
-        phase_mixed(torch, dev, report)
-        mixed_counts = {k: v - paper_counts[k]
-                        for k, v in kops.launch_counts().items()}
-        per_round["kv_mixed"] = {k: v / 16 for k, v in mixed_counts.items()}
-        say(f"[main path] kv_mixed launches over 16 rounds: "
-            f"{json.dumps(mixed_counts)}")
-    per_round["launches"] = kops.launch_counts()
-    say(f"[main path] kernel launches over phases 3-4: "
-        f"{json.dumps(per_round['launches'])}")
-    if 3 in phases and 4 in phases:
-        for k, v in per_round["launches"].items():
-            require(v > 0, f"kernel {k} was not launched on the main path")
+    for phase, label, rounds, run in (
+            (3, "kv_paper", 80, lambda: phase_paper(torch, dev, report)),
+            (4, "kv_mixed", 16, lambda: phase_mixed(torch, dev, report))):
+        if phase not in phases:
+            continue
+        kops.reset_launch_counts()
+        run()
+        counts = kops.launch_counts()
+        per_round[label] = {k: v / rounds for k, v in counts.items()}
+        say(f"[main path] {label} launches over {rounds} kernel-path "
+            f"rounds: {json.dumps(counts)}")
+        for k in (("delegation_pack", "gather", "scatter_last")
+                  if label == "kv_paper" else KV_KERNELS):
+            require(counts[k] > 0, f"kernel {k} was not launched on the "
+                    f"{label} main path")
+        for k, v in counts.items():
+            launches[k] += v
     for k, v in report.items():
         say(f"[ops/s] {gpu} | {k}: {v:.1f}")
-
+    paged = None
     if 5 in phases:
-        require(phases >= {2, 3, 4},
-                "phase 5 reports the main path's launches and the kernels' "
-                "errors against their plain versions: run phases 2-4")
+        paged = phase_paged(torch, dev, gpu, report, errs)
+        for k, v in paged[0].items():
+            launches[k] += v
+    per_round["launches"] = launches
+    say(f"[main path] kernel launches over phases 3-5: "
+        f"{json.dumps(launches)}")
+
+    if 6 in phases:
+        require(phases >= {2, 3, 4, 5},
+                "phase 6 reports the main paths' launches and the kernels' "
+                "errors against their plain versions: run phases 2-5")
         rows = phase_times(torch, dev, shapes, errs, per_round, gpu)
+        counts, rec, waves, inputs = paged
+        for (kname, n, ms, plain, bound, lib, label) in phase_paged_times(
+                torch, dev, gpu, rec, waves, counts, inputs):
+            src, replaces = SOURCES[kname]
+            rows.append({"name": kname, "route": "cuda", "source": src,
+                         "replaces": replaces, "launches": launches[kname],
+                         "max_abs_err": errs[kname], "ms": ms,
+                         "plain_ms": plain, "bound_ms": bound,
+                         "bound_by": "bytes", "library_ms": lib,
+                         "shapes": label})
         phase_busy(torch, dev, gpu)
         say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

@@ -1,0 +1,5 @@
+# repro_torch.configs — the port's own copy of the model configurations it
+# runs (values copied from repro/configs; nothing of repro is imported).
+#
+# base.py        ModelConfig (the fields attention and RoPE read)
+# qwen2_5_3b.py  CONFIG (published widths) and SMOKE (test widths)

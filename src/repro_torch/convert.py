@@ -44,3 +44,31 @@ def owner_major_from_stacked(state: Dict[str, torch.Tensor]
     return {name: leaf.detach().cpu().numpy().copy().reshape(
                 (-1,) + tuple(leaf.shape[2:]))
             for name, leaf in state.items()}
+
+
+ATTENTION_KEYS = ("w_q", "w_k", "w_v", "w_o", "b_q", "b_k", "b_v",
+                  "q_norm", "k_norm")
+
+
+def attention_params_from_jax(params: Dict, device=None,
+                              dtype=None) -> Dict:
+    """JAX attention parameters (``repro.models.attention.init_attention``,
+    as numpy after ``np.asarray``) -> the port's dict (same keys, same
+    layouts: ``w_q`` (D, Hq*Dh), ``w_o`` (Hq*Dh, D), ``q_norm`` /
+    ``k_norm`` as ``{"scale": ...}``), copied onto ``device``.  ``dtype``
+    casts the projections and biases; norm scales stay f32 as in JAX."""
+    from .core.meshctx import resolve_device
+    dev = resolve_device(device)
+    unknown = sorted(set(params) - set(ATTENTION_KEYS))
+    if unknown:
+        raise ValueError(f"not attention parameters of the GQA layer: "
+                         f"{unknown}")
+    out = {}
+    for name, leaf in params.items():
+        if isinstance(leaf, dict):
+            out[name] = {k: torch.tensor(np.asarray(v), device=dev)
+                         for k, v in leaf.items()}
+            continue
+        t = torch.tensor(np.asarray(leaf), device=dev)
+        out[name] = t if dtype is None else t.to(dtype)
+    return out

@@ -9,7 +9,10 @@
 # engine.py    DelegationEngine / TrustSession — executes the rounds
 # kvstore.py   DelegatedKVStore + make_kv_schema (paper §6.3)
 # lockstore.py SequentialKVReference oracle + conflict_ranks
-from .opspec import Combine, Field, OpSpec, SchemaError, TrustSchema
+# pagetable.py DelegatedPageTable + make_pagetable_schema (paged KV cache)
+#              + SequentialPageTable oracle
+from .opspec import (Combine, Field, ListField, OpSpec, SchemaError,
+                     TrustSchema)
 from .channel import (ChannelConfig, ChannelInfo, DelegatedOp, Grouping,
                       Packed, Received, check_response_structs,
                       collect_impl_events, delegate, make_grouping, pack,
@@ -19,12 +22,14 @@ from .engine import DelegationEngine, TrustSession, check_payload_fields
 from .trust import Trust, TrusteeGroup, TrustFuture, local_trustees
 from .kvstore import DelegatedKVStore, kv_reshard, make_kv_schema
 from .lockstore import SequentialKVReference, conflict_ranks
+from .pagetable import (DelegatedPageTable, SequentialPageTable,
+                        initial_pagetable_state, make_pagetable_schema)
 from .meshctx import (StackedMesh, current_mesh, current_session,
                       resolve_device, set_mesh, set_session, use_mesh,
                       use_session)
 
 __all__ = [
-    "Combine", "Field", "OpSpec", "SchemaError", "TrustSchema",
+    "Combine", "Field", "ListField", "OpSpec", "SchemaError", "TrustSchema",
     "ChannelConfig", "ChannelInfo", "DelegatedOp", "Grouping", "Packed",
     "Received", "check_response_structs", "collect_impl_events", "delegate",
     "make_grouping", "pack", "report_impl_event", "respond",
@@ -32,6 +37,8 @@ __all__ = [
     "TrustSession", "check_payload_fields", "Trust", "TrusteeGroup",
     "TrustFuture", "local_trustees", "DelegatedKVStore", "kv_reshard",
     "make_kv_schema", "SequentialKVReference", "conflict_ranks",
+    "DelegatedPageTable", "SequentialPageTable", "initial_pagetable_state",
+    "make_pagetable_schema",
     "StackedMesh", "current_mesh", "current_session", "resolve_device",
     "set_mesh", "set_session", "use_mesh", "use_session",
 ]

@@ -16,6 +16,11 @@ boundary to cache — as the JAX solo program does:
 This slice flushes each pending trust solo.  A step in which two or more
 channel-compatible trusts are pending would fuse them into one
 multiplexed round in JAX; that round is not ported yet and raises.
+
+``step(sync=False)`` issues the rounds and returns without reading any
+device value; it records a ``torch.cuda.Event`` per wave on PyTorch's
+current stream (``wave_events``), so a dispatch-ahead driver can wait for
+that wave alone, not for the waves issued after it.
 """
 from __future__ import annotations
 
@@ -74,6 +79,7 @@ class DelegationEngine:
         self.rounds_dispatched = 0
         self._last_step_stats: Dict[str, Dict[str, Any]] = {}
         self._stats_owner: Dict[str, int] = {}
+        self.wave_events: List[Any] = []
 
     # -- registry -----------------------------------------------------------
     def register(self, trust) -> int:
@@ -120,12 +126,25 @@ class DelegationEngine:
         return f"{name}#{trust.token}"
 
     # -- step ---------------------------------------------------------------
+    def trusts(self) -> List[Any]:
+        """The live registered trusts."""
+        self._prune()
+        return [t for t in (r() for r in self._trusts.values())
+                if t is not None]
+
+    def quiesced(self) -> bool:
+        """True when no trust has pending submissions (between engine
+        rounds the trustee's linear op history has no in-flight prefix)."""
+        return not self._dirty and all(not t._pending for t in self.trusts())
+
     def step(self, sync: bool = True):
-        """Flush every pending batch.  Returns ``last_stats()``."""
-        if not sync:
-            raise NotImplementedError(
-                "step(sync=False) is not ported to repro_torch yet "
-                "(ROADMAP.md queue A: async step)")
+        """Flush every pending batch.  Returns ``last_stats()``, UNLESS
+        ``sync=False``: reading the stats waits for the round's device work,
+        the barrier a dispatch-ahead driver (``launch/streaming.py``) must
+        not pay.  ``sync=False`` issues the rounds, records ``wave_events``
+        (one event on the current stream of each CUDA device the rounds ran
+        on; none on the CPU) and returns None; ``last_stats()`` later gives
+        the same numbers."""
         self._prune()
         pending = []
         for tok in list(self._dirty):
@@ -147,7 +166,14 @@ class DelegationEngine:
         self._last_step_stats = {}
         for t in pending:
             t.flush()
-        return self.last_stats()
+        if sync:
+            return self.last_stats()
+        self.wave_events = []
+        for dev in {t.device for t in pending if t.device.type == "cuda"}:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            self.wave_events.append(ev)
+        return None
 
     # -- the solo round -----------------------------------------------------
     def run_solo(self, trust, batches, capacity=None):

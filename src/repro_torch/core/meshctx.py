@@ -17,6 +17,7 @@ import contextlib
 import threading
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 _state = threading.local()
@@ -32,6 +33,16 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch paths")
     return dev
+
+
+def to_device_async(a, device: torch.device) -> torch.Tensor:
+    """A host int32 array on ``device`` without a host sync: on a card,
+    through pinned memory and a non-blocking copy on the current stream
+    (a pageable copy would wait for the stream's earlier work)."""
+    x = torch.as_tensor(np.ascontiguousarray(a, np.int32))
+    if device.type == "cuda":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
 
 
 class StackedMesh:

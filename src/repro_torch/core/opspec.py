@@ -81,6 +81,44 @@ class Field:
 
 
 @dataclass(frozen=True)
+class ListField(Field):
+    """A bounded list-valued column: one row carries up to ``max_len``
+    elements, padded with ``pad`` — the declaration for ops that answer
+    with variable-length collections (a sequence's page chain).  On the
+    wire it is exactly a ``Field`` with row shape ``(max_len,)`` (int32
+    words for the pack kernel); the subclass carries the padding contract
+    so facades and tests can recover the logical lists.
+
+        pages = ListField("pages", max_len=8, dtype=torch.int32)
+        pages.counts(resp["pages"])   # per-row logical lengths
+        pages.trim(resp["pages"][i])  # one row without the padding
+    """
+    max_len: int = 1
+    pad: int = -1
+
+    def __post_init__(self):
+        if not self.row_shape:
+            object.__setattr__(self, "row_shape", (int(self.max_len),))
+        super().__post_init__()
+        if self.row_shape != (self.max_len,):
+            raise SchemaError(
+                f"list field {self.name!r}: row_shape {list(self.row_shape)} "
+                f"conflicts with max_len={self.max_len}; declare max_len "
+                f"only (row_shape derives as (max_len,))")
+
+    def counts(self, rows) -> torch.Tensor:
+        """Logical length of each row's list: elements != ``pad``.  Valid
+        because serves pack lists left-aligned (pad only as a suffix)."""
+        return (torch.as_tensor(rows) != self.pad).sum(-1)
+
+    def trim(self, row):
+        """One row's list without the padding (host-side, numpy)."""
+        import numpy as np
+        r = np.asarray(row.cpu() if isinstance(row, torch.Tensor) else row)
+        return r[r != self.pad]
+
+
+@dataclass(frozen=True)
 class Combine:
     """Client-side request-combining declaration for one op.  Declared and
     validated here so schemas carry it; the combine pass itself is not

@@ -27,10 +27,14 @@ from .delegation_serve import scatter_last as _scatter_last_kernel
 from .delegation_serve import segmented_add as _segmented_add_kernel
 from .delegation_serve import (check_gather, check_scatter_last,
                                check_segmented_add)
+from .paged_attention import paged_attention as _paged_attention_kernel
+from .pagetable_serve import pagetable_serve as _pagetable_serve_kernel
 
 KERNELS = {"delegation_pack": _pack_kernel, "gather": _gather_kernel,
            "scatter_last": _scatter_last_kernel,
-           "segmented_add": _segmented_add_kernel}
+           "segmented_add": _segmented_add_kernel,
+           "pagetable_serve": _pagetable_serve_kernel,
+           "paged_attention": _paged_attention_kernel}
 CHECKS = {"gather": check_gather, "scatter_last": check_scatter_last,
           "segmented_add": check_segmented_add}
 
@@ -81,3 +85,20 @@ def segmented_add(table, keys, lane, order, sid, seg_end, value, resp,
                   impl: str = "kernel"):
     return _pick(impl, _segmented_add_kernel, ref.segmented_add)(
         table, keys, lane, order, sid, seg_end, value, resp)
+
+
+def pagetable_serve(op: int, state, seq, arg, valid, n_trustees: int,
+                    page_size: int, impl: str = "kernel"):
+    """One page-table op pass over every trustee; ``state`` is the stacked
+    state dict, updated in place.  See ``ref.pagetable_serve``."""
+    return _pick(impl, _pagetable_serve_kernel, ref.pagetable_serve)(
+        op, state["used"], state["chains"], state["chain_len"],
+        state["last_used"], state["clock"], state["evictions"], seq, arg,
+        valid, n_trustees, page_size)
+
+
+def paged_attention(q, k_pages, v_pages, page_table, lengths,
+                    scale: Optional[float] = None, impl: str = "kernel"):
+    """Paged decode attention; see ``ref.paged_attention``."""
+    return _pick(impl, _paged_attention_kernel, ref.paged_attention)(
+        q, k_pages, v_pages, page_table, lengths, scale)

@@ -164,3 +164,178 @@ def segmented_add(table: torch.Tensor, keys: torch.Tensor, lane: torch.Tensor,
                            as_tuple=True)
     lrows = order[lt, lp].long()
     table[lt, keys[lt, lrows].long()] += prior[lt, lp] + delta[lt, lp]
+
+
+# ---------------------------------------------------------------------------
+# page-table serve (the trustee's serial application of one op pass)
+# ---------------------------------------------------------------------------
+
+PT_ALLOC, PT_APPEND, PT_FREE, PT_LOOKUP = 0, 1, 2, 3
+PT_OPS = {"alloc": PT_ALLOC, "append": PT_APPEND, "free": PT_FREE,
+          "lookup": PT_LOOKUP}
+_I32MAX = 2 ** 31 - 1
+
+
+def _evict_alloc(used, chains, cl, lu, ev, seq_l, k, want):
+    """Batched over the T trustees: evict LRU victims until ``k`` local
+    pages are free, then chain the ``k`` lowest-numbered free pages onto
+    ``seq_l``.  All-or-nothing per trustee.  Returns the commit mask (T,)."""
+    t, sl = cl.shape
+    mp = chains.shape[2]
+    dev = cl.device
+    tix = torch.arange(t, device=dev)
+    sidx = torch.arange(sl, device=dev)
+    elig = (cl > 0) & (sidx[None] != seq_l[:, None])
+    reclaimable = torch.where(elig, cl, 0).sum(1)
+    free0 = (used == 0).sum(1)
+    do = want & (free0 + reclaimable >= k) & (cl[tix, seq_l] + k <= mp)
+    while True:
+        # a trustee with no victim left stops (unreachable on a consistent
+        # state: admission counted the reclaimable pages)
+        elig = (cl > 0) & (sidx[None] != seq_l[:, None])
+        need = do & ((used == 0).sum(1) < k) & elig.any(1)
+        if not bool(need.any()):
+            break
+        key = torch.where(elig, lu.long() * sl + sidx[None], _I32MAX)
+        v = key.argmin(1)
+        tn, vn = tix[need], v[need]
+        vchain = chains[tn, vn]
+        vmask = torch.arange(mp, device=dev)[None] < cl[tn, vn][:, None]
+        used[tn[:, None].expand_as(vchain)[vmask], vchain[vmask].long()] = 0
+        chains[tn, vn] = -1
+        cl[tn, vn] = 0
+        ev[tn, 0] += 1
+    free = used == 0
+    rank = torch.cumsum(free.to(torch.int32), 1)
+    take = do[:, None] & free & (rank <= k[:, None])
+    tt, pp = take.nonzero(as_tuple=True)
+    chains[tt, seq_l[tt], (cl[tt, seq_l[tt]] + rank[tt, pp] - 1).long()] \
+        = pp.to(torch.int32)
+    used[take] = 1
+    cl[tix, seq_l] += torch.where(do, k, 0).to(torch.int32)
+    return do
+
+
+def pagetable_serve(op: int, used: torch.Tensor, chains: torch.Tensor,
+                    chain_len: torch.Tensor, last_used: torch.Tensor,
+                    clock: torch.Tensor, evictions: torch.Tensor,
+                    seq: torch.Tensor, arg: torch.Tensor, valid: torch.Tensor,
+                    n_trustees: int, page_size: int):
+    """One op pass of the delegated page table over every trustee, rows in
+    serve order (``repro.core.pagetable.make_pagetable_schema``'s
+    ``lax.scan`` per op, with its eviction ``while_loop``).
+
+    State (stacked, int32, updated IN PLACE): used (T, PL), chains
+    (T, SL, MP), chain_len / last_used (T, SL), clock / evictions (T, 1).
+    Rows: seq (T, N) global sequence ids, arg (T, N) the page count of
+    ``alloc`` or the token position of ``append`` (ignored otherwise),
+    valid (T, N) bool.  ``op`` is one of PT_ALLOC, PT_APPEND, PT_FREE,
+    PT_LOOKUP.  Returns (pages (T, N, MP), page (T, N), n (T, N),
+    flag (T, N)), int32, with trustee-LOCAL page ids and zeros on rows
+    that are not valid.
+
+    Masked rows are no-ops, so the loop runs over each trustee's valid
+    rows (compacted in serve order) only, every step batched over the T
+    trustees."""
+    t, n = seq.shape
+    mp = chains.shape[2]
+    sl = chain_len.shape[1]
+    dev = seq.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    pages = torch.zeros((t, n, mp), **i32)
+    page = torch.zeros((t, n), **i32)
+    n_out = torch.zeros((t, n), **i32)
+    flag = torch.zeros((t, n), **i32)
+    counts = valid.sum(1)
+    order = torch.sort((~valid).to(torch.int8), dim=1, stable=True).indices
+    steps = int(counts.max()) if n else 0
+    tix = torch.arange(t, device=dev)
+    minus1 = torch.full((mp,), -1, **i32)
+    for j in range(steps):
+        live = counts > j
+        row = order[:, j]
+        seq_g = seq[tix, row]
+        a = arg[tix, row]
+        seq_l = torch.clamp(torch.div(seq_g, n_trustees,
+                                      rounding_mode="floor"), 0, sl - 1).long()
+        lt, lr, ls = tix[live], row[live], seq_l[live]
+        if op == PT_FREE:
+            cl_s = chain_len[tix, seq_l]
+            vmask = (torch.arange(mp, device=dev)[None] < cl_s[:, None]) \
+                & live[:, None]
+            ch = chains[tix, seq_l]
+            used[tix[:, None].expand_as(ch)[vmask], ch[vmask].long()] = 0
+            chains[lt, ls] = -1
+            chain_len[lt, ls] = 0
+            clock[:, 0] += live.to(torch.int32)
+            n_out[lt, lr] = cl_s[live]
+            flag[lt, lr] = 1
+            continue
+        if op == PT_ALLOC:
+            k = torch.clamp(a, 0, mp)
+            did = _evict_alloc(used, chains, chain_len, last_used, evictions,
+                               seq_l, k, live & (k > 0))
+        elif op == PT_APPEND:
+            page_idx = torch.div(a, page_size, rounding_mode="floor")
+            inrange = (page_idx >= 0) & (page_idx < mp)
+            k = torch.clamp(page_idx + 1 - chain_len[tix, seq_l], 0, mp)
+            did = _evict_alloc(used, chains, chain_len, last_used, evictions,
+                               seq_l, k, live & inrange & (k > 0))
+            ok = live & inrange & ((k == 0) | did)
+            pg = torch.where(ok, chains[tix, seq_l, torch.clamp(
+                page_idx, 0, mp - 1).long()], -1)
+            fl = torch.where(ok, torch.where(did, k, 0), -1)
+        # _touch: stamp the clock, then advance it
+        last_used[lt, ls] = clock[lt, 0]
+        clock[:, 0] += live.to(torch.int32)
+        n_out[lt, lr] = chain_len[lt, ls]
+        if op == PT_ALLOC:
+            pages[lt, lr] = chains[lt, ls]
+            page[lt, lr] = -1
+            flag[lt, lr] = did[live].to(torch.int32)
+        elif op == PT_APPEND:
+            pages[lt, lr] = minus1
+            page[lt, lr] = pg[live].to(torch.int32)
+            flag[lt, lr] = fl[live].to(torch.int32)
+        else:
+            pages[lt, lr] = chains[lt, ls]
+            page[lt, lr] = -1
+            flag[lt, lr] = (chain_len[lt, ls] > 0).to(torch.int32)
+    return pages, page, n_out, flag
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_table: torch.Tensor,
+                    lengths: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Block-sparse decode attention over a paged KV pool
+    (``repro.kernels.ref.paged_attention``).
+
+    q (B, Hq, D), one query token per sequence; k_pages / v_pages
+    (P, Hkv, PS, D); page_table (B, MP) global page ids, -1 padded, ids
+    clipped into [0, P); lengths (B,) live positions (>= 1).  f32 math,
+    output in q's dtype -> (B, Hq, D)."""
+    b, hq, d = q.shape
+    p, hkv, ps, _ = k_pages.shape
+    mp = page_table.shape[1]
+    rep = hq // hkv
+    safe = torch.clamp(page_table.long(), 0, p - 1)
+    k = k_pages[safe].transpose(1, 2).reshape(b, hkv, mp * ps, d)
+    v = v_pages[safe].transpose(1, 2).reshape(b, hkv, mp * ps, d)
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    scale = scale if scale is not None else 1.0 / float(d) ** 0.5
+    s = torch.einsum("bhd,bhkd->bhk", q.float(), k.float()) * scale
+    pos = torch.arange(mp * ps, device=q.device)
+    s = torch.where(pos[None, None, :] < lengths.to(q.device)[:, None, None],
+                    s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhk,bhkd->bhd", w, v.float()).to(q.dtype)

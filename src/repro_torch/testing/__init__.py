@@ -1,0 +1,7 @@
+# repro_torch.testing — differential checks that the entry points run with
+# check=True, and that chip_smoke.py and the tests share.
+#
+# pagetable.py  record a page table's op batches, replay them on the
+#               sequential oracle in serve order; the stress trace
+# attention.py  hold every paged-attention kernel call against the plain
+#               version

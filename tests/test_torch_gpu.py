@@ -152,4 +152,6 @@ def test_store_kernel_path_matches_oracle_on_card(cuda):
             assert np.array_equal(fc.result()["flag"].cpu().numpy(), flags)
             assert np.array_equal(fc.result()["value"].cpu().numpy(), old)
         assert np.array_equal(st.dump(), ref.dump())
-    assert all(v > 0 for v in tops.launch_counts().values())
+    counts = tops.launch_counts()
+    assert all(counts[k] > 0 for k in ("delegation_pack", "gather",
+                                       "scatter_last", "segmented_add"))

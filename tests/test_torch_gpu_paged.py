@@ -1,0 +1,101 @@
+"""The paged-decode slice's CUDA kernels against their plain PyTorch
+versions, on the card: ``paged_attention`` in f32 and bf16 at the main
+path's shapes and at the edge cases, ``pagetable_serve`` bit for bit on
+the stress trace.  Every test carries the ``gpu`` marker and skips where
+no CUDA device is present (decided in the ``cuda`` fixture); the module
+imports no JAX.
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_*.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import DelegatedPageTable, StackedMesh, use_session
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.paged_attention import TOLERANCE
+from repro_torch.testing.pagetable import (STRESS_GEOMETRY, replay_waves,
+                                           stress_waves, submit_waves)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _pa_case(dev, dtype, b, hq, hkv, d, p, ps, mp, lengths, seed,
+             pad_inside=False):
+    """Random q and pools; each sequence's chain is a random run of
+    distinct pages covering its length, -1 past it (and, with
+    ``pad_inside``, one -1 inside it, read as page 0)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, hq, d))
+    k = rng.normal(size=(p, hkv, ps, d))
+    v = rng.normal(size=(p, hkv, ps, d))
+    tbl = np.full((b, mp), -1, np.int32)
+    for i, n in enumerate(lengths):
+        live = min(-(-int(n) // ps), mp)
+        tbl[i, :live] = rng.choice(p, live, replace=False)
+        if pad_inside and live > 1:
+            tbl[i, rng.integers(0, live)] = -1
+    T = lambda a, dt=dtype: torch.as_tensor(a).to(dev, dt)
+    return (T(q), T(k), T(v), T(tbl, torch.int32),
+            T(np.asarray(lengths), torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # the main path's shapes: qwen2.5-3b attention (16 q / 2 kv heads of
+    # 128), 16-token pages, 64-page chains, 64 sequences
+    dict(b=64, hq=16, hkv=2, d=128, p=4096, ps=16, mp=64,
+         lengths=list(range(1, 1025, 16))),
+    dict(b=6, hq=16, hkv=2, d=128, p=64, ps=16, mp=4,
+         lengths=[1, 16, 17, 32, 33, 64]),          # page boundaries
+    dict(b=4, hq=4, hkv=4, d=64, p=40, ps=8, mp=5,
+         lengths=[40, 1, 9, 39]),                   # rep 1, MP*PS == len
+    dict(b=5, hq=8, hkv=2, d=128, p=80, ps=16, mp=8,
+         lengths=[128, 100, 50, 17, 2], pad_inside=True),
+])
+def test_paged_attention_kernel_matches_plain(cuda, dtype, case):
+    """Within ``TOLERANCE`` of the working dtype (f32: 2e-5): f32 sums in
+    another order, and in bf16 one rounding flip at most."""
+    args = _pa_case(cuda, dtype, seed=len(case["lengths"]), **case)
+    got = tops.paged_attention(*args)
+    torch.cuda.synchronize()
+    want = tops.paged_attention(*args, impl="ref")
+    rtol, atol = TOLERANCE[dtype]
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs()).all()), \
+        float(err.max())
+
+
+@pytest.mark.parametrize("shortcut", [True, False])
+def test_pagetable_serve_kernel_matches_plain_and_oracle(cuda, shortcut):
+    """The stress trace (eviction cascades, heals, infeasible requests,
+    free and alloc in one wave) through the page table on the card and on
+    the CPU: every response and the final state bit for bit, and both
+    equal to the sequential oracle replayed in serve order."""
+    g = STRESS_GEOMETRY
+    runs = {}
+    tops.reset_launch_counts()
+    for dev in (cuda, torch.device("cpu")):
+        with use_session():
+            pt = DelegatedPageTable(StackedMesh((2, 4), device=dev),
+                                    g["n_pages"], max_seqs=g["max_seqs"],
+                                    page_size=g["page_size"],
+                                    max_pages=g["max_pages"], capacity=256,
+                                    local_shortcut=shortcut)
+            rec = submit_waves(pt, stress_waves(5))
+            replay_waves(pt, rec)
+            runs[dev.type] = ([[pt.globalize(f.result(), s) for _, s, _, f
+                                in w] for w in rec], pt.dump())
+    assert tops.launch_counts()["pagetable_serve"] > 0
+    (gw, gs), (ww, ws) = runs["cuda"], runs["cpu"]
+    for a, b in zip(gw, ww):
+        for ra, rb in zip(a, b):
+            assert all(np.array_equal(ra[k], rb[k]) for k in rb)
+    assert all(np.array_equal(gs[k], ws[k]) for k in ws)
