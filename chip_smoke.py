@@ -5,7 +5,7 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
-  1. device and build — the card's name and power limit, then the six
+  1. device and build — the card's name and power limit, then the seven
      CUDA kernels built from csrc/ with nvcc (in parallel);
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at adversarial ones: for the KV kernels a hot
@@ -17,7 +17,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      kernels/paged_attention.py;
      pagetable_serve bit for bit on a stress trace (eviction cascades,
      infeasible requests, appends that heal an evicted chain, free and
-     alloc in one wave), the local shortcut on and off;
+     alloc in one wave), the local shortcut on and off; flash_attention
+     (bf16) at the prefill's shape and layout, MQA, MHA, q_offset with
+     Sq < Skv, causal=False, D 64 and 32, ragged tails, within the
+     tolerance stated in kernels/flash_attention.py, a q_offset launch bit
+     for bit equal to the rows of the full launch, and f32 refused;
   3. kv_paper — the paper's KV store (Fig. 8/9 as benchmarks/kv_store.py
      runs it): 1,000,000 keys x 4 f32, a 2x4 stacked mesh (8 trustees),
      shared mode with the local shortcut, second_round overflow, 8192
@@ -37,20 +41,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      a check run (every request completes, zero leaked pages, every wave's
      page-table responses == the oracle replayed in serve order, every
      attention call == the plain version), then the timed run;
-  6. times — each kernel at the main path's shapes: the median of five
+  6. qwen serve — the qwen2.5-3b model path at full width (36 layers,
+     d_model 2048, 16 / 2 heads of 128, d_ff 11008, vocab 151936, bf16;
+     3.40 B random parameters drawn on the card): prefill_step at B 4 x
+     2048 tokens through the flash kernel (a check run holding each of
+     its 36 launches against the plain version, then timed runs), then
+     repro_torch.launch.serve (8 requests, 128 prompt tokens teacher-forced
+     then 128 generated, the KV cache's sequence split over 4 stacked
+     trustees), then the prefill's last-position logits on the serve's
+     prompt against the serve's decode logits at that position;
+  7. times — each kernel at the main path's shapes: the median of five
      profiler readings of its own kernels (their spread and the records
      the profiler kept beside it) and CUDA events with the host ahead of
-     the card, beside its bound (bytes over 3.35 TB/s), its plain version
-     and a library call where one PyTorch call computes the same
-     function; each path's ops/s or tokens/s on a host clock; the device's
-     busy share.
+     the card, beside its bound (bytes over 3.35 TB/s, or for
+     flash_attention flops over 989 TFLOP/s), its plain version and a
+     library call where one PyTorch call computes the same function; each
+     path's ops/s or tokens/s on a host clock; the device's busy share.
 
-Launch counters are zeroed just before each main path (phases 3, 4 and
-the timed run of 5) and read just after; every kernel of a path must have
-launched there.  The line before the last is {"kernels": [...]}; the last
-is the device line.
+Launch counters are zeroed just before each main path (phases 3, 4, the
+timed run of 5 and each timed prefill of 6) and read just after; every
+kernel of a path must have launched there.  The line before the last is
+{"kernels": [...]}; the last is the device line.
 """
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -63,6 +77,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+BF16_FLOPS = 989e12             # H100 SXM bf16 dense tensor-core peak
 N_KEYS, VW, MESH = 1_000_000, 4, (2, 4)
 SOURCES = {
     "delegation_pack": ("src/repro_torch/csrc/delegation_pack.cu",
@@ -77,15 +92,19 @@ SOURCES = {
                         "src/repro/core/pagetable.py:250"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:31"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:26"),
 }
 KV_KERNELS = ("delegation_pack", "gather", "scatter_last", "segmented_add")
-# what each kernel's launches are called in a profiler trace (scatter_last
-# launches two kernels a call, segmented_add three)
+# what each kernel's launches are called in a profiler trace, and the
+# launches one call makes where that is more than one
+LAUNCHES_PER_CALL = {"scatter_last": 2, "segmented_add": 3}
 KERNEL_NAMES = {"delegation_pack": "delegation_pack_kernel",
                 "gather": "gather_kernel", "scatter_last": "scatter_last_",
                 "segmented_add": "seg_add_",
                 "pagetable_serve": "pagetable_serve_kernel",
-                "paged_attention": "paged_attention_kernel"}
+                "paged_attention": "paged_attention_kernel",
+                "flash_attention": "flash_attention_kernel"}
 PAGED_KERNELS = ("delegation_pack", "pagetable_serve", "paged_attention")
 # the paged-decode main path: one qwen2.5-3b attention layer (16 query / 2
 # KV heads of 128, QKV bias, rope 1e6) in bf16 over a 4096-page pool of
@@ -528,18 +547,26 @@ def device_ms(torch, fn, iters=20):
     return sum(e.self_device_time_total for e in evs) / iters / 1e3
 
 
-def device_readings(torch, fn, name, n=5, iters=20):
+def device_readings(torch, fn, name, n=5, iters=20, per_call=1):
     """``n`` profiler readings of the ``name`` kernels' device time per
     call, each over ``iters`` calls: (median, min, max, the kernel records
-    the profiler kept in each reading — ``iters`` for a one-launch call
-    unless records were lost)."""
+    the profiler kept in each reading — ``iters * per_call`` unless
+    records were lost).  A reading's time per call is the mean of the
+    records it kept times ``per_call``, the launches one call makes, so a
+    reading that lost records is not biased low; one that kept none is
+    left out (all zeros when every reading kept none)."""
     xs, seen = [], []
     for _ in range(n):
         evs = device_events(torch, fn, iters, name)
-        xs.append(sum(e.self_device_time_total for e in evs) / iters / 1e3)
-        seen.append(sum(e.count for e in evs))
+        kept = sum(e.count for e in evs)
+        seen.append(kept)
+        if kept:
+            xs.append(sum(e.self_device_time_total for e in evs) / kept
+                      * per_call / 1e3)
+    if not xs:
+        return 0.0, 0.0, 0.0, seen
     xs.sort()
-    return xs[n // 2], xs[0], xs[-1], seen
+    return xs[len(xs) // 2], xs[0], xs[-1], seen
 
 
 def ahead_ms(torch, fn, iters=50, sleep_cycles=40_000_000):
@@ -649,8 +676,9 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
     measured = {}
 
     def emit(name, label, fn_kernel, fn_plain, fn_lib, nbytes):
-        ms, lo, hi, seen = device_readings(torch, fn_kernel,
-                                           KERNEL_NAMES[name])
+        ms, lo, hi, seen = device_readings(
+            torch, fn_kernel, KERNEL_NAMES[name],
+            per_call=LAUNCHES_PER_CALL.get(name, 1))
         plain, _ = kernel_ms(torch, fn_plain, iters=5)
         lib = kernel_ms(torch, fn_lib)[0] if fn_lib is not None else None
         ev, host, ahead = ahead_ms(torch, fn_kernel)
@@ -658,7 +686,8 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
             ms = ev
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         say(f"[times] {gpu} | {name} @ {label}: {ms:.6f} ms/call (median "
-            f"of 5 profiler readings of its kernels, {lo:.6f}..{hi:.6f}, "
+            f"of the profiler readings that kept records, each the mean "
+            f"record times the launches a call makes, {lo:.6f}..{hi:.6f}, "
             f"records kept per reading of 20 calls {seen}; CUDA events with "
             f"the host {'ahead' if ahead else 'NOT ahead'} {ev:.6f} ms/call,"
             f" host issue {host:.6f} ms/call), plain {plain:.6f} ms, bound "
@@ -904,6 +933,91 @@ def phase_paged_kernels(torch, dev, errs):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, flash attention: the prefill kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# the qwen2.5-3b prefill's attention: B 4 x 2048 tokens, 16 query / 2 KV
+# heads of 128, causal, bf16
+FA_MAIN = dict(b=4, hq=16, hkv=2, sq=2048, skv=2048, d=128)
+
+
+def fa_case(torch, dev, b, hq, hkv, sq, skv, d, seed, bshd=False):
+    """Random bf16 q (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D); with
+    ``bshd`` each is a (B, S, H, D) tensor seen transposed, the layout the
+    model passes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(h, s):
+        shape = (b, s, h, d) if bshd else (b, h, s, d)
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        return x.transpose(1, 2) if bshd else x
+    return rnd(hq, sq), rnd(hkv, skv), rnd(hkv, skv)
+
+
+def phase_flash_kernels(torch, dev, errs):
+    """flash_attention against its plain version: the main path's shape
+    and the edge cases, within ``kernels/flash_attention.py::tolerance``."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.testing.model import flash_within
+    cases = [
+        ("main path shape, causal", FA_MAIN, {}, True),
+        ("main path layout (B, S, H, D) views", dict(FA_MAIN, sq=512,
+                                                     skv=512, bshd=True),
+         {}, False),
+        ("MQA (Hkv 1)", dict(b=2, hq=8, hkv=1, sq=512, skv=512, d=128), {},
+         False),
+        ("MHA (Hkv == Hq)", dict(b=2, hq=4, hkv=4, sq=384, skv=384, d=128),
+         {}, False),
+        ("q_offset 768, Sq 256 < Skv 1024 (a sequence shard)",
+         dict(b=2, hq=16, hkv=2, sq=256, skv=1024, d=128),
+         dict(q_offset=768), False),
+        ("causal=False, Sq 256, Skv 640", dict(b=2, hq=4, hkv=2, sq=256,
+                                               skv=640, d=128),
+         dict(causal=False), False),
+        ("D 64", dict(b=2, hq=8, hkv=2, sq=1024, skv=1024, d=64), {}, False),
+        ("D 32", dict(b=1, hq=4, hkv=2, sq=256, skv=256, d=32), {}, False),
+        ("ragged Sq = Skv = 200", dict(b=2, hq=4, hkv=2, sq=200, skv=200,
+                                       d=128), {}, False),
+        ("ragged Sq 77, Skv 333, causal=False",
+         dict(b=1, hq=4, hkv=1, sq=77, skv=333, d=64), dict(causal=False),
+         False),
+        ("ragged Sq 100 at q_offset 257 of Skv 357",
+         dict(b=1, hq=8, hkv=2, sq=100, skv=357, d=128),
+         dict(q_offset=257), False),
+    ]
+    errs["flash_attention"] = 0.0
+    for i, (label, shape, kw, main) in enumerate(cases):
+        q, k, v = fa_case(torch, dev, seed=70 + i, **shape)
+        got = kops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = kops.flash_attention(q, k, v, impl="ref", **kw)
+        ok, err = flash_within(got, want, v)
+        require(ok, f"flash_attention [{label}]: max abs err {err} beyond "
+                f"the tolerance")
+        if main:
+            errs["flash_attention"] = err
+        say(f"[kernels] flash_attention [{label}] == plain (bf16, max abs "
+            f"err {err:.3g})")
+    # q_offset reproduces the rows of a query block that starts mid-sequence
+    q, k, v = fa_case(torch, dev, seed=90, b=1, hq=4, hkv=2, sq=1024,
+                      skv=1024, d=128)
+    full = kops.flash_attention(q, k, v)
+    half = kops.flash_attention(q[:, :, 512:], k, v, q_offset=512)
+    torch.cuda.synchronize()
+    require(torch.equal(full[:, :, 512:], half),
+            "flash_attention: the q_offset 512 launch differs from the "
+            "second half of the full launch")
+    say("[kernels] flash_attention [q_offset 512 == rows 512.. of the full "
+        "launch] bit for bit")
+    try:
+        kops.flash_attention(q.float(), k.float(), v.float())
+    except TypeError as e:
+        say(f"[kernels] flash_attention refuses f32 on the card: {e}")
+    else:
+        raise AssertionError("flash_attention accepted f32 on the card")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the paged-decode main path
 # ---------------------------------------------------------------------------
 
@@ -1050,6 +1164,247 @@ def phase_paged(torch, dev, gpu, report, errs):
     return counts, rec, stats["waves"], inputs
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the qwen2.5-3b serve path at full width
+# ---------------------------------------------------------------------------
+
+# prefill_step at B 4 x 2048 tokens; serve.main over 8 requests, 128
+# prompt tokens teacher-forced and 128 generated, the KV cache's sequence
+# split over 4 stacked trustees (36 x 2 x 8 x 2 x 256 x 128 bf16, 37.7 MB)
+QWEN_PREFILL = dict(batch=4, seq=2048)
+QWEN_SERVE = dict(batch=8, prompt_len=128, gen=128, mesh_model=4)
+QWEN_TIMED_RUNS = 3
+
+
+def qwen_serve_argv():
+    q = QWEN_SERVE
+    return ["--arch", "qwen2.5-3b", "--batch", str(q["batch"]),
+            "--prompt-len", str(q["prompt_len"]), "--gen", str(q["gen"]),
+            "--mesh-model", str(q["mesh_model"])]
+
+
+def phase_qwen(torch, dev, gpu, report, errs):
+    """The slice's main path at full width (36 layers, d_model 2048, 16 / 2
+    heads of 128, d_ff 11008, vocab 151936, bf16, random weights from seed
+    0 drawn on the card, the serve's own): (a) prefill_step at B 4 x 2048
+    through the flash kernel — a check run holding every layer's kernel
+    call against the plain version, then timed runs, each with the
+    counters zeroed just before it and 36 flash launches read just after;
+    (b) serve.main, 8 x (128 + 128) tokens over 4 trustees; (c) the
+    prefill's last-position logits on the serve's prompt against the
+    serve's decode logits at that position."""
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    from repro_torch.testing.model import (DecodeLogits, FlashCheck,
+                                           logits_agreement)
+    cfg = get_arch("qwen2.5-3b")
+    b, s = QWEN_PREFILL["batch"], QWEN_PREFILL["seq"]
+    mesh = MeshConfig((1, QWEN_SERVE["mesh_model"]), ("data", "model"))
+    run = RunConfig(model=cfg, shape=ShapeConfig("prefill", s, b, "prefill"),
+                    mesh=mesh, remat="none", use_pallas=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, run, dev)
+    torch.cuda.synchronize()
+    n_params = M.count_params(params)
+    say(f"[qwen] {cfg.name}: {n_params / 1e9:.3f} B parameters drawn on the "
+        f"card in {time.perf_counter() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated)")
+    plan = build_cell(cfg, run.shape, run)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    kops.reset_launch_counts()
+    with FlashCheck() as chk:
+        logits = plan.step_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    n_flash = kops.launch_counts()["flash_attention"]
+    c = chk.summary()
+    require(n_flash == cfg.n_layers and c["flash_calls"] == cfg.n_layers,
+            f"prefill check run: {n_flash} flash launches, "
+            f"{c['flash_calls']} checked, want {cfg.n_layers}")
+    require(c["flash_calls_out_of_tolerance"] == 0,
+            f"prefill: {c['flash_calls_out_of_tolerance']} flash calls "
+            f"beyond the tolerance (max abs err {c['flash_max_abs_err']})")
+    require(tuple(logits.shape) == (b, cfg.vocab_size)
+            and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()),
+            f"prefill logits: {tuple(logits.shape)} {logits.dtype}, finite "
+            f"{bool(torch.isfinite(logits).all())}")
+    errs["flash_attention"] = max(errs.get("flash_attention", 0.0),
+                                  c["flash_max_abs_err"])
+    say(f"[qwen check] prefill B {b} x {s}: {n_flash} flash launches, every "
+        f"layer's call == plain (max abs err {c['flash_max_abs_err']:.3g}); "
+        f"logits ({b}, {cfg.vocab_size}) f32, finite")
+
+    secs = []
+    for _ in range(QWEN_TIMED_RUNS):
+        kops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = plan.step_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = kops.launch_counts()
+        require(counts["flash_attention"] == cfg.n_layers,
+                f"prefill timed run: {counts['flash_attention']} flash "
+                f"launches, want {cfg.n_layers}")
+        require(bool(torch.isfinite(again).all()),
+                "prefill timed run: logits not finite")
+    say(f"[main path] qwen prefill launches (each of {QWEN_TIMED_RUNS} timed "
+        f"runs): {json.dumps(counts)}")
+    med = sorted(secs)[len(secs) // 2]
+    report["qwen_prefill"] = dict(seconds=secs, tokens_per_s=b * s / med)
+    say(f"[qwen] {gpu} | prefill B {b} x {s}: "
+        + ", ".join(f"{x * 1e3:.3f}" for x in secs)
+        + f" ms; median {b * s / med:.1f} tokens/s")
+    chk_inputs = chk.first
+    del params, logits, again
+
+    prompt_len = QWEN_SERVE["prompt_len"]
+    stats = {}
+    kops.reset_launch_counts()
+    with DecodeLogits(pos=prompt_len - 1) as rec:
+        out = serve.main(qwen_serve_argv(), stats=stats)
+    counts = kops.launch_counts()
+    say(f"[main path] qwen serve launches: {json.dumps(counts)} (decode "
+        f"attention is the plain trustee island, as in JAX)")
+    require(out.shape == (QWEN_SERVE["batch"], QWEN_SERVE["gen"])
+            and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+            f"serve tokens: shape {out.shape}, range {out.min()}..{out.max()}")
+    require(rec.logits is not None and bool(torch.isfinite(rec.logits)
+                                            .all()),
+            "serve: no finite decode logits at the last prompt position")
+    report["qwen_serve"] = stats
+    say(f"[qwen] {gpu} | serve {QWEN_SERVE['batch']} x ({prompt_len} + "
+        f"{QWEN_SERVE['gen']}) over {QWEN_SERVE['mesh_model']} trustees: "
+        f"{stats['steps']} steps in {stats['seconds']:.3f} s, "
+        f"{stats['ms_per_step']:.3f} ms/step, {stats['tokens_per_s']:.1f} "
+        f"tokens/s (batch x steps over the loop's wall time)")
+
+    # the serve's weights (seed 0 on the card, as serve.main draws them)
+    # through prefill_step on the serve's prompt
+    params = M.init_params(cfg, run, dev)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(prompt_len, QWEN_SERVE["batch"])).T
+    plan = build_cell(cfg, ShapeConfig("prompt", prompt_len,
+                                       QWEN_SERVE["batch"], "prefill"), run)
+    pre = plan.step_fn(params, {"tokens": torch.as_tensor(prompt,
+                                                          device=dev)})
+    agree = logits_agreement(pre, rec.logits, torch.bfloat16)
+    require(agree["ok"], f"prefill vs serve decode logits at position "
+            f"{prompt_len - 1}: {agree}")
+    say(f"[qwen check] prefill logits at position {prompt_len - 1} == the "
+        f"serve's decode logits there: relative RMS {agree['rel_rms']:.4g} "
+        f"<= {agree['rtol']}, max abs {agree['max_abs']:.4g}, argmax agrees "
+        f"on {agree['argmax_agree'] * 100:.1f}% of rows")
+    report["qwen_agreement"] = agree
+    return cfg.n_layers, chk_inputs, params, run
+
+
+def short(name, n=60):
+    return name if len(name) <= n else name[:n] + "..."
+
+
+def phase_qwen_busy(torch, dev, gpu, params, run):
+    """Where the time of the qwen path goes: the device busy share and the
+    top device ops of one B 4 x 2048 prefill call, and of 16 decode steps
+    of the serve's shape (8 sequences at positions 128-143 of a 256-long
+    cache over 4 trustees), from a profiler trace."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    cfg = run.model
+    b, s = QWEN_PREFILL["batch"], QWEN_PREFILL["seq"]
+    plan = build_cell(cfg, ShapeConfig("prefill", s, b, "prefill"), run)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev)
+    busy, wall, tops = busy_share(
+        torch, lambda: plan.step_fn(params, {"tokens": tokens}), 1, 8)
+    say(f"[busy] {gpu} | qwen prefill B {b} x {s}: device busy "
+        f"{busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
+        f"({100 * busy / wall:.1f}% busy); top device ops: " + "; ".join(
+            f"{short(n)} {ms:.3f} ms / {c} calls" for n, ms, c in tops))
+    q = QWEN_SERVE
+    t = q["mesh_model"]
+    max_len = -(-(q["prompt_len"] + q["gen"]) // t) * t
+    dplan = build_cell(cfg, ShapeConfig("decode", max_len, q["batch"],
+                                        "decode"),
+                       dataclasses.replace(run, use_pallas=False))
+    cache = M.init_cache(cfg, q["batch"], max_len, dplan.run, dev)
+    tok = torch.zeros((q["batch"],), dtype=torch.int32, device=dev)
+
+    def steps():
+        nonlocal tok
+        for i in range(16):
+            pos = torch.full((q["batch"],), q["prompt_len"] + i,
+                             dtype=torch.int32, device=dev)
+            tok, _ = dplan.step_fn(params, cache, tok, pos)
+    busy, wall, tops = busy_share(torch, steps, 1, 8)
+    say(f"[busy] {gpu} | qwen decode, 16 steps of B {q['batch']} over "
+        f"{q['mesh_model']} trustees: device busy {busy * 1e3:.3f} ms of "
+        f"{wall * 1e3:.3f} ms wall ({100 * busy / wall:.1f}% busy, "
+        f"{wall * 1e3 / 16:.3f} ms wall a step under the profiler); top "
+        f"device ops: " + "; ".join(
+            f"{short(n)} {ms:.3f} ms / {c} calls" for n, ms, c in tops))
+
+
+def fa_work(q, k, q_offset, causal):
+    """(flops, bytes) flash attention must do on these inputs: 4 * D flops
+    per (query head, kept query-key pair) — QK^T and PV — and q, k, v read
+    once and out written once."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    if causal:
+        seen = np.clip(q_offset + np.arange(sq) + 1, 0, skv)
+        pairs = int(seen.sum())
+    else:
+        pairs = sq * skv
+    flops = 4 * b * hq * d * pairs
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return flops, nbytes
+
+
+def phase_flash_times(torch, dev, gpu, inputs, launches):
+    """flash_attention at the prefill's own inputs (layer 0's q, k, v of
+    the check run, in the model's (B, S, H, D) layout): the median of five
+    profiler readings, CUDA events with the host ahead, the bound
+    (operations), the plain version and SDPA (timed here only)."""
+    from repro_torch.kernels import ops as kops
+    q, k, v, q_offset, causal, scale = inputs
+    fa = lambda: kops.flash_attention(q, k, v, q_offset, causal, scale)
+    ms, lo, hi, seen = device_readings(torch, fa,
+                                       KERNEL_NAMES["flash_attention"])
+    ev, host, ahead = ahead_ms(torch, fa)
+    clk = sm_clock_under(torch, fa, max(1, int(800 / max(ev, 1e-3))))
+    plain = kernel_ms(torch, lambda: kops.flash_attention(
+        q, k, v, q_offset, causal, scale, impl="ref"), iters=5)[0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = kernel_ms(torch, lambda: sdpa(q, k, v, is_causal=causal,
+                                        scale=scale, enable_gqa=True))[0]
+    flops, nbytes = fa_work(q, k, q_offset or 0, causal)
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    b, hq, sq, d = q.shape
+    say(f"[times] {gpu} | flash_attention @ qwen prefill (B {b}, Hq {hq}, "
+        f"Hkv {k.shape[1]}, S {sq}, D {d}, causal): {ms:.6f} ms/call (median "
+        f"of 5 profiler readings of the kernel, {lo:.6f}..{hi:.6f}, kernel "
+        f"records kept per reading of 20 calls {seen}; CUDA events with the "
+        f"host {'ahead' if ahead else 'NOT ahead'} {ev:.6f} ms/call, host "
+        f"issue {host:.6f} ms/call; SM clock under back-to-back calls, max: "
+        f"{clk}), {flops / ms / 1e9:.1f} TFLOP/s; plain {plain:.6f} ms, "
+        f"bound {bound:.6f} ms (operations {t_ops:.6f} ms for {flops} flops,"
+        f" bytes {t_bytes:.6f} ms for {nbytes} bytes), library {lib:.6f} ms "
+        f"(scaled_dot_product_attention, is_causal, enable_gqa), "
+        f"{launches} launches a prefill call")
+    return ("flash_attention", launches, ms, plain, bound, lib,
+            f"qwen prefill, B {b} x {sq}", "operations")
+
+
 def pt_bytes(op, state, args):
     """What one op pass needs: the state read once and written once, every
     row's valid byte, the valid rows' seq (and arg, for alloc and append)
@@ -1184,7 +1539,7 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1233,6 +1588,7 @@ def main(argv=None):
     if 2 in phases:
         errs = phase_kernels(torch, dev, shapes)
         phase_paged_kernels(torch, dev, errs)
+        phase_flash_kernels(torch, dev, errs)
 
     # the main paths, each with the counters zeroed just before it and read
     # just after: kv_paper (a) and (b), 40 kernel-path rounds each (the (a)
@@ -1264,24 +1620,31 @@ def main(argv=None):
         paged = phase_paged(torch, dev, gpu, report, errs)
         for k, v in paged[0].items():
             launches[k] += v
-    per_round["launches"] = launches
-    say(f"[main path] kernel launches over phases 3-5: "
-        f"{json.dumps(launches)}")
-
+    qwen = None
     if 6 in phases:
-        require(phases >= {2, 3, 4, 5},
-                "phase 6 reports the main paths' launches and the kernels' "
-                "errors against their plain versions: run phases 2-5")
+        qwen = phase_qwen(torch, dev, gpu, report, errs)
+        launches["flash_attention"] += qwen[0]
+    per_round["launches"] = launches
+    say(f"[main path] kernel launches over phases 3-6 (one prefill call in "
+        f"phase 6): {json.dumps(launches)}")
+
+    if 7 in phases:
+        require(phases >= {2, 3, 4, 5, 6},
+                "phase 7 reports the main paths' launches and the kernels' "
+                "errors against their plain versions: run phases 2-6")
         rows = phase_times(torch, dev, shapes, errs, per_round, gpu)
         counts, rec, waves, inputs = paged
-        for (kname, n, ms, plain, bound, lib, label) in phase_paged_times(
-                torch, dev, gpu, rec, waves, counts, inputs):
+        timed = [r + ("bytes",) for r in phase_paged_times(
+            torch, dev, gpu, rec, waves, counts, inputs)]
+        timed.append(phase_flash_times(torch, dev, gpu, qwen[1], qwen[0]))
+        phase_qwen_busy(torch, dev, gpu, *qwen[2:])
+        for (kname, n, ms, plain, bound, lib, label, by) in timed:
             src, replaces = SOURCES[kname]
             rows.append({"name": kname, "route": "cuda", "source": src,
                          "replaces": replaces, "launches": launches[kname],
                          "max_abs_err": errs[kname], "ms": ms,
                          "plain_ms": plain, "bound_ms": bound,
-                         "bound_by": "bytes", "library_ms": lib,
+                         "bound_by": by, "library_ms": lib,
                          "shapes": label})
         phase_busy(torch, dev, gpu)
         say(json.dumps({"kernels": rows}))

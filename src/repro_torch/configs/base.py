@@ -1,11 +1,28 @@
-"""The port's ``ModelConfig``: the fields of ``repro.configs.base.ModelConfig``
-that the ported layers read (attention widths, biases, norms, RoPE), with
-the same names and defaults, so a configuration reads the same in both
-packages."""
+"""The port's configuration dataclasses: the fields of
+``repro.configs.base`` that the ported model path reads, with the same
+names, defaults and derived helpers, so a configuration reads the same in
+both packages.
+
+``ModelConfig`` describes one architecture, ``ShapeConfig`` one
+(seq_len, global_batch, kind) input cell, ``MeshConfig`` the (data, model)
+mesh whose shards the port stacks on one device, and ``RunConfig`` couples
+them with the precision and kernel settings the serve path reads.
+"""
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Tuple
+
+ATTN_GQA = "gqa"          # grouped-query attention (MHA/MQA as cases)
+ATTN_MLA = "mla"          # DeepSeek multi-head latent attention
+BLOCK_ATTN = "attn"
+BLOCK_MAMBA = "mamba"
+FFN_DENSE = "dense"
+FFN_MOE = "moe"
+FFN_MOE_DENSE = "moe+dense"   # Arctic-style: MoE with a dense residual
+ACT_SILU = "silu"             # SwiGLU gating
+ACT_GELU = "gelu"             # GeGLU gating
 
 
 @dataclass(frozen=True)
@@ -19,9 +36,22 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // n_heads
+    attn_kind: str = ATTN_GQA
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10_000.0
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (t, h, w)
+    act: str = ACT_SILU
+    ffn_kind: str = FFN_DENSE
+    moe_every: int = 1               # layer i is MoE iff i % moe_every
+    moe_offset: int = 0              # == moe_offset
+    first_layer_dense: bool = False  # deepseek: layer 0 dense in MoE nets
+    block_pattern: Tuple[str, ...] = ()   # empty = every layer attention
+    tie_embeddings: bool = False
+    embed_scale: bool = False        # gemma: embeds scaled by sqrt(d_model)
+    logit_softcap: float = 0.0
+    is_encoder_decoder: bool = False
+    input_mode: str = "tokens"       # tokens | embeds
     norm_eps: float = 1e-6
     source: str = ""
 
@@ -33,5 +63,52 @@ class ModelConfig:
             return 0
         return self.d_model // self.n_heads
 
+    def block_kind(self, layer: int) -> str:
+        if not self.block_pattern:
+            return BLOCK_ATTN
+        return self.block_pattern[layer % len(self.block_pattern)]
+
+    def layer_ffn_kind(self, layer: int) -> str:
+        if self.ffn_kind == FFN_DENSE:
+            return FFN_DENSE
+        if self.first_layer_dense and layer == 0:
+            return FFN_DENSE
+        if layer % self.moe_every == self.moe_offset:
+            return self.ffn_kind
+        return FFN_DENSE
+
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The JAX mesh the port stands for: on one card its ``model`` axis is
+    the number of stacked trustee shards of the decode KV cache."""
+    shape: Tuple[int, ...] = (1, 1)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def model_size(self) -> int:
+        return self.shape[self.axes.index("model")]
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    param_dtype: str = "bfloat16"
+    activation_dtype: str = "bfloat16"
+    remat: str = "dots"              # training only: "none" | "dots" | "full"
+    sp_residual: bool = False        # sequence-parallel residual stream
+    use_pallas: bool = False         # the port: the CUDA kernels if True
+    seed: int = 0

@@ -1,0 +1,50 @@
+"""Architecture registry: ``--arch <id>`` -> ModelConfig (full or smoke).
+
+The port carries the architectures whose model path it runs; every other
+id of the JAX registry raises ``NotImplementedError`` naming the ROADMAP
+item that brings it."""
+from __future__ import annotations
+
+from typing import Dict, List
+
+from . import qwen2_5_3b
+from .base import ModelConfig
+
+ARCHS: Dict[str, ModelConfig] = {"qwen2.5-3b": qwen2_5_3b.CONFIG}
+SMOKE_ARCHS: Dict[str, ModelConfig] = {"qwen2.5-3b": qwen2_5_3b.SMOKE}
+
+# the JAX registry's other architectures and what they wait for
+UNPORTED = {
+    "qwen2-vl-2b": "M-RoPE and embedding inputs (ROADMAP queue A 13)",
+    "jamba-v0.1-52b": "Mamba and MoE layers (ROADMAP queue A 13(b), 13(c))",
+    "arctic-480b": "MoE layers (ROADMAP queue A 13(b))",
+    "deepseek-v2-lite-16b": "MLA attention and MoE layers (ROADMAP queue "
+                            "A 13(b))",
+    "qwen1.5-32b": "its configuration (ROADMAP queue A 13)",
+    "qwen3-4b": "its configuration (ROADMAP queue A 13)",
+    "gemma-7b": "GeGLU, tied and scaled embeddings (ROADMAP queue A 13)",
+    "seamless-m4t-large-v2": "the encoder-decoder model (ROADMAP queue A 13)",
+    "falcon-mamba-7b": "Mamba layers (ROADMAP queue A 13(c))",
+}
+
+
+def list_archs() -> List[str]:
+    return list(ARCHS)
+
+
+def _check(name: str) -> None:
+    if name in UNPORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet: it needs {UNPORTED[name]}")
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {list(ARCHS)}")
+
+
+def get_arch(name: str) -> ModelConfig:
+    _check(name)
+    return ARCHS[name]
+
+
+def get_smoke_arch(name: str) -> ModelConfig:
+    _check(name)
+    return SMOKE_ARCHS[name]

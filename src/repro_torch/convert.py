@@ -6,6 +6,11 @@ array whose block ``t`` is trustee ``t``'s shard (what
 port holds the same leaf STACKED, ``(T, rows, ...)``, on one device.  The
 two are one reshape apart; these functions make it, so a test can start
 both stores from the same table and compare them row by row.
+
+Model weights keep the JAX tree's keys and layouts, so they carry across
+as a plain tree map (``model_params_from_jax``); the decode KV cache is
+stacked by trustee in the port and laid end to end along the sequence in
+JAX (``kv_cache_to_global``).
 """
 from __future__ import annotations
 
@@ -72,3 +77,41 @@ def attention_params_from_jax(params: Dict, device=None,
         t = torch.tensor(np.asarray(leaf), device=dev)
         out[name] = t if dtype is None else t.to(dtype)
     return out
+
+
+def model_params_from_jax(params: Dict, device=None, dtype=None) -> Dict:
+    """A JAX model tree (``repro.models.model.init_params``, as numpy
+    after ``np.asarray``) -> the port's tree: the same keys and layouts
+    (layer leaves stacked ``(n_groups, ...)`` under ``groups/pos<j>``),
+    copied onto ``device``.  ``dtype`` casts every leaf but the norm
+    scales (``scale`` leaves), which stay f32 as in JAX."""
+    from .core.meshctx import resolve_device
+    dev = resolve_device(device)
+
+    def conv(tree, key=None):
+        if isinstance(tree, dict):
+            return {k: conv(v, k) for k, v in tree.items()}
+        t = torch.tensor(np.asarray(tree), device=dev)
+        return t if dtype is None or key == "scale" else t.to(dtype)
+    return conv(params)
+
+
+def model_params_to_numpy(params: Dict) -> Dict:
+    """The port's model tree -> numpy leaves (f32 for bf16 leaves: numpy
+    has no bfloat16), copied."""
+    if isinstance(params, dict):
+        return {k: model_params_to_numpy(v) for k, v in params.items()}
+    t = params.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def kv_cache_to_global(cache: Dict) -> Dict[str, np.ndarray]:
+    """The port's stacked decode cache — each leaf ``(..., T, B, Hkv,
+    S/T, Dh)`` — -> numpy in the JAX layout ``(..., B, Hkv, S, Dh)``, the
+    trustees' shards laid end to end along the sequence."""
+    def glob(leaf):
+        x = leaf.detach().cpu().float().movedim(-5, -3)   # (.., B, Hkv, T, ..)
+        return x.reshape(x.shape[:-3] + (-1, x.shape[-1])).numpy().copy()
+    return {k: glob(v) for k, v in cache.items()}

@@ -25,7 +25,8 @@ BUILD = os.path.join(_PKG, "build")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("delegation_pack.cu", "scatter_last.cu", "segmented_add.cu",
-           "gather.cu", "pagetable_serve.cu", "paged_attention.cu")
+           "gather.cu", "pagetable_serve.cu", "paged_attention.cu",
+           "flash_attention.cu")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -27,6 +27,7 @@ from .delegation_serve import scatter_last as _scatter_last_kernel
 from .delegation_serve import segmented_add as _segmented_add_kernel
 from .delegation_serve import (check_gather, check_scatter_last,
                                check_segmented_add)
+from .flash_attention import flash_attention as _flash_attention_kernel
 from .paged_attention import paged_attention as _paged_attention_kernel
 from .pagetable_serve import pagetable_serve as _pagetable_serve_kernel
 
@@ -34,7 +35,8 @@ KERNELS = {"delegation_pack": _pack_kernel, "gather": _gather_kernel,
            "scatter_last": _scatter_last_kernel,
            "segmented_add": _segmented_add_kernel,
            "pagetable_serve": _pagetable_serve_kernel,
-           "paged_attention": _paged_attention_kernel}
+           "paged_attention": _paged_attention_kernel,
+           "flash_attention": _flash_attention_kernel}
 CHECKS = {"gather": check_gather, "scatter_last": check_scatter_last,
           "segmented_add": check_segmented_add}
 
@@ -102,3 +104,13 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths,
     """Paged decode attention; see ``ref.paged_attention``."""
     return _pick(impl, _paged_attention_kernel, ref.paged_attention)(
         q, k_pages, v_pages, page_table, lengths, scale)
+
+
+def flash_attention(q, k, v, q_offset: Optional[int] = None,
+                    causal: bool = True, scale: Optional[float] = None,
+                    impl: str = "kernel"):
+    """Causal (or full) GQA attention forward; see ``ref.flash_attention``
+    (``q_offset`` None means 0)."""
+    off = 0 if q_offset is None else int(q_offset)
+    return _pick(impl, _flash_attention_kernel, ref.flash_attention)(
+        q, k, v, q_offset=off, causal=causal, scale=scale)

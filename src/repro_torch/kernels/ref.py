@@ -339,3 +339,69 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bhk,bhkd->bhd", w, v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (prefill) and the partial-softmax merge of decode
+# ---------------------------------------------------------------------------
+
+def _gqa_logits(q, k, causal, scale, q_offset):
+    """f32 scores (B, Hq, Sq, Skv) of q (B, Hq, Sq, D) against k
+    (B, Hkv, Skv, D), query head h reading KV head h // (Hq / Hkv); masked
+    entries NEG_INF."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = scale if scale is not None else 1.0 / float(d) ** 0.5
+    qg = q.float().reshape(b, hkv, rep, sq, d)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.float()) * scale
+    s = s.reshape(b, hq, sq, skv)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(skv, device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def _gqa_pv(p, v):
+    """(B, Hq, Sq, Skv) weights x v (B, Hkv, Skv, D) -> f32 (B, Hq, Sq, D)."""
+    b, hq, sq, skv = p.shape
+    hkv = v.shape[1]
+    pg = p.reshape(b, hkv, hq // hkv, sq, skv)
+    return torch.einsum("bgrqk,bgkd->bgrqd", pg, v.float()).reshape(
+        b, hq, sq, v.shape[-1])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Causal (or full) GQA attention (``repro.kernels.ref.flash_attention``).
+
+    q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D), Hq a multiple of Hkv; scale
+    1/sqrt(D) unless given; query i sits at position ``q_offset + i`` and
+    sees keys j <= that position when ``causal``.  f32 math, output in
+    q's dtype -> (B, Hq, Sq, D)."""
+    s = _gqa_logits(q, k, causal, scale, q_offset)
+    return _gqa_pv(torch.softmax(s, dim=-1), v).to(q.dtype)
+
+
+def flash_attention_stats(q, k, v, causal: bool = True,
+                          scale: Optional[float] = None, q_offset: int = 0):
+    """The partial-softmax form (``ref.flash_attention_stats``): returns
+    f32 (o unnormalised (B, Hq, Sq, D), m (B, Hq, Sq), l (B, Hq, Sq)) for a
+    merge across shards of the key sequence."""
+    s = _gqa_logits(q, k, causal, scale, q_offset)
+    m = s.max(dim=-1).values
+    p = torch.exp(s - m[..., None])
+    return _gqa_pv(p, v), m, p.sum(dim=-1)
+
+
+def merge_attention_stats(os, ms, ls):
+    """Merge per-shard partials stacked along a leading shard axis
+    (``ref.merge_attention_stats``) -> (o normalised, m, l)."""
+    m = ms.max(dim=0).values
+    w = torch.exp(ms - m[None])
+    l = (ls * w).sum(dim=0)
+    o = (os * w[..., None]).sum(dim=0)
+    return o / torch.clamp(l[..., None], min=1e-30), m, l

@@ -5,3 +5,6 @@
 # paged_serve.py   PagedDecodeDriver / DecodeRequest (continuous-batching
 #                  decode over the delegated page table)
 # paged_decode.py  run_decode — the paged-decode entry point
+# steps.py         prefill_step / serve_step and build_cell (the model path)
+# serve.py         main — the model serve entry point (teacher-forced
+#                  prompt, greedy decode over the trustee-sharded KV cache)

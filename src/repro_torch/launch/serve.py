@@ -1,0 +1,150 @@
+"""Serving driver: a request batch decoded token by token with its KV
+cache entrusted to T trustees along the sequence (the torch counterpart
+of ``repro.launch.serve``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
+        --batch 8 --prompt-len 128 --gen 128 --mesh-model 4 [--device cpu]
+
+The prompt is teacher-forced through decode steps, then greedy decode
+follows; every step's (k, v) write is a delegated PUT to the owning
+trustee's shard and the query's partial answers are merged (see
+``models.attention.decode_attention``).  ``--mesh-model T`` is the number
+of trustee shards stacked on the card; the cache length is padded to a
+multiple of T.  Weights are random, drawn on the device from a seeded
+generator; the prompts come from ``np.random.default_rng(0)`` as in JAX,
+so both packages see the same tokens.  Runs on ``cuda`` unless given
+``--device cpu``.
+
+Options that need parts not ported yet raise ``NotImplementedError``
+naming their ROADMAP item: ``--delegation-mode dedicated`` (queue A 1),
+``--drain-rounds > 1`` (A 2), ``--session`` / ``--stream-depth`` (A 4),
+``--chaos`` (A 12) and ``--mesh-data > 1`` (A 13: a data axis spans
+cards, and one card has nothing to stack it on).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="trustee shards of the KV cache's sequence axis, "
+                         "stacked on the card")
+    ap.add_argument("--delegation-mode", default="shared",
+                    choices=["shared", "dedicated"])
+    ap.add_argument("--n-dedicated", type=int, default=0)
+    ap.add_argument("--drain-rounds", type=int, default=1)
+    ap.add_argument("--serve-impl", default="ref",
+                    choices=["ref", "pallas", "masked"],
+                    help="serve path of the session stores, which only "
+                         "--session and the dedicated ledger create")
+    ap.add_argument("--session", action="store_true")
+    ap.add_argument("--stream-depth", type=int, default=0)
+    ap.add_argument("--chaos", type=int, default=None, metavar="WAVE")
+    ap.add_argument("--chaos-snap-every", type=int, default=8)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    return ap
+
+
+def _refuse_unported(args) -> None:
+    unported = (
+        (args.delegation_mode == "dedicated",
+         "--delegation-mode dedicated needs dedicated trustee mode "
+         "(ROADMAP queue A 1)"),
+        (args.drain_rounds > 1,
+         "--drain-rounds > 1 needs the defer drain (ROADMAP queue A 2)"),
+        (args.session or args.stream_depth > 0,
+         "--session / --stream-depth need the multiplexed session round "
+         "(ROADMAP queue A 4)"),
+        (args.chaos is not None,
+         "--chaos needs failover (ROADMAP queue A 12)"),
+        (args.mesh_data > 1,
+         "--mesh-data > 1: a data axis spans cards, and one card has "
+         "nothing to stack it on (ROADMAP queue A 13)"),
+    )
+    for cond, msg in unported:
+        if cond:
+            raise NotImplementedError(msg)
+
+
+def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
+    """Run the serve loop; returns the generated tokens (batch, gen): the
+    greedy token after each position from the last prompt position on, as
+    JAX's loop collects them.  ``stats``, when given, receives
+    the loop's steps, seconds, ms per step and tokens/s."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.stream_depth > 0 and not args.session:
+        ap.error("--stream-depth requires --session")
+    if args.chaos is not None and not args.session:
+        ap.error("--chaos requires --session (it tears a session engine "
+                 "round)")
+    _refuse_unported(args)
+
+    from ..configs.base import MeshConfig, RunConfig, ShapeConfig
+    from ..configs.registry import get_arch, get_smoke_arch
+    from ..core.meshctx import resolve_device
+    from ..models import model as M
+    from .steps import build_cell
+
+    cfg = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
+    t = args.mesh_model
+    max_len = args.prompt_len + args.gen
+    max_len = ((max_len + t - 1) // t) * t      # a whole shard per trustee
+    shape = ShapeConfig("cli", max_len, args.batch, "decode")
+    run = RunConfig(model=cfg, shape=shape,
+                    mesh=MeshConfig((args.mesh_data, t), ("data", "model")),
+                    remat="none")
+    dev = resolve_device(args.device)
+    plan = build_cell(cfg, shape, run)
+    params = M.init_params(cfg, run, dev)
+    cache = M.init_cache(cfg, args.batch, max_len, run, dev)
+    print(f"[serve] {cfg.name}: {M.count_params(params)/1e6:.2f}M params, "
+          f"cache len {max_len}, batch {args.batch}, {t} trustee shards on "
+          f"{dev}", flush=True)
+
+    # "prefill" by teacher-forcing the prompt through decode steps (one
+    # code path, as in JAX)
+    rng = np.random.default_rng(0)
+    prompt_ids = rng.integers(0, cfg.vocab_size,
+                              size=(args.prompt_len, args.batch))
+    prompt = torch.as_tensor(prompt_ids, dtype=torch.int32, device=dev)
+    steps = args.prompt_len + args.gen - 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    prev, outputs = None, []
+    for i in range(steps):
+        tok = prompt[i] if i < args.prompt_len else prev
+        pos = torch.full((args.batch,), i, dtype=torch.int32, device=dev)
+        prev, cache = plan.step_fn(params, cache, tok, pos)
+        if i >= args.prompt_len - 1:
+            outputs.append(prev)
+    gen = torch.stack(outputs, 1).cpu().numpy()      # ends in a host sync
+    dt = time.perf_counter() - t0
+    print(f"[serve] {steps} steps in {dt:.2f}s ({1e3 * dt / steps:.1f} "
+          f"ms/step, {args.batch * steps / dt:.0f} tok/s)", flush=True)
+    print(f"[serve] generated {gen.shape} tokens; sample: {gen[0][:10]}",
+          flush=True)
+    if stats is not None:
+        stats.update(steps=steps, seconds=dt, ms_per_step=1e3 * dt / steps,
+                     tokens_per_s=args.batch * steps / dt,
+                     params=M.count_params(params))
+    return gen
+
+
+if __name__ == "__main__":
+    main()

@@ -5,3 +5,6 @@
 #               sequential oracle in serve order; the stress trace
 # attention.py  hold every paged-attention kernel call against the plain
 #               version
+# model.py      hold every flash-attention kernel call against the plain
+#               version; keep the serve's decode logits at a position;
+#               prefill against decode logits
