@@ -5,7 +5,7 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
-  1. device and build — the card's name and power limit, then the seven
+  1. device and build — the card's name and power limit, then the eight
      CUDA kernels built from csrc/ with nvcc (in parallel);
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at adversarial ones: for the KV kernels a hot
@@ -19,9 +19,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      infeasible requests, appends that heal an evicted chain, free and
      alloc in one wave), the local shortcut on and off; flash_attention
      (bf16) at the prefill's shape and layout, MQA, MHA, q_offset with
-     Sq < Skv, causal=False, D 64 and 32, ragged tails, within the
+     Sq < Skv, causal=False, D 64 and 32, ragged tails, D 192 at the MLA
+     prefill's shape and ragged, within the
      tolerance stated in kernels/flash_attention.py, a q_offset launch bit
      for bit equal to the rows of the full launch, and f32 refused;
+     grouped_matmul (bf16) at the deepseek prefill's and decode's shapes
+     (gate / up and down, empty slots answering zeros), ragged C / D / F,
+     E = 1 and C = 1, within the tolerance stated in
+     kernels/grouped_matmul.py, and f32 refused;
   3. kv_paper — the paper's KV store (Fig. 8/9 as benchmarks/kv_store.py
      runs it): 1,000,000 keys x 4 f32, a 2x4 stacked mesh (8 trustees),
      shared mode with the local shortcut, second_round overflow, 8192
@@ -50,18 +55,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      then 128 generated, the KV cache's sequence split over 4 stacked
      trustees), then the prefill's last-position logits on the serve's
      prompt against the serve's decode logits at that position;
-  7. times — each kernel at the main path's shapes: the median of five
+  7. deepseek serve — the deepseek-v2-lite-16b MoE path at full width
+     and depth (27 layers: a dense first layer and 26 MoE layers of 64
+     routed experts top-6 plus 2 shared, d_ff_expert 1408; MLA rank 512,
+     nope / rope / v 128 / 64 / 128; d_model 2048, 16 heads, vocab
+     102400, bf16; 15.65 B random parameters drawn on the card, after
+     phase 6's weights are freed): prefill_step at B 4 x 2048 tokens with
+     the experts over 4 stacked trustees, every MoE layer's tokens
+     delegated over the channel (the pack kernel) to the trustees' expert
+     FFN (the pack kernel again, then three grouped-matmul launches) — a
+     check run holding each of its 27 flash launches (D 192) and 78
+     grouped-matmul launches against the plain versions, then timed
+     runs; then repro_torch.launch.serve (8 requests, 64 prompt tokens
+     teacher-forced then 64 generated, the latent cache's sequence and the
+     experts over 4 trustees); then the prefill's last-position logits on
+     the serve's prompt against the serve's decode logits there, the MoE
+     dropped fractions of both beside them; then one decode step with
+     mla_absorb on against off from the same cache;
+  8. times — each kernel at the main path's shapes: the median of five
      profiler readings of its own kernels (their spread and the records
      the profiler kept beside it) and CUDA events with the host ahead of
      the card, beside its bound (bytes over 3.35 TB/s, or for
-     flash_attention flops over 989 TFLOP/s), its plain version and a
-     library call where one PyTorch call computes the same function; each
-     path's ops/s or tokens/s on a host clock; the device's busy share.
+     flash_attention and grouped_matmul flops over 989 TFLOP/s where
+     that is the larger), its plain version and a library call where one
+     PyTorch call computes the same function (flash also at the MLA
+     prefill's D 192, grouped_matmul at the prefill's and a decode step's
+     shapes); each path's ops/s or tokens/s on a host clock; the device's
+     busy share and top device ops.
 
 Launch counters are zeroed just before each main path (phases 3, 4, the
-timed run of 5 and each timed prefill of 6) and read just after; every
-kernel of a path must have launched there.  The line before the last is
-{"kernels": [...]}; the last is the device line.
+timed run of 5, each timed prefill of 6 and 7, and the serve of 7) and
+read just after; every kernel of a path must have launched there. The line
+before the last is {"kernels": [...]}; the last is the device line.
 """
 import argparse
 import dataclasses
@@ -94,6 +119,8 @@ SOURCES = {
                         "src/repro/kernels/paged_attention.py:31"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:26"),
+    "grouped_matmul": ("src/repro_torch/csrc/grouped_matmul.cu",
+                       "src/repro/kernels/grouped_matmul.py:25"),
 }
 KV_KERNELS = ("delegation_pack", "gather", "scatter_last", "segmented_add")
 # what each kernel's launches are called in a profiler trace, and the
@@ -104,7 +131,8 @@ KERNEL_NAMES = {"delegation_pack": "delegation_pack_kernel",
                 "segmented_add": "seg_add_",
                 "pagetable_serve": "pagetable_serve_kernel",
                 "paged_attention": "paged_attention_kernel",
-                "flash_attention": "flash_attention_kernel"}
+                "flash_attention": "flash_attention_kernel",
+                "grouped_matmul": "grouped_matmul_kernel"}
 PAGED_KERNELS = ("delegation_pack", "pagetable_serve", "paged_attention")
 # the paged-decode main path: one qwen2.5-3b attention layer (16 query / 2
 # KV heads of 128, QKV bias, rope 1e6) in bf16 over a 4096-page pool of
@@ -519,7 +547,7 @@ def phase_mixed(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: times
+# phase 8: times
 # ---------------------------------------------------------------------------
 
 def device_events(torch, fn, iters=20, name=None):
@@ -939,6 +967,9 @@ def phase_paged_kernels(torch, dev, errs):
 # the qwen2.5-3b prefill's attention: B 4 x 2048 tokens, 16 query / 2 KV
 # heads of 128, causal, bf16
 FA_MAIN = dict(b=4, hq=16, hkv=2, sq=2048, skv=2048, d=128)
+# the deepseek-v2-lite-16b prefill's MLA attention: 16 heads of 128 nope +
+# 64 rope dims, V padded from 128 to 192
+FA_MLA = dict(b=4, hq=16, hkv=16, sq=2048, skv=2048, d=192)
 
 
 def fa_case(torch, dev, b, hq, hkv, sq, skv, d, seed, bshd=False):
@@ -984,6 +1015,10 @@ def phase_flash_kernels(torch, dev, errs):
         ("ragged Sq 100 at q_offset 257 of Skv 357",
          dict(b=1, hq=8, hkv=2, sq=100, skv=357, d=128),
          dict(q_offset=257), False),
+        ("D 192, the MLA prefill's shape and layout",
+         dict(FA_MLA, bshd=True), {}, False),
+        ("D 192, ragged Sq = Skv = 333", dict(b=1, hq=4, hkv=4, sq=333,
+                                             skv=333, d=192), {}, False),
     ]
     errs["flash_attention"] = 0.0
     for i, (label, shape, kw, main) in enumerate(cases):
@@ -1015,6 +1050,74 @@ def phase_flash_kernels(torch, dev, errs):
         say(f"[kernels] flash_attention refuses f32 on the card: {e}")
     else:
         raise AssertionError("flash_attention accepted f32 on the card")
+
+
+# ---------------------------------------------------------------------------
+# phase 2, grouped matmul: the MoE expert FFN kernel against its plain
+# version
+# ---------------------------------------------------------------------------
+
+# the deepseek-v2-lite-16b expert FFN's shapes on the main path, T = 4:
+# the prefill's B 4 x 2048 tokens fill cap2 = 3072 slots per expert, a
+# decode step's B 8 tokens cap2 = 8
+GMM_PREFILL = dict(e=64, c=3072, d=2048, f=1408)
+GMM_DECODE = dict(e=64, c=8, d=2048, f=1408)
+
+
+def gmm_case(torch, dev, e, c, d, f, seed, fill=1.0):
+    """Random bf16 x (E, C, D) and w (E, D, F) at the weights' scale;
+    with ``fill`` < 1 only that leading share of each expert's slots is
+    filled, the rest zero (the serve's empty slots)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((e, c, d), generator=g, device=dev).to(torch.bfloat16)
+    x[:, int(round(fill * c)):] = 0
+    w = (torch.randn((e, d, f), generator=g, device=dev) / d ** 0.5).to(
+        torch.bfloat16)
+    return x, w
+
+
+def phase_gmm_kernels(torch, dev, errs):
+    """grouped_matmul against its plain version: the prefill's and the
+    decode's shapes (gate / up and down), ragged C / D / F, E = 1, C = 1,
+    zero slots, within ``kernels/grouped_matmul.py::tolerance``; f32
+    refused."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.testing.model import gmm_within
+    cases = [
+        ("prefill gate / up, a quarter of the slots filled",
+         dict(GMM_PREFILL, fill=0.25), True),
+        ("prefill down", dict(GMM_PREFILL, d=1408, f=2048), False),
+        ("decode gate / up", GMM_DECODE, False),
+        ("decode down", dict(GMM_DECODE, d=1408, f=2048), False),
+        ("ragged C 13, D 72, F 40", dict(e=3, c=13, d=72, f=40), False),
+        ("D 77, F 33 (not multiples of 8)", dict(e=2, c=200, d=77, f=33),
+         False),
+        ("E 1", dict(e=1, c=129, d=2048, f=1408), False),
+        ("C 1", dict(e=64, c=1, d=2048, f=1408), False),
+    ]
+    errs["grouped_matmul"] = 0.0
+    for i, (label, shape, main) in enumerate(cases):
+        x, w = gmm_case(torch, dev, seed=110 + i, **shape)
+        got = kops.grouped_matmul(x, w)
+        torch.cuda.synchronize()
+        want = kops.grouped_matmul(x, w, impl="ref")
+        ok, err = gmm_within(got, want, x, w)
+        require(ok, f"grouped_matmul [{label}]: max abs err {err} beyond "
+                f"the tolerance")
+        if "fill" in shape:
+            c0 = int(round(shape["fill"] * shape["c"]))
+            require(bool((got[:, c0:] == 0).all()),
+                    "grouped_matmul: an empty slot did not answer zeros")
+        if main:
+            errs["grouped_matmul"] = err
+        say(f"[kernels] grouped_matmul [{label}] == plain (bf16, max abs "
+            f"err {err:.3g})")
+    try:
+        kops.grouped_matmul(x.float(), w.float())
+    except TypeError as e:
+        say(f"[kernels] grouped_matmul refuses f32 on the card: {e}")
+    else:
+        raise AssertionError("grouped_matmul accepted f32 on the card")
 
 
 # ---------------------------------------------------------------------------
@@ -1303,22 +1406,282 @@ def phase_qwen(torch, dev, gpu, report, errs):
         f"<= {agree['rtol']}, max abs {agree['max_abs']:.4g}, argmax agrees "
         f"on {agree['argmax_agree'] * 100:.1f}% of rows")
     report["qwen_agreement"] = agree
-    return cfg.n_layers, chk_inputs, params, run
+    del params, pre
+    return cfg.n_layers, chk_inputs, run
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the deepseek-v2-lite-16b MoE serve path at full width
+# ---------------------------------------------------------------------------
+
+# prefill_step at B 4 x 2048 tokens with the experts over T = 4 trustees;
+# serve.main over 8 requests, 64 prompt tokens teacher-forced and 64
+# generated, the latent cache's sequence and the experts over 4 trustees
+DS_ARCH = "deepseek-v2-lite-16b"
+DS_PREFILL = dict(batch=4, seq=2048, mesh_model=4)
+DS_SERVE = dict(batch=8, prompt_len=64, gen=64, mesh_model=4)
+DS_TIMED_RUNS = 2
+DS_ABSORB_STEPS = 16
+
+
+def ds_serve_argv():
+    q = DS_SERVE
+    return ["--arch", DS_ARCH, "--batch", str(q["batch"]),
+            "--prompt-len", str(q["prompt_len"]), "--gen", str(q["gen"]),
+            "--mesh-model", str(q["mesh_model"])]
+
+
+class FirstCalls:
+    """Inside the context, keeps copies of the arguments of the first
+    ``n`` kernel calls of ``kops.<name>`` (for the times phase) in
+    ``calls``; the calls run unchanged."""
+
+    def __init__(self, name, n=1):
+        self.name, self.n, self.calls = name, n, []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops as kops
+        self._kops, self._fn = kops, getattr(kops, self.name)
+        setattr(kops, self.name, self._call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self._kops, self.name, self._fn)
+
+    def _call(self, *args, impl="kernel"):
+        if len(self.calls) < self.n and impl == "kernel":
+            self.calls.append(tuple(a.clone() if hasattr(a, "clone")
+                                    else a for a in args))
+        return self._fn(*args, impl=impl)
+
+
+def phase_deepseek(torch, dev, gpu, report, errs):
+    """The slice's main path at full width (27 layers: a dense first layer
+    and 26 MoE layers of 64 routed experts top-6 plus 2 shared, MLA with
+    rank 512, d_model 2048, vocab 102400, bf16; 15.65 B random parameters
+    from seed 0 drawn on the card, the serve's own): (a) prefill_step at
+    B 4 x 2048 over T = 4 trustees — a check run holding each of its 27
+    flash launches (D 192) and 78 grouped-matmul launches against the plain
+    versions, then timed runs, each with the counters zeroed just before it
+    and read just after; (b) serve.main, 8 x (64 + 64) tokens over 4
+    trustees; (c) the prefill's last-position logits on the serve's prompt
+    against the serve's decode logits there, the MoE's dropped fractions
+    of both beside them; (d) one decode step with mla_absorb on against
+    off from the same cache."""
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    from repro_torch.testing.model import (DecodeLogits, FlashCheck,
+                                           GmmCheck, MoEStats,
+                                           logits_agreement)
+    cfg = get_arch(DS_ARCH)
+    n_moe = cfg.n_layers - 1
+    b, s = DS_PREFILL["batch"], DS_PREFILL["seq"]
+    mesh = MeshConfig((1, DS_PREFILL["mesh_model"]), ("data", "model"))
+    run = RunConfig(model=cfg, shape=ShapeConfig("prefill", s, b, "prefill"),
+                    mesh=mesh, remat="none", use_pallas=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, run, dev)
+    torch.cuda.synchronize()
+    n_params = M.count_params(params)
+    say(f"[deepseek] {cfg.name}: {n_params / 1e9:.3f} B parameters "
+        f"({M.active_param_count(cfg, n_params) / 1e9:.3f} B active a "
+        f"token) drawn on the card in {time.perf_counter() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated)")
+    plan = build_cell(cfg, run.shape, run)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    kops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with FlashCheck() as fchk, GmmCheck() as gchk, MoEStats() as moe, \
+            FirstCalls("delegation_pack", 2) as packs:
+        logits = plan.step_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    f, g = fchk.summary(), gchk.summary()
+    require(counts["flash_attention"] == cfg.n_layers
+            and f["flash_calls"] == cfg.n_layers,
+            f"deepseek prefill check run: {counts['flash_attention']} flash "
+            f"launches, {f['flash_calls']} checked, want {cfg.n_layers}")
+    require(counts["grouped_matmul"] == 3 * n_moe
+            and g["gmm_calls"] == 3 * n_moe,
+            f"deepseek prefill check run: {counts['grouped_matmul']} "
+            f"grouped-matmul launches, {g['gmm_calls']} checked, want "
+            f"{3 * n_moe}")
+    require(f["flash_calls_out_of_tolerance"] == 0
+            and g["gmm_calls_out_of_tolerance"] == 0,
+            f"deepseek prefill: kernel calls beyond the tolerance: {f} {g}")
+    require(tuple(logits.shape) == (b, cfg.vocab_size)
+            and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()),
+            f"deepseek prefill logits: {tuple(logits.shape)} "
+            f"{logits.dtype}, finite {bool(torch.isfinite(logits).all())}")
+    errs["flash_attention"] = max(errs.get("flash_attention", 0.0),
+                                  f["flash_max_abs_err"])
+    errs["grouped_matmul"] = max(errs.get("grouped_matmul", 0.0),
+                                 g["gmm_max_abs_err"])
+    m = moe.summary()
+    say(f"[deepseek check] prefill B {b} x {s} over "
+        f"{DS_PREFILL['mesh_model']} trustees: {counts['flash_attention']} "
+        f"flash launches (D 192) and {counts['grouped_matmul']} "
+        f"grouped-matmul launches at {g['gmm_shapes']}, every call == plain "
+        f"(max abs err flash {f['flash_max_abs_err']:.3g}, grouped matmul "
+        f"{g['gmm_max_abs_err']:.3g}); logits ({b}, {cfg.vocab_size}) f32, "
+        f"finite; MoE dropped fraction of tokens mean "
+        f"{m['moe_dropped_frac_mean']:.6f}, max "
+        f"{m['moe_dropped_frac_max']:.6f} over {m['moe_calls']} layers, max "
+        f"load {m['moe_max_load']:.0f} rows; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"launches {json.dumps(counts)}")
+    # layer 1's inputs, for the times phase (the weights copied out of
+    # the stacked leaf, so the leaf can be freed)
+    mla_inputs = fchk.first
+    gmm_prefill = (gchk.first[0], gchk.first[1].clone())
+    del fchk, gchk, logits
+
+    secs = []
+    for _ in range(DS_TIMED_RUNS):
+        kops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = plan.step_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = kops.launch_counts()
+        for k, want in (("flash_attention", cfg.n_layers),
+                        ("grouped_matmul", 3 * n_moe),
+                        ("delegation_pack", 2 * n_moe)):
+            require(counts[k] == want, f"deepseek prefill timed run: "
+                    f"{counts[k]} {k} launches, want {want}")
+        require(bool(torch.isfinite(again).all()),
+                "deepseek prefill timed run: logits not finite")
+    say(f"[main path] deepseek prefill launches (each of {DS_TIMED_RUNS} "
+        f"timed runs): {json.dumps(counts)}")
+    prefill_counts = dict(counts)
+    med = sorted(secs)[len(secs) // 2]
+    report["deepseek_prefill"] = dict(seconds=secs, tokens_per_s=b * s / med)
+    say(f"[deepseek] {gpu} | prefill B {b} x {s}: "
+        + ", ".join(f"{x * 1e3:.3f}" for x in secs)
+        + f" ms; median {b * s / med:.1f} tokens/s")
+    del params, again
+    torch.cuda.empty_cache()
+
+    prompt_len = DS_SERVE["prompt_len"]
+    stats = {}
+    kops.reset_launch_counts()
+    with DecodeLogits(pos=prompt_len - 1) as rec, MoEStats() as dec_moe, \
+            FirstCalls("grouped_matmul") as first:
+        out = serve.main(ds_serve_argv(), stats=stats)
+    counts = kops.launch_counts()
+    steps = stats["steps"]
+    say(f"[main path] deepseek serve launches over {steps} steps: "
+        f"{json.dumps(counts)} (decode attention is the plain trustee "
+        f"island, as in JAX; the experts run the kernels)")
+    require(counts["grouped_matmul"] == 3 * n_moe * steps,
+            f"deepseek serve: {counts['grouped_matmul']} grouped-matmul "
+            f"launches, want {3 * n_moe * steps}")
+    require(out.shape == (DS_SERVE["batch"], DS_SERVE["gen"])
+            and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+            f"serve tokens: shape {out.shape}, range {out.min()}..{out.max()}")
+    require(rec.logits is not None and bool(torch.isfinite(rec.logits)
+                                            .all()),
+            "serve: no finite decode logits at the last prompt position")
+    report["deepseek_serve"] = stats
+    dm = dec_moe.summary()
+    say(f"[deepseek] {gpu} | serve {DS_SERVE['batch']} x ({prompt_len} + "
+        f"{DS_SERVE['gen']}) over {DS_SERVE['mesh_model']} trustees: "
+        f"{steps} steps in {stats['seconds']:.3f} s, "
+        f"{stats['ms_per_step']:.3f} ms/step, {stats['tokens_per_s']:.1f} "
+        f"tokens/s (batch x steps over the loop's wall time); MoE dropped "
+        f"fraction of tokens mean {dm['moe_dropped_frac_mean']:.6f}, max "
+        f"{dm['moe_dropped_frac_max']:.6f}")
+
+    # the serve's weights (seed 0 on the card, as serve.main draws them)
+    # through prefill_step on the serve's prompt
+    params = M.init_params(cfg, run, dev)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(prompt_len, DS_SERVE["batch"])).T
+    pplan = build_cell(cfg, ShapeConfig("prompt", prompt_len,
+                                        DS_SERVE["batch"], "prefill"), run)
+    with MoEStats() as pre_moe:
+        pre = pplan.step_fn(params, {"tokens": torch.as_tensor(prompt,
+                                                               device=dev)})
+    agree = logits_agreement(pre, rec.logits, torch.bfloat16, cfg)
+    pm = pre_moe.summary()
+    say(f"[deepseek check] prefill logits at position {prompt_len - 1} vs "
+        f"the serve's decode logits there: relative RMS "
+        f"{agree['rel_rms']:.4g} (<= {agree['rtol']}), max abs "
+        f"{agree['max_abs']:.4g}, argmax agrees on "
+        f"{agree['argmax_agree'] * 100:.1f}% of rows; MoE dropped fraction "
+        f"of tokens: prefill mean {pm['moe_dropped_frac_mean']:.6f} (max "
+        f"{pm['moe_dropped_frac_max']:.6f}), serve decode mean "
+        f"{dm['moe_dropped_frac_mean']:.6f} (max "
+        f"{dm['moe_dropped_frac_max']:.6f})")
+    require(agree["ok"], f"deepseek prefill vs serve decode logits at "
+            f"position {prompt_len - 1}: {agree}")
+    report["deepseek_agreement"] = dict(agree, prefill_dropped=pm,
+                                        decode_dropped=dm)
+
+    # one decode step with mla_absorb on against off, from the same cache
+    q = DS_SERVE
+    t = q["mesh_model"]
+    max_len = -(-(q["prompt_len"] + q["gen"]) // t) * t
+    drun = dataclasses.replace(run, shape=ShapeConfig(
+        "decode", max_len, q["batch"], "decode"))
+    cache = M.init_cache(cfg, q["batch"], max_len, drun, dev)
+    ptok = torch.as_tensor(prompt, device=dev)
+    for i in range(DS_ABSORB_STEPS):
+        pos = torch.full((q["batch"],), i, dtype=torch.int32, device=dev)
+        M.decode_step(params, cache, ptok[:, i], pos, cfg, drun)
+    pos = torch.full((q["batch"],), DS_ABSORB_STEPS, dtype=torch.int32,
+                     device=dev)
+    tok = ptok[:, DS_ABSORB_STEPS]
+
+    def copy(tree):
+        if isinstance(tree, dict):
+            return {k: copy(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [copy(v) for v in tree]
+        return tree.clone()
+    outs = {}
+    for absorb in (False, True):     # each from its own copy of the cache
+        outs[absorb], _ = M.decode_step(
+            params, copy(cache), tok, pos, cfg,
+            dataclasses.replace(drun, mla_absorb=absorb))
+    ab = logits_agreement(outs[True], outs[False], torch.bfloat16, cfg)
+    say(f"[deepseek check] decode step at position {DS_ABSORB_STEPS} with "
+        f"mla_absorb on vs off (the same cache): relative RMS "
+        f"{ab['rel_rms']:.4g} (<= {ab['rtol']}), max abs "
+        f"{ab['max_abs']:.4g}, argmax agrees on "
+        f"{ab['argmax_agree'] * 100:.1f}% of rows")
+    require(ab["ok"], f"mla_absorb on vs off: {ab}")
+    report["deepseek_absorb"] = ab
+    del cache, outs, pre
+    torch.cuda.empty_cache()
+    return (prefill_counts, mla_inputs, gmm_prefill, first.calls[0],
+            packs.calls, params, run)
 
 
 def short(name, n=60):
     return name if len(name) <= n else name[:n] + "..."
 
 
-def phase_qwen_busy(torch, dev, gpu, params, run):
+def phase_qwen_busy(torch, dev, gpu, run):
     """Where the time of the qwen path goes: the device busy share and the
     top device ops of one B 4 x 2048 prefill call, and of 16 decode steps
     of the serve's shape (8 sequences at positions 128-143 of a 256-long
-    cache over 4 trustees), from a profiler trace."""
+    cache over 4 trustees), from a profiler trace.  The weights (seed 0)
+    are drawn again here and freed at the end."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.steps import build_cell
     from repro_torch.models import model as M
     cfg = run.model
+    params = M.init_params(cfg, run, dev)
     b, s = QWEN_PREFILL["batch"], QWEN_PREFILL["seq"]
     plan = build_cell(cfg, ShapeConfig("prefill", s, b, "prefill"), run)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev)
@@ -1350,6 +1713,8 @@ def phase_qwen_busy(torch, dev, gpu, params, run):
         f"{wall * 1e3 / 16:.3f} ms wall a step under the profiler); top "
         f"device ops: " + "; ".join(
             f"{short(n)} {ms:.3f} ms / {c} calls" for n, ms, c in tops))
+    del params, cache
+    torch.cuda.empty_cache()
 
 
 def fa_work(q, k, q_offset, causal):
@@ -1368,8 +1733,9 @@ def fa_work(q, k, q_offset, causal):
     return flops, nbytes
 
 
-def phase_flash_times(torch, dev, gpu, inputs, launches):
-    """flash_attention at the prefill's own inputs (layer 0's q, k, v of
+def phase_flash_times(torch, dev, gpu, inputs, launches,
+                      label="qwen prefill"):
+    """flash_attention at a prefill's own inputs (layer 0's q, k, v of
     the check run, in the model's (B, S, H, D) layout): the median of five
     profiler readings, CUDA events with the host ahead, the bound
     (operations), the plain version and SDPA (timed here only)."""
@@ -1390,7 +1756,7 @@ def phase_flash_times(torch, dev, gpu, inputs, launches):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
     b, hq, sq, d = q.shape
-    say(f"[times] {gpu} | flash_attention @ qwen prefill (B {b}, Hq {hq}, "
+    say(f"[times] {gpu} | flash_attention @ {label} (B {b}, Hq {hq}, "
         f"Hkv {k.shape[1]}, S {sq}, D {d}, causal): {ms:.6f} ms/call (median "
         f"of 5 profiler readings of the kernel, {lo:.6f}..{hi:.6f}, kernel "
         f"records kept per reading of 20 calls {seen}; CUDA events with the "
@@ -1402,7 +1768,110 @@ def phase_flash_times(torch, dev, gpu, inputs, launches):
         f"(scaled_dot_product_attention, is_causal, enable_gqa), "
         f"{launches} launches a prefill call")
     return ("flash_attention", launches, ms, plain, bound, lib,
-            f"qwen prefill, B {b} x {sq}", "operations")
+            f"{label}, B {b} x {sq}, D {d}", "operations")
+
+
+def gmm_work(x, w):
+    """(flops, bytes) the grouped matmul must do on these inputs, counting
+    only the filled slots (rows of x that are not all zero: an empty slot
+    answers zeros and needs no work) and the weights of the experts that
+    have one; and the same counting every slot, as the kernel computes."""
+    e, c, d = x.shape
+    f = w.shape[2]
+    filled = x.ne(0).any(-1)                      # (E, C)
+    rows = int(filled.sum())
+    experts = int(filled.any(-1).sum())
+    need = (2 * rows * d * f,
+            2 * (rows * d + experts * d * f + rows * f))
+    dense = (2 * e * c * d * f, 2 * (e * c * d + e * d * f + e * c * f))
+    return need, dense, rows, experts
+
+
+def phase_gmm_times(torch, dev, gpu, args, launches, label):
+    """grouped_matmul at the main path's own inputs (layer 1's gate
+    projection): the median of five profiler readings, CUDA events with
+    the host ahead, the bound over the filled slots (and over every slot
+    beside it), the plain version and torch.bmm (timed here only)."""
+    from repro_torch.kernels import ops as kops
+    x, w = args
+    gm = lambda: kops.grouped_matmul(x, w)
+    ms, lo, hi, seen = device_readings(torch, gm,
+                                       KERNEL_NAMES["grouped_matmul"])
+    ev, host, ahead = ahead_ms(torch, gm)
+    clk = sm_clock_under(torch, gm, max(1, int(800 / max(ev, 1e-3))))
+    plain = kernel_ms(torch, lambda: kops.grouped_matmul(x, w, impl="ref"),
+                      iters=5)[0]
+    lib = kernel_ms(torch, lambda: torch.bmm(x, w))[0]
+    (flops, nbytes), (dflops, dbytes), rows, experts = gmm_work(x, w)
+    t_ops = flops / BF16_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    dense = max(dflops / BF16_FLOPS, dbytes / HBM_BYTES_PER_S) * 1e3
+    e, c, d = x.shape
+    say(f"[times] {gpu} | grouped_matmul @ {label} (E {e}, C {c}, D {d}, F "
+        f"{w.shape[2]}; {rows} of {e * c} slots filled, {experts} experts "
+        f"with one): {ms:.6f} ms/call (median of 5 profiler readings of the "
+        f"kernel, {lo:.6f}..{hi:.6f}, kernel records kept per reading of 20 "
+        f"calls {seen}; CUDA events with the host "
+        f"{'ahead' if ahead else 'NOT ahead'} {ev:.6f} ms/call, host issue "
+        f"{host:.6f} ms/call; SM clock under back-to-back calls, max: "
+        f"{clk}), {dflops / ms / 1e9:.1f} TFLOP/s over every slot; plain "
+        f"{plain:.6f} ms, bound {bound:.6f} ms by {by} over the filled "
+        f"slots (operations {t_ops:.6f} ms for {flops} flops, bytes "
+        f"{t_bytes:.6f} ms for {nbytes} bytes; over every slot {dense:.6f} "
+        f"ms, {dflops} flops, {dbytes} bytes), library {lib:.6f} ms "
+        f"(torch.bmm, bf16), {launches} launches a call of the path")
+    return ("grouped_matmul", launches, ms, plain, bound, lib,
+            f"{label}, E {e} x C {c}, D {d}", by)
+
+
+def phase_ds_pack_times(torch, gpu, packs, counts):
+    """delegation_pack at the deepseek prefill's own inputs (layer 1's
+    channel pack of the clients' (token, expert) rows, 2,049 words each,
+    and the trustees' second-level pack by expert): profiler readings,
+    the bound (bytes), the plain version."""
+    from repro_torch.kernels import ops as kops
+    for label, args in zip(("channel pack", "trustee pack by expert"),
+                           packs):
+        pk = lambda: kops.delegation_pack(*args)
+        ms, lo, hi, seen = device_readings(
+            torch, pk, KERNEL_NAMES["delegation_pack"], iters=5)
+        ev, host, ahead = ahead_ms(torch, pk, iters=5)
+        if ms == 0:                 # the profiler kept no kernel record
+            ms = ev
+        plain = kernel_ms(torch, lambda: kops.delegation_pack(
+            *args, impl="ref"), iters=3)[0]
+        nbytes = pack_bytes(args)
+        d, r, w = args[1].shape
+        say(f"[times] {gpu} | delegation_pack @ deepseek prefill, {label} "
+            f"({d} shards x {r} rows of {w} words to {args[2]} "
+            f"destinations, capacity {args[3]} + {args[4]}): {ms:.6f} "
+            f"ms/call (median of the profiler readings of 5 calls that "
+            f"kept records, {lo:.6f}..{hi:.6f}, records kept {seen}; CUDA "
+            f"events with the host {'ahead' if ahead else 'NOT ahead'} "
+            f"{ev:.6f} ms/call), plain {plain:.6f} "
+            f"ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms "
+            f"({nbytes} bytes), library n/a, "
+            f"{counts['delegation_pack'] // 2} such launches a prefill call")
+
+
+def phase_deepseek_busy(torch, dev, gpu, params, run):
+    """Where the time of the deepseek prefill goes: the device busy share
+    and the top device ops of one B 4 x 2048 call over 4 trustees, from a
+    profiler trace."""
+    from repro_torch.launch.steps import build_cell
+    cfg = run.model
+    b, s = DS_PREFILL["batch"], DS_PREFILL["seq"]
+    plan = build_cell(cfg, run.shape, run)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev)
+    busy, wall, tops = busy_share(
+        torch, lambda: plan.step_fn(params, {"tokens": tokens}), 1, 10)
+    say(f"[busy] {gpu} | deepseek prefill B {b} x {s} over "
+        f"{DS_PREFILL['mesh_model']} trustees: device busy "
+        f"{busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
+        f"({100 * busy / wall:.1f}% busy); top device ops: " + "; ".join(
+            f"{short(n)} {ms:.3f} ms / {c} calls" for n, ms, c in tops))
 
 
 def pt_bytes(op, state, args):
@@ -1539,7 +2008,7 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1589,6 +2058,7 @@ def main(argv=None):
         errs = phase_kernels(torch, dev, shapes)
         phase_paged_kernels(torch, dev, errs)
         phase_flash_kernels(torch, dev, errs)
+        phase_gmm_kernels(torch, dev, errs)
 
     # the main paths, each with the counters zeroed just before it and read
     # just after: kv_paper (a) and (b), 40 kernel-path rounds each (the (a)
@@ -1624,20 +2094,42 @@ def main(argv=None):
     if 6 in phases:
         qwen = phase_qwen(torch, dev, gpu, report, errs)
         launches["flash_attention"] += qwen[0]
-    per_round["launches"] = launches
-    say(f"[main path] kernel launches over phases 3-6 (one prefill call in "
-        f"phase 6): {json.dumps(launches)}")
-
+    deep = None
     if 7 in phases:
-        require(phases >= {2, 3, 4, 5, 6},
-                "phase 7 reports the main paths' launches and the kernels' "
-                "errors against their plain versions: run phases 2-6")
+        deep = phase_deepseek(torch, dev, gpu, report, errs)
+        for k, v in deep[0].items():
+            launches[k] += v
+    per_round["launches"] = launches
+    say(f"[main path] kernel launches over phases 3-7 (one prefill call in "
+        f"phases 6 and 7): {json.dumps(launches)}")
+
+    if 8 in phases:
+        require(phases >= {2, 3, 4, 5, 6, 7},
+                "phase 8 reports the main paths' launches and the kernels' "
+                "errors against their plain versions: run phases 2-7")
         rows = phase_times(torch, dev, shapes, errs, per_round, gpu)
         counts, rec, waves, inputs = paged
         timed = [r + ("bytes",) for r in phase_paged_times(
             torch, dev, gpu, rec, waves, counts, inputs)]
         timed.append(phase_flash_times(torch, dev, gpu, qwen[1], qwen[0]))
-        phase_qwen_busy(torch, dev, gpu, *qwen[2:])
+        (ds_counts, mla_inputs, gmm_prefill, gmm_decode, ds_packs,
+         ds_params, ds_run) = deep
+        phase_ds_pack_times(torch, gpu, ds_packs, ds_counts)
+        phase_flash_times(torch, dev, gpu, mla_inputs,
+                          ds_counts["flash_attention"],
+                          label="deepseek MLA prefill")
+        timed.append(phase_gmm_times(torch, dev, gpu, gmm_prefill,
+                                     ds_counts["grouped_matmul"],
+                                     "deepseek prefill"))
+        phase_gmm_times(torch, dev, gpu, gmm_decode,
+                        3 * (ds_run.model.n_layers - 1),
+                        "deepseek decode step")
+        phase_qwen_busy(torch, dev, gpu, qwen[2])
+        phase_deepseek_busy(torch, dev, gpu, ds_params, ds_run)
+        del ds_params, deep
+        for k in ("qwen_prefill", "qwen_serve", "deepseek_prefill",
+                  "deepseek_serve"):
+            say(f"[tokens/s] {gpu} | {k}: {report[k]['tokens_per_s']:.1f}")
         for (kname, n, ms, plain, bound, lib, label, by) in timed:
             src, replaces = SOURCES[kname]
             rows.append({"name": kname, "route": "cuda", "source": src,

@@ -3,7 +3,8 @@
 names, defaults and derived helpers, so a configuration reads the same in
 both packages.
 
-``ModelConfig`` describes one architecture, ``ShapeConfig`` one
+``ModelConfig`` describes one architecture (``MoEConfig`` its routed
+experts), ``ShapeConfig`` one
 (seq_len, global_batch, kind) input cell, ``MeshConfig`` the (data, model)
 mesh whose shards the port stacks on one device, and ``RunConfig`` couples
 them with the precision and kernel settings the serve path reads.
@@ -26,6 +27,19 @@ ACT_GELU = "gelu"             # GeGLU gating
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0            # routed experts
+    top_k: int = 0
+    num_shared: int = 0             # shared (always-on) experts
+    d_ff_expert: int = 0            # per-expert hidden size
+    capacity_factor: float = 1.25   # primary slot capacity (paper: slot size)
+    overflow: str = "second_round"  # "drop" | "second_round" | "defer"
+    overflow_factor: float = 1.0    # overflow round capacity factor
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                      # dense | moe | hybrid | ssm | vlm | audio
@@ -39,10 +53,15 @@ class ModelConfig:
     attn_kind: str = ATTN_GQA
     qkv_bias: bool = False
     qk_norm: bool = False
+    mla_kv_lora_rank: int = 0        # MLA latent rank
+    mla_q_nope_dim: int = 128
+    mla_q_rope_dim: int = 64
+    mla_v_head_dim: int = 128
     rope_theta: float = 10_000.0
     mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (t, h, w)
     act: str = ACT_SILU
     ffn_kind: str = FFN_DENSE
+    moe: MoEConfig = field(default_factory=MoEConfig)
     moe_every: int = 1               # layer i is MoE iff i % moe_every
     moe_offset: int = 0              # == moe_offset
     first_layer_dense: bool = False  # deepseek: layer 0 dense in MoE nets
@@ -110,5 +129,8 @@ class RunConfig:
     activation_dtype: str = "bfloat16"
     remat: str = "dots"              # training only: "none" | "dots" | "full"
     sp_residual: bool = False        # sequence-parallel residual stream
+    local_shortcut: bool = True      # MoE dispatch: self-addressed rows
+                                     # skip the channel
+    mla_absorb: bool = False         # MLA decode scores in latent space
     use_pallas: bool = False         # the port: the CUDA kernels if True
     seed: int = 0

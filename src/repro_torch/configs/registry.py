@@ -7,19 +7,23 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from . import qwen2_5_3b
+from . import deepseek_v2_lite_16b, qwen2_5_3b
 from .base import ModelConfig
 
-ARCHS: Dict[str, ModelConfig] = {"qwen2.5-3b": qwen2_5_3b.CONFIG}
-SMOKE_ARCHS: Dict[str, ModelConfig] = {"qwen2.5-3b": qwen2_5_3b.SMOKE}
+_MODULES = {"qwen2.5-3b": qwen2_5_3b,
+            "deepseek-v2-lite-16b": deepseek_v2_lite_16b}
+ARCHS: Dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}
+SMOKE_ARCHS: Dict[str, ModelConfig] = {k: m.SMOKE
+                                       for k, m in _MODULES.items()}
 
 # the JAX registry's other architectures and what they wait for
 UNPORTED = {
     "qwen2-vl-2b": "M-RoPE and embedding inputs (ROADMAP queue A 13)",
-    "jamba-v0.1-52b": "Mamba and MoE layers (ROADMAP queue A 13(b), 13(c))",
-    "arctic-480b": "MoE layers (ROADMAP queue A 13(b))",
-    "deepseek-v2-lite-16b": "MLA attention and MoE layers (ROADMAP queue "
-                            "A 13(b))",
+    "jamba-v0.1-52b": "Mamba layers (ROADMAP queue A 13(c)); its 104 GB of "
+                      "bf16 weights also exceed one card",
+    "arctic-480b": "more than one card: its 480 B parameters do not fit one "
+                   "H100's 80 GB (its MoE layers are ported, ROADMAP queue "
+                   "A 13(b))",
     "qwen1.5-32b": "its configuration (ROADMAP queue A 13)",
     "qwen3-4b": "its configuration (ROADMAP queue A 13)",
     "gemma-7b": "GeGLU, tied and scaled embeddings (ROADMAP queue A 13)",

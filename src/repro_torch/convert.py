@@ -7,10 +7,12 @@ port holds the same leaf STACKED, ``(T, rows, ...)``, on one device.  The
 two are one reshape apart; these functions make it, so a test can start
 both stores from the same table and compare them row by row.
 
-Model weights keep the JAX tree's keys and layouts, so they carry across
-as a plain tree map (``model_params_from_jax``); the decode KV cache is
-stacked by trustee in the port and laid end to end along the sequence in
-JAX (``kv_cache_to_global``).
+Model weights keep the JAX tree's keys and layouts — the dense prefix
+layers a list, MLA and MoE leaves (experts ``(n_groups, E, D, F)``, the
+shared experts' MLP) as JAX holds them — so they carry across as a plain
+tree map (``model_params_from_jax``); the decode KV cache (or MLA latent
+cache) is stacked by trustee in the port and laid end to end along the
+sequence in JAX (``kv_cache_to_global``).
 """
 from __future__ import annotations
 
@@ -84,15 +86,20 @@ def model_params_from_jax(params: Dict, device=None, dtype=None) -> Dict:
     after ``np.asarray``) -> the port's tree: the same keys and layouts
     (layer leaves stacked ``(n_groups, ...)`` under ``groups/pos<j>``),
     copied onto ``device``.  ``dtype`` casts every leaf but the norm
-    scales (``scale`` leaves), which stay f32 as in JAX."""
+    scales (``scale`` leaves) and the f32 MoE router, which stay f32 as
+    in JAX."""
     from .core.meshctx import resolve_device
     dev = resolve_device(device)
 
     def conv(tree, key=None):
         if isinstance(tree, dict):
             return {k: conv(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v, key) for v in tree]
         t = torch.tensor(np.asarray(tree), device=dev)
-        return t if dtype is None or key == "scale" else t.to(dtype)
+        keep = key == "scale" or (key == "router" and
+                                  t.dtype == torch.float32)
+        return t if dtype is None or keep else t.to(dtype)
     return conv(params)
 
 
@@ -101,6 +108,8 @@ def model_params_to_numpy(params: Dict) -> Dict:
     has no bfloat16), copied."""
     if isinstance(params, dict):
         return {k: model_params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [model_params_to_numpy(v) for v in params]
     t = params.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -108,10 +117,13 @@ def model_params_to_numpy(params: Dict) -> Dict:
 
 
 def kv_cache_to_global(cache: Dict) -> Dict[str, np.ndarray]:
-    """The port's stacked decode cache — each leaf ``(..., T, B, Hkv,
-    S/T, Dh)`` — -> numpy in the JAX layout ``(..., B, Hkv, S, Dh)``, the
-    trustees' shards laid end to end along the sequence."""
-    def glob(leaf):
-        x = leaf.detach().cpu().float().movedim(-5, -3)   # (.., B, Hkv, T, ..)
+    """The port's stacked decode cache -> numpy in the JAX layout, the
+    trustees' shards laid end to end along the sequence: GQA leaves
+    ``k`` / ``v`` ``(..., T, B, Hkv, S/T, Dh)`` -> ``(..., B, Hkv, S,
+    Dh)``, MLA leaves ``latent`` / ``k_rope`` ``(..., T, B, S/T, r)`` ->
+    ``(..., B, S, r)``."""
+    def glob(leaf, lead_dims):
+        x = leaf.detach().cpu().float().movedim(-lead_dims, -3)
         return x.reshape(x.shape[:-3] + (-1, x.shape[-1])).numpy().copy()
-    return {k: glob(v) for k, v in cache.items()}
+    return {k: glob(v, 4 if k in ("latent", "k_rope") else 5)
+            for k, v in cache.items()}

@@ -35,7 +35,11 @@
 //   * exp2 with the scale folded into log2(e) * scale.
 // Right and simple first: no cp.async / TMA pipelining, no wgmma, no warp
 // specialisation, and K/V are re-read per query head (the L2 holds them
-// across the Hq / Hkv heads of a group).
+// across the Hq / Hkv heads of a group).  The K and V tiles live in
+// dynamic shared memory: at D 192 (the MLA prefill: 128 nope + 64 rope
+// dims, V zero-padded from 128) they take 51,200 bytes, which needs the
+// opt-in past 48 KB; a thread then keeps 48 registers of Q fragments and
+// 96 of accumulator.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,8 +90,9 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int ND = D / 8;           // n-tiles of the output
   constexpr int NK = BK / 8;          // n-tiles of S
   constexpr int VPR = D / 8;          // 16-byte vectors per row
-  __shared__ __align__(16) uint16_t Ks[BK * LD];
-  __shared__ __align__(16) uint16_t Vs[BK * LD];
+  extern __shared__ __align__(16) uint16_t smem[];   // 2 * BK * LD
+  uint16_t* Ks = smem;
+  uint16_t* Vs = smem + BK * LD;
 
   const int bh = blockIdx.y;
   const int b = bh / Hq, h = bh % Hq;
@@ -238,11 +243,15 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// the K and V tiles, BK rows of D + 8 values each: 51,200 bytes at D 192,
+// past the 48 KB a launch gets without opting in
+constexpr int smem_bytes(int d) { return 2 * BK * (d + 8) * 2; }
+
 }  // namespace
 
 // Strides are in elements (the last dimension is contiguous); the wrapper
 // checks that every stride is a multiple of 8 and every pointer 16-byte
-// aligned, that D is 32, 64 or 128 and B * Hq fits the grid.
+// aligned, that D is 32, 64, 128 or 192 and B * Hq fits the grid.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
     int Hkv, int Sq, int Skv, int D, long long qsb, long long qsh,
@@ -254,13 +263,23 @@ extern "C" int flash_attention_launch(
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = (cudaStream_t)stream;
 #define FA_LAUNCH(DD)                                                       \
-  flash_attention_kernel<DD><<<grid, block, 0, s>>>(                        \
-      (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,           \
-      (uint16_t*)o, Hq, Hkv, Sq, Skv, qsb, qsh, qss, ksb, ksh, kss, vsb,    \
-      vsh, vss, osb, osh, oss, scale_log2, causal, q_offset)
+  do {                                                                      \
+    const int bytes = smem_bytes(DD);                                       \
+    if (bytes > 48 * 1024) {                                                \
+      const cudaError_t e = cudaFuncSetAttribute(                           \
+          flash_attention_kernel<DD>,                                       \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);              \
+      if (e != cudaSuccess) return (int)e;                                  \
+    }                                                                       \
+    flash_attention_kernel<DD><<<grid, block, bytes, s>>>(                  \
+        (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,         \
+        (uint16_t*)o, Hq, Hkv, Sq, Skv, qsb, qsh, qss, ksb, ksh, kss, vsb,  \
+        vsh, vss, osb, osh, oss, scale_log2, causal, q_offset);             \
+  } while (0)
   if (D == 32) FA_LAUNCH(32);
   else if (D == 64) FA_LAUNCH(64);
   else if (D == 128) FA_LAUNCH(128);
+  else if (D == 192) FA_LAUNCH(192);
   else return (int)cudaErrorInvalidValue;
 #undef FA_LAUNCH
   return (int)cudaGetLastError();

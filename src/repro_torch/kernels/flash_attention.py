@@ -24,7 +24,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _SIG = {"flash_attention_launch": (_P,) * 4 + (_I,) * 6 + (_L,) * 12
         + (_F, _I, _I, _P)}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192)
 
 
 def tolerance(v: torch.Tensor):

@@ -28,6 +28,7 @@ from .delegation_serve import segmented_add as _segmented_add_kernel
 from .delegation_serve import (check_gather, check_scatter_last,
                                check_segmented_add)
 from .flash_attention import flash_attention as _flash_attention_kernel
+from .grouped_matmul import grouped_matmul as _grouped_matmul_kernel
 from .paged_attention import paged_attention as _paged_attention_kernel
 from .pagetable_serve import pagetable_serve as _pagetable_serve_kernel
 
@@ -36,7 +37,8 @@ KERNELS = {"delegation_pack": _pack_kernel, "gather": _gather_kernel,
            "segmented_add": _segmented_add_kernel,
            "pagetable_serve": _pagetable_serve_kernel,
            "paged_attention": _paged_attention_kernel,
-           "flash_attention": _flash_attention_kernel}
+           "flash_attention": _flash_attention_kernel,
+           "grouped_matmul": _grouped_matmul_kernel}
 CHECKS = {"gather": check_gather, "scatter_last": check_scatter_last,
           "segmented_add": check_segmented_add}
 
@@ -114,3 +116,9 @@ def flash_attention(q, k, v, q_offset: Optional[int] = None,
     off = 0 if q_offset is None else int(q_offset)
     return _pick(impl, _flash_attention_kernel, ref.flash_attention)(
         q, k, v, q_offset=off, causal=causal, scale=scale)
+
+
+def grouped_matmul(x, w, impl: str = "kernel"):
+    """(E, C, D) @ (E, D, F) -> (E, C, F), one matmul per expert, f32
+    sums; see ``ref.grouped_matmul``."""
+    return _pick(impl, _grouped_matmul_kernel, ref.grouped_matmul)(x, w)

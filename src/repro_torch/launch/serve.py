@@ -4,13 +4,19 @@ of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --batch 8 --prompt-len 128 --gen 128 --mesh-model 4 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-lite-16b --batch 8 --prompt-len 64 --gen 64 \\
+        --mesh-model 4 [--smoke --device cpu]
 
 The prompt is teacher-forced through decode steps, then greedy decode
-follows; every step's (k, v) write is a delegated PUT to the owning
-trustee's shard and the query's partial answers are merged (see
-``models.attention.decode_attention``).  ``--mesh-model T`` is the number
-of trustee shards stacked on the card; the cache length is padded to a
-multiple of T.  Weights are random, drawn on the device from a seeded
+follows; every step's (k, v) write — for MLA the latent and k_rope rows
+— is a delegated PUT to the owning trustee's shard and the query's
+partial answers are merged (see ``models.attention.decode_attention``).
+``--mesh-model T`` is the number of trustee shards stacked on the card;
+the cache length is padded to a multiple of T.  A MoE model's routed
+experts are entrusted to the same T trustees (T must divide the expert
+count, else ``ValueError``), each token's rows delegated over the channel
+(``models.moe``).  Weights are random, drawn on the device from a seeded
 generator; the prompts come from ``np.random.default_rng(0)`` as in JAX,
 so both packages see the same tokens.  Runs on ``cuda`` unless given
 ``--device cpu``.
@@ -105,14 +111,19 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     max_len = args.prompt_len + args.gen
     max_len = ((max_len + t - 1) // t) * t      # a whole shard per trustee
     shape = ShapeConfig("cli", max_len, args.batch, "decode")
+    # use_pallas: the hand-written kernels wherever the decode step has
+    # one (the MoE's grouped matmul; the decode attention is the plain
+    # trustee island, as in JAX) — their plain versions on CPU tensors
     run = RunConfig(model=cfg, shape=shape,
                     mesh=MeshConfig((args.mesh_data, t), ("data", "model")),
-                    remat="none")
+                    remat="none", use_pallas=True)
     dev = resolve_device(args.device)
     plan = build_cell(cfg, shape, run)
     params = M.init_params(cfg, run, dev)
     cache = M.init_cache(cfg, args.batch, max_len, run, dev)
-    print(f"[serve] {cfg.name}: {M.count_params(params)/1e6:.2f}M params, "
+    n_params = M.count_params(params)
+    print(f"[serve] {cfg.name}: {n_params/1e6:.2f}M params "
+          f"({M.active_param_count(cfg, n_params)/1e6:.2f}M active a token), "
           f"cache len {max_len}, batch {args.batch}, {t} trustee shards on "
           f"{dev}", flush=True)
 

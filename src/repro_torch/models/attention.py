@@ -16,11 +16,21 @@ KV cache's sequence axis is split over T trustees, stacked on one device
 as a leading dimension, ``(T, B, Hkv, max_len / T, Dh)``.  Each step PUTs
 the new (k, v) row into the shard that owns its position, every shard
 answers the query with partial softmax stats (o, m, l) over its own
-positions, and ``_merge_stats`` combines them — the JAX ``shard_map``
-island, written as one computation batched over the shard dimension.
+positions, and ``merge_attention_stats`` combines them — the JAX
+``shard_map`` island, written as one computation batched over the shard
+dimension.
 
-MLA (``mla_attention``, ``_mla_decode``) and M-RoPE raise
-``NotImplementedError`` (ROADMAP queue A 13).
+MLA (DeepSeek's multi-head latent attention) keeps the JAX layout too:
+``w_q`` (D, H*(nope+rope)), ``w_dkv`` (D, r), ``latent_norm``, ``w_kr``
+(D, rope), ``w_uk`` (r, H*nope), ``w_uv`` (r, H*v), ``w_o`` (H*v, D).  Its
+prefill (``mla_attention``) runs the same flash kernel at head dim
+nope + rope, V zero-padded up to it; its decode (``_mla_decode``) keeps
+the latent cache ``latent`` (T, B, max_len / T, r) and ``k_rope``
+(T, B, max_len / T, rope) sequence-sharded over the T stacked trustees,
+expanding K and V from the latent (or, with ``run.mla_absorb``, scoring
+in latent space) on every trustee's own positions.
+
+M-RoPE raises ``NotImplementedError`` (ROADMAP queue A 13).
 """
 from __future__ import annotations
 
@@ -32,16 +42,13 @@ import torch
 from ..configs.base import ATTN_MLA, ModelConfig
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from .layers import apply_rope, init_rmsnorm, rmsnorm
+from .layers import _normal, apply_rope, init_rmsnorm, rmsnorm
 
 BLOCKWISE_THRESHOLD = 2048
 NEG_INF = -1e30
 
 
 def _unported(cfg: ModelConfig) -> None:
-    if cfg.attn_kind == ATTN_MLA:
-        raise NotImplementedError(
-            "MLA attention is not ported yet (ROADMAP queue A 13)")
     if cfg.mrope_sections:
         raise NotImplementedError(
             "M-RoPE is not ported yet (ROADMAP queue A 13)")
@@ -78,11 +85,13 @@ def init_attention(cfg: ModelConfig, dtype=torch.float32, device=None,
     tests carry JAX weights through ``convert``.  ``lead`` prefixes a
     stacked layer dimension."""
     _unported(cfg)
+    if gen is None:
+        gen = torch.Generator().manual_seed(seed)
+    if cfg.attn_kind == ATTN_MLA:
+        return _init_mla(cfg, dtype, device, gen, lead)
     hqp, hkvp = padded_heads(cfg, model_axis)
     dh = cfg.resolved_head_dim
     d = cfg.d_model
-    if gen is None:
-        gen = torch.Generator().manual_seed(seed)
     s = 1.0 / d ** 0.5
 
     def proj(hout, live):
@@ -109,6 +118,24 @@ def init_attention(cfg: ModelConfig, dtype=torch.float32, device=None,
         p["q_norm"] = init_rmsnorm(dh, device=device, lead=lead)
         p["k_norm"] = init_rmsnorm(dh, device=device, lead=lead)
     return p
+
+
+def _init_mla(cfg: ModelConfig, dtype, device, gen: torch.Generator,
+              lead: tuple) -> Dict[str, torch.Tensor]:
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.mla_q_nope_dim, cfg.mla_q_rope_dim, cfg.mla_v_head_dim
+    r = cfg.mla_kv_lora_rank
+    s, sr = 1.0 / math.sqrt(d), 1.0 / math.sqrt(r)
+
+    def w(shape, scale):
+        return _normal(gen, lead + shape, scale, dtype, device)
+    return {"w_q": w((d, h * (dn + dr)), s),
+            "w_dkv": w((d, r), s),
+            "latent_norm": init_rmsnorm(r, device=device, lead=lead),
+            "w_kr": w((d, dr), s),
+            "w_uk": w((r, h * dn), sr),
+            "w_uv": w((r, h * dv), sr),
+            "w_o": w((h * dv, d), 1.0 / math.sqrt(h * dv))}
 
 
 def _heads(params, cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -202,10 +229,49 @@ def attention(params, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, run=None) -> torch.Tensor:
     """x (B, S, D); positions (B, S) -> (B, S, D)."""
     _unported(cfg)
+    if cfg.attn_kind == ATTN_MLA:
+        return mla_attention(params, x, positions, cfg, run)
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, positions, cfg)
     out = _core_attention(q, k, v, run).reshape(b * s, -1)
     return torch.matmul(out, params["w_o"]).reshape(b, s, cfg.d_model)
+
+
+def _mla_project(params, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig):
+    """x (B, S, D) -> (q_nope (B, S, H, nope), rotated q_rope (B, S, H,
+    rope), the normed latent (B, S, r), rotated k_rope (B, S, rope))."""
+    h = cfg.n_heads
+    dn, dr = cfg.mla_q_nope_dim, cfg.mla_q_rope_dim
+    b, s, _ = x.shape
+    q = torch.matmul(x, params["w_q"]).reshape(b, s, h, dn + dr)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    latent = rmsnorm(params["latent_norm"], torch.matmul(x, params["w_dkv"]),
+                     cfg.norm_eps)
+    k_rope = apply_rope(torch.matmul(x, params["w_kr"])[:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0]
+    return q[..., :dn], q_rope, latent, k_rope
+
+
+def mla_attention(params, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig, run=None) -> torch.Tensor:
+    """MLA prefill: x (B, S, D) -> (B, S, D).  K is the latent's nope
+    part beside the shared rotated k_rope (broadcast over heads), V the
+    latent's value part zero-padded from ``v_head`` to nope + rope so
+    one attention call (the flash kernel under ``run.use_pallas``) serves
+    both; the output is sliced back to ``v_head``."""
+    h = cfg.n_heads
+    dn, dr, dv = cfg.mla_q_nope_dim, cfg.mla_q_rope_dim, cfg.mla_v_head_dim
+    b, s, _ = x.shape
+    q_nope, q_rope, latent, k_rope = _mla_project(params, x, positions, cfg)
+    k_nope = torch.matmul(latent, params["w_uk"]).reshape(b, s, h, dn)
+    v = torch.matmul(latent, params["w_uv"]).reshape(b, s, h, dv)
+    qq = torch.cat([q_nope, q_rope], -1)
+    kk = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], -1)
+    if dv < dn + dr:
+        v = torch.nn.functional.pad(v, (0, dn + dr - dv))
+    out = _core_attention(qq, kk, v, run)[..., :dv]
+    return torch.matmul(out.reshape(b, s, h * dv), params["w_o"])
 
 
 # ---------------------------------------------------------------------------
@@ -218,12 +284,19 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     """Zero K and V caches, ``(T, B, Hkv, max_len / T, Dh)``: trustee t
     owns positions [t * max_len / T, (t + 1) * max_len / T) — the JAX
     cache ``(B, Hkv, max_len, Dh)`` with its sequence axis sharded over
-    the model axis, stacked.  ``lead`` prefixes a stacked layer
-    dimension."""
+    the model axis, stacked.  MLA keeps ``latent`` (T, B, max_len / T, r)
+    and ``k_rope`` (T, B, max_len / T, rope) instead.  ``lead`` prefixes
+    a stacked layer dimension."""
     _unported(cfg)
     if max_len % n_trustees:
         raise ValueError(f"max_len {max_len} does not split over "
                          f"{n_trustees} trustees")
+    if cfg.attn_kind == ATTN_MLA:
+        lead = lead + (n_trustees, batch, max_len // n_trustees)
+        return {"latent": torch.zeros(lead + (cfg.mla_kv_lora_rank,),
+                                      dtype=dtype, device=device),
+                "k_rope": torch.zeros(lead + (cfg.mla_q_rope_dim,),
+                                      dtype=dtype, device=device)}
     _, hkvp = padded_heads(cfg, model_axis)
     shape = lead + (n_trustees, batch, hkvp, max_len // n_trustees,
                     cfg.resolved_head_dim)
@@ -231,13 +304,24 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _merge_stats(o, m, l):
-    """o (T, B, H, D) unnormalised; m, l (T, B, H) -> (B, H, D)."""
-    m_g = m.max(dim=0).values
-    w = torch.exp(m - m_g[None])
-    l_g = (l * w).sum(dim=0)
-    o_g = (o * w[..., None]).sum(dim=0)
-    return o_g / torch.clamp(l_g, min=1e-30)[..., None]
+def _put_owner(caches, news, pos: torch.Tensor, seq_dim: int) -> None:
+    """The delegated PUT, in place: each new row (B, ...) lands in the
+    shard of each stacked cache (T, B, ...) that owns its position along
+    ``seq_dim``; every other shard keeps its row."""
+    t, b = caches[0].shape[:2]
+    s_loc = caches[0].shape[seq_dim]
+    my = torch.arange(t, device=pos.device)
+    local = pos[None, :] - my[:, None] * s_loc          # (T, B)
+    mine = (local >= 0) & (local < s_loc)
+    lp = local.clamp(0, s_loc - 1)
+    tt = my[:, None].expand(t, b)
+    bb = torch.arange(b, device=pos.device)[None, :].expand(t, b)
+    for c, new in zip(caches, news):
+        rows = c.movedim(seq_dim, 2)                     # (T, B, S, ...)
+        old = rows[tt, bb, lp]
+        m = mine.reshape(mine.shape + (1,) * (old.dim() - 2))
+        rows.index_put_((tt, bb, lp), torch.where(m, new[None].to(c.dtype),
+                                                  old))
 
 
 def decode_attention(params, x: torch.Tensor, pos: torch.Tensor, cache,
@@ -250,6 +334,8 @@ def decode_attention(params, x: torch.Tensor, pos: torch.Tensor, cache,
     into its owner's shard only.  Every shard then answers the query over
     its own positions with (o, m, l), and the merge combines them."""
     _unported(cfg)
+    if cfg.attn_kind == ATTN_MLA:
+        return _mla_decode(params, x, pos, cache, cfg, run)
     hqp, hkvp, dh = _heads(params, cfg)
     b = x.shape[0]
     q, k, v = _project_qkv(params, x[:, None, :], pos[:, None], cfg)
@@ -260,15 +346,7 @@ def decode_attention(params, x: torch.Tensor, pos: torch.Tensor, cache,
     pos = pos.long()
 
     # the delegated PUT: trustee t keeps its own row unless it owns pos
-    local = pos[None, :] - my[:, None] * s_loc          # (T, B)
-    mine = (local >= 0) & (local < s_loc)
-    lp = local.clamp(0, s_loc - 1)
-    tt = my[:, None].expand(t, b)
-    bb = torch.arange(b, device=x.device)[None, :].expand(t, b)
-    for c, new in ((ck, k), (cv, v)):
-        rows = c.permute(0, 1, 3, 2, 4)                  # (T, B, S, Hkv, Dh)
-        rows.index_put_((tt, bb, lp), torch.where(
-            mine[..., None, None], new[None].to(c.dtype), rows[tt, bb, lp]))
+    _put_owner((ck, cv), (k, v), pos, 3)
 
     # each trustee's partial attention over its positions
     kpos = my[:, None] * s_loc + torch.arange(s_loc, device=x.device)
@@ -281,9 +359,61 @@ def decode_attention(params, x: torch.Tensor, pos: torch.Tensor, cache,
     m = s.max(dim=-1).values
     p = torch.exp(s - m[..., None])
     o = torch.einsum("tbgrs,tbgsd->tbgrd", p, cv.float())
-    out = _merge_stats(o.reshape(t, b, hqp, dh), m.reshape(t, b, hqp),
-                       p.sum(dim=-1).reshape(t, b, hqp)).to(q.dtype)
+    out = kref.merge_attention_stats(
+        o.reshape(t, b, hqp, dh), m.reshape(t, b, hqp),
+        p.sum(dim=-1).reshape(t, b, hqp))[0].to(q.dtype)
     y = torch.matmul(out.reshape(b, hqp * dh), params["w_o"])
+    return y, cache
+
+
+def _mla_decode(params, x: torch.Tensor, pos: torch.Tensor, cache,
+                cfg: ModelConfig, run=None):
+    """One-token MLA decode against the stacked, sequence-sharded latent
+    cache (``init_kv_cache``'s MLA branch).  The new token's latent and
+    k_rope rows are a delegated PUT to the owner's shard, in place; every
+    trustee scores the query against its own positions — expanding K and
+    V from the latent (the baseline), or with ``run.mla_absorb`` in
+    latent space (q_nope folded through ``w_uk``, the context through
+    ``w_uv``) — and the partial (o, m, l) are merged.  Returns (y (B, D),
+    cache)."""
+    absorb = bool(run is not None and run.mla_absorb)
+    h = cfg.n_heads
+    dn, dr, dv = cfg.mla_q_nope_dim, cfg.mla_q_rope_dim, cfg.mla_v_head_dim
+    r = cfg.mla_kv_lora_rank
+    b = x.shape[0]
+    pos = pos.long()
+    q_nope, q_rope, lat_new, kr_new = _mla_project(
+        params, x[:, None, :], pos[:, None], cfg)
+    q_nope, q_rope = q_nope[:, 0].float(), q_rope[:, 0].float()  # (B, H, .)
+    lat, krope = cache["latent"], cache["k_rope"]
+    t, _, s_loc, _ = lat.shape
+    _put_owner((lat, krope), (lat_new[:, 0], kr_new[:, 0]), pos, 2)
+
+    kpos = (torch.arange(t, device=x.device)[:, None] * s_loc
+            + torch.arange(s_loc, device=x.device))       # (T, S)
+    valid = kpos[:, None, :] <= pos[None, :, None]       # (T, B, S)
+    w_uk = params["w_uk"].float().reshape(r, h, dn)
+    w_uv = params["w_uv"].float().reshape(r, h, dv)
+    latf = lat.float()
+    if absorb:
+        q_eff = torch.einsum("bhn,rhn->bhr", q_nope, w_uk)
+        s_nope = torch.einsum("bhr,tbsr->tbhs", q_eff, latf)
+    else:
+        k_nope = torch.einsum("tbsr,rhn->tbshn", latf, w_uk)
+        s_nope = torch.einsum("bhn,tbshn->tbhs", q_nope, k_nope)
+    s_rope = torch.einsum("bhr,tbsr->tbhs", q_rope, krope.float())
+    sc = (s_nope + s_rope) * (1.0 / math.sqrt(dn + dr))
+    sc = torch.where(valid[:, :, None, :], sc, torch.full_like(sc, NEG_INF))
+    m = sc.max(dim=-1).values
+    p = torch.exp(sc - m[..., None])
+    if absorb:
+        ctx = torch.einsum("tbhs,tbsr->tbhr", p, latf)
+        o = torch.einsum("tbhr,rhv->tbhv", ctx, w_uv)
+    else:
+        v_full = torch.einsum("tbsr,rhv->tbshv", latf, w_uv)
+        o = torch.einsum("tbhs,tbshv->tbhv", p, v_full)
+    out = kref.merge_attention_stats(o, m, p.sum(dim=-1))[0].to(x.dtype)
+    y = torch.matmul(out.reshape(b, h * dv), params["w_o"])
     return y, cache
 
 

@@ -55,6 +55,22 @@ def _normal(gen: torch.Generator, shape, scale: float, dtype,
             .mul_(scale).to(dtype=dtype, device=device))
 
 
+def _normal_stacked(gen: torch.Generator, lead: tuple, shape, scale: float,
+                    dtype, device) -> torch.Tensor:
+    """A ``lead + shape`` leaf of N(0, scale^2) values drawn one
+    ``shape`` slice at a time into a preallocated ``dtype`` tensor, so the
+    f32 draw never holds more than one slice (a stacked expert leaf of
+    deepseek-v2-lite-16b is 4.8 B values: 19.2 GB drawn whole in f32)."""
+    shape = tuple(shape)
+    if not lead:
+        return _normal(gen, shape, scale, dtype, device)
+    out = torch.empty(tuple(lead) + shape, dtype=dtype, device=device)
+    flat = out.view((-1,) + shape)
+    for i in range(flat.shape[0]):
+        flat[i].copy_(_normal(gen, shape, scale, torch.float32, device))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Gated MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------

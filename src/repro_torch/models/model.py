@@ -38,3 +38,15 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, run=None):
 
 def count_params(params) -> int:
     return transformer.count_params(params)
+
+
+def active_param_count(cfg: ModelConfig, total: int) -> int:
+    """Parameters a token passes through (``model.active_param_count``):
+    the total less the routed experts a token is not sent to."""
+    if cfg.ffn_kind == "dense" or cfg.moe.num_experts == 0:
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    n_moe = sum(1 for i in range(cfg.n_layers)
+                if cfg.layer_ffn_kind(i) in ("moe", "moe+dense"))
+    return total - per_expert * (m.num_experts - m.top_k) * n_moe

@@ -1,0 +1,197 @@
+"""Mixture-of-Experts through the Trust<T> delegation channel (the torch
+counterpart of ``repro.models.moe``).
+
+The routed experts are entrusted to the T trustees of the model axis,
+stacked on one device: trustee t holds experts ``t * E/T .. (t+1) * E/T
+- 1``, which is the JAX ``P("model")`` split of ``w_gate`` / ``w_up`` /
+``w_down``.  Each (token, chosen expert) pair is a delegation request on
+``core.channel`` — the same channel that carries the KV store — whose
+payload is the token's hidden row and the expert's local index; the
+channel capacity is the MoE capacity factor and its second_round block the
+overflow round.  The trustee's serve packs the rows it received by local
+expert (the pack kernel, ``ops.delegation_pack``) and runs the gated
+expert FFN over all E experts at once as three grouped-matmul launches
+(``ops.grouped_matmul``).  Responses return to the requesting client,
+which combines them with its router weights.
+
+Clients: with S a multiple of T, client shard j owns the sequence slice
+``[j S/T, (j+1) S/T)`` of every row (seq mode, the prefill); otherwise
+(decode, S = 1) every client sees all tokens and token i belongs to client
+``i % T``, the per-client results summed over the stacked dimension (the
+JAX ``psum``).  The capacities (``cap``, ``over_cap``, ``cap2``) are
+JAX's, to the row, so the same rows are dropped.
+
+Routing is f32: softmax, top-k (ties to the lower expert index, as
+``lax.top_k``: a stable descending sort), renormalisation, and the
+switch-style load-balance loss.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core import channel as ch
+from ..kernels import ops as kops
+from ..kernels import ref as kref
+from .layers import _normal, _normal_stacked, init_mlp, mlp
+
+
+def _round8(x: int) -> int:
+    return max(8, ((x + 7) // 8) * 8)
+
+
+def init_moe(cfg: ModelConfig, dtype, device, gen: torch.Generator,
+             lead: tuple = ()) -> Dict[str, torch.Tensor]:
+    """Random router (f32) and expert weights ``w_gate`` / ``w_up``
+    (E, D, F), ``w_down`` (E, F, D), plus the shared experts' MLP, drawn
+    from ``gen`` (not JAX's numbers; tests carry JAX weights through
+    ``convert``).  ``lead`` prefixes a stacked layer dimension; expert
+    leaves are drawn one layer at a time."""
+    m = cfg.moe
+    e, d, f = m.num_experts, cfg.d_model, m.d_ff_expert
+    s_in, s_ff = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"router": _normal(gen, lead + (d, e), s_in, torch.float32, device),
+         "w_gate": _normal_stacked(gen, lead, (e, d, f), s_in, dtype,
+                                   device),
+         "w_up": _normal_stacked(gen, lead, (e, d, f), s_in, dtype, device),
+         "w_down": _normal_stacked(gen, lead, (e, f, d), s_ff, dtype,
+                                   device)}
+    if m.num_shared > 0:
+        p["shared"] = init_mlp(gen, d, m.num_shared * f, dtype, device,
+                               lead=lead)
+    return p
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of the last dimension,
+    largest first, a tie going to the lower index (``lax.top_k``'s rule;
+    ``torch.topk`` promises no order on CUDA)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _expert_ffn(x_e, weights, act: str, use_kernel: bool):
+    """(E, C, D) slots -> (E, C, D): ``ref.moe_ffn``'s gated FFN, its
+    three grouped matmuls the kernel's under ``use_kernel``."""
+    gmm = kops.grouped_matmul if use_kernel else kref.grouped_matmul
+    return kref.moe_ffn(x_e, weights["w_gate"], weights["w_up"],
+                        weights["w_down"], act, gmm=gmm)
+
+
+def _expert_serve(weights, e_local: int, cap2: int, act: str,
+                  use_kernel: bool):
+    """Trustee side, every trustee at once: pack the received rows by
+    local expert into ``cap2`` slots each (a second-level slot pack; rows
+    past it answer zeros) and run the expert FFN over the T * e_local
+    experts' slots."""
+
+    def serve(state, received: ch.Received):
+        h = received.rows["h"]                           # (T, N, D)
+        t, n, d = h.shape
+        el = torch.where(received.valid, received.rows["el"],
+                         torch.full_like(received.rows["el"], -1))
+        # the rows ride as 32-bit words, bit for bit (d_model is even)
+        words = h.contiguous().view(torch.int32)
+        slots, _, _, _, req_slot, _ = kops.delegation_pack(
+            el.to(torch.int32).contiguous(), words, e_local, cap2, 0)
+        x_e = slots.view(h.dtype).reshape(t * e_local, cap2, d)
+        y_e = _expert_ffn(x_e, weights, act, use_kernel)
+        flat = y_e.reshape(t, e_local * cap2, d)
+        y = kref.take_rows(flat, torch.clamp(req_slot, min=0))
+        y = torch.where((req_slot >= 0)[..., None], y, torch.zeros_like(y))
+        return state, {"y": y}
+
+    return serve
+
+
+def moe_block(params, x: torch.Tensor, cfg: ModelConfig, run=None
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B, S, D) -> (y (B, S, D), aux metrics: ``moe_aux_loss``,
+    ``moe_dropped_frac``, ``moe_max_load``)."""
+    m = cfg.moe
+    t = run.mesh.model_size if run is not None else 1
+    e, k = m.num_experts, m.top_k
+    if e % t:
+        raise ValueError(f"{t} trustees do not split {e} experts")
+    if m.overflow not in ("drop", "second_round"):
+        raise NotImplementedError(
+            f"MoE overflow {m.overflow!r} needs the defer drain (ROADMAP "
+            f"queue A 2)")
+    e_local = e // t
+    b, s, d = x.shape
+
+    # ---- routing (f32) ----------------------------------------------------
+    probs = torch.softmax(torch.matmul(x.float(), params["router"].float()),
+                          dim=-1)
+    top_w, top_e = top_k(probs, k)                      # (B, S, K)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    ohot = torch.nn.functional.one_hot(top_e, e).float().sum(2)
+    f_e = ohot.mean((0, 1)) / k
+    aux_loss = e * torch.sum(f_e * probs.mean((0, 1))) * m.aux_loss_weight
+
+    seq_mode = (s % t == 0) and s >= t
+    r_local = b * (s // t) * k if seq_mode else max(1, -(-b * s * k // t))
+    cap = _round8(math.ceil(m.capacity_factor * max(1, r_local) / t))
+    over_cap = _round8(math.ceil(m.overflow_factor * max(1, r_local) / t)) \
+        if m.overflow == "second_round" else 0
+    cfg_ch = ch.ChannelConfig(
+        axis="model", capacity=cap, overflow=m.overflow,
+        overflow_capacity=over_cap,
+        local_shortcut=bool(run is None or run.local_shortcut))
+    cap2 = _round8(math.ceil(4.0 * max(1, r_local) / e_local))
+    use_kernel = bool(run is not None and run.use_pallas)
+    weights = {n: params[n] for n in ("w_gate", "w_up", "w_down")}
+    serve = _expert_serve(weights, e_local, cap2, cfg.act, use_kernel)
+    w_tok = top_w.to(x.dtype)
+
+    def dispatch(x_l, w_l, e_l, pmask=None):
+        """Every client's round at once: x_l (T, R_tok, D), w_l / e_l
+        (T, R_tok, K), pmask (T, R_tok) the tokens each client owns."""
+        r_tok = x_l.shape[1]
+        h_rows = torch.repeat_interleave(x_l, k, dim=1)   # (T, R_tok*K, D)
+        e_flat = e_l.reshape(t, r_tok * k)
+        dst = torch.div(e_flat, e_local, rounding_mode="floor").to(
+            torch.int32)
+        el = (e_flat % e_local).to(torch.int32)
+        if pmask is not None:
+            pm = torch.repeat_interleave(pmask, k, dim=1)
+            dst = torch.where(pm, dst, torch.full_like(dst, -1))
+        _, resp, info = ch.delegate(None, dst, {"h": h_rows, "el": el},
+                                    serve, t, cfg_ch)
+        y_rows = resp["y"].reshape(t, r_tok, k, d)
+        y_tok = (y_rows * w_l[..., None].to(y_rows.dtype)).sum(2)
+        dropped = info.dropped.reshape(t, r_tok, k).any(-1)
+        return y_tok, info.group_sizes, dropped
+
+    if seq_mode:
+        def shard(a):          # (B, S, ...) -> (T, B * S/T, ...)
+            a = a.reshape((b, t, s // t) + tuple(a.shape[2:]))
+            return a.transpose(0, 1).reshape((t, b * (s // t))
+                                             + tuple(a.shape[3:]))
+
+        def unshard(a):        # the inverse
+            a = a.reshape((t, b, s // t) + tuple(a.shape[2:]))
+            return a.transpose(0, 1).reshape((b, s) + tuple(a.shape[3:]))
+        y, gs, dropped = dispatch(shard(x), shard(w_tok), shard(top_e))
+        y, dropped = unshard(y), unshard(dropped)
+    else:
+        def every(a):          # (B, S, ...) -> (T, B * S, ...), shared
+            return a.reshape((1, b * s) + tuple(a.shape[2:])).expand(
+                (t, b * s) + tuple(a.shape[2:]))
+        pmask = (torch.arange(b * s, device=x.device)[None, :] % t
+                 == torch.arange(t, device=x.device)[:, None])
+        y, gs, dropped = dispatch(every(x), every(w_tok), every(top_e),
+                                  pmask)
+        y = torch.where(pmask[..., None], y, torch.zeros_like(y)).sum(0)
+        dropped = (dropped & pmask).any(0)
+        y, dropped = y.reshape(b, s, d), dropped.reshape(b, s)
+
+    if m.num_shared > 0:
+        y = y + mlp(params["shared"], x, cfg.act)
+    aux = {"moe_aux_loss": aux_loss,
+           "moe_dropped_frac": dropped.float().mean(),
+           "moe_max_load": gs.max().float()}
+    return y, aux

@@ -1,17 +1,20 @@
 """Decoder-only LM assembly (the torch counterpart of
-``repro.models.transformer``), for stacks of dense attention layers.
+``repro.models.transformer``), for stacks of attention layers (GQA or
+MLA) with dense, MoE or MoE + dense FFNs.
 
-Layers are organised as in JAX: ``groups`` holds the architecture's
+Layers are organised as in JAX: ``prefix`` is a list of unstacked layers
+(deepseek's dense first layer), and ``groups`` holds the architecture's
 repeating pattern (one layer for a uniform stack), each leaf stacked over
 the ``n_groups`` repeats, ``(n_groups, ...)`` under ``groups/pos<j>``, so
 a JAX parameter tree carries across as a plain tree map.  JAX scans the
 groups; the port loops over them in Python.  Each layer is pre-norm
-residual: x += Attn(norm(x)); x += MLP(norm(x)).
+residual: x += Attn(norm(x)); x += FFN(norm(x)), the FFN a dense MLP, the
+delegated MoE (``moe.moe_block``) or both summed.  The forward collects
+the MoE layers' aux metrics as JAX's ``_stack_forward`` does.
 
 Not ported yet, raising ``NotImplementedError`` with their ROADMAP item:
-MoE layers (queue A 13(b), kernel B7), Mamba layers (13(c), kernel B8),
-the sequence-parallel residual, remat and ``forward_loss`` (training,
-13(d)), embedding inputs and a dense prefix layer.
+Mamba layers (13(c), kernel B8), the sequence-parallel residual, remat
+and ``forward_loss`` (training, 13(d)), and embedding inputs.
 """
 from __future__ import annotations
 
@@ -20,9 +23,11 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 
-from ..configs.base import BLOCK_ATTN, BLOCK_MAMBA, FFN_DENSE, ModelConfig
+from ..configs.base import (BLOCK_ATTN, BLOCK_MAMBA, FFN_DENSE, FFN_MOE,
+                            FFN_MOE_DENSE, ModelConfig)
 from ..core.meshctx import resolve_device
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .layers import (dtype_of, embed_lookup, init_embed, init_mlp,
                      init_rmsnorm, lm_logits, mlp, rmsnorm, unembed_weight)
 
@@ -54,8 +59,10 @@ def layer_descs(cfg: ModelConfig) -> Tuple[List[LayerDesc], int, int]:
     return descs, prefix_len, n_scanned // group_len
 
 
-def _check(cfg: ModelConfig, run=None) -> Tuple[List[LayerDesc], int]:
-    """(descs, n_groups) of a stack the port runs; raises for the rest."""
+def _check(cfg: ModelConfig, run=None
+           ) -> Tuple[List[LayerDesc], int, int]:
+    """(descs, prefix_len, n_groups) of a stack the port runs; raises for
+    the rest."""
     if cfg.input_mode == "embeds":
         raise NotImplementedError("embedding inputs (vlm / audio) are not "
                                   "ported yet (ROADMAP queue A 13)")
@@ -63,19 +70,20 @@ def _check(cfg: ModelConfig, run=None) -> Tuple[List[LayerDesc], int]:
         raise NotImplementedError("the sequence-parallel residual stream "
                                   "is not ported yet (ROADMAP queue A 13)")
     descs, prefix_len, n_groups = layer_descs(cfg)
-    if prefix_len:
-        raise NotImplementedError("a dense prefix layer (MoE nets) is not "
-                                  "ported yet (ROADMAP queue A 13(b))")
     for desc in descs:
         if desc.block != BLOCK_ATTN:
             raise NotImplementedError(
                 "Mamba layers are not ported yet (ROADMAP queue A 13(c), "
                 "kernel queue B8)")
-        if desc.ffn != FFN_DENSE:
-            raise NotImplementedError(
-                "MoE layers are not ported yet (ROADMAP queue A 13(b), "
-                "kernel queue B7)")
-    return descs, n_groups
+    if run is not None and cfg.ffn_kind != FFN_DENSE \
+            and cfg.moe.num_experts % run.mesh.model_size:
+        raise ValueError(f"{run.mesh.model_size} trustees do not split "
+                         f"{cfg.moe.num_experts} experts")
+    return descs, prefix_len, n_groups
+
+
+def _prefix_desc(cfg: ModelConfig, i: int) -> LayerDesc:
+    return LayerDesc(cfg.block_kind(i), FFN_DENSE)
 
 
 def _index(tree, g: int):
@@ -89,6 +97,9 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
     else:
         yield tree
 
@@ -97,15 +108,21 @@ def _leaves(tree):
 # init
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype, device,
-                lead: tuple, model_axis: int) -> Dict[str, Any]:
-    return {"ln1": init_rmsnorm(cfg.d_model, device=device, lead=lead),
-            "attn": attn_mod.init_attention(cfg, dtype, device,
-                                            model_axis=model_axis, gen=gen,
-                                            lead=lead),
-            "ln2": init_rmsnorm(cfg.d_model, device=device, lead=lead),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
-                            lead=lead)}
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, desc: LayerDesc,
+                dtype, device, lead: tuple, model_axis: int
+                ) -> Dict[str, Any]:
+    p = {"ln1": init_rmsnorm(cfg.d_model, device=device, lead=lead),
+         "attn": attn_mod.init_attention(cfg, dtype, device,
+                                         model_axis=model_axis, gen=gen,
+                                         lead=lead)}
+    if desc.ffn != "none":
+        p["ln2"] = init_rmsnorm(cfg.d_model, device=device, lead=lead)
+        if desc.ffn in (FFN_MOE, FFN_MOE_DENSE):
+            p["moe"] = moe_mod.init_moe(cfg, dtype, device, gen, lead=lead)
+        if desc.ffn in (FFN_DENSE, FFN_MOE_DENSE):
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                                lead=lead)
+    return p
 
 
 def init_params(cfg: ModelConfig, run=None, device=None,
@@ -114,8 +131,9 @@ def init_params(cfg: ModelConfig, run=None, device=None,
     ``gen``, or from a generator on that device seeded with ``run.seed``
     — not JAX's numbers; tests carry JAX weights through ``convert``.
     Projections in ``run.param_dtype`` (bf16 by default), norm scales
-    f32, every layer leaf stacked ``(n_groups, ...)``."""
-    descs, n_groups = _check(cfg, run)
+    f32, every group leaf stacked ``(n_groups, ...)``, prefix layers
+    unstacked in a list."""
+    descs, prefix_len, n_groups = _check(cfg, run)
     dtype = dtype_of(run.param_dtype) if run is not None else torch.bfloat16
     model_axis = run.mesh.model_size if run is not None else 1
     dev = resolve_device(device)
@@ -124,9 +142,13 @@ def init_params(cfg: ModelConfig, run=None, device=None,
             run.seed if run is not None else 0)
     params: Dict[str, Any] = {"embed": init_embed(gen, cfg, dtype, dev,
                                                   model_axis)}
-    params["groups"] = {f"pos{j}": _init_layer(gen, cfg, dtype, dev,
+    if prefix_len:
+        params["prefix"] = [_init_layer(gen, cfg, _prefix_desc(cfg, i),
+                                        dtype, dev, (), model_axis)
+                            for i in range(prefix_len)]
+    params["groups"] = {f"pos{j}": _init_layer(gen, cfg, desc, dtype, dev,
                                                (n_groups,), model_axis)
-                        for j in range(len(descs))}
+                        for j, desc in enumerate(descs)}
     params["final_norm"] = init_rmsnorm(cfg.d_model, device=dev)
     return params
 
@@ -139,25 +161,60 @@ def count_params(params) -> int:
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _apply_layer(p, x, positions, cfg: ModelConfig, run):
+def _ffn(p, h, cfg: ModelConfig, desc: LayerDesc, run, seq: bool):
+    """The layer's FFN on h (B, S, D), or (B, D) when not ``seq`` (decode:
+    the MoE sees it as S = 1) -> (y, MoE aux or {})."""
+    y, aux = 0.0, {}
+    if desc.ffn in (FFN_MOE, FFN_MOE_DENSE):
+        y_moe, aux = moe_mod.moe_block(p["moe"], h if seq else h[:, None],
+                                       cfg, run)
+        y = y + (y_moe if seq else y_moe[:, 0])
+    if desc.ffn in (FFN_DENSE, FFN_MOE_DENSE):
+        y = y + mlp(p["mlp"], h, cfg.act)
+    return y, aux
+
+
+def _apply_layer(p, x, positions, cfg: ModelConfig, desc: LayerDesc, run):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     x = x + attn_mod.attention(p["attn"], h, positions, cfg, run)
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg.act)
+    if desc.ffn == "none":
+        return x, {}
+    y, aux = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, desc, run,
+                  True)
+    return x + y, aux
+
+
+def _add_aux(acc, aux):
+    if not aux:
+        return acc
+    return {"moe_aux_loss": acc["moe_aux_loss"] + aux["moe_aux_loss"],
+            "moe_dropped_frac": acc["moe_dropped_frac"]
+            + aux["moe_dropped_frac"],
+            "moe_max_load": torch.maximum(acc["moe_max_load"],
+                                          aux["moe_max_load"])}
 
 
 def _stack_forward(params, x, positions, cfg: ModelConfig, run):
-    """Every layer over x (B, S, D), then the final norm -> (B, S, D)."""
-    descs, n_groups = _check(cfg, run)
+    """Every layer over x (B, S, D), then the final norm -> ((B, S, D),
+    aux): the MoE layers' load-balance losses and dropped fractions
+    summed, their max loads maxed (JAX's ``_stack_forward``)."""
+    descs, prefix_len, n_groups = _check(cfg, run)
     if run is not None and run.remat != "none" and x.requires_grad:
         raise NotImplementedError("remat applies to a differentiated "
                                   "forward: training is not ported yet "
                                   "(ROADMAP queue A 13(d))")
+    aux = {k: torch.zeros((), device=x.device) for k in
+           ("moe_aux_loss", "moe_dropped_frac", "moe_max_load")}
+    for i in range(prefix_len):
+        x, a = _apply_layer(params["prefix"][i], x, positions, cfg,
+                            _prefix_desc(cfg, i), run)
+        aux = _add_aux(aux, a)
     for g in range(n_groups):
-        for j in range(len(descs)):
-            x = _apply_layer(_index(params["groups"][f"pos{j}"], g), x,
-                             positions, cfg, run)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        for j, desc in enumerate(descs):
+            x, a = _apply_layer(_index(params["groups"][f"pos{j}"], g), x,
+                                positions, cfg, desc, run)
+            aux = _add_aux(aux, a)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def _inputs_to_hidden(params, batch, cfg: ModelConfig):
@@ -173,7 +230,7 @@ def _inputs_to_hidden(params, batch, cfg: ModelConfig):
 def prefill(params, batch, cfg: ModelConfig, run=None) -> torch.Tensor:
     """batch {"tokens": (B, S)} -> last-position logits (B, V), f32."""
     x, positions = _inputs_to_hidden(params, batch, cfg)
-    x = _stack_forward(params, x, positions, cfg, run)
+    x, _aux = _stack_forward(params, x, positions, cfg, run)
     return lm_logits(x[:, -1, :], unembed_weight(params["embed"], cfg), cfg)
 
 
@@ -183,41 +240,54 @@ def prefill(params, batch, cfg: ModelConfig, run=None) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, run=None,
                device=None) -> Dict[str, Any]:
-    """Zero KV caches in ``run.activation_dtype``, each group position's
-    leaves stacked ``(n_groups, T, B, Hkv, max_len / T, Dh)`` over the
-    ``run.mesh.model_size`` = T trustees."""
-    descs, n_groups = _check(cfg, run)
+    """Zero KV caches in ``run.activation_dtype`` over the
+    ``run.mesh.model_size`` = T trustees: each group position's leaves
+    stacked ``(n_groups, T, B, ...)`` (``attention.init_kv_cache``),
+    prefix layers' in a list."""
+    descs, prefix_len, n_groups = _check(cfg, run)
     dtype = dtype_of(run.activation_dtype) if run is not None \
         else torch.bfloat16
     t = run.mesh.model_size if run is not None else 1
     dev = resolve_device(device)
-    return {"groups": {
-        f"pos{j}": attn_mod.init_kv_cache(cfg, batch, max_len, dtype, dev,
-                                          n_trustees=t, model_axis=t,
-                                          lead=(n_groups,))
-        for j in range(len(descs))}}
+
+    def layer_cache(lead):
+        return attn_mod.init_kv_cache(cfg, batch, max_len, dtype, dev,
+                                      n_trustees=t, model_axis=t, lead=lead)
+    cache: Dict[str, Any] = {}
+    if prefix_len:
+        cache["prefix"] = [layer_cache(()) for _ in range(prefix_len)]
+    cache["groups"] = {f"pos{j}": layer_cache((n_groups,))
+                       for j in range(len(descs))}
+    return cache
 
 
-def _apply_layer_decode(p, cache_l, x, pos, cfg: ModelConfig, run):
+def _apply_layer_decode(p, cache_l, x, pos, cfg: ModelConfig,
+                        desc: LayerDesc, run):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     y, cache_l = attn_mod.decode_attention(p["attn"], h, pos, cache_l, cfg,
                                            run)
     x = x + y
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, cfg.act), cache_l
+    if desc.ffn == "none":
+        return x, cache_l
+    y, _aux = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, desc, run,
+                   False)
+    return x + y, cache_l
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig, run=None):
     """One decode step.  tokens (B,) int; pos (B,).  Returns (logits
     (B, V) f32, cache) — the cache updated in place."""
-    descs, n_groups = _check(cfg, run)
+    descs, prefix_len, n_groups = _check(cfg, run)
     x = embed_lookup(params["embed"], tokens[:, None], cfg)[:, 0]
+    for i in range(prefix_len):
+        x, _ = _apply_layer_decode(params["prefix"][i], cache["prefix"][i],
+                                   x, pos, cfg, _prefix_desc(cfg, i), run)
     for g in range(n_groups):
-        for j in range(len(descs)):
+        for j, desc in enumerate(descs):
             key = f"pos{j}"
             x, _ = _apply_layer_decode(
                 _index(params["groups"][key], g),
-                _index(cache["groups"][key], g), x, pos, cfg, run)
+                _index(cache["groups"][key], g), x, pos, cfg, desc, run)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = lm_logits(x, unembed_weight(params["embed"], cfg), cfg)
     return logits, cache

@@ -2,6 +2,9 @@
 
   * ``FlashCheck`` holds every flash-attention kernel call against its
     plain version on the same inputs (the prefill's check run);
+    ``GmmCheck`` does the same for the grouped-matmul kernel;
+  * ``MoEStats`` keeps each MoE layer's dropped fraction and max load
+    while the model runs unchanged;
   * ``DecodeLogits`` keeps the decode step's logits at one position while
     the serve loop runs unchanged;
   * ``logits_agreement`` holds the prefill's last-position logits against
@@ -13,7 +16,9 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.flash_attention import tolerance as flash_tolerance
+from ..kernels.grouped_matmul import tolerance as gmm_tolerance
 from ..models import model as M
+from ..models import moe as moe_mod
 
 # prefill against decode at the same position, on the relative RMS of the
 # logit difference, ||a - b|| / ||b||.  f32: the same math in another
@@ -23,6 +28,19 @@ from ..models import model as M
 # the decode's f32 partials), 2^-9 relative a rounding, compounding over
 # 36 residual layers and two sublayers each — a few percent at most.
 PREFILL_DECODE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# the same for a MoE model in bf16: a token whose k-th and (k+1)-th
+# router probabilities lie within the two paths' bf16 rounding of each
+# other can take another expert in one of them, and the prefill (seq
+# mode) and decode (mask-partition mode) have other capacities, so other
+# rows may drop; each such token moves by a whole expert's output
+MOE_PREFILL_DECODE_RTOL = 1e-1
+
+
+def prefill_decode_rtol(cfg, dtype: torch.dtype) -> float:
+    """The prefill-versus-decode tolerance of ``cfg`` in ``dtype``."""
+    if dtype == torch.bfloat16 and cfg.ffn_kind != "dense":
+        return MOE_PREFILL_DECODE_RTOL
+    return PREFILL_DECODE_RTOL[dtype]
 
 
 def flash_within(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor):
@@ -34,41 +52,116 @@ def flash_within(got: torch.Tensor, want: torch.Tensor, v: torch.Tensor):
             float(err.max()) if err.numel() else 0.0)
 
 
-class FlashCheck:
-    """Inside the context, every ``kops.flash_attention`` kernel call is
-    also run through the plain version on the same inputs and compared:
+class _KernelCheck:
+    """Inside the context, every kernel call of ``kops.<name>`` is also
+    run through the plain version on the same arguments and compared:
     ``calls``, ``max_err`` and ``bad`` (calls beyond the tolerance)
-    accumulate, and ``first`` keeps the first call's arguments.  The
-    caller's code runs unchanged; only the module attribute is wrapped."""
+    accumulate, ``first`` keeps the first call's arguments and ``shapes``
+    the distinct argument shapes.  The caller's code runs unchanged; only
+    the module attribute is wrapped."""
+    name = label = ""
 
     def __init__(self):
         self.calls, self.bad, self.max_err = 0, 0, 0.0
-        self.first = None
+        self.first, self.shapes = None, []
 
     def __enter__(self):
-        self._fa = kops.flash_attention
-        kops.flash_attention = self._call
+        self._fn = getattr(kops, self.name)
+        setattr(kops, self.name, self._call)
         return self
 
     def __exit__(self, *exc):
-        kops.flash_attention = self._fa
+        setattr(kops, self.name, self._fn)
 
-    def _call(self, q, k, v, q_offset=None, causal=True, scale=None,
-              impl="kernel"):
-        out = self._fa(q, k, v, q_offset, causal, scale, impl=impl)
+    def _call(self, *args, impl="kernel", **kw):
+        out = self._fn(*args, impl=impl, **kw)
         if impl == "kernel":
+            call = self._args(*args, **kw)
             if self.first is None:
-                self.first = (q, k, v, q_offset, causal, scale)
-            want = self._fa(q, k, v, q_offset, causal, scale, impl="ref")
-            ok, err = flash_within(out, want, v)
+                self.first = call
+            shape = tuple(tuple(a.shape) for a in call
+                          if isinstance(a, torch.Tensor))
+            if shape not in self.shapes:
+                self.shapes.append(shape)
+            ok, err = self._within(out, self._fn(*args, impl="ref", **kw),
+                                   call)
             self.calls += 1
             self.bad += int(not ok)
             self.max_err = max(self.max_err, err)
         return out
 
     def summary(self):
-        return {"flash_calls": self.calls, "flash_max_abs_err": self.max_err,
-                "flash_calls_out_of_tolerance": self.bad}
+        p = self.label
+        return {f"{p}_calls": self.calls, f"{p}_max_abs_err": self.max_err,
+                f"{p}_calls_out_of_tolerance": self.bad,
+                f"{p}_shapes": self.shapes}
+
+
+class FlashCheck(_KernelCheck):
+    """``_KernelCheck`` of ``flash_attention``; ``first`` is (q, k, v,
+    q_offset, causal, scale)."""
+    name, label = "flash_attention", "flash"
+
+    @staticmethod
+    def _args(q, k, v, q_offset=None, causal=True, scale=None):
+        return q, k, v, q_offset, causal, scale
+
+    @staticmethod
+    def _within(out, want, call):
+        return flash_within(out, want, call[2])
+
+
+def gmm_within(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor,
+               w: torch.Tensor):
+    """(within the tolerance, max abs err) of a grouped-matmul kernel
+    output against its plain version (``grouped_matmul.tolerance``)."""
+    rtol, atol = gmm_tolerance(x, w)
+    err = (got.float() - want.float()).abs()
+    return (bool((err <= atol + rtol * want.float().abs()).all()),
+            float(err.max()) if err.numel() else 0.0)
+
+
+class GmmCheck(_KernelCheck):
+    """``_KernelCheck`` of ``grouped_matmul``; ``first`` is (x, w)."""
+    name, label = "grouped_matmul", "gmm"
+
+    @staticmethod
+    def _args(x, w):
+        return x, w
+
+    @staticmethod
+    def _within(out, want, call):
+        return gmm_within(out, want, *call)
+
+
+class MoEStats:
+    """Inside the context, every ``moe.moe_block`` call's aux metrics are
+    kept: ``dropped`` (each call's dropped fraction of tokens) and
+    ``max_load``; the model runs unchanged."""
+
+    def __init__(self):
+        self.dropped, self.max_load = [], []
+
+    def __enter__(self):
+        self._block = moe_mod.moe_block
+        moe_mod.moe_block = self._call
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.moe_block = self._block
+
+    def _call(self, params, x, cfg, run=None):
+        y, aux = self._block(params, x, cfg, run)
+        self.dropped.append(float(aux["moe_dropped_frac"]))
+        self.max_load.append(float(aux["moe_max_load"]))
+        return y, aux
+
+    def summary(self):
+        n = len(self.dropped)
+        return {"moe_calls": n,
+                "moe_dropped_frac_mean": sum(self.dropped) / max(n, 1),
+                "moe_dropped_frac_max": max(self.dropped, default=0.0),
+                "moe_max_load": max(self.max_load, default=0.0)}
 
 
 class DecodeLogits:
@@ -96,14 +189,16 @@ class DecodeLogits:
 
 
 def logits_agreement(prefill: torch.Tensor, decode: torch.Tensor,
-                     dtype: torch.dtype) -> dict:
+                     dtype: torch.dtype, cfg=None) -> dict:
     """The prefill's last-position logits against the decode's at the same
-    position: relative RMS difference (held to ``PREFILL_DECODE_RTOL``),
-    max abs difference, and the share of rows whose argmax agrees."""
+    position: relative RMS difference (held to ``prefill_decode_rtol`` of
+    ``cfg``, a dense model's when None), max abs difference, and the
+    share of rows whose argmax agrees."""
     a, b = prefill.float(), decode.float()
     rel = float((a - b).norm() / b.norm())
+    rtol = PREFILL_DECODE_RTOL[dtype] if cfg is None \
+        else prefill_decode_rtol(cfg, dtype)
     return {"rel_rms": rel, "max_abs": float((a - b).abs().max()),
             "argmax_agree": float((a.argmax(-1) == b.argmax(-1))
                                   .float().mean()),
-            "rtol": PREFILL_DECODE_RTOL[dtype],
-            "ok": rel <= PREFILL_DECODE_RTOL[dtype]}
+            "rtol": rtol, "ok": rel <= rtol}

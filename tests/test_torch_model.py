@@ -328,7 +328,7 @@ def test_unported_serve_flags_raise(extra, item):
 
 @pytest.mark.parametrize("arch,item", [
     ("arctic-480b", r"13\(b\)"), ("falcon-mamba-7b", r"13\(c\)"),
-    ("deepseek-v2-lite-16b", "MLA"), ("qwen2-vl-2b", "M-RoPE"),
+    ("jamba-v0.1-52b", r"13\(c\)"), ("qwen2-vl-2b", "M-RoPE"),
     ("gemma-7b", "queue A 13")])
 def test_unported_archs_raise(arch, item):
     from repro_torch.configs.registry import get_arch, get_smoke_arch
@@ -345,7 +345,10 @@ def test_port_config_matches_jax():
                        (SMOKE_ARCHS["qwen2.5-3b"],
                         get_smoke_arch("qwen2.5-3b"))):
         for f in dataclasses.fields(tcfg):
-            assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+            a, b = getattr(tcfg, f.name), getattr(jcfg, f.name)
+            if f.name == "moe":     # each package's own MoEConfig class
+                a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+            assert a == b, f.name
         assert [tcfg.block_kind(i) for i in range(4)] == \
             [jcfg.block_kind(i) for i in range(4)]
         assert [tcfg.layer_ffn_kind(i) for i in range(4)] == \
@@ -357,9 +360,7 @@ def test_unported_model_paths_raise():
     from repro_torch.launch.steps import build_cell
     from repro_torch.models import model as TM
     tcfg, run = _port_run(1)
-    for kw, item in ((dict(ffn_kind="moe"), r"13\(b\)"),
-                     (dict(block_pattern=("mamba",)), r"13\(c\)"),
-                     (dict(attn_kind="mla"), "MLA"),
+    for kw, item in ((dict(block_pattern=("mamba",)), r"13\(c\)"),
                      (dict(is_encoder_decoder=True), "encoder-decoder")):
         with pytest.raises(NotImplementedError, match=item):
             TM.init_params(tcfg.with_overrides(**kw), run, device="cpu")
