@@ -5,7 +5,7 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
-  1. device and build — the card's name and power limit, then the eight
+  1. device and build — the card's name and power limit, then the nine
      CUDA kernels built from csrc/ with nvcc (in parallel);
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at adversarial ones: for the KV kernels a hot
@@ -26,7 +26,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      grouped_matmul (bf16) at the deepseek prefill's and decode's shapes
      (gate / up and down, empty slots answering zeros), ragged C / D / F,
      E = 1 and C = 1, within the tolerance stated in
-     kernels/grouped_matmul.py, and f32 refused;
+     kernels/grouped_matmul.py, and f32 refused; selective_scan at the
+     falcon-mamba-7b prefill's shape (B 4 x 2048, DI 8192, N 16) in bf16,
+     in f32 and from h0, two launches over the halves (the second from the
+     first's h_final) against one, ragged S 333 / DI 200, S 1 with N 4,
+     N 8, dt = 0 and a decay that underflows to 0, within the tolerance
+     stated in kernels/selective_scan.py, and f16 and N past 64 refused;
   3. kv_paper — the paper's KV store (Fig. 8/9 as benchmarks/kv_store.py
      runs it): 1,000,000 keys x 4 f32, a 2x4 stacked mesh (8 trustees),
      shared mode with the local shortcut, second_round overflow, 8192
@@ -72,20 +77,37 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the serve's prompt against the serve's decode logits there, the MoE
      dropped fractions of both beside them; then one decode step with
      mla_absorb on against off from the same cache;
-  8. times — each kernel at the main path's shapes: the median of five
+  8. falcon serve — the falcon-mamba-7b path at full width and depth (64
+     Mamba-1 layers, d_model 4096, d_inner 8192, dt_rank 256, N 16, vocab
+     65024, bf16; 7.27 B random parameters drawn on the card, after phase
+     7's weights are freed): prefill_step at B 4 x 2048 tokens through the
+     selective-scan kernel (a check run holding each of its 64 launches
+     against the plain version, then timed runs), then
+     repro_torch.launch.serve (8 requests, 128 prompt tokens
+     teacher-forced then 128 generated, the Mamba (conv, ssm) state cache,
+     whose decode step is the plain recurrence as in JAX), then the
+     prefill's last-position logits on the serve's prompt against the
+     serve's decode logits at that position, in bf16 and (weights drawn
+     in f32 from the same seed, a teacher-forced decode) in f32;
+  9. times — each kernel at the main path's shapes: the median of five
      profiler readings of its own kernels (their spread and the records
      the profiler kept beside it) and CUDA events with the host ahead of
      the card, beside its bound (bytes over 3.35 TB/s, or for
      flash_attention and grouped_matmul flops over 989 TFLOP/s where
-     that is the larger), its plain version and a library call where one
+     that is the larger; for selective_scan the largest of bytes, f32
+     flops over 67 TFLOP/s and exponentials over the SFU's 16 a clock per
+     SM at the measured clock), its plain version and a library call where one
      PyTorch call computes the same function (flash also at the MLA
      prefill's D 192, grouped_matmul at the prefill's and a decode step's
      shapes); each path's ops/s or tokens/s on a host clock; the device's
-     busy share and top device ops.
+     busy share and top device ops (the deepseek and falcon prefills' are
+     taken at the end of phases 7 and 8, while their weights are on the
+     card).
 
 Launch counters are zeroed just before each main path (phases 3, 4, the
-timed run of 5, each timed prefill of 6 and 7, and the serve of 7) and
-read just after; every kernel of a path must have launched there. The line
+timed run of 5, each timed prefill of 6, 7 and 8, and the serves of 7
+and 8) and read just after; every kernel of a path must have launched
+there. The line
 before the last is {"kernels": [...]}; the last is the device line.
 """
 import argparse
@@ -121,6 +143,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:26"),
     "grouped_matmul": ("src/repro_torch/csrc/grouped_matmul.cu",
                        "src/repro/kernels/grouped_matmul.py:25"),
+    "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:25"),
 }
 KV_KERNELS = ("delegation_pack", "gather", "scatter_last", "segmented_add")
 # what each kernel's launches are called in a profiler trace, and the
@@ -132,7 +156,8 @@ KERNEL_NAMES = {"delegation_pack": "delegation_pack_kernel",
                 "pagetable_serve": "pagetable_serve_kernel",
                 "paged_attention": "paged_attention_kernel",
                 "flash_attention": "flash_attention_kernel",
-                "grouped_matmul": "grouped_matmul_kernel"}
+                "grouped_matmul": "grouped_matmul_kernel",
+                "selective_scan": "selective_scan_kernel"}
 PAGED_KERNELS = ("delegation_pack", "pagetable_serve", "paged_attention")
 # the paged-decode main path: one qwen2.5-3b attention layer (16 query / 2
 # KV heads of 128, QKV bias, rope 1e6) in bf16 over a 4096-page pool of
@@ -547,7 +572,7 @@ def phase_mixed(torch, dev, report):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: times
+# phase 9: times
 # ---------------------------------------------------------------------------
 
 def device_events(torch, fn, iters=20, name=None):
@@ -1874,6 +1899,440 @@ def phase_deepseek_busy(torch, dev, gpu, params, run):
             f"{short(n)} {ms:.3f} ms / {c} calls" for n, ms, c in tops))
 
 
+# ---------------------------------------------------------------------------
+# phase 2, Mamba: the selective-scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# the falcon-mamba-7b prefill's scan: B 4 x 2048 tokens, d_inner 8192, N 16
+SCAN_PREFILL = dict(b=4, s=2048, di=8192, n=16)
+SFU_EXP_PER_CLOCK = 16          # ex2 results a clock per SM (MUFU)
+SM_COUNT = 132                  # H100 SXM
+F32_FLOPS = 67e12               # H100 SXM f32, outside the tensor cores
+F32_LANES_PER_CLOCK = 128       # f32 instructions (FFMA, FMUL) a clock per SM
+# the scan's f32 instructions per (b, t, channel, state) besides its exp:
+# dt * a, (dt x) * B, the update's FFMA and C's FFMA
+SCAN_F32_INSTR = 4
+# f32 instructions of an exponential computed as a polynomial on the f32
+# pipes (exp2: range reduction 2, a degree-3 Horner 3, the exponent's
+# scale 1) — an assumed count, not measured
+POLY_EXP_INSTR = 6
+
+
+def scan_case(torch, dev, b, s, di, n, dtype, seed, h0=False):
+    """Inputs at the model's own scales: x ~ N(0, 1); dt = softplus of
+    N(log(expm1(0.01)), 2), the initial dt bias with a spread the random
+    projections give it (dt from about 1e-4 to 1); S4D-real
+    a = -(1 .. N) per channel times U(0.5, 1.5); b, c ~ N(0, 1);
+    d ~ 1 + N(0, 0.1^2); h0 ~ N(0, 1) when asked for."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *sh: torch.randn(sh, generator=g, device=dev)
+    dt = torch.nn.functional.softplus(r(b, s, di) * 2 - 4.6)
+    a = -torch.arange(1, n + 1, device=dev, dtype=torch.float32) \
+        * torch.rand((di, 1), generator=g, device=dev).add_(0.5)
+    return (r(b, s, di).to(dtype), dt.to(dtype), a, r(b, s, n), r(b, s, n),
+            1 + 0.1 * r(di), r(b, di, n) if h0 else None)
+
+
+def phase_scan_kernels(torch, dev, errs):
+    """selective_scan against its plain version within
+    ``kernels/selective_scan.py::tolerance``: the falcon-mamba-7b
+    prefill's shape in bf16 and f32, from h0, a chunk carry (two launches
+    over the halves, the second from the first's h_final, against one),
+    ragged S and DI, S = 1 with N 4, N 8, dt = 0, a decay that underflows
+    to 0; f16 and N past the kernel's maximum refused."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.selective_scan import MAX_STATE, tolerance
+    from repro_torch.testing.model import scan_within
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("prefill shape, bf16", dict(SCAN_PREFILL, dtype=bf), True),
+        ("prefill shape, f32", dict(SCAN_PREFILL, dtype=f32), False),
+        ("prefill shape, bf16, from h0", dict(SCAN_PREFILL, dtype=bf,
+                                              h0=True), False),
+        ("ragged S 333, DI 200", dict(b=2, s=333, di=200, n=16, dtype=bf,
+                                      h0=True), False),
+        ("S 1, B 1, N 4", dict(b=1, s=1, di=256, n=4, dtype=f32), False),
+        ("N 8", dict(b=2, s=256, di=1024, n=8, dtype=bf, h0=True), False),
+    ]
+    errs["selective_scan"] = 0.0
+    for i, (label, shape, main) in enumerate(cases):
+        args = scan_case(torch, dev, seed=130 + i, **shape)
+        got = kops.selective_scan(*args)
+        torch.cuda.synchronize()
+        want = kops.selective_scan(*args, impl="ref")
+        ok, err = scan_within(got, want, args)
+        require(ok, f"selective_scan [{label}]: max abs err {err} beyond "
+                f"the tolerance")
+        if main:
+            errs["selective_scan"] = err
+        say(f"[kernels] selective_scan [{label}] == plain (max abs err "
+            f"{err:.3g})")
+
+    # a chunk carry: the halves, the second from the first's h_final
+    x, dt, a, b, c, d, h0 = args = scan_case(torch, dev, seed=140, h0=True,
+                                             **dict(SCAN_PREFILL, dtype=f32))
+    y, h = kops.selective_scan(*args)
+    half = SCAN_PREFILL["s"] // 2
+    first, second = slice(0, half), slice(half, None)
+    y1, h1 = kops.selective_scan(x[:, first], dt[:, first], a, b[:, first],
+                                 c[:, first], d, h0)
+    y2, h2 = kops.selective_scan(x[:, second], dt[:, second], a,
+                                 b[:, second], c[:, second], d, h1)
+    torch.cuda.synchronize()
+    _, atol_y, atol_h = tolerance(*args)
+    err_y = (torch.cat([y1, y2], 1) - y).abs()
+    err_h = (h2 - h).abs()
+    require(bool((err_y <= atol_y).all()) and bool((err_h <= atol_h).all()),
+            f"selective_scan chunk carry: max abs err {float(err_y.max())} "
+            f"/ {float(err_h.max())} beyond the tolerance")
+    say(f"[kernels] selective_scan [two launches over the halves == one "
+        f"launch] (f32, max abs err y {float(err_y.max()):.3g}, h_final "
+        f"{float(err_h.max()):.3g})")
+
+    x, dt, a, b, c, d, h0 = scan_case(torch, dev, 2, 96, 256, 16, f32, 150,
+                                      h0=True)
+    for label, args in (
+            ("dt = 0", (x, torch.zeros_like(dt), a, b, c, d, h0)),
+            ("dt * a below -5000: the decay underflows to 0",
+             (x, torch.full_like(dt, 100.0), a * 100, b, c, d, h0))):
+        got = kops.selective_scan(*args)
+        torch.cuda.synchronize()
+        ok, err = scan_within(got, kops.selective_scan(*args, impl="ref"),
+                              args)
+        require(ok and bool(torch.isfinite(got[0]).all()),
+                f"selective_scan [{label}]: max abs err {err}")
+        if label == "dt = 0":
+            require(torch.equal(got[1], h0), "selective_scan [dt = 0]: "
+                    "the state moved")
+        say(f"[kernels] selective_scan [{label}] == plain (f32, max abs err "
+            f"{err:.3g})")
+    for label, args, exc in (
+            ("float16", (x.half(), dt.half(), a, b, c, d), TypeError),
+            (f"N {MAX_STATE + 1}",
+             scan_case(torch, dev, 1, 8, 64, MAX_STATE + 1, f32, 151),
+             ValueError)):
+        try:
+            kops.selective_scan(*args)
+        except exc as e:
+            say(f"[kernels] selective_scan refuses {label}: {e}")
+        else:
+            raise AssertionError(f"selective_scan accepted {label}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the falcon-mamba-7b serve path at full width
+# ---------------------------------------------------------------------------
+
+FM_ARCH = "falcon-mamba-7b"
+FM_PREFILL = dict(batch=4, seq=2048)
+FM_SERVE = dict(batch=8, prompt_len=128, gen=128)
+FM_TIMED_RUNS = 3
+# weight and prompt seeds besides the serve's own 0 at which the bf16
+# prefill-vs-decode agreement is read and held to the same bound
+FM_AGREE_SEEDS = (1, 2, 3)
+
+
+def fm_serve_argv():
+    q = FM_SERVE
+    return ["--arch", FM_ARCH, "--batch", str(q["batch"]),
+            "--prompt-len", str(q["prompt_len"]), "--gen", str(q["gen"])]
+
+
+def fm_decode_logits(torch, M, cfg, params, run, tokens, dev):
+    """The logits at the last position of ``tokens`` (B, L) teacher-forced
+    through ``decode_step`` one position at a time from an empty cache."""
+    from repro_torch.configs.base import ShapeConfig
+    bsz, n = tokens.shape
+    drun = dataclasses.replace(run, shape=ShapeConfig("decode", n, bsz,
+                                                      "decode"))
+    cache = M.init_cache(cfg, bsz, n, drun, dev)
+    for i in range(n):
+        pos = torch.full((bsz,), i, dtype=torch.int32, device=dev)
+        logits, cache = M.decode_step(params, cache, tokens[:, i], pos, cfg,
+                                      drun)
+    return logits
+
+
+def phase_falcon(torch, dev, gpu, report, errs, busy=False):
+    """The slice's main path at full width and depth (64 Mamba-1 layers,
+    d_model 4096, d_inner 8192, dt_rank 256, N 16, d_conv 4, vocab 65024,
+    bf16; 7.27 B random parameters from seed 0 drawn on the card, the
+    serve's own, after phase 7's weights are freed): (a) prefill_step at
+    B 4 x 2048 — a check run holding each of its 64 selective-scan
+    launches against the plain version, then timed runs, each with the
+    counters zeroed just before it and 64 scan launches read just after;
+    (b) serve.main, 8 x (128 + 128) tokens with the Mamba state cache
+    (the decode's step is the plain recurrence, as in JAX: no kernel);
+    (c) the prefill's last-position logits on the serve's prompt against
+    the serve's decode logits there, in bf16 — and at the weight and
+    prompt seeds ``FM_AGREE_SEEDS`` against a teacher-forced decode — and,
+    on the f32 weights the bf16 ones are rounded from, in f32, with each
+    bf16 path's distance from the f32 logits and the kernel prefill's from
+    the plain one; with
+    ``busy``, (d) the device busy share and top device ops of one prefill
+    call."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    from repro_torch.testing.model import (DecodeLogits, ScanCheck,
+                                           logits_agreement)
+    cfg = get_arch(FM_ARCH)
+    b, s = FM_PREFILL["batch"], FM_PREFILL["seq"]
+    run = RunConfig(model=cfg, shape=ShapeConfig("prefill", s, b, "prefill"),
+                    remat="none", use_pallas=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, run, dev)
+    torch.cuda.synchronize()
+    n_params = M.count_params(params)
+    say(f"[falcon] {cfg.name}: {n_params / 1e9:.3f} B parameters drawn on "
+        f"the card in {time.perf_counter() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated)")
+    plan = build_cell(cfg, run.shape, run)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    kops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with ScanCheck() as chk:
+        logits = plan.step_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    c = chk.summary()
+    require(counts["selective_scan"] == cfg.n_layers
+            and c["scan_calls"] == cfg.n_layers,
+            f"falcon prefill check run: {counts['selective_scan']} scan "
+            f"launches, {c['scan_calls']} checked, want {cfg.n_layers}")
+    require(c["scan_calls_out_of_tolerance"] == 0,
+            f"falcon prefill: {c['scan_calls_out_of_tolerance']} scan calls "
+            f"beyond the tolerance (max abs err {c['scan_max_abs_err']})")
+    require(tuple(logits.shape) == (b, cfg.vocab_size)
+            and logits.dtype == torch.float32
+            and bool(torch.isfinite(logits).all()),
+            f"falcon prefill logits: {tuple(logits.shape)} {logits.dtype}, "
+            f"finite {bool(torch.isfinite(logits).all())}")
+    errs["selective_scan"] = max(errs.get("selective_scan", 0.0),
+                                 c["scan_max_abs_err"])
+    say(f"[falcon check] prefill B {b} x {s}: {counts['selective_scan']} "
+        f"scan launches at {c['scan_shapes']}, every call == plain (max abs "
+        f"err {c['scan_max_abs_err']:.3g}); logits ({b}, {cfg.vocab_size}) "
+        f"f32, finite; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    scan_inputs = chk.first
+    del chk, logits
+
+    secs = []
+    for _ in range(FM_TIMED_RUNS):
+        kops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = plan.step_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = kops.launch_counts()
+        require(counts["selective_scan"] == cfg.n_layers,
+                f"falcon prefill timed run: {counts['selective_scan']} scan "
+                f"launches, want {cfg.n_layers}")
+        require(bool(torch.isfinite(again).all()),
+                "falcon prefill timed run: logits not finite")
+    say(f"[main path] falcon prefill launches (each of {FM_TIMED_RUNS} timed "
+        f"runs): {json.dumps(counts)}")
+    prefill_counts = dict(counts)
+    med = sorted(secs)[len(secs) // 2]
+    report["falcon_prefill"] = dict(seconds=secs, tokens_per_s=b * s / med)
+    say(f"[falcon] {gpu} | prefill B {b} x {s}: "
+        + ", ".join(f"{x * 1e3:.3f}" for x in secs)
+        + f" ms; median {b * s / med:.1f} tokens/s")
+    del params, again
+    torch.cuda.empty_cache()
+
+    prompt_len = FM_SERVE["prompt_len"]
+    stats = {}
+    kops.reset_launch_counts()
+    with DecodeLogits(pos=prompt_len - 1) as rec:
+        out = serve.main(fm_serve_argv(), stats=stats)
+    counts = kops.launch_counts()
+    say(f"[main path] falcon serve launches over {stats['steps']} steps: "
+        f"{json.dumps(counts)} (the Mamba decode step is the plain "
+        f"recurrence, as in JAX: no kernel)")
+    require(out.shape == (FM_SERVE["batch"], FM_SERVE["gen"])
+            and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+            f"serve tokens: shape {out.shape}, range {out.min()}..{out.max()}")
+    require(rec.logits is not None and bool(torch.isfinite(rec.logits)
+                                            .all()),
+            "serve: no finite decode logits at the last prompt position")
+    report["falcon_serve"] = stats
+    say(f"[falcon] {gpu} | serve {FM_SERVE['batch']} x ({prompt_len} + "
+        f"{FM_SERVE['gen']}), the Mamba (conv, ssm) state cache: "
+        f"{stats['steps']} steps in {stats['seconds']:.3f} s, "
+        f"{stats['ms_per_step']:.3f} ms/step, {stats['tokens_per_s']:.1f} "
+        f"tokens/s (batch x steps over the loop's wall time)")
+
+    # the serve's weights (seed 0 on the card, as serve.main draws them)
+    # through prefill_step on the serve's prompt
+    params = M.init_params(cfg, run, dev)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(prompt_len, FM_SERVE["batch"])).T
+    pplan = build_cell(cfg, ShapeConfig("prompt", prompt_len,
+                                        FM_SERVE["batch"], "prefill"), run)
+    pre = pplan.step_fn(params, {"tokens": torch.as_tensor(prompt,
+                                                           device=dev)})
+    plain = build_cell(cfg, pplan.shape, dataclasses.replace(
+        run, use_pallas=False)).step_fn(
+            params, {"tokens": torch.as_tensor(prompt, device=dev)})
+    agree = logits_agreement(pre, rec.logits, torch.bfloat16, cfg)
+    say(f"[falcon check] prefill logits (the scan kernel) at position "
+        f"{prompt_len - 1} vs the serve's decode logits there (the plain "
+        f"step): relative RMS {agree['rel_rms']:.4g} (<= {agree['rtol']}), "
+        f"max abs {agree['max_abs']:.4g}, argmax agrees on "
+        f"{agree['argmax_agree'] * 100:.1f}% of rows")
+    if busy:
+        bt = torch.randint(0, cfg.vocab_size, (b, s), device=dev)
+        sec, wall, tops = busy_share(
+            torch, lambda: plan.step_fn(params, {"tokens": bt}), 1, 10)
+        say(f"[busy] {gpu} | falcon prefill B {b} x {s}: device busy "
+            f"{sec * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
+            f"({100 * sec / wall:.1f}% busy); top device ops: " + "; ".join(
+                f"{short(n)} {ms:.3f} ms / {c} calls" for n, ms, c in tops))
+    del params
+    torch.cuda.empty_cache()
+
+    # the same bf16 agreement at other weight and prompt seeds: the
+    # prefill (the scan kernel) against the serve's decode step
+    # teacher-forced through the prompt, each held to the same bound
+    sweep = {0: agree}
+    for seed in FM_AGREE_SEEDS:
+        srun = dataclasses.replace(run, seed=seed)
+        sparams = M.init_params(cfg, srun, dev)
+        stok = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, size=(FM_SERVE["batch"], prompt_len)),
+            device=dev)
+        spre = pplan.step_fn(sparams, {"tokens": stok})
+        sdec = fm_decode_logits(torch, M, cfg, sparams, srun, stok, dev)
+        sweep[seed] = logits_agreement(spre, sdec, torch.bfloat16, cfg)
+        del sparams, spre, sdec
+        torch.cuda.empty_cache()
+    say(f"[falcon check] bf16 prefill vs teacher-forced decode at position "
+        f"{prompt_len - 1}, by weight and prompt seed (0: the serve's): "
+        + ", ".join(f"seed {k} relative RMS {v['rel_rms']:.4g} argmax "
+                    f"{v['argmax_agree'] * 100:.1f}%"
+                    for k, v in sweep.items())
+        + f"; largest {max(v['rel_rms'] for v in sweep.values()):.4g} "
+        f"(<= {agree['rtol']})")
+
+    # the same comparison in f32, on the f32 weights the bf16 ones are
+    # rounded from (the same seed): the math without bf16 rounding, and
+    # how far each bf16 path lies from it
+    frun = dataclasses.replace(run, param_dtype="float32",
+                               activation_dtype="float32")
+    fparams = M.init_params(cfg, frun, dev)
+    ptok = torch.as_tensor(prompt, device=dev)
+    pre32 = build_cell(cfg, pplan.shape, frun).step_fn(fparams,
+                                                       {"tokens": ptok})
+    dec32 = fm_decode_logits(torch, M, cfg, fparams, frun, ptok, dev)
+    del fparams
+    torch.cuda.empty_cache()
+    agree32 = logits_agreement(pre32, dec32, torch.float32, cfg)
+    rel = lambda u, v: float((u.float() - v.float()).norm() / v.norm())
+    far = {"prefill_bf16_vs_f32": rel(pre, pre32),
+           "decode_bf16_vs_f32": rel(rec.logits, dec32),
+           "prefill_kernel_vs_plain_bf16": rel(pre, plain)}
+    say(f"[falcon check] in f32 (weights drawn in f32 from the same seed): "
+        f"prefill (the scan kernel) vs a teacher-forced decode at position "
+        f"{prompt_len - 1}: relative RMS {agree32['rel_rms']:.4g} (<= "
+        f"{agree32['rtol']}), argmax agrees on "
+        f"{agree32['argmax_agree'] * 100:.1f}% of rows; relative RMS from "
+        f"the f32 logits: bf16 prefill {far['prefill_bf16_vs_f32']:.4g}, "
+        f"bf16 serve decode {far['decode_bf16_vs_f32']:.4g}; bf16 prefill "
+        f"through the kernel vs through the plain scan "
+        f"{far['prefill_kernel_vs_plain_bf16']:.4g}")
+    require(agree32["ok"], f"falcon prefill vs decode logits in f32 at "
+            f"position {prompt_len - 1}: {agree32}")
+    for k, v in sweep.items():
+        require(v["ok"], f"falcon prefill vs decode logits in bf16 at "
+                f"seed {k}, position {prompt_len - 1}: {v}")
+    report["falcon_agreement"] = dict(agree, f32=agree32, **far, by_seed={
+        k: v["rel_rms"] for k, v in sweep.items()})
+    del pre, plain, pre32, dec32
+    return prefill_counts, scan_inputs
+
+
+def scan_work(x, a):
+    """(exponentials, f32 flops, bytes) the scan must do on these inputs:
+    one exp(dt * a) and 6 flops per (b, t, channel, state) — dt * a,
+    dt x * B, the update's multiply-add and C's multiply-add — and 3 per
+    (b, t, channel) — dt * x and D * x added; x, dt, a, b, c, d (and h0)
+    read once, y and h_final written once."""
+    bsz, s, di = x.shape
+    n = a.shape[1]
+    exps = bsz * s * di * n
+    flops = 6 * exps + 3 * bsz * s * di
+    item = x.element_size()
+    nbytes = (3 * bsz * s * di * item + 4 * (di * n + 2 * bsz * s * n + di)
+              + 4 * bsz * di * n)
+    return exps, flops, nbytes
+
+
+def phase_scan_times(torch, dev, gpu, inputs, launches):
+    """selective_scan at the falcon prefill's own inputs (layer 0's x, dt,
+    a, b, c, d of the check run): the median of five profiler readings,
+    CUDA events with the host ahead, the SM clock under back-to-back
+    calls, the bound (the larger of bytes over 3.35 TB/s, f32 flops over
+    67 TFLOP/s and exponentials over the SFU's 16 a clock per SM at that
+    clock), the floor with the exponentials shared between the SFU and
+    the f32 pipes, the plain version."""
+    from repro_torch.kernels import ops as kops
+    sc = lambda: kops.selective_scan(*inputs)
+    ms, lo, hi, seen = device_readings(torch, sc,
+                                       KERNEL_NAMES["selective_scan"])
+    ev, host, ahead = ahead_ms(torch, sc)
+    if ms == 0:                 # the profiler kept no kernel record
+        ms = ev
+    clk = sm_clock_under(torch, sc, max(1, int(800 / max(ev, 1e-3))))
+    mhz = float(clk.split(",")[0].split()[0])
+    plain = kernel_ms(torch, lambda: kops.selective_scan(*inputs,
+                                                         impl="ref"),
+                      iters=2)[0]
+    exps, flops, nbytes = scan_work(inputs[0], inputs[2])
+    t_exp = exps / (SFU_EXP_PER_CLOCK * SM_COUNT * mhz * 1e6) * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(t_exp, t_ops, t_bytes)
+    by = {t_exp: "exponentials", t_ops: "f32 flops",
+          t_bytes: "bytes"}[bound]
+    # the SFU-only bound above leaves the f32 pipes part idle: a share f
+    # of the exponentials computed as polynomials there balances the two
+    # units where (1 - f) / SFU = (SCAN_F32_INSTR + POLY_EXP_INSTR f) / F32
+    r_s, r_f = SFU_EXP_PER_CLOCK, F32_LANES_PER_CLOCK
+    share = (r_f - SCAN_F32_INSTR * r_s) / (r_f + POLY_EXP_INSTR * r_s)
+    t_mixed = max(t_exp * (1 - share), t_bytes)
+    bsz, s, di = inputs[0].shape
+    say(f"[times] {gpu} | selective_scan @ falcon prefill (B {bsz}, S {s}, "
+        f"DI {di}, N {inputs[2].shape[1]}, {inputs[0].dtype}): {ms:.6f} "
+        f"ms/call (median of 5 profiler readings of the kernel, "
+        f"{lo:.6f}..{hi:.6f}, kernel records kept per reading of 20 calls "
+        f"{seen}; CUDA events with the host "
+        f"{'ahead' if ahead else 'NOT ahead'} {ev:.6f} ms/call, host issue "
+        f"{host:.6f} ms/call; SM clock under back-to-back calls, max: "
+        f"{clk}), {exps / ms / 1e9:.3f} T exponentials/s; plain "
+        f"{plain:.6f} ms, bound {bound:.6f} ms by {by} (exponentials "
+        f"{t_exp:.6f} ms for {exps} at {SFU_EXP_PER_CLOCK} a clock on "
+        f"{SM_COUNT} SMs at {mhz:.0f} MHz, f32 flops {t_ops:.6f} ms for "
+        f"{flops}, bytes {t_bytes:.6f} ms for {nbytes}; the SFU and the "
+        f"f32 pipes together, {share * 100:.1f}% of the exponentials as "
+        f"{POLY_EXP_INSTR}-instruction polynomials beside "
+        f"{SCAN_F32_INSTR} f32 instructions an element: {t_mixed:.6f} ms), "
+        f"library n/a: no "
+        f"PyTorch call computes the recurrence, {launches} launches a "
+        f"prefill call")
+    return ("selective_scan", launches, ms, plain, bound, None,
+            f"falcon prefill, B {bsz} x {s}, DI {di}",
+            "bytes" if by == "bytes" else "operations")
+
+
 def pt_bytes(op, state, args):
     """What one op pass needs: the state read once and written once, every
     row's valid byte, the valid rows' seq (and arg, for alloc and append)
@@ -2008,7 +2467,7 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2059,6 +2518,7 @@ def main(argv=None):
         phase_paged_kernels(torch, dev, errs)
         phase_flash_kernels(torch, dev, errs)
         phase_gmm_kernels(torch, dev, errs)
+        phase_scan_kernels(torch, dev, errs)
 
     # the main paths, each with the counters zeroed just before it and read
     # just after: kv_paper (a) and (b), 40 kernel-path rounds each (the (a)
@@ -2099,21 +2559,33 @@ def main(argv=None):
         deep = phase_deepseek(torch, dev, gpu, report, errs)
         for k, v in deep[0].items():
             launches[k] += v
-    per_round["launches"] = launches
-    say(f"[main path] kernel launches over phases 3-7 (one prefill call in "
-        f"phases 6 and 7): {json.dumps(launches)}")
-
+        if 9 in phases:
+            # the deepseek prefill's busy share now: its weights leave the
+            # card before phase 8 draws falcon-mamba-7b's
+            phase_deepseek_busy(torch, dev, gpu, deep[5], deep[6])
+        deep = deep[:5] + (deep[6],)
+        torch.cuda.empty_cache()
+    falcon = None
     if 8 in phases:
-        require(phases >= {2, 3, 4, 5, 6, 7},
-                "phase 8 reports the main paths' launches and the kernels' "
-                "errors against their plain versions: run phases 2-7")
+        falcon = phase_falcon(torch, dev, gpu, report, errs,
+                              busy=9 in phases)
+        for k, v in falcon[0].items():
+            launches[k] += v
+    per_round["launches"] = launches
+    say(f"[main path] kernel launches over phases 3-8 (one prefill call in "
+        f"phases 6, 7 and 8): {json.dumps(launches)}")
+
+    if 9 in phases:
+        require(phases >= {2, 3, 4, 5, 6, 7, 8},
+                "phase 9 reports the main paths' launches and the kernels' "
+                "errors against their plain versions: run phases 2-8")
         rows = phase_times(torch, dev, shapes, errs, per_round, gpu)
         counts, rec, waves, inputs = paged
         timed = [r + ("bytes",) for r in phase_paged_times(
             torch, dev, gpu, rec, waves, counts, inputs)]
         timed.append(phase_flash_times(torch, dev, gpu, qwen[1], qwen[0]))
-        (ds_counts, mla_inputs, gmm_prefill, gmm_decode, ds_packs,
-         ds_params, ds_run) = deep
+        ds_counts, mla_inputs, gmm_prefill, gmm_decode, ds_packs, ds_run = \
+            deep
         phase_ds_pack_times(torch, gpu, ds_packs, ds_counts)
         phase_flash_times(torch, dev, gpu, mla_inputs,
                           ds_counts["flash_attention"],
@@ -2124,11 +2596,11 @@ def main(argv=None):
         phase_gmm_times(torch, dev, gpu, gmm_decode,
                         3 * (ds_run.model.n_layers - 1),
                         "deepseek decode step")
+        timed.append(phase_scan_times(torch, dev, gpu, falcon[1],
+                                      falcon[0]["selective_scan"]))
         phase_qwen_busy(torch, dev, gpu, qwen[2])
-        phase_deepseek_busy(torch, dev, gpu, ds_params, ds_run)
-        del ds_params, deep
         for k in ("qwen_prefill", "qwen_serve", "deepseek_prefill",
-                  "deepseek_serve"):
+                  "deepseek_serve", "falcon_prefill", "falcon_serve"):
             say(f"[tokens/s] {gpu} | {k}: {report[k]['tokens_per_s']:.1f}")
         for (kname, n, ms, plain, bound, lib, label, by) in timed:
             src, replaces = SOURCES[kname]

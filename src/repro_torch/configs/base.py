@@ -4,7 +4,7 @@ names, defaults and derived helpers, so a configuration reads the same in
 both packages.
 
 ``ModelConfig`` describes one architecture (``MoEConfig`` its routed
-experts), ``ShapeConfig`` one
+experts, ``MambaConfig`` its selective-SSM mixers), ``ShapeConfig`` one
 (seq_len, global_batch, kind) input cell, ``MeshConfig`` the (data, model)
 mesh whose shards the port stacks on one device, and ``RunConfig`` couples
 them with the precision and kernel settings the serve path reads.
@@ -40,6 +40,17 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0     # 0 -> ceil(d_model / 16)
+
+    def resolved_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank if self.dt_rank > 0 else -(-d_model // 16)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                      # dense | moe | hybrid | ssm | vlm | audio
@@ -66,6 +77,7 @@ class ModelConfig:
     moe_offset: int = 0              # == moe_offset
     first_layer_dense: bool = False  # deepseek: layer 0 dense in MoE nets
     block_pattern: Tuple[str, ...] = ()   # empty = every layer attention
+    mamba: MambaConfig = field(default_factory=MambaConfig)
     tie_embeddings: bool = False
     embed_scale: bool = False        # gemma: embeds scaled by sqrt(d_model)
     logit_softcap: float = 0.0

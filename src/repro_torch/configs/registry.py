@@ -7,11 +7,12 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from . import deepseek_v2_lite_16b, qwen2_5_3b
+from . import deepseek_v2_lite_16b, falcon_mamba_7b, qwen2_5_3b
 from .base import ModelConfig
 
 _MODULES = {"qwen2.5-3b": qwen2_5_3b,
-            "deepseek-v2-lite-16b": deepseek_v2_lite_16b}
+            "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
+            "falcon-mamba-7b": falcon_mamba_7b}
 ARCHS: Dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}
 SMOKE_ARCHS: Dict[str, ModelConfig] = {k: m.SMOKE
                                        for k, m in _MODULES.items()}
@@ -19,8 +20,9 @@ SMOKE_ARCHS: Dict[str, ModelConfig] = {k: m.SMOKE
 # the JAX registry's other architectures and what they wait for
 UNPORTED = {
     "qwen2-vl-2b": "M-RoPE and embedding inputs (ROADMAP queue A 13)",
-    "jamba-v0.1-52b": "Mamba layers (ROADMAP queue A 13(c)); its 104 GB of "
-                      "bf16 weights also exceed one card",
+    "jamba-v0.1-52b": "more than one card: its 104 GB of bf16 weights do "
+                      "not fit one H100's 80 GB (its Mamba, attention and "
+                      "MoE layers are ported, ROADMAP queue A 13(c))",
     "arctic-480b": "more than one card: its 480 B parameters do not fit one "
                    "H100's 80 GB (its MoE layers are ported, ROADMAP queue "
                    "A 13(b))",
@@ -28,7 +30,6 @@ UNPORTED = {
     "qwen3-4b": "its configuration (ROADMAP queue A 13)",
     "gemma-7b": "GeGLU, tied and scaled embeddings (ROADMAP queue A 13)",
     "seamless-m4t-large-v2": "the encoder-decoder model (ROADMAP queue A 13)",
-    "falcon-mamba-7b": "Mamba layers (ROADMAP queue A 13(c))",
 }
 
 

@@ -12,7 +12,8 @@ layers a list, MLA and MoE leaves (experts ``(n_groups, E, D, F)``, the
 shared experts' MLP) as JAX holds them — so they carry across as a plain
 tree map (``model_params_from_jax``); the decode KV cache (or MLA latent
 cache) is stacked by trustee in the port and laid end to end along the
-sequence in JAX (``kv_cache_to_global``).
+sequence in JAX (``kv_cache_to_global``); a Mamba layer's (conv, ssm)
+state has JAX's layout in both (``mamba_cache_to_numpy``).
 """
 from __future__ import annotations
 
@@ -81,13 +82,17 @@ def attention_params_from_jax(params: Dict, device=None,
     return out
 
 
+# the leaves JAX keeps in f32 whatever the parameter dtype: norm scales,
+# the MoE router, and the Mamba mixer's dt bias, log(-A) and D
+F32_LEAVES = ("scale", "router", "b_dt", "log_a", "d_skip")
+
+
 def model_params_from_jax(params: Dict, device=None, dtype=None) -> Dict:
     """A JAX model tree (``repro.models.model.init_params``, as numpy
     after ``np.asarray``) -> the port's tree: the same keys and layouts
     (layer leaves stacked ``(n_groups, ...)`` under ``groups/pos<j>``),
-    copied onto ``device``.  ``dtype`` casts every leaf but the norm
-    scales (``scale`` leaves) and the f32 MoE router, which stay f32 as
-    in JAX."""
+    copied onto ``device``.  ``dtype`` casts every leaf but those JAX
+    keeps in f32 (``F32_LEAVES``)."""
     from .core.meshctx import resolve_device
     dev = resolve_device(device)
 
@@ -97,8 +102,7 @@ def model_params_from_jax(params: Dict, device=None, dtype=None) -> Dict:
         if isinstance(tree, (list, tuple)):
             return [conv(v, key) for v in tree]
         t = torch.tensor(np.asarray(tree), device=dev)
-        keep = key == "scale" or (key == "router" and
-                                  t.dtype == torch.float32)
+        keep = key in F32_LEAVES and t.dtype == torch.float32
         return t if dtype is None or keep else t.to(dtype)
     return conv(params)
 
@@ -126,4 +130,11 @@ def kv_cache_to_global(cache: Dict) -> Dict[str, np.ndarray]:
         x = leaf.detach().cpu().float().movedim(-lead_dims, -3)
         return x.reshape(x.shape[:-3] + (-1, x.shape[-1])).numpy().copy()
     return {k: glob(v, 4 if k in ("latent", "k_rope") else 5)
+            for k, v in cache.items()}
+
+
+def mamba_cache_to_numpy(cache: Dict) -> Dict[str, np.ndarray]:
+    """The port's Mamba decode state -> numpy in the JAX layout (the same:
+    ``conv`` (..., B, d_conv - 1, DI), ``ssm`` (..., B, DI, N)), f32."""
+    return {k: v.detach().cpu().float().numpy().copy()
             for k, v in cache.items()}

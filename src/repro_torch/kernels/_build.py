@@ -26,7 +26,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("delegation_pack.cu", "scatter_last.cu", "segmented_add.cu",
            "gather.cu", "pagetable_serve.cu", "paged_attention.cu",
-           "flash_attention.cu", "grouped_matmul.cu")
+           "flash_attention.cu", "grouped_matmul.cu", "selective_scan.cu")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -31,6 +31,7 @@ from .flash_attention import flash_attention as _flash_attention_kernel
 from .grouped_matmul import grouped_matmul as _grouped_matmul_kernel
 from .paged_attention import paged_attention as _paged_attention_kernel
 from .pagetable_serve import pagetable_serve as _pagetable_serve_kernel
+from .selective_scan import selective_scan as _selective_scan_kernel
 
 KERNELS = {"delegation_pack": _pack_kernel, "gather": _gather_kernel,
            "scatter_last": _scatter_last_kernel,
@@ -38,7 +39,8 @@ KERNELS = {"delegation_pack": _pack_kernel, "gather": _gather_kernel,
            "pagetable_serve": _pagetable_serve_kernel,
            "paged_attention": _paged_attention_kernel,
            "flash_attention": _flash_attention_kernel,
-           "grouped_matmul": _grouped_matmul_kernel}
+           "grouped_matmul": _grouped_matmul_kernel,
+           "selective_scan": _selective_scan_kernel}
 CHECKS = {"gather": check_gather, "scatter_last": check_scatter_last,
           "segmented_add": check_segmented_add}
 
@@ -122,3 +124,11 @@ def grouped_matmul(x, w, impl: str = "kernel"):
     """(E, C, D) @ (E, D, F) -> (E, C, F), one matmul per expert, f32
     sums; see ``ref.grouped_matmul``."""
     return _pick(impl, _grouped_matmul_kernel, ref.grouped_matmul)(x, w)
+
+
+def selective_scan(x, dt, a, b, c, d, h0=None, impl: str = "kernel"):
+    """The Mamba-1 recurrence over (B, S, DI) from ``h0`` (zeros when
+    None) -> (y in x's dtype, h_final f32); see ``ref.selective_scan``
+    (JAX's "ref" is the associative form of the same function)."""
+    return _pick(impl, _selective_scan_kernel, ref.selective_scan)(
+        x, dt, a, b, c, d, h0)

@@ -433,3 +433,68 @@ def merge_attention_stats(os, ms, ls):
     l = (ls * w).sum(dim=0)
     o = (os * w[..., None]).sum(dim=0)
     return o / torch.clamp(l[..., None], min=1e-30), m, l
+
+
+# ---------------------------------------------------------------------------
+# selective scan — the Mamba-1 recurrence
+# ---------------------------------------------------------------------------
+
+# time steps whose exp(dt * a) and dt * b * x the sequential scan makes in
+# one pass: (B, 16, DI, N) f32 temporaries, 33.5 MB at falcon-mamba-7b's
+# prefill (B 4, DI 8192, N 16), where the whole sequence would be 4.3 GB
+SCAN_BLOCK = 16
+
+
+def _decay(dtf: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """exp(dt * a) in f32: the product in f32, as JAX forms it, its exp
+    taken in f64 and rounded.  On the CPU torch's f32 exp is MKL VML's,
+    which on a newly started intra-op thread has been seen to return one
+    thread's share of a call good to only ~13 bits (1.5e-4 relative); an
+    f64 exp rounded to f32 is good to the f32 rounding either way."""
+    return torch.exp((dtf * a).double()).float()
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential scan (``repro.kernels.ref.selective_scan``).
+
+    x, dt: (B, S, DI); a: (DI, N); b, c: (B, S, N); d: (DI,); h0:
+    (B, DI, N) or None (zeros).  In f32, step by step:
+    h_t = exp(dt_t * a) * h_{t-1} + dt_t * b_t * x_t;
+    y_t = c_t . h_t + d * x_t.  Returns (y (B, S, DI) in x's dtype,
+    h_final (B, DI, N) f32).  The associative form of JAX's "ref" path
+    computes the same function up to f32 rounding."""
+    bsz, s, di = x.shape
+    n = a.shape[1]
+    a, d = a.float(), d.float()
+    h = torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device) \
+        if h0 is None else h0.float()
+    y = torch.empty((bsz, s, di), dtype=torch.float32, device=x.device)
+    for t0 in range(0, s, SCAN_BLOCK):
+        t1 = min(t0 + SCAN_BLOCK, s)
+        dtf = dt[:, t0:t1].float()[..., None]                 # (B, L, DI, 1)
+        da = _decay(dtf, a)                                   # (B, L, DI, N)
+        dbx = dtf * b[:, t0:t1, None, :].float() \
+            * x[:, t0:t1, :, None].float()
+        hs = torch.empty_like(da)
+        for j in range(t1 - t0):
+            torch.mul(da[:, j], h, out=hs[:, j])
+            hs[:, j] += dbx[:, j]
+            h = hs[:, j]
+        y[:, t0:t1] = torch.einsum("bldn,bln->bld", hs,
+                                   c[:, t0:t1].float())
+    y += d * x.float()
+    return y.to(x.dtype), h.clone()
+
+
+def selective_scan_step(x, dt, a, b, c, d, h):
+    """One decode step: x, dt (B, DI); b, c (B, N); h (B, DI, N) ->
+    (y (B, DI) in x's dtype, the new state (B, DI, N) f32)."""
+    xf, dtf = x.float(), dt.float()[..., None]
+    da = _decay(dtf, a.float())
+    dbx = dtf * b.float()[:, None, :] * xf[..., None]
+    h = da * h.float() + dbx
+    y = torch.einsum("bdn,bn->bd", h, c.float()) + d.float() * xf
+    return y.to(x.dtype), h

@@ -1,12 +1,16 @@
 """Serving driver: a request batch decoded token by token with its KV
-cache entrusted to T trustees along the sequence (the torch counterpart
-of ``repro.launch.serve``).
+cache entrusted to T trustees along the sequence, or a Mamba model's
+(conv, ssm) state cache (the torch counterpart of
+``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --batch 8 --prompt-len 128 --gen 128 --mesh-model 4 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-v2-lite-16b --batch 8 --prompt-len 64 --gen 64 \\
         --mesh-model 4 [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch falcon-mamba-7b --batch 8 --prompt-len 128 --gen 128 \\
+        [--smoke --device cpu]
 
 The prompt is teacher-forced through decode steps, then greedy decode
 follows; every step's (k, v) write — for MLA the latent and k_rope rows
@@ -16,10 +20,14 @@ partial answers are merged (see ``models.attention.decode_attention``).
 the cache length is padded to a multiple of T.  A MoE model's routed
 experts are entrusted to the same T trustees (T must divide the expert
 count, else ``ValueError``), each token's rows delegated over the channel
-(``models.moe``).  Weights are random, drawn on the device from a seeded
-generator; the prompts come from ``np.random.default_rng(0)`` as in JAX,
-so both packages see the same tokens.  Runs on ``cuda`` unless given
-``--device cpu``.
+(``models.moe``).  A Mamba layer's cache is its (conv, ssm) state, updated
+in place by the plain one-step recurrence (JAX's Mamba decode runs no
+kernel, so a pure-SSM serve launches none); JAX shards the state's
+channels over the model axis with no channel round, and the port keeps it
+whole, so ``--mesh-model`` does not change its tokens.  Weights are
+random, drawn on the device from a seeded generator; the prompts come
+from ``np.random.default_rng(0)`` as in JAX, so both packages see the
+same tokens.  Runs on ``cuda`` unless given ``--device cpu``.
 
 Options that need parts not ported yet raise ``NotImplementedError``
 naming their ROADMAP item: ``--delegation-mode dedicated`` (queue A 1),
@@ -113,7 +121,8 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     shape = ShapeConfig("cli", max_len, args.batch, "decode")
     # use_pallas: the hand-written kernels wherever the decode step has
     # one (the MoE's grouped matmul; the decode attention is the plain
-    # trustee island, as in JAX) — their plain versions on CPU tensors
+    # trustee island and the Mamba step the plain recurrence, as in JAX)
+    # — their plain versions on CPU tensors
     run = RunConfig(model=cfg, shape=shape,
                     mesh=MeshConfig((args.mesh_data, t), ("data", "model")),
                     remat="none", use_pallas=True)
@@ -122,9 +131,12 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     params = M.init_params(cfg, run, dev)
     cache = M.init_cache(cfg, args.batch, max_len, run, dev)
     n_params = M.count_params(params)
+    cache_kind = ("the Mamba (conv, ssm) state, whole"
+                  if set(cfg.block_pattern) == {"mamba"}
+                  else f"{t} trustee shards")
     print(f"[serve] {cfg.name}: {n_params/1e6:.2f}M params "
           f"({M.active_param_count(cfg, n_params)/1e6:.2f}M active a token), "
-          f"cache len {max_len}, batch {args.batch}, {t} trustee shards on "
+          f"cache len {max_len}, batch {args.batch}, {cache_kind} on "
           f"{dev}", flush=True)
 
     # "prefill" by teacher-forcing the prompt through decode steps (one

@@ -28,14 +28,16 @@ class CellPlan(NamedTuple):
 @torch.no_grad()
 def prefill_step(params, batch, cfg: ModelConfig, run=None) -> torch.Tensor:
     """Last-token logits (B, V), f32, of a prompt batch
-    ``{"tokens": (B, S)}`` through ``transformer.prefill``."""
+    ``{"tokens": (B, S)}`` through ``transformer.prefill`` (attention
+    through the flash kernel and Mamba layers through the selective-scan
+    kernel under ``run.use_pallas``)."""
     return M.prefill(params, batch, cfg, run)
 
 
 @torch.no_grad()
 def serve_step(params, cache, tokens, pos, cfg: ModelConfig, run=None):
-    """One greedy decode step: (next token (B,) int32, cache) — the cache
-    updated in place."""
+    """One greedy decode step: (next token (B,) int32, cache) — the KV or
+    Mamba state cache updated in place."""
     logits, cache = M.decode_step(params, cache, tokens, pos, cfg, run)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 

@@ -1,6 +1,8 @@
 """Decoder-only LM assembly (the torch counterpart of
-``repro.models.transformer``), for stacks of attention layers (GQA or
-MLA) with dense, MoE or MoE + dense FFNs.
+``repro.models.transformer``): stacks of attention layers (GQA or MLA)
+and Mamba-1 mixers, with dense, MoE or MoE + dense FFNs — qwen2.5-3b,
+deepseek-v2-lite-16b, falcon-mamba-7b, and hybrids such as jamba's
+period-8 pattern.
 
 Layers are organised as in JAX: ``prefix`` is a list of unstacked layers
 (deepseek's dense first layer), and ``groups`` holds the architecture's
@@ -8,13 +10,17 @@ repeating pattern (one layer for a uniform stack), each leaf stacked over
 the ``n_groups`` repeats, ``(n_groups, ...)`` under ``groups/pos<j>``, so
 a JAX parameter tree carries across as a plain tree map.  JAX scans the
 groups; the port loops over them in Python.  Each layer is pre-norm
-residual: x += Attn(norm(x)); x += FFN(norm(x)), the FFN a dense MLP, the
-delegated MoE (``moe.moe_block``) or both summed.  The forward collects
-the MoE layers' aux metrics as JAX's ``_stack_forward`` does.
+residual: x += Mixer(norm(x)), the mixer attention or Mamba
+(``mamba.mamba_block``); then x += FFN(norm(x)), the FFN a dense MLP, the
+delegated MoE (``moe.moe_block``) or both summed — a pure-SSM stack's
+layer has no FFN and no second norm.  The forward collects the MoE
+layers' aux metrics as JAX's ``_stack_forward`` does.  The decode cache
+holds each attention layer's KV over T trustees and each Mamba layer's
+(conv, ssm) state, whole.
 
 Not ported yet, raising ``NotImplementedError`` with their ROADMAP item:
-Mamba layers (13(c), kernel B8), the sequence-parallel residual, remat
-and ``forward_loss`` (training, 13(d)), and embedding inputs.
+the sequence-parallel residual, remat and ``forward_loss`` (training,
+13(d)), and embedding inputs.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from ..configs.base import (BLOCK_ATTN, BLOCK_MAMBA, FFN_DENSE, FFN_MOE,
                             FFN_MOE_DENSE, ModelConfig)
 from ..core.meshctx import resolve_device
 from . import attention as attn_mod
+from . import mamba as mamba_mod
 from . import moe as moe_mod
 from .layers import (dtype_of, embed_lookup, init_embed, init_mlp,
                      init_rmsnorm, lm_logits, mlp, rmsnorm, unembed_weight)
@@ -70,11 +77,6 @@ def _check(cfg: ModelConfig, run=None
         raise NotImplementedError("the sequence-parallel residual stream "
                                   "is not ported yet (ROADMAP queue A 13)")
     descs, prefix_len, n_groups = layer_descs(cfg)
-    for desc in descs:
-        if desc.block != BLOCK_ATTN:
-            raise NotImplementedError(
-                "Mamba layers are not ported yet (ROADMAP queue A 13(c), "
-                "kernel queue B8)")
     if run is not None and cfg.ffn_kind != FFN_DENSE \
             and cfg.moe.num_experts % run.mesh.model_size:
         raise ValueError(f"{run.mesh.model_size} trustees do not split "
@@ -111,10 +113,15 @@ def _leaves(tree):
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, desc: LayerDesc,
                 dtype, device, lead: tuple, model_axis: int
                 ) -> Dict[str, Any]:
-    p = {"ln1": init_rmsnorm(cfg.d_model, device=device, lead=lead),
-         "attn": attn_mod.init_attention(cfg, dtype, device,
-                                         model_axis=model_axis, gen=gen,
-                                         lead=lead)}
+    p: Dict[str, Any] = {"ln1": init_rmsnorm(cfg.d_model, device=device,
+                                             lead=lead)}
+    if desc.block == BLOCK_ATTN:
+        p["attn"] = attn_mod.init_attention(cfg, dtype, device,
+                                            model_axis=model_axis, gen=gen,
+                                            lead=lead)
+    else:
+        p["mamba"] = mamba_mod.init_mamba(cfg, dtype, device, gen,
+                                          lead=lead)
     if desc.ffn != "none":
         p["ln2"] = init_rmsnorm(cfg.d_model, device=device, lead=lead)
         if desc.ffn in (FFN_MOE, FFN_MOE_DENSE):
@@ -176,7 +183,10 @@ def _ffn(p, h, cfg: ModelConfig, desc: LayerDesc, run, seq: bool):
 
 def _apply_layer(p, x, positions, cfg: ModelConfig, desc: LayerDesc, run):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn_mod.attention(p["attn"], h, positions, cfg, run)
+    if desc.block == BLOCK_ATTN:
+        x = x + attn_mod.attention(p["attn"], h, positions, cfg, run)
+    else:
+        x = x + mamba_mod.mamba_block(p["mamba"], h, cfg, run)
     if desc.ffn == "none":
         return x, {}
     y, aux = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, desc, run,
@@ -240,32 +250,42 @@ def prefill(params, batch, cfg: ModelConfig, run=None) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, run=None,
                device=None) -> Dict[str, Any]:
-    """Zero KV caches in ``run.activation_dtype`` over the
-    ``run.mesh.model_size`` = T trustees: each group position's leaves
-    stacked ``(n_groups, T, B, ...)`` (``attention.init_kv_cache``),
-    prefix layers' in a list."""
+    """Zero decode caches in ``run.activation_dtype``: an attention
+    layer's KV over the ``run.mesh.model_size`` = T trustees, leaves
+    ``(n_groups, T, B, ...)`` (``attention.init_kv_cache``); a Mamba
+    layer's (conv, ssm) state whole, ``(n_groups, B, ...)``
+    (``mamba.init_mamba_cache``, JAX's layout); prefix layers' in a
+    list."""
     descs, prefix_len, n_groups = _check(cfg, run)
     dtype = dtype_of(run.activation_dtype) if run is not None \
         else torch.bfloat16
     t = run.mesh.model_size if run is not None else 1
     dev = resolve_device(device)
 
-    def layer_cache(lead):
-        return attn_mod.init_kv_cache(cfg, batch, max_len, dtype, dev,
-                                      n_trustees=t, model_axis=t, lead=lead)
+    def layer_cache(desc, lead):
+        if desc.block == BLOCK_ATTN:
+            return attn_mod.init_kv_cache(cfg, batch, max_len, dtype, dev,
+                                          n_trustees=t, model_axis=t,
+                                          lead=lead)
+        return mamba_mod.init_mamba_cache(cfg, batch, dtype, dev, lead=lead)
     cache: Dict[str, Any] = {}
     if prefix_len:
-        cache["prefix"] = [layer_cache(()) for _ in range(prefix_len)]
-    cache["groups"] = {f"pos{j}": layer_cache((n_groups,))
-                       for j in range(len(descs))}
+        cache["prefix"] = [layer_cache(_prefix_desc(cfg, i), ())
+                           for i in range(prefix_len)]
+    cache["groups"] = {f"pos{j}": layer_cache(desc, (n_groups,))
+                       for j, desc in enumerate(descs)}
     return cache
 
 
 def _apply_layer_decode(p, cache_l, x, pos, cfg: ModelConfig,
                         desc: LayerDesc, run):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, cache_l = attn_mod.decode_attention(p["attn"], h, pos, cache_l, cfg,
-                                           run)
+    if desc.block == BLOCK_ATTN:
+        y, cache_l = attn_mod.decode_attention(p["attn"], h, pos, cache_l,
+                                               cfg, run)
+    else:
+        y, cache_l = mamba_mod.mamba_decode(p["mamba"], h, cache_l, cfg,
+                                            run)
     x = x + y
     if desc.ffn == "none":
         return x, cache_l

@@ -412,7 +412,7 @@ def test_port_config_matches_jax():
                        (SMOKE_ARCHS[ARCH], get_smoke_arch(ARCH))):
         for f in dataclasses.fields(tcfg):
             a, b = getattr(tcfg, f.name), getattr(jcfg, f.name)
-            if f.name == "moe":
+            if f.name in ("moe", "mamba"):
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, f.name
         assert [tuple(d) for d in t_descs(tcfg)[0]] == \
@@ -423,8 +423,8 @@ def test_port_config_matches_jax():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("jamba-v0.1-52b", r"13\(c\)"), ("arctic-480b", "one card"),
-    ("falcon-mamba-7b", r"13\(c\)")])
+    ("jamba-v0.1-52b", "one card"), ("arctic-480b", "one card"),
+    ("qwen3-4b", "queue A 13")])
 def test_other_moe_and_mamba_archs_still_raise(arch, item):
     from repro_torch.configs.registry import get_arch, get_smoke_arch
     for get in (get_arch, get_smoke_arch):

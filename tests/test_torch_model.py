@@ -327,8 +327,8 @@ def test_unported_serve_flags_raise(extra, item):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("arctic-480b", r"13\(b\)"), ("falcon-mamba-7b", r"13\(c\)"),
-    ("jamba-v0.1-52b", r"13\(c\)"), ("qwen2-vl-2b", "M-RoPE"),
+    ("arctic-480b", r"13\(b\)"), ("qwen3-4b", "queue A 13"),
+    ("jamba-v0.1-52b", "one card"), ("qwen2-vl-2b", "M-RoPE"),
     ("gemma-7b", "queue A 13")])
 def test_unported_archs_raise(arch, item):
     from repro_torch.configs.registry import get_arch, get_smoke_arch
@@ -346,7 +346,7 @@ def test_port_config_matches_jax():
                         get_smoke_arch("qwen2.5-3b"))):
         for f in dataclasses.fields(tcfg):
             a, b = getattr(tcfg, f.name), getattr(jcfg, f.name)
-            if f.name == "moe":     # each package's own MoEConfig class
+            if f.name in ("moe", "mamba"):   # each package's own classes
                 a, b = dataclasses.asdict(a), dataclasses.asdict(b)
             assert a == b, f.name
         assert [tcfg.block_kind(i) for i in range(4)] == \
@@ -360,7 +360,7 @@ def test_unported_model_paths_raise():
     from repro_torch.launch.steps import build_cell
     from repro_torch.models import model as TM
     tcfg, run = _port_run(1)
-    for kw, item in ((dict(block_pattern=("mamba",)), r"13\(c\)"),
+    for kw, item in ((dict(input_mode="embeds"), "embedding inputs"),
                      (dict(is_encoder_decoder=True), "encoder-decoder")):
         with pytest.raises(NotImplementedError, match=item):
             TM.init_params(tcfg.with_overrides(**kw), run, device="cpu")
