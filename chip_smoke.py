@@ -11,9 +11,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      main path's shapes and at adversarial ones: for the KV kernels a hot
      segment spanning many scan blocks, all-distinct keys, ragged row
      counts, capacity 1, int32 words above 2^24, exact on integer-exact
-     payloads; paged_attention in bf16 and f32 (length 1, lengths on and
-     one past page boundaries, -1 pads inside and past the length,
-     MP*PS == length, Hkv == Hq) within the tolerance stated in
+     payloads; paged_attention in bf16, f32 and f16 (length 1, lengths on
+     and one past page boundaries, -1 pads inside and past the length,
+     MP*PS == length, Hkv == Hq, B 1 with one chain over every split, a
+     chain longer than a split beside short ones, pages read without
+     bulk copies) within the tolerance stated in
      kernels/paged_attention.py;
      pagetable_serve bit for bit on a stress trace (eviction cascades,
      infeasible requests, appends that heal an evicted chain, free and
@@ -24,9 +26,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      tolerance stated in kernels/flash_attention.py, a q_offset launch bit
      for bit equal to the rows of the full launch, and f32 refused;
      grouped_matmul (bf16) at the deepseek prefill's and decode's shapes
-     (gate / up and down, empty slots answering zeros), ragged C / D / F,
+     (gate / up and down, empty slots answering zeros, per-expert counts
+     as the serve spreads them, and counts of 0, a partial 128-row tile,
+     exactly a tile and C, the rows past them zero), ragged C / D / F,
      E = 1 and C = 1, within the tolerance stated in
-     kernels/grouped_matmul.py, and f32 refused; selective_scan at the
+     kernels/grouped_matmul.py over the whole output, and f32 refused; selective_scan at the
      falcon-mamba-7b prefill's shape (B 4 x 2048, DI 8192, N 16) in bf16,
      in f32 and from h0, two launches over the halves (the second from the
      first's h_final) against one, ragged S 333 / DI 200, S 1 with N 4,
@@ -68,15 +72,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      phase 6's weights are freed): prefill_step at B 4 x 2048 tokens with
      the experts over 4 stacked trustees, every MoE layer's tokens
      delegated over the channel (the pack kernel) to the trustees' expert
-     FFN (the pack kernel again, then three grouped-matmul launches) — a
-     check run holding each of its 27 flash launches (D 192) and 78
-     grouped-matmul launches against the plain versions, then timed
-     runs; then repro_torch.launch.serve (8 requests, 64 prompt tokens
+     FFN (the pack kernel again, then three grouped-matmul launches given
+     the pack's per-expert counts) — a check run holding each of its 27
+     flash launches (D 192) and 78 grouped-matmul launches against the
+     plain versions (the filled 128-row tiles counted), then timed runs;
+     then repro_torch.launch.serve (8 requests, 64 prompt tokens
      teacher-forced then 64 generated, the latent cache's sequence and the
      experts over 4 trustees); then the prefill's last-position logits on
      the serve's prompt against the serve's decode logits there, the MoE
      dropped fractions of both beside them; then one decode step with
-     mla_absorb on against off from the same cache;
+     mla_absorb on against off from the same cache, in bf16 and in f32
+     (weights drawn in f32 from the same seed; at full depth where they
+     fit, else 4 layers with bf16 at that depth beside it);
   8. falcon serve — the falcon-mamba-7b path at full width and depth (64
      Mamba-1 layers, d_model 4096, d_inner 8192, dt_rank 256, N 16, vocab
      65024, bf16; 7.27 B random parameters drawn on the card, after phase
@@ -99,7 +106,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      SM at the measured clock), its plain version and a library call where one
      PyTorch call computes the same function (flash also at the MLA
      prefill's D 192, grouped_matmul at the prefill's and a decode step's
-     shapes); each path's ops/s or tokens/s on a host clock; the device's
+     shapes, paged_attention with the L2 warm and flushed).  Every plain
+     and library reading is CUDA events with the host ahead, the
+     profiler's reading and the records it kept beside it, and its share
+     of its own work's bound (torch.bmm's counts every slot, as it
+     multiplies every one); one under its bound is marked as not a time.
+     Then each path's ops/s or tokens/s on a host clock; the device's
      busy share and top device ops (the deepseek and falcon prefills' are
      taken at the end of phases 7 and 8, while their weights are on the
      card).
@@ -154,7 +166,7 @@ KERNEL_NAMES = {"delegation_pack": "delegation_pack_kernel",
                 "gather": "gather_kernel", "scatter_last": "scatter_last_",
                 "segmented_add": "seg_add_",
                 "pagetable_serve": "pagetable_serve_kernel",
-                "paged_attention": "paged_attention_kernel",
+                "paged_attention": "paged_attention_",
                 "flash_attention": "flash_attention_kernel",
                 "grouped_matmul": "grouped_matmul_kernel",
                 "selective_scan": "selective_scan_kernel"}
@@ -593,13 +605,6 @@ def device_events(torch, fn, iters=20, name=None):
             and (name is None or name in e.key)]
 
 
-def device_ms(torch, fn, iters=20):
-    """Device time per call: all the call's CUDA activity (see
-    ``device_events``).  0.0 when the profiler records none."""
-    evs = device_events(torch, fn, iters)
-    return sum(e.self_device_time_total for e in evs) / iters / 1e3
-
-
 def device_readings(torch, fn, name, n=5, iters=20, per_call=1):
     """``n`` profiler readings of the ``name`` kernels' device time per
     call, each over ``iters`` calls: (median, min, max, the kernel records
@@ -624,15 +629,22 @@ def device_readings(torch, fn, name, n=5, iters=20, per_call=1):
 
 def ahead_ms(torch, fn, iters=50, sleep_cycles=40_000_000):
     """CUDA-event time per call with the host ahead of the card: the stream
-    first spins ``sleep_cycles`` clocks (some 20 ms) while the host issues
-    every call, so the events time the card's back-to-back work and not
-    the host's issue rate.  Returns (device ms per call, host ms per call
-    to issue, whether the host finished issuing before the spin ended)."""
+    first spins while the host issues every call, so the events time the
+    card's back-to-back work and not the host's issue rate.  The spin is
+    ``sleep_cycles`` clocks (some 20 ms) or, where one call's host issue
+    time asks for more, twice the issue time of ``iters`` calls at 2 GHz
+    (at most some 2 s).  Returns (device ms per call, host ms per call to
+    issue, whether the host finished issuing before the spin ended)."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    one = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = min(max(sleep_cycles, int(2 * one * iters * 2e9)), 4_000_000_000)
     e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     e0.record()
-    torch.cuda._sleep(sleep_cycles)
+    torch.cuda._sleep(cycles)
     a.record()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -641,6 +653,52 @@ def ahead_ms(torch, fn, iters=50, sleep_cycles=40_000_000):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters, host / iters, host < e0.elapsed_time(a)
+
+
+# the host's calls that each leave one device record: launches, memsets
+# and copies (the profiler keeps every host event; it loses device ones)
+DEVICE_WORK_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cudaMemcpy")
+
+
+def yardstick(torch, fn, iters=20):
+    """A plain or library reading: CUDA events with the host ahead of the
+    card (``ahead_ms``), and beside it torch.profiler's over ``iters``
+    calls, whose lost device records would bias a sum low: its time per
+    call is the mean record kept times the launches, memsets and copies
+    the host made a call.  Returns (events ms, profiler ms, records kept,
+    records the calls made, host ahead)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    ev, _, ahead = ahead_ms(torch, fn, iters)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA]
+    kept = sum(e.count for e in dev)
+    made = sum(e.count for e in evs if e.device_type == DeviceType.CPU
+               and e.key.startswith(DEVICE_WORK_CALLS))
+    prof_ms = (sum(e.self_device_time_total for e in dev) / kept * made
+               / iters / 1e3 if kept else 0.0)
+    return ev, prof_ms, kept, made, ahead
+
+
+def share(ms, bound):
+    """A reading against the bound of its own work: the share of the
+    bound, or where the reading is below it, not a time at all."""
+    if ms < bound:
+        return f"below its bound {bound:.6f} ms: not a time"
+    return f"{100 * bound / ms:.1f}% of its bound {bound:.6f} ms"
+
+
+def reading(label, r, bound):
+    """One yardstick reading (``yardstick``'s tuple) for a times line."""
+    ms, prof, kept, want, ahead = r
+    return (f"{label} {ms:.6f} ms (CUDA events, host "
+            f"{'ahead' if ahead else 'NOT ahead'}; profiler {prof:.6f} ms "
+            f"from {kept} of {want} records; {share(ms, bound)})")
 
 
 def sm_clock_under(torch, fn, calls):
@@ -655,15 +713,6 @@ def sm_clock_under(torch, fn, calls):
         check=True).stdout.strip().splitlines()[0]
     torch.cuda.synchronize()
     return out
-
-
-def kernel_ms(torch, fn, iters=20):
-    """(ms, how): device time per call from the profiler, or — where the
-    profiler saw no device activity — CUDA events with the host ahead."""
-    ms = device_ms(torch, fn, iters)
-    if ms > 0:
-        return ms, "profiler device time"
-    return ahead_ms(torch, fn, iters)[0], "CUDA events, host ahead"
 
 
 def pack_bytes(args):
@@ -728,27 +777,29 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
     from repro_torch.kernels import ops as kops
     measured = {}
 
-    def emit(name, label, fn_kernel, fn_plain, fn_lib, nbytes):
+    def emit(name, label, fn_kernel, fn_plain, fn_lib, nbytes, lib_bytes=0):
         ms, lo, hi, seen = device_readings(
             torch, fn_kernel, KERNEL_NAMES[name],
             per_call=LAUNCHES_PER_CALL.get(name, 1))
-        plain, _ = kernel_ms(torch, fn_plain, iters=5)
-        lib = kernel_ms(torch, fn_lib)[0] if fn_lib is not None else None
         ev, host, ahead = ahead_ms(torch, fn_kernel)
         if ms == 0:                 # the profiler kept no kernel record
             ms = ev
         bound = nbytes / HBM_BYTES_PER_S * 1e3
+        plain = yardstick(torch, fn_plain, iters=5)
+        lib = yardstick(torch, fn_lib) if fn_lib is not None else None
+        lib_txt = "library n/a" if lib is None else reading(
+            "library", lib, lib_bytes / HBM_BYTES_PER_S * 1e3)
         say(f"[times] {gpu} | {name} @ {label}: {ms:.6f} ms/call (median "
             f"of the profiler readings that kept records, each the mean "
             f"record times the launches a call makes, {lo:.6f}..{hi:.6f}, "
             f"records kept per reading of 20 calls {seen}; CUDA events with "
             f"the host {'ahead' if ahead else 'NOT ahead'} {ev:.6f} ms/call,"
-            f" host issue {host:.6f} ms/call), plain {plain:.6f} ms, bound "
-            f"{bound:.6f} ms "
-            f"({nbytes} bytes), library "
-            f"{'n/a' if lib is None else f'{lib:.6f} ms'}, "
-            f"{per_round[label][name]:.3f} calls/round on the main path")
-        measured[(name, label)] = (ms, plain, bound, lib)
+            f" host issue {host:.6f} ms/call), bound {bound:.6f} ms "
+            f"({nbytes} bytes), {reading('plain', plain, bound)}, "
+            f"{lib_txt}, {per_round[label][name]:.3f} calls/round on the "
+            f"main path")
+        measured[(name, label)] = (ms, plain[0], bound,
+                                   None if lib is None else lib[0])
 
     for label, key in (("kv_paper", "pack_paper"), ("kv_mixed", "pack_mixed")):
         args = pack_case(torch, dev, **shapes[key], seed=21, hot=0.07)
@@ -796,9 +847,18 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
             "segmented_add": lambda: flat_table.index_add_(0, add_idx,
                                                            add_val),
         }
+        # what each library call must move: its int64 indices and the rows
+        # read and written (index_add_: each distinct line in and out once)
+        lib_bytes = {
+            "gather": 8 * flat_idx.numel() + 2 * 4 * flat_idx.numel() * w,
+            "scatter_last": 0,
+            "segmented_add": 8 * add_idx.numel() + 4 * add_val.numel()
+            + 2 * 4 * int(torch.unique(add_idx).numel()) * w,
+        }
         for name, call in calls.items():
             emit(name, label, lambda: call("kernel"), lambda: call("ref"),
-                 library[name], serve_bytes(torch, name, case))
+                 library[name], serve_bytes(torch, name, case),
+                 lib_bytes[name])
 
     rows = []
     for name in KV_KERNELS:
@@ -921,6 +981,14 @@ def phase_paged_kernels(torch, dev, errs):
     cases = [
         ("main path shapes", dict(**PA_MAIN, lengths=list(range(1, 1025, 16))),
          True),
+        ("B 1, one chain over every split", dict(b=1, hq=16, hkv=2, d=128,
+                                                 p=256, ps=16, mp=64,
+                                                 lengths=[1024]), False),
+        ("one chain longer than a split beside short ones",
+         dict(b=3, p=256, mp=64, lengths=[700, 3, 64], **g16), False),
+        ("216-byte bf16 pages, read without bulk copies",
+         dict(b=3, hq=4, hkv=2, d=36, p=30, ps=3, mp=10, lengths=[30, 1, 17]),
+         False),
         ("length 1", dict(b=8, p=64, mp=4, lengths=[1] * 8, **g16), False),
         ("on and one past page boundaries",
          dict(b=6, p=64, mp=4, lengths=[16, 17, 32, 33, 48, 49], **g16),
@@ -934,7 +1002,7 @@ def phase_paged_kernels(torch, dev, errs):
                                    lengths=[40, 1, 9, 39]), False),
     ]
     errs["paged_attention"] = 0.0
-    for dtname in ("bfloat16", "float32"):
+    for dtname in ("bfloat16", "float32", "float16"):
         for i, (label, kw, main) in enumerate(cases):
             args = pa_case(torch, dev, getattr(torch, dtname), seed=40 + i,
                            **kw)
@@ -1089,31 +1157,58 @@ GMM_PREFILL = dict(e=64, c=3072, d=2048, f=1408)
 GMM_DECODE = dict(e=64, c=8, d=2048, f=1408)
 
 
-def gmm_case(torch, dev, e, c, d, f, seed, fill=1.0):
+def gmm_case(torch, dev, e, c, d, f, seed, fill=1.0, counts=None):
     """Random bf16 x (E, C, D) and w (E, D, F) at the weights' scale;
     with ``fill`` < 1 only that leading share of each expert's slots is
-    filled, the rest zero (the serve's empty slots)."""
+    filled, the rest zero (the serve's empty slots).  ``counts``: "serve"
+    draws each expert's filled rows around ``fill`` of C (some experts
+    empty, as a decode step leaves them), "edges" cycles through 0, a
+    partial 128-row tile, exactly a tile and C; x's rows past them zero,
+    the counts returned (else None)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((e, c, d), generator=g, device=dev).to(torch.bfloat16)
     x[:, int(round(fill * c)):] = 0
     w = (torch.randn((e, d, f), generator=g, device=dev) / d ** 0.5).to(
         torch.bfloat16)
-    return x, w
+    if counts is None:
+        return x, w, None
+    rng = np.random.default_rng(seed)
+    if counts == "serve":
+        n = rng.integers(0, max(1, int(2 * fill * c)) + 1, e)
+        n[rng.random(e) < 0.25] = 0
+    else:
+        n = np.array([[0, min(77, c), min(128, c), c][i % 4]
+                      for i in range(e)])
+    n = torch.as_tensor(np.minimum(n, c).astype(np.int32), device=dev)
+    x[torch.arange(c, device=dev)[None, :] >= n[:, None]] = 0
+    return x, w, n
 
 
 def phase_gmm_kernels(torch, dev, errs):
     """grouped_matmul against its plain version: the prefill's and the
-    decode's shapes (gate / up and down), ragged C / D / F, E = 1, C = 1,
-    zero slots, within ``kernels/grouped_matmul.py::tolerance``; f32
-    refused."""
+    decode's shapes (gate / up and down), with per-expert counts (the
+    serve's spread, and 0, a partial tile, exactly a tile and C), ragged
+    C / D / F, E = 1, C = 1, zero slots, within
+    ``kernels/grouped_matmul.py::tolerance`` over the whole (E, C, F)
+    output; f32 refused."""
     from repro_torch.kernels import ops as kops
     from repro_torch.testing.model import gmm_within
     cases = [
         ("prefill gate / up, a quarter of the slots filled",
          dict(GMM_PREFILL, fill=0.25), True),
+        ("prefill gate / up, the serve's counts",
+         dict(GMM_PREFILL, fill=0.25, counts="serve"), True),
+        ("prefill down, the serve's counts",
+         dict(GMM_PREFILL, d=1408, f=2048, fill=0.25, counts="serve"), False),
         ("prefill down", dict(GMM_PREFILL, d=1408, f=2048), False),
         ("decode gate / up", GMM_DECODE, False),
+        ("decode gate / up, the serve's counts",
+         dict(GMM_DECODE, fill=0.75, counts="serve"), False),
         ("decode down", dict(GMM_DECODE, d=1408, f=2048), False),
+        ("counts 0, 77, 128, C 300, ragged F 264",
+         dict(e=8, c=300, d=136, f=264, counts="edges"), False),
+        ("counts 0, 77, 128, C 200, D 77, F 33",
+         dict(e=4, c=200, d=77, f=33, counts="edges"), False),
         ("ragged C 13, D 72, F 40", dict(e=3, c=13, d=72, f=40), False),
         ("D 77, F 33 (not multiples of 8)", dict(e=2, c=200, d=77, f=33),
          False),
@@ -1122,21 +1217,34 @@ def phase_gmm_kernels(torch, dev, errs):
     ]
     errs["grouped_matmul"] = 0.0
     for i, (label, shape, main) in enumerate(cases):
-        x, w = gmm_case(torch, dev, seed=110 + i, **shape)
-        got = kops.grouped_matmul(x, w)
+        x, w, counts = gmm_case(torch, dev, seed=110 + i, **shape)
+        got = kops.grouped_matmul(x, w, counts)
         torch.cuda.synchronize()
-        want = kops.grouped_matmul(x, w, impl="ref")
+        want = kops.grouped_matmul(x, w, counts, impl="ref")
         ok, err = gmm_within(got, want, x, w)
         require(ok, f"grouped_matmul [{label}]: max abs err {err} beyond "
                 f"the tolerance")
+        if counts is not None:
+            past = torch.arange(x.shape[1], device=dev)[None, :] \
+                >= counts[:, None]
+            require(bool((got[past] == 0).all()),
+                    f"grouped_matmul [{label}]: a row past the counts did "
+                    f"not answer zeros")
+            ok, _ = gmm_within(got, kops.grouped_matmul(x, w, impl="ref"),
+                               x, w)
+            require(ok, f"grouped_matmul [{label}]: beyond the tolerance of "
+                    f"the plain version without the counts")
         if "fill" in shape:
             c0 = int(round(shape["fill"] * shape["c"]))
             require(bool((got[:, c0:] == 0).all()),
                     "grouped_matmul: an empty slot did not answer zeros")
         if main:
-            errs["grouped_matmul"] = err
+            errs["grouped_matmul"] = max(errs["grouped_matmul"], err)
+        filled = "" if counts is None else (
+            f"; {int(((counts.long() + 127) // 128).sum())} of "
+            f"{x.shape[0] * -(-x.shape[1] // 128)} 128-row tiles filled")
         say(f"[kernels] grouped_matmul [{label}] == plain (bf16, max abs "
-            f"err {err:.3g})")
+            f"err {err:.3g}{filled})")
     try:
         kops.grouped_matmul(x.float(), w.float())
     except TypeError as e:
@@ -1480,6 +1588,42 @@ class FirstCalls:
         return self._fn(*args, impl=impl)
 
 
+def absorb_agreement(torch, dev, M, cfg, run, params, prompt):
+    """Logits of one decode step with mla_absorb on against off, each from
+    its own copy of the same cache (the serve's prompt teacher-forced for
+    ``DS_ABSORB_STEPS`` steps), held to ``logits_agreement`` in the
+    run's activation dtype."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.testing.model import logits_agreement
+    q = DS_SERVE
+    t = q["mesh_model"]
+    max_len = -(-(q["prompt_len"] + q["gen"]) // t) * t
+    drun = dataclasses.replace(run, shape=ShapeConfig(
+        "decode", max_len, q["batch"], "decode"))
+    cache = M.init_cache(cfg, q["batch"], max_len, drun, dev)
+    ptok = torch.as_tensor(prompt, device=dev)
+    for i in range(DS_ABSORB_STEPS):
+        pos = torch.full((q["batch"],), i, dtype=torch.int32, device=dev)
+        M.decode_step(params, cache, ptok[:, i], pos, cfg, drun)
+    pos = torch.full((q["batch"],), DS_ABSORB_STEPS, dtype=torch.int32,
+                     device=dev)
+    tok = ptok[:, DS_ABSORB_STEPS]
+
+    def copy(tree):
+        if isinstance(tree, dict):
+            return {k: copy(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [copy(v) for v in tree]
+        return tree.clone()
+    outs = {}
+    for absorb in (False, True):
+        outs[absorb], _ = M.decode_step(
+            params, copy(cache), tok, pos, cfg,
+            dataclasses.replace(drun, mla_absorb=absorb))
+    return logits_agreement(outs[True], outs[False],
+                            getattr(torch, run.activation_dtype), cfg)
+
+
 def phase_deepseek(torch, dev, gpu, report, errs):
     """The slice's main path at full width (27 layers: a dense first layer
     and 26 MoE layers of 64 routed experts top-6 plus 2 shared, MLA with
@@ -1555,8 +1699,11 @@ def phase_deepseek(torch, dev, gpu, report, errs):
         f"{DS_PREFILL['mesh_model']} trustees: {counts['flash_attention']} "
         f"flash launches (D 192) and {counts['grouped_matmul']} "
         f"grouped-matmul launches at {g['gmm_shapes']}, every call == plain "
-        f"(max abs err flash {f['flash_max_abs_err']:.3g}, grouped matmul "
-        f"{g['gmm_max_abs_err']:.3g}); logits ({b}, {cfg.vocab_size}) f32, "
+        f"over its whole output (max abs err flash "
+        f"{f['flash_max_abs_err']:.3g}, grouped matmul "
+        f"{g['gmm_max_abs_err']:.3g}); the pack's counts left "
+        f"{g['gmm_filled_tiles']} of {g['gmm_tiles']} 128-row tiles of the "
+        f"{g['gmm_calls']} launches filled; logits ({b}, {cfg.vocab_size}) f32, "
         f"finite; MoE dropped fraction of tokens mean "
         f"{m['moe_dropped_frac_mean']:.6f}, max "
         f"{m['moe_dropped_frac_max']:.6f} over {m['moe_calls']} layers, max "
@@ -1566,7 +1713,7 @@ def phase_deepseek(torch, dev, gpu, report, errs):
     # layer 1's inputs, for the times phase (the weights copied out of
     # the stacked leaf, so the leaf can be freed)
     mla_inputs = fchk.first
-    gmm_prefill = (gchk.first[0], gchk.first[1].clone())
+    gmm_prefill = (gchk.first[0], gchk.first[1].clone(), gchk.first[2])
     del fchk, gchk, logits
 
     secs = []
@@ -1652,42 +1799,53 @@ def phase_deepseek(torch, dev, gpu, report, errs):
     report["deepseek_agreement"] = dict(agree, prefill_dropped=pm,
                                         decode_dropped=dm)
 
-    # one decode step with mla_absorb on against off, from the same cache
-    q = DS_SERVE
-    t = q["mesh_model"]
-    max_len = -(-(q["prompt_len"] + q["gen"]) // t) * t
-    drun = dataclasses.replace(run, shape=ShapeConfig(
-        "decode", max_len, q["batch"], "decode"))
-    cache = M.init_cache(cfg, q["batch"], max_len, drun, dev)
-    ptok = torch.as_tensor(prompt, device=dev)
-    for i in range(DS_ABSORB_STEPS):
-        pos = torch.full((q["batch"],), i, dtype=torch.int32, device=dev)
-        M.decode_step(params, cache, ptok[:, i], pos, cfg, drun)
-    pos = torch.full((q["batch"],), DS_ABSORB_STEPS, dtype=torch.int32,
-                     device=dev)
-    tok = ptok[:, DS_ABSORB_STEPS]
-
-    def copy(tree):
-        if isinstance(tree, dict):
-            return {k: copy(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [copy(v) for v in tree]
-        return tree.clone()
-    outs = {}
-    for absorb in (False, True):     # each from its own copy of the cache
-        outs[absorb], _ = M.decode_step(
-            params, copy(cache), tok, pos, cfg,
-            dataclasses.replace(drun, mla_absorb=absorb))
-    ab = logits_agreement(outs[True], outs[False], torch.bfloat16, cfg)
+    # one decode step with mla_absorb on against off, from the same cache:
+    # in bf16 at full depth, then in f32 (weights drawn in f32 from the
+    # same seed) at full depth where they fit on the card, else at 4
+    # layers (the dense layer and 3 MoE layers) with bf16 at that depth
+    # beside it
+    del pre
+    ab = absorb_agreement(torch, dev, M, cfg, run, params, prompt)
     say(f"[deepseek check] decode step at position {DS_ABSORB_STEPS} with "
-        f"mla_absorb on vs off (the same cache): relative RMS "
-        f"{ab['rel_rms']:.4g} (<= {ab['rtol']}), max abs "
-        f"{ab['max_abs']:.4g}, argmax agrees on "
+        f"mla_absorb on vs off (the same cache), bf16, {cfg.n_layers} "
+        f"layers: relative RMS {ab['rel_rms']:.4g} (<= {ab['rtol']}), max "
+        f"abs {ab['max_abs']:.4g}, argmax agrees on "
         f"{ab['argmax_agree'] * 100:.1f}% of rows")
     require(ab["ok"], f"mla_absorb on vs off: {ab}")
-    report["deepseek_absorb"] = ab
-    del cache, outs, pre
+    del params
     torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    fcfg = cfg if 4 * n_params * 1.1 < free else \
+        cfg.with_overrides(n_layers=4)
+    # the plain path: the grouped-matmul kernel takes bf16 only
+    frun = dataclasses.replace(run, model=fcfg, param_dtype="float32",
+                               activation_dtype="float32", use_pallas=False)
+    params = M.init_params(fcfg, frun, dev)
+    ab32 = absorb_agreement(torch, dev, M, fcfg, frun, params, prompt)
+    del params
+    torch.cuda.empty_cache()
+    ab16 = ab
+    if fcfg is not cfg:
+        crun = dataclasses.replace(run, model=fcfg)
+        params = M.init_params(fcfg, crun, dev)
+        ab16 = absorb_agreement(torch, dev, M, fcfg, crun, params, prompt)
+        del params
+        torch.cuda.empty_cache()
+    verdict = ("within 1e-4 in f32: the bf16 reading is bf16 rounding"
+               if ab32["rel_rms"] <= 1e-4 else
+               "beyond 1e-4 in f32: a fault of the absorbed form (ROADMAP "
+               "queue C)")
+    say(f"[deepseek check] mla_absorb on vs off at {fcfg.n_layers} layers "
+        f"({free / 2 ** 30:.1f} GiB free for {4 * n_params / 2 ** 30:.1f} "
+        f"GiB of f32 weights at full depth): f32 relative RMS "
+        f"{ab32['rel_rms']:.4g}, max abs {ab32['max_abs']:.4g}, argmax "
+        f"agrees on {ab32['argmax_agree'] * 100:.1f}% of rows; bf16 "
+        f"relative RMS {ab16['rel_rms']:.4g}, argmax on "
+        f"{ab16['argmax_agree'] * 100:.1f}%; {verdict}")
+    report["deepseek_absorb"] = dict(ab, f32=ab32, f32_layers=fcfg.n_layers,
+                                     bf16_at_f32_depth=ab16)
+    # the serve's weights again, for the times phase
+    params = M.init_params(cfg, run, dev)
     return (prefill_counts, mla_inputs, gmm_prefill, first.calls[0],
             packs.calls, params, run)
 
@@ -1771,11 +1929,11 @@ def phase_flash_times(torch, dev, gpu, inputs, launches,
                                        KERNEL_NAMES["flash_attention"])
     ev, host, ahead = ahead_ms(torch, fa)
     clk = sm_clock_under(torch, fa, max(1, int(800 / max(ev, 1e-3))))
-    plain = kernel_ms(torch, lambda: kops.flash_attention(
-        q, k, v, q_offset, causal, scale, impl="ref"), iters=5)[0]
+    plain = yardstick(torch, lambda: kops.flash_attention(
+        q, k, v, q_offset, causal, scale, impl="ref"), iters=5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = kernel_ms(torch, lambda: sdpa(q, k, v, is_causal=causal,
-                                        scale=scale, enable_gqa=True))[0]
+    lib = yardstick(torch, lambda: sdpa(q, k, v, is_causal=causal,
+                                        scale=scale, enable_gqa=True))
     flops, nbytes = fa_work(q, k, q_offset or 0, causal)
     t_ops = flops / BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1787,67 +1945,84 @@ def phase_flash_times(torch, dev, gpu, inputs, launches,
         f"records kept per reading of 20 calls {seen}; CUDA events with the "
         f"host {'ahead' if ahead else 'NOT ahead'} {ev:.6f} ms/call, host "
         f"issue {host:.6f} ms/call; SM clock under back-to-back calls, max: "
-        f"{clk}), {flops / ms / 1e9:.1f} TFLOP/s; plain {plain:.6f} ms, "
-        f"bound {bound:.6f} ms (operations {t_ops:.6f} ms for {flops} flops,"
-        f" bytes {t_bytes:.6f} ms for {nbytes} bytes), library {lib:.6f} ms "
-        f"(scaled_dot_product_attention, is_causal, enable_gqa), "
-        f"{launches} launches a prefill call")
-    return ("flash_attention", launches, ms, plain, bound, lib,
+        f"{clk}), {flops / ms / 1e9:.1f} TFLOP/s; bound {bound:.6f} ms "
+        f"(operations {t_ops:.6f} ms for {flops} flops, bytes "
+        f"{t_bytes:.6f} ms for {nbytes} bytes); "
+        f"{reading('plain', plain, bound)}; "
+        f"{reading('library', lib, bound)} (scaled_dot_product_attention, "
+        f"is_causal, enable_gqa: the same function); {launches} launches a "
+        f"prefill call")
+    return ("flash_attention", launches, ms, plain[0], bound, lib[0],
             f"{label}, B {b} x {sq}, D {d}", "operations")
 
 
-def gmm_work(x, w):
-    """(flops, bytes) the grouped matmul must do on these inputs, counting
-    only the filled slots (rows of x that are not all zero: an empty slot
-    answers zeros and needs no work) and the weights of the experts that
-    have one; and the same counting every slot, as the kernel computes."""
+def gmm_work(x, w, counts=None):
+    """(flops, bytes) the grouped matmul must do on these inputs: the
+    filled slots' products (rows of x that are not all zero: an empty slot
+    answers zeros and needs no product), their rows and the weights of
+    the experts that have one read once, and the whole (E, C, F) output
+    written once, as the contract writes it; and the same counting every
+    slot, as torch.bmm computes it.  Also the filled rows, the experts
+    with one, and (with ``counts``) the filled 128-row tiles."""
     e, c, d = x.shape
     f = w.shape[2]
     filled = x.ne(0).any(-1)                      # (E, C)
     rows = int(filled.sum())
     experts = int(filled.any(-1).sum())
     need = (2 * rows * d * f,
-            2 * (rows * d + experts * d * f + rows * f))
+            2 * (rows * d + experts * d * f + e * c * f))
     dense = (2 * e * c * d * f, 2 * (e * c * d + e * d * f + e * c * f))
-    return need, dense, rows, experts
+    tiles = (int(((counts.long() + 127) // 128).sum()) if counts is not None
+             else e * -(-c // 128))
+    return need, dense, rows, experts, tiles
 
 
 def phase_gmm_times(torch, dev, gpu, args, launches, label):
     """grouped_matmul at the main path's own inputs (layer 1's gate
-    projection): the median of five profiler readings, CUDA events with
-    the host ahead, the bound over the filled slots (and over every slot
-    beside it), the plain version and torch.bmm (timed here only)."""
+    projection, with the pack's counts): the median of five profiler
+    readings, CUDA events with the host ahead, the bound over the filled
+    slots (and over every slot beside it), the plain version and torch.bmm
+    (timed here only; it multiplies every slot, so its own bound is the
+    every-slot one)."""
     from repro_torch.kernels import ops as kops
-    x, w = args
-    gm = lambda: kops.grouped_matmul(x, w)
+    x, w, counts = args
+    gm = lambda: kops.grouped_matmul(x, w, counts)
     ms, lo, hi, seen = device_readings(torch, gm,
                                        KERNEL_NAMES["grouped_matmul"])
     ev, host, ahead = ahead_ms(torch, gm)
+    if ms == 0:                 # the profiler kept no kernel record
+        ms = ev
     clk = sm_clock_under(torch, gm, max(1, int(800 / max(ev, 1e-3))))
-    plain = kernel_ms(torch, lambda: kops.grouped_matmul(x, w, impl="ref"),
-                      iters=5)[0]
-    lib = kernel_ms(torch, lambda: torch.bmm(x, w))[0]
-    (flops, nbytes), (dflops, dbytes), rows, experts = gmm_work(x, w)
+    plain = yardstick(torch, lambda: kops.grouped_matmul(
+        x, w, counts, impl="ref"), iters=5)
+    lib = yardstick(torch, lambda: torch.bmm(x, w))
+    (flops, nbytes), (dflops, dbytes), rows, experts, tiles = gmm_work(
+        x, w, counts)
     t_ops = flops / BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound = max(t_ops, t_bytes)
     by = "operations" if t_ops >= t_bytes else "bytes"
     dense = max(dflops / BF16_FLOPS, dbytes / HBM_BYTES_PER_S) * 1e3
+    # the plain version multiplies every slot in f32, off the tensor cores
+    plain_bound = max(dflops / F32_FLOPS, dbytes / HBM_BYTES_PER_S) * 1e3
     e, c, d = x.shape
     say(f"[times] {gpu} | grouped_matmul @ {label} (E {e}, C {c}, D {d}, F "
         f"{w.shape[2]}; {rows} of {e * c} slots filled, {experts} experts "
-        f"with one): {ms:.6f} ms/call (median of 5 profiler readings of the "
+        f"with one, {tiles} of {e * -(-c // 128)} 128-row tiles filled): "
+        f"{ms:.6f} ms/call (median of 5 profiler readings of the "
         f"kernel, {lo:.6f}..{hi:.6f}, kernel records kept per reading of 20 "
         f"calls {seen}; CUDA events with the host "
         f"{'ahead' if ahead else 'NOT ahead'} {ev:.6f} ms/call, host issue "
         f"{host:.6f} ms/call; SM clock under back-to-back calls, max: "
-        f"{clk}), {dflops / ms / 1e9:.1f} TFLOP/s over every slot; plain "
-        f"{plain:.6f} ms, bound {bound:.6f} ms by {by} over the filled "
-        f"slots (operations {t_ops:.6f} ms for {flops} flops, bytes "
-        f"{t_bytes:.6f} ms for {nbytes} bytes; over every slot {dense:.6f} "
-        f"ms, {dflops} flops, {dbytes} bytes), library {lib:.6f} ms "
-        f"(torch.bmm, bf16), {launches} launches a call of the path")
-    return ("grouped_matmul", launches, ms, plain, bound, lib,
+        f"{clk}), {flops / ms / 1e9:.1f} TFLOP/s over the filled slots; "
+        f"bound {bound:.6f} ms by {by} over the filled slots (operations "
+        f"{t_ops:.6f} ms for {flops} flops, bytes {t_bytes:.6f} ms for "
+        f"{nbytes} bytes; over every slot {dense:.6f} ms, {dflops} flops, "
+        f"{dbytes} bytes); {reading('plain', plain, plain_bound)} (f32 "
+        f"products of every slot at 67 TFLOP/s); "
+        f"{reading('library', lib, dense)} (torch.bmm, bf16, every slot); "
+        f"{launches} launches a call of the path")
+    return ("grouped_matmul", launches, ms, plain[0], bound, lib[0],
             f"{label}, E {e} x C {c}, D {d}", by)
 
 
@@ -1865,9 +2040,10 @@ def phase_ds_pack_times(torch, gpu, packs, counts):
         ev, host, ahead = ahead_ms(torch, pk, iters=5)
         if ms == 0:                 # the profiler kept no kernel record
             ms = ev
-        plain = kernel_ms(torch, lambda: kops.delegation_pack(
-            *args, impl="ref"), iters=3)[0]
+        plain = yardstick(torch, lambda: kops.delegation_pack(
+            *args, impl="ref"), iters=3)
         nbytes = pack_bytes(args)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
         d, r, w = args[1].shape
         say(f"[times] {gpu} | delegation_pack @ deepseek prefill, {label} "
             f"({d} shards x {r} rows of {w} words to {args[2]} "
@@ -1875,9 +2051,8 @@ def phase_ds_pack_times(torch, gpu, packs, counts):
             f"ms/call (median of the profiler readings of 5 calls that "
             f"kept records, {lo:.6f}..{hi:.6f}, records kept {seen}; CUDA "
             f"events with the host {'ahead' if ahead else 'NOT ahead'} "
-            f"{ev:.6f} ms/call), plain {plain:.6f} "
-            f"ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms "
-            f"({nbytes} bytes), library n/a, "
+            f"{ev:.6f} ms/call), bound {bound:.6f} ms ({nbytes} bytes), "
+            f"{reading('plain', plain, bound)}, library n/a, "
             f"{counts['delegation_pack'] // 2} such launches a prefill call")
 
 
@@ -2293,9 +2468,9 @@ def phase_scan_times(torch, dev, gpu, inputs, launches):
         ms = ev
     clk = sm_clock_under(torch, sc, max(1, int(800 / max(ev, 1e-3))))
     mhz = float(clk.split(",")[0].split()[0])
-    plain = kernel_ms(torch, lambda: kops.selective_scan(*inputs,
+    plain = yardstick(torch, lambda: kops.selective_scan(*inputs,
                                                          impl="ref"),
-                      iters=2)[0]
+                      iters=2)
     exps, flops, nbytes = scan_work(inputs[0], inputs[2])
     t_exp = exps / (SFU_EXP_PER_CLOCK * SM_COUNT * mhz * 1e6) * 1e3
     t_ops = flops / F32_FLOPS * 1e3
@@ -2317,8 +2492,9 @@ def phase_scan_times(torch, dev, gpu, inputs, launches):
         f"{seen}; CUDA events with the host "
         f"{'ahead' if ahead else 'NOT ahead'} {ev:.6f} ms/call, host issue "
         f"{host:.6f} ms/call; SM clock under back-to-back calls, max: "
-        f"{clk}), {exps / ms / 1e9:.3f} T exponentials/s; plain "
-        f"{plain:.6f} ms, bound {bound:.6f} ms by {by} (exponentials "
+        f"{clk}), {exps / ms / 1e9:.3f} T exponentials/s; "
+        f"{reading('plain', plain, bound)}, bound {bound:.6f} ms by {by} "
+        f"(exponentials "
         f"{t_exp:.6f} ms for {exps} at {SFU_EXP_PER_CLOCK} a clock on "
         f"{SM_COUNT} SMs at {mhz:.0f} MHz, f32 flops {t_ops:.6f} ms for "
         f"{flops}, bytes {t_bytes:.6f} ms for {nbytes}; the SFU and the "
@@ -2328,7 +2504,7 @@ def phase_scan_times(torch, dev, gpu, inputs, launches):
         f"library n/a: no "
         f"PyTorch call computes the recurrence, {launches} launches a "
         f"prefill call")
-    return ("selective_scan", launches, ms, plain, bound, None,
+    return ("selective_scan", launches, ms, plain[0], bound, None,
             f"falcon prefill, B {bsz} x {s}, DI {di}",
             "bytes" if by == "bytes" else "operations")
 
@@ -2362,6 +2538,7 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
     library yardstick; then the device busy share of paged waves."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import split_plan
     rows = []
     # pagetable_serve: the append pass with the most rows (it carries the
     # allocation path); every call restores the pass's entry state first.
@@ -2379,24 +2556,29 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
     ms, lo, hi, seen = device_readings(
         torch, lambda: (restore(), kops.pagetable_serve(op, work, *args)),
         KERNEL_NAMES["pagetable_serve"])
-    ms_restore = kernel_ms(torch, restore)[0]
-    plain = kernel_ms(torch, lambda: (restore(), ref.pagetable_serve(
-        op, *st, *args)), iters=5)[0] - ms_restore
+    nbytes = pt_bytes(op, before, args)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_restore = yardstick(torch, restore)
+    plain_r = yardstick(torch, lambda: (restore(), ref.pagetable_serve(
+        op, *st, *args)), iters=5)
+    # the plain reading less the restore's own
+    plain_r = (plain_r[0] - ms_restore[0], plain_r[1] - ms_restore[1]) \
+        + plain_r[2:]
+    plain = plain_r[0]
     t0 = time.perf_counter()
     for _ in range(3):
         restore()
         ref.pagetable_serve(op, *st, *args)
     torch.cuda.synchronize()
     plain_wall = (time.perf_counter() - t0) / 3 * 1e3
-    nbytes = pt_bytes(op, before, args)
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
     t_, n_rows = args[0].shape
     say(f"[times] {gpu} | pagetable_serve @ paged decode (append pass, "
         f"{n} valid of {t_} x {n_rows} received rows): {ms:.6f} ms/launch "
         f"(median of 5 profiler readings of the kernel, {lo:.6f}..{hi:.6f},"
-        f" kernel records kept per reading of 20 calls {seen}), plain "
-        f"{plain:.6f} ms device / {plain_wall:.3f} ms wall, bound "
-        f"{bound:.6f} ms ({nbytes} bytes), library n/a, "
+        f" kernel records kept per reading of 20 calls {seen}), bound "
+        f"{bound:.6f} ms ({nbytes} bytes), "
+        f"{reading('plain', plain_r, bound)} less the state's restore, "
+        f"{plain_wall:.3f} ms wall, library n/a, "
         f"{counts['pagetable_serve'] / waves:.3f} launches/wave")
     rows.append(("pagetable_serve", counts["pagetable_serve"], ms, plain,
                  bound, None, "paged decode, append pass"))
@@ -2416,15 +2598,18 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
         KERNEL_NAMES["paged_attention"])
     del flush
     ev, host, ahead = ahead_ms(torch, pa)
+    if ms == 0:                 # the profiler kept no kernel record
+        ms = ev
     # the SM clock while the card runs some 0.8 s of back-to-back calls
     clk = sm_clock_under(torch, pa, max(1, int(800 / max(ev, 1e-3))))
-    plain = kernel_ms(torch, lambda: kops.paged_attention(
-        q, k, v, tbl, lengths, impl="ref"), iters=5)[0]
+    plain = yardstick(torch, lambda: kops.paged_attention(
+        q, k, v, tbl, lengths, impl="ref"), iters=5)
     # library yardstick (timed here only; the port never calls it):
     # scaled_dot_product_attention over the already-gathered dense K/V of
     # the same live lengths; it excludes the gather
     b, hq, d = q.shape
     _, hkv, ps, _ = k.shape
+    split = split_plan(tbl.shape[1])[0]
     lmax = int(lengths.max())
     mp_live = -(-lmax // ps)
     safe = tbl[:, :mp_live].clamp(min=0).long()
@@ -2434,10 +2619,15 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
             < lengths[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = kernel_ms(torch, lambda: sdpa(q4, kd, vd, attn_mask=mask,
-                                        enable_gqa=True))[0]
+    lib = yardstick(torch, lambda: sdpa(q4, kd, vd, attn_mask=mask,
+                                        enable_gqa=True))
     nbytes = pa_bytes(q, k, lengths)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
+    # SDPA's own work: the gathered K / V (every sequence padded to the
+    # longest), q, the mask and the output
+    lib_bytes = (kd.numel() + vd.numel() + 2 * q.numel()) * q.element_size() \
+        + mask.numel()
+    lib_bound = lib_bytes / HBM_BYTES_PER_S * 1e3
     say(f"[times] {gpu} | paged_attention @ paged decode (B={b}, "
         f"{int(lengths.sum())} live positions, lengths "
         f"{int(lengths.min())}..{lmax}): {ms:.6f} ms/call (median of 5 "
@@ -2446,13 +2636,17 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
         f"before each call {cold:.6f}, {cold_lo:.6f}..{cold_hi:.6f}; CUDA "
         f"events with the host ahead {ev:.6f} ms/call, host issue "
         f"{host:.6f} ms/call, host {'ahead' if ahead else 'NOT ahead'}; SM "
-        f"clock under back-to-back calls, max: {clk}), plain "
-        f"{plain:.6f} ms, bound {bound:.6f} ms ({nbytes} bytes), library "
-        f"{lib:.6f} ms (scaled_dot_product_attention over the gathered "
-        f"dense K/V, excludes the gather), "
-        f"{counts['paged_attention'] / waves:.3f} calls/wave")
-    rows.append(("paged_attention", counts["paged_attention"], ms, plain,
-                 bound, lib, "paged decode, largest decode call"))
+        f"clock under back-to-back calls, max: {clk}; {split} pages a "
+        f"split), bound {bound:.6f} ms ({nbytes} bytes; "
+        f"{100 * bound / ms:.1f}% of it, "
+        f"{f'{100 * bound / cold:.1f}%' if cold else 'not measured'} with "
+        f"the L2 flushed), {reading('plain', plain, bound)}, "
+        f"{reading('library', lib, lib_bound)} (scaled_dot_product_attention"
+        f" over the gathered dense K/V, excludes the gather; its own bound "
+        f"counts the padded K/V), {counts['paged_attention'] / waves:.3f} "
+        f"calls/wave")
+    rows.append(("paged_attention", counts["paged_attention"], ms, plain[0],
+                 bound, lib[0], "paged decode, largest decode call"))
 
     busy, wall, tops = busy_share(
         torch, lambda: paged_run(torch, dev, inputs, n_requests=32), 1, 12)
@@ -2492,7 +2686,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = _build.build_all()
     say(f"[build] nvcc (sm_90a, {len(_build.SOURCES)} sources in parallel): "
-        f"{built:.2f} s compiling, {time.perf_counter() - t0:.2f} s in all")
+        f"{max(built.values(), default=0.0):.2f} s compiling, "
+        f"{time.perf_counter() - t0:.2f} s in all; grouped_matmul.cu (TMA "
+        f"maps, wgmma) done after "
+        f"{built.get('grouped_matmul.cu', 0.0):.2f} s")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     n_dev = MESH[0] * MESH[1]

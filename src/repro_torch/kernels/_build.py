@@ -50,12 +50,15 @@ def _lib_path(source: str) -> str:
     return os.path.join(BUILD, f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
 
-def build_all(sources: Sequence[str] = SOURCES) -> float:
+def build_all(sources: Sequence[str] = SOURCES) -> Dict[str, float]:
     """Compile every source whose library is missing, in parallel.
-    Returns the wall seconds spent compiling (0.0 when all were cached)."""
+    Returns, for each source compiled, the wall seconds until its compile
+    was seen to end (they are waited for in order, so a source that ends
+    before one listed ahead of it is seen when that one ends); empty when
+    all were cached."""
     todo = [s for s in sources if not os.path.exists(_lib_path(s))]
     if not todo:
-        return 0.0
+        return {}
     nvcc = _nvcc()
     os.makedirs(BUILD, exist_ok=True)
     t0 = time.perf_counter()
@@ -67,9 +70,10 @@ def build_all(sources: Sequence[str] = SOURCES) -> float:
         procs.append((s, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    failed = []
+    failed, seconds = [], {}
     for s, out, tmp, p in procs:
         log, _ = p.communicate()
+        seconds[s] = time.perf_counter() - t0
         if p.returncode != 0:
             failed.append(f"--- nvcc {s} (exit {p.returncode}) ---\n{log}")
             if os.path.exists(tmp):
@@ -78,7 +82,7 @@ def build_all(sources: Sequence[str] = SOURCES) -> float:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0
+    return seconds
 
 
 def library(source: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:

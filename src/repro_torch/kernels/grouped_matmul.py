@@ -1,25 +1,30 @@
 """Grouped matmul — one matmul per expert, the MoE trustee's expert FFN.
 
 Counterpart of ``repro/kernels/grouped_matmul.py`` (``_gmm_kernel``).  The
-CUDA kernel (``csrc/grouped_matmul.cu``) runs one block of 8 warps per
-(128-column F tile, 128-row C tile, expert), loops over D in 32-wide
-k-tiles staged in shared memory, and multiplies on the tensor cores
-(``mma.sync`` bf16 -> f32); ``ref.grouped_matmul`` is its plain version.
-On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises.  The kernel takes bf16 only: f32 or f16 on
-the card raises ``TypeError``.  A ragged C, D or F is masked in the
-kernel (the Pallas wrapper pads them).
+CUDA kernel (``csrc/grouped_matmul.cu``) runs a persistent block on each
+SM over the 128 x 128 output tiles: one producer thread keeps a ring of
+TMA loads in flight and two warpgroups multiply with ``wgmma`` (bf16 ->
+f32).  Given ``counts`` (each expert's filled rows, on the card), a tile
+that starts at or past ``counts[e]`` is stored as zeros with no product;
+the counts are never read back to the host.  ``ref.grouped_matmul`` is
+its plain version.  On CPU tensors the wrapper runs the plain version; on
+CUDA tensors it launches the kernel or raises.  The kernel takes bf16
+only: f32 or f16 on the card raises ``TypeError``.  A ragged C, D or F is
+masked in the kernel (the Pallas wrapper pads them); D or F not a
+multiple of 8 takes its ``mma.sync`` kernel, which TMA cannot feed.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from . import _build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"grouped_matmul_launch": (_P, _P, _P, _I, _I, _I, _I, _P)}
+_SIG = {"grouped_matmul_launch": (_P, _P, _P, _P, _I, _I, _I, _I,
+                                   _P)}
 # the fraction of an f32 accumulation's magnitude that one add may lose
 # on the tensor cores: 2^-22, four f32 ulps (their internal sums are not
 # IEEE-rounded)
@@ -42,13 +47,17 @@ def _fail(msg, exc=ValueError):
     raise exc(f"grouped_matmul: {msg}")
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, C, D) @ w (E, D, F) -> (E, C, F) in x's dtype: the products
-    summed in f32, one matmul per expert.  ``grouped_matmul.launches``
-    counts kernel launches."""
+    summed in f32, one matmul per expert.  ``counts`` (E,) int32, when
+    given, is each expert's filled rows: x's rows at and past
+    ``counts[e]`` must be zero, and the result's rows there are zero (see
+    ``ref.grouped_matmul``).  ``grouped_matmul.launches`` counts kernel
+    launches."""
     dev = x.device
     if dev.type == "cpu":
-        return ref.grouped_matmul(x, w)
+        return ref.grouped_matmul(x, w, counts)
     if dev.type != "cuda":
         _fail(f"unsupported device {dev}")
     if x.dim() != 3 or w.dim() != 3:
@@ -64,11 +73,20 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         if t.dtype != torch.bfloat16:
             _fail(f"the kernel takes bfloat16 only; {name} is {t.dtype}",
                   TypeError)
-    if e > 65535 or -(-c // 128) > 65535:
-        _fail(f"E = {e} or C = {c} exceeds the grid")
+    if counts is not None:
+        if counts.device != dev or counts.dtype != torch.int32 \
+                or tuple(counts.shape) != (e,):
+            _fail(f"counts must be an ({e},) int32 tensor on {dev}; got "
+                  f"{tuple(counts.shape)} {counts.dtype} on {counts.device}")
+        counts = counts.contiguous()
+    tiles = e * -(-c // 128) * -(-f // 128)
+    if e > 65535 or -(-c // 128) > 65535 or tiles >= 2 ** 31:
+        _fail(f"E = {e}, C = {c} or F = {f} exceeds the grid")
     if max(e * c * d, e * d * f, e * c * f) >= 2 ** 40:
         _fail("operands too large")
     x, w = x.contiguous(), w.contiguous()
+    if d == 0:
+        return torch.zeros((e, c, f), dtype=x.dtype, device=dev)
     out = torch.empty((e, c, f), dtype=x.dtype, device=dev)
     if e * c * f == 0:
         return out
@@ -77,8 +95,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             _fail(f"{name} is not 16-byte aligned")
     lib = _build.library("grouped_matmul.cu", _SIG)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.grouped_matmul_launch(x.data_ptr(), w.data_ptr(),
-                                    out.data_ptr(), e, c, d, f, stream)
+    err = lib.grouped_matmul_launch(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if counts is None else counts.data_ptr(), e, c, d, f, stream)
     _build.check(err, "grouped_matmul")
     grouped_matmul.launches += 1
     return out

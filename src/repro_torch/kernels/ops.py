@@ -120,10 +120,12 @@ def flash_attention(q, k, v, q_offset: Optional[int] = None,
         q, k, v, q_offset=off, causal=causal, scale=scale)
 
 
-def grouped_matmul(x, w, impl: str = "kernel"):
+def grouped_matmul(x, w, counts=None, impl: str = "kernel"):
     """(E, C, D) @ (E, D, F) -> (E, C, F), one matmul per expert, f32
-    sums; see ``ref.grouped_matmul``."""
-    return _pick(impl, _grouped_matmul_kernel, ref.grouped_matmul)(x, w)
+    sums; ``counts`` (E,) int32 the filled rows of each expert, or None
+    for every row; see ``ref.grouped_matmul``."""
+    return _pick(impl, _grouped_matmul_kernel, ref.grouped_matmul)(
+        x, w, counts)
 
 
 def selective_scan(x, dt, a, b, c, d, h0=None, impl: str = "kernel"):

@@ -2,11 +2,16 @@
 KV pages.
 
 Counterpart of ``repro/kernels/paged_attention.py`` (``_pa_kernel``).  The
-CUDA kernel (``csrc/paged_attention.cu``) runs one block per (sequence,
-KV head), loads each live page once for all the query heads of its group
-and keeps the online softmax in f32; ``ref.paged_attention`` is its plain
-version.  On CPU tensors the wrapper runs the plain version; on CUDA
-tensors it launches the kernel or raises.
+CUDA kernel (``csrc/paged_attention.cu``) splits each chain over several
+blocks (``split_plan``: a fixed run of pages per split, from MP alone, so
+the lengths stay on the card), loads each live page once for all the
+query heads of its group with bulk copies kept in flight, runs the
+products on the tensor cores in bf16 / f16 (one warp for all the heads of
+a group) and the online softmax in f32, and the last split of a group to
+finish merges the group's partials in split order;
+``ref.paged_attention`` is its plain version.  On CPU
+tensors the wrapper runs the plain version; on CUDA tensors it launches
+the kernel or raises.
 """
 from __future__ import annotations
 
@@ -18,22 +23,37 @@ import torch
 from . import _build, ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIG = {"paged_attention_launch": (_I,) + (_P,) * 6 + (_I,) * 7
-        + (_F, _I, _I, _P)}
+_SIG = {"paged_attention_launch": (_I,) + (_P,) * 9 + (_I,) * 10
+        + (_F, _I, _I, _I, _P)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_SMEM = 227 * 1024
 _MAX_D = 256
+# pages a split takes at most, the bulk-copy stages a block keeps in
+# flight at most, and the tensor-core kernel's warps a block
+PAGES_PER_SPLIT = 4
+_STAGES = 4
+_MMA_WARPS = 4
 
 # the kernel against its plain version, |err| <= atol + rtol * |plain|:
 # f32 sums in another order (online softmax page by page against one
 # softmax over the gathered chain) move results by ~1e-6 relative; in
 # bf16 that can flip the output's rounding by one ulp, at most 2^-7
-# relative (8 significant bits)
-TOLERANCE = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+# relative (8 significant bits), in f16 2^-10 (11 bits)
+TOLERANCE = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 1e-5),
+             torch.float16: (2.0 ** -10, 1e-5)}
 
 
 def _fail(msg, exc=ValueError):
     raise exc(f"paged_attention: {msg}")
+
+
+def split_plan(mp: int):
+    """(pages per split, splits) of a chain of ``mp`` pages: split s takes
+    pages [s * pps, min((s + 1) * pps, live)) of a chain with ``live``
+    pages, and the splits past ``live`` do nothing.  Short chains take a
+    page or two a split so that they still spread over several blocks."""
+    pps = max(1, min(PAGES_PER_SPLIT, mp // 4))
+    return pps, -(-mp // pps)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -80,24 +100,58 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if p < 1 or ps < 1 or mp < 1:
         _fail("needs a non-empty pool, pages and page table")
     item = q.element_size()
-    smem = -(-2 * ps * d * item // 16) * 16 + 4 * (hq // hkv) * ps
+    pps, ns = split_plan(mp)
+    page_bytes = ps * d * item
+    rep = hq // hkv
+    scores = -(-4 * rep * ps // 8) * 8
+    bulk = (page_bytes % 16 == 0 and k_pages.data_ptr() % 16 == 0
+            and v_pages.data_ptr() % 16 == 0
+            and 2 * page_bytes + scores + 16 <= _MAX_SMEM)
+    # the merge's weights: (ns + 1) floats a query head of the group
+    merge = 4 * rep * (ns + 1) if ns > 1 else 0
+    # the tensor cores take bf16 / f16 pages of 16-position groups at D 64
+    # or 128 for up to 16 query heads a KV head, every page of a split in
+    # flight at once; the rest the CUDA cores
+    region = -(-max(2 * pps * page_bytes,
+                    4 * _MMA_WARPS * rep * (d + 2)) // 16) * 16
+    mma = (bulk and q.dtype != torch.float32 and ps % 16 == 0
+           and d in (64, 128) and rep <= 16 and q.data_ptr() % 16 == 0
+           and region + 16 * pps + merge <= _MAX_SMEM)
+    if mma:
+        nst = pps
+        smem = region + 16 * nst + merge
+    else:
+        nst = min(_STAGES, pps)
+        while nst > 1 and \
+                nst * 2 * page_bytes + scores + 16 * nst + merge > _MAX_SMEM:
+            nst -= 1
+        smem = (nst * 2 * page_bytes if bulk else 0) + scores + 16 * nst \
+            + merge
     if smem > _MAX_SMEM:
-        _fail(f"a page of K and V ({smem} bytes of shared memory) exceeds "
+        _fail(f"a page's scores ({smem} bytes of shared memory) exceed "
               f"the {_MAX_SMEM} bytes a block can hold")
-    if max(p * hkv * ps * d, b * hq * d, b * mp) >= 2 ** 31:
+    if max(p * hkv * ps * d, b * hq * d, b * mp, b * hq * ns * d) >= 2 ** 31:
         _fail("buffers exceed 2^31 elements")
     out = torch.empty_like(q)
     if b == 0:
         return out
-    vec = int((ps * d * item) % 16 == 0 and k_pages.data_ptr() % 16 == 0
-              and v_pages.data_ptr() % 16 == 0)
+    part_ml = part_acc = counter = None
+    if ns > 1:
+        part_ml = torch.empty((b, hq, ns, 2), dtype=torch.float32,
+                              device=dev)
+        part_acc = torch.empty((b, hq, ns, d), dtype=torch.float32,
+                               device=dev)
+        counter = torch.zeros((b * hkv,), dtype=torch.int32, device=dev)
     sc = float(scale) if scale is not None else 1.0 / float(d) ** 0.5
     lib = _build.library("paged_attention.cu", _SIG)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.paged_attention_launch(
         _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, hq, hkv, p, ps, d, mp, sc, vec, smem, stream)
+        out.data_ptr(), ptr(part_ml), ptr(part_acc), ptr(counter), b, hq,
+        hkv, p, ps, d, mp, pps, ns, nst, sc, 2 if mma else int(not bulk),
+        region, smem, stream)
     _build.check(err, "paged_attention")
     paged_attention.launches += 1
     return out

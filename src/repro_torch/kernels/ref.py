@@ -345,28 +345,42 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 # grouped matmul — the trustee's expert FFN over slotted token groups
 # ---------------------------------------------------------------------------
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, C, D) @ w (E, D, F) -> (E, C, F), one matmul per expert
     (``repro.kernels.ref.grouped_matmul``): the operands' products and
     sums in f32 — bf16 values are exact in f32, so this is the bf16
-    product with an f32 accumulator — and the result in x's dtype."""
-    return torch.bmm(x.float(), w.float()).to(x.dtype)
+    product with an f32 accumulator — and the result in x's dtype.
+
+    ``counts`` (E,) int32, when given, is each expert's filled rows (the
+    pack's counts): x's rows at and past ``counts[e]`` are zero (the pack
+    zero-fills them), and so are the result's rows there.  It is a hint,
+    not a new function: with it or without, zero rows give zero rows."""
+    y = torch.bmm(x.float(), w.float())
+    if counts is not None:
+        rows = torch.arange(x.shape[1], device=x.device)
+        y = torch.where((rows[None, :] < counts.to(x.device)[:, None])
+                        [..., None], y, torch.zeros_like(y))
+    return y.to(x.dtype)
 
 
 def moe_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor, act: str = "silu",
-            gmm=grouped_matmul) -> torch.Tensor:
+            gmm=grouped_matmul,
+            counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The gated expert FFN on slotted tokens, (E, C, D) -> (E, C, D)
     (``repro.kernels.ref.moe_ffn``): the gate's activation in f32, times
     the up projection in f32, rounded to x's dtype before the down
     projection.  ``gmm`` computes the three grouped matmuls (the MoE
-    layer passes the kernel's wrapper)."""
-    g = gmm(x, w_gate)
-    u = gmm(x, w_up)
+    layer passes the kernel's wrapper), each given ``counts`` (see
+    ``grouped_matmul``: silu(0) * 0 = gelu(0) * 0 = 0, so the down
+    projection's input is zero past the counts too)."""
+    g = gmm(x, w_gate, counts)
+    u = gmm(x, w_up, counts)
     gf = g.float()
     a = torch.nn.functional.silu(gf) if act == "silu" else \
         torch.nn.functional.gelu(gf, approximate="tanh")
-    return gmm((a * u.float()).to(x.dtype), w_down)
+    return gmm((a * u.float()).to(x.dtype), w_down, counts)
 
 
 # ---------------------------------------------------------------------------

@@ -73,12 +73,13 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _expert_ffn(x_e, weights, act: str, use_kernel: bool):
+def _expert_ffn(x_e, weights, act: str, use_kernel: bool, counts):
     """(E, C, D) slots -> (E, C, D): ``ref.moe_ffn``'s gated FFN, its
-    three grouped matmuls the kernel's under ``use_kernel``."""
+    three grouped matmuls the kernel's under ``use_kernel``; ``counts``
+    (E,) int32, each expert's filled slots (the rest are zero)."""
     gmm = kops.grouped_matmul if use_kernel else kref.grouped_matmul
     return kref.moe_ffn(x_e, weights["w_gate"], weights["w_up"],
-                        weights["w_down"], act, gmm=gmm)
+                        weights["w_down"], act, gmm=gmm, counts=counts)
 
 
 def _expert_serve(weights, e_local: int, cap2: int, act: str,
@@ -86,7 +87,8 @@ def _expert_serve(weights, e_local: int, cap2: int, act: str,
     """Trustee side, every trustee at once: pack the received rows by
     local expert into ``cap2`` slots each (a second-level slot pack; rows
     past it answer zeros) and run the expert FFN over the T * e_local
-    experts' slots."""
+    experts' slots, the pack's per-expert counts telling the grouped
+    matmul which slots are filled (they stay on the device)."""
 
     def serve(state, received: ch.Received):
         h = received.rows["h"]                           # (T, N, D)
@@ -95,10 +97,11 @@ def _expert_serve(weights, e_local: int, cap2: int, act: str,
                          torch.full_like(received.rows["el"], -1))
         # the rows ride as 32-bit words, bit for bit (d_model is even)
         words = h.contiguous().view(torch.int32)
-        slots, _, _, _, req_slot, _ = kops.delegation_pack(
+        slots, _, counts, _, req_slot, _ = kops.delegation_pack(
             el.to(torch.int32).contiguous(), words, e_local, cap2, 0)
         x_e = slots.view(h.dtype).reshape(t * e_local, cap2, d)
-        y_e = _expert_ffn(x_e, weights, act, use_kernel)
+        y_e = _expert_ffn(x_e, weights, act, use_kernel,
+                          counts.reshape(t * e_local))
         flat = y_e.reshape(t, e_local * cap2, d)
         y = kref.take_rows(flat, torch.clamp(req_slot, min=0))
         y = torch.where((req_slot >= 0)[..., None], y, torch.zeros_like(y))

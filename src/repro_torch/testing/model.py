@@ -142,16 +142,31 @@ def gmm_within(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor,
 
 
 class GmmCheck(_KernelCheck):
-    """``_KernelCheck`` of ``grouped_matmul``; ``first`` is (x, w)."""
+    """``_KernelCheck`` of ``grouped_matmul``; ``first`` is (x, w,
+    counts).  ``tiles`` and ``filled_tiles`` count the checked calls'
+    128-row tiles and those that hold a filled row (every tile where a
+    call has no counts)."""
     name, label = "grouped_matmul", "gmm"
 
-    @staticmethod
-    def _args(x, w):
-        return x, w
+    def __init__(self):
+        super().__init__()
+        self.tiles = self.filled_tiles = 0
 
     @staticmethod
-    def _within(out, want, call):
-        return gmm_within(out, want, *call)
+    def _args(x, w, counts=None):
+        return x, w, counts
+
+    def _within(self, out, want, call):
+        x, w, counts = call
+        e, c = x.shape[:2]
+        self.tiles += e * -(-c // 128)
+        self.filled_tiles += e * -(-c // 128) if counts is None else \
+            int(((counts.long() + 127) // 128).sum())
+        return gmm_within(out, want, x, w)
+
+    def summary(self):
+        return dict(super().summary(), gmm_tiles=self.tiles,
+                    gmm_filled_tiles=self.filled_tiles)
 
 
 def scan_within(got, want, call):

@@ -1,6 +1,7 @@
 """The MoE slice's CUDA kernels on the card: ``grouped_matmul`` against its
 plain version at the deepseek-v2-lite-16b prefill's and decode's shapes,
-ragged C / D / F, E = 1 and C = 1, within
+ragged C / D / F, E = 1 and C = 1, and with per-expert ``counts`` (0, a
+partial tile, exactly a tile, C), within
 ``kernels/grouped_matmul.py::tolerance``; f32 refused; ``flash_attention``
 at head dim 192 (the MLA prefill); and a 2-layer deepseek-width model
 (the dense first layer and one MoE layer, full widths, T = 4) whose kernel
@@ -61,6 +62,61 @@ def test_grouped_matmul_zero_rows_answer_zeros(cuda):
     got = tops.grouped_matmul(x, w)
     torch.cuda.synchronize()
     assert bool((got[:, 20:] == 0).all())
+
+
+def _counted(x, seed=0):
+    """counts cycling through 0, a partial 128-row tile, exactly a tile
+    and C (the prefill's shape: the serve's spread around a quarter of
+    C), x's rows at and past each count zeroed as the pack leaves them"""
+    e, c, _ = x.shape
+    if c >= 1024:
+        g = torch.Generator().manual_seed(seed)
+        n = torch.randint(c // 8, c // 2, (e,), generator=g)
+        n[:4] = torch.tensor([0, 77, 128, c])
+    else:
+        n = torch.tensor([[0, min(77, c), min(128, c), c][i % 4]
+                          for i in range(e)])
+    counts = n.to(torch.int32).to(x.device)
+    rows = torch.arange(c, device=x.device)
+    x = torch.where((rows[None, :] < counts[:, None])[..., None], x,
+                    torch.zeros_like(x))
+    return x, counts
+
+
+@pytest.mark.parametrize("e,c,d,f", [
+    (64, 3072, 2048, 1408),     # prefill gate / up
+    (64, 3072, 1408, 2048),     # prefill down
+    (64, 8, 2048, 1408),        # decode
+    (5, 300, 136, 264),         # ragged C and F, D past one stage
+    (4, 13, 72, 40),            # ragged C, D, F
+    (4, 200, 77, 33),           # D and F not multiples of 8
+])
+def test_grouped_matmul_kernel_with_counts(cuda, e, c, d, f):
+    """Tiles at and past counts[e] are stored as zeros with no product:
+    the whole (E, C, F) output is within the tolerance of the plain
+    version with the counts and without them, and zero past the counts."""
+    x, w = _xw(cuda, e, c, d, f, seed=c)
+    x, counts = _counted(x, seed=d)
+    tops.reset_launch_counts()
+    got = tops.grouped_matmul(x, w, counts)
+    torch.cuda.synchronize()
+    for want in (tops.grouped_matmul(x, w, counts, impl="ref"),
+                 tops.grouped_matmul(x, w, impl="ref")):
+        ok, err = gmm_within(got, want, x, w)
+        assert ok, err
+    rows = torch.arange(c, device=cuda)
+    past = (rows[None, :] >= counts[:, None])[..., None].expand_as(got)
+    assert bool((got[past] == 0).all())
+    assert tops.launch_counts()["grouped_matmul"] == 1
+
+
+def test_grouped_matmul_refuses_bad_counts(cuda):
+    x, w = _xw(cuda, 4, 16, 64, 32)
+    for bad in (torch.zeros(4, dtype=torch.int64, device=cuda),
+                torch.zeros(3, dtype=torch.int32, device=cuda),
+                torch.zeros(4, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="counts"):
+            tops.grouped_matmul(x, w, bad)
 
 
 def test_grouped_matmul_refuses_f32(cuda):

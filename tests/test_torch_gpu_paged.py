@@ -1,6 +1,7 @@
 """The paged-decode slice's CUDA kernels against their plain PyTorch
-versions, on the card: ``paged_attention`` in f32 and bf16 at the main
-path's shapes and at the edge cases, ``pagetable_serve`` bit for bit on
+versions, on the card: ``paged_attention`` in f32, bf16 and f16 at the
+main path's shapes and at the edge cases (a chain over several splits, B
+1, pages read without bulk copies, length 0), ``pagetable_serve`` bit for bit on
 the stress trace.  Every test carries the ``gpu`` marker and skips where
 no CUDA device is present (decided in the ``cuda`` fixture); the module
 imports no JAX.
@@ -47,7 +48,8 @@ def _pa_case(dev, dtype, b, hq, hkv, d, p, ps, mp, lengths, seed,
             T(np.asarray(lengths), torch.int32))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("case", [
     # the main path's shapes: qwen2.5-3b attention (16 q / 2 kv heads of
     # 128), 16-token pages, 64-page chains, 64 sequences
@@ -59,10 +61,24 @@ def _pa_case(dev, dtype, b, hq, hkv, d, p, ps, mp, lengths, seed,
          lengths=[40, 1, 9, 39]),                   # rep 1, MP*PS == len
     dict(b=5, hq=8, hkv=2, d=128, p=80, ps=16, mp=8,
          lengths=[128, 100, 50, 17, 2], pad_inside=True),
+    # B 1, one chain over all 16 splits of MP 64
+    dict(b=1, hq=16, hkv=2, d=128, p=256, ps=16, mp=64, lengths=[1024]),
+    # one sequence longer than a split beside short ones
+    dict(b=3, hq=16, hkv=2, d=128, p=256, ps=16, mp=64,
+         lengths=[700, 3, 64]),
+    # 216-byte bf16 / f16 pages: read without bulk copies
+    dict(b=3, hq=4, hkv=2, d=36, p=30, ps=3, mp=10, lengths=[30, 1, 17]),
+    # D 64, two 16-position groups a page; 16 query heads on one KV head
+    dict(b=4, hq=8, hkv=1, d=64, p=40, ps=32, mp=6,
+         lengths=[192, 33, 1, 100]),
+    dict(b=2, hq=16, hkv=1, d=128, p=40, ps=16, mp=8, lengths=[128, 77]),
+    # 32-64 KB pages: fewer stages than a split's pages, so the ring
+    # refills a stage
+    dict(b=2, hq=4, hkv=2, d=256, p=40, ps=64, mp=16, lengths=[1000, 64]),
 ])
 def test_paged_attention_kernel_matches_plain(cuda, dtype, case):
     """Within ``TOLERANCE`` of the working dtype (f32: 2e-5): f32 sums in
-    another order, and in bf16 one rounding flip at most."""
+    another order, and in bf16 or f16 one rounding flip at most."""
     args = _pa_case(cuda, dtype, seed=len(case["lengths"]), **case)
     got = tops.paged_attention(*args)
     torch.cuda.synchronize()
@@ -71,6 +87,20 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype, case):
     err = (got.float() - want.float()).abs()
     assert bool((err <= atol + rtol * want.float().abs()).all()), \
         float(err.max())
+
+
+def test_paged_attention_length_zero_answers_zeros(cuda):
+    """A length of 0 is undefined: the kernel answers zeros (the plain
+    version a mean of V; ROADMAP queue C's settled divergence)."""
+    args = _pa_case(cuda, torch.bfloat16, b=3, hq=16, hkv=2, d=128, p=64,
+                    ps=16, mp=64, lengths=[0, 40, 0], seed=3)
+    got = tops.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert bool((got[0] == 0).all()) and bool((got[2] == 0).all())
+    want = tops.paged_attention(*args, impl="ref")
+    rtol, atol = TOLERANCE[torch.bfloat16]
+    err = (got[1].float() - want[1].float()).abs()
+    assert bool((err <= atol + rtol * want[1].float().abs()).all())
 
 
 @pytest.mark.parametrize("shortcut", [True, False])

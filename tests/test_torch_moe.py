@@ -4,7 +4,9 @@ d_ff_expert 96) on the CPU, on JAX weights carried across by ``convert``:
 
   * the plain ``grouped_matmul`` and ``moe_ffn`` == ``repro.kernels.ref``
     (and the Pallas grouped-matmul kernel in interpret mode), in f32 and
-    in bf16;
+    in bf16, also given per-expert counts on zero-padded slots;
+  * ``moe_block`` with the pack's counts == with them dropped, bit for
+    bit;
   * ``moe_block`` == JAX ``moe_block``: its output, ``moe_aux_loss``,
     ``moe_dropped_frac`` and ``moe_max_load``, after asserting that the
     port's router chose JAX's experts (``top_k`` keeps ``lax.top_k``'s
@@ -208,6 +210,77 @@ def test_grouped_matmul_and_moe_ffn_plain_match_jax(dtype):
         np.testing.assert_allclose(
             tref.moe_ffn(T(x), T(wg), T(wu), T(wd)).numpy(),
             np.asarray(jref.moe_ffn(J(x), J(wg), J(wu), J(wd))), **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_matmul_and_moe_ffn_with_counts_match_jax(dtype):
+    """With the pack's per-expert counts (0, a partial tile, C) and the
+    slots past them zero, as the pack leaves them: the plain grouped
+    matmul and expert FFN given the counts == JAX's (which has no counts:
+    its zero rows give zero rows) and the Pallas kernel in interpret
+    mode; the rows past the counts are exactly zero."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ops as tops
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(8)
+    e, c, d, f = 4, 13, 72, 40
+    counts = np.array([0, 5, 13, 1], np.int32)
+    x = rng.normal(size=(e, c, d)).astype(np.float32)
+    x[np.arange(c)[None, :] >= counts[:, None]] = 0
+    wg, wu = (rng.normal(size=(e, d, f)).astype(np.float32) / 8
+              for _ in range(2))
+    wd = rng.normal(size=(e, f, d)).astype(np.float32) / 6
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    J = lambda a: jnp.asarray(a, jdt)
+    T = lambda a: torch.as_tensor(a).to(tdt)
+    n = torch.as_tensor(counts)
+    tol = TOL if dtype == "float32" else dict(rtol=2.0 ** -7, atol=1e-6)
+    got = tops.grouped_matmul(T(x), T(wg), n)
+    past = np.arange(c)[None, :] >= counts[:, None]
+    assert (got.float().numpy()[past] == 0).all()
+    for want in (jref.grouped_matmul(J(x), J(wg)),
+                 jops.grouped_matmul(J(x), J(wg), impl="pallas")):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **tol)
+    # the counts are a hint: the same result without them, bit for bit
+    assert torch.equal(got, tref.grouped_matmul(T(x), T(wg)))
+    y = tref.moe_ffn(T(x), T(wg), T(wu), T(wd), counts=n)
+    assert (y.float().numpy()[past] == 0).all()
+    assert torch.equal(y, tref.moe_ffn(T(x), T(wg), T(wu), T(wd)))
+    if dtype == "float32":
+        np.testing.assert_allclose(
+            y.numpy(), np.asarray(jref.moe_ffn(J(x), J(wg), J(wu), J(wd))),
+            **TOL)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("name", ["t1_seq", "t1_second_round_tight",
+                                  "t4_seq_drop_tight", "t4_mask_decode"])
+def test_moe_block_with_counts_equals_without(name, use_pallas,
+                                              monkeypatch):
+    """The trustees' expert FFN given the pack's counts (the layer's own
+    path) == the same layer with the counts dropped, bit for bit: the
+    counts only tell the grouped matmul which slots are filled."""
+    from repro_torch.models import moe as tmoe
+    seen = []
+    real = tmoe._expert_ffn
+
+    def record(x_e, weights, act, use_kernel, counts):
+        seen.append(counts)
+        return real(x_e, weights, act, use_kernel, counts)
+    monkeypatch.setattr(tmoe, "_expert_ffn", record)
+    got = _port_case(name, use_pallas)
+    assert seen and all(c is not None and c.dtype == torch.int32
+                        for c in seen)
+    monkeypatch.setattr(
+        tmoe, "_expert_ffn",
+        lambda x_e, weights, act, use_kernel, counts: real(
+            x_e, weights, act, use_kernel, None))
+    want = _port_case(name, use_pallas)
+    for k in ("y", "aux_loss", "dropped_frac", "max_load", "top_e"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_top_k_breaks_ties_to_the_lower_index():

@@ -6,6 +6,9 @@ another order by another library):
     ``kops.paged_attention`` with ``impl="ref"`` and with the Pallas kernel
     in interpret mode — ragged chains, -1 pads inside and past the live
     length, lengths on and one past page boundaries, GQA rep 1, 2 and 8;
+  * the CUDA wrapper's split plan covers every live page of a chain
+    exactly once, for lengths of 0, 1, a page, one past a page, MP * PS
+    and past it;
   * RMSNorm and RoPE == the JAX layers;
   * ``paged_decode_attention`` at qwen2.5-3b SMOKE width (QKV bias,
     nonzero biases) and with QK norm == the JAX layer with the same
@@ -46,6 +49,31 @@ CASES = {
     "pads_inside": dict(b=4, hq=8, hkv=2, d=16, p=40, ps=4, mp=6,
                         lengths=[24, 17, 9, 2], pad_inside=True),
 }
+
+
+@pytest.mark.parametrize("mp", [1, 2, 3, 4, 5, 8, 15, 16, 64, 65])
+def test_split_plan_covers_every_live_page_once(mp):
+    """Split s of ``split_plan(mp)`` reads pages [s * pps, (s + 1) * pps)
+    of the live ones (the kernel's rule): together the splits read each
+    live page once and no other, and a split reads pages exactly when it
+    starts before the live pages end (the merge's rule for which partials
+    exist)."""
+    from repro_torch.kernels.paged_attention import split_plan
+    ps = 16
+    pps, ns = split_plan(mp)
+    assert pps >= 1 and (ns - 1) * pps < mp <= ns * pps
+    rng = np.random.default_rng(mp)
+    lengths = {0, 1, ps, ps + 1, mp * ps, mp * ps + 5}
+    lengths |= set(rng.integers(1, mp * ps + 1, 20).tolist())
+    for n in sorted(lengths):
+        live = min(mp, -(-n // ps))
+        spans = [range(s * pps, min((s + 1) * pps, live)) for s in range(ns)]
+        pages = [j for r in spans for j in r]
+        assert len(spans) == ns
+        assert sorted(pages) == list(range(live)), n
+        assert len(pages) == len(set(pages)), n
+        assert [len(r) > 0 for r in spans] == \
+            [s * pps < live for s in range(ns)], n
 
 
 @pytest.mark.parametrize("jax_impl", ["ref", "pallas"])
