@@ -10,9 +10,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at adversarial ones: for the KV kernels a hot
      segment spanning many scan blocks, all-distinct keys, ragged row
-     counts, capacity 1, int32 words above 2^24, exact on integer-exact
-     payloads; paged_attention in bf16, f32 and f16 (length 1, lengths on
-     and one past page boundaries, -1 pads inside and past the length,
+     counts, capacity 1, int32 words above 2^24, a hot destination whose
+     FIFO run crosses the pack kernels' 2048-row chunks (rows of 2,049
+     words, C and C + C2 inside a chunk and on a chunk's edge), exact on
+     integer-exact payloads; paged_attention in bf16, f32 and f16 (length
+     1, lengths on and one past page boundaries, -1 pads inside and past
+     the length,
      MP*PS == length, Hkv == Hq, B 1 with one chain over every split, a
      chain longer than a split beside short ones, pages read without
      bulk copies) within the tolerance stated in
@@ -22,7 +25,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      alloc in one wave), the local shortcut on and off; flash_attention
      (bf16) at the prefill's shape and layout, MQA, MHA, q_offset with
      Sq < Skv, causal=False, D 64 and 32, ragged tails, D 192 at the MLA
-     prefill's shape and ragged, within the
+     prefill's shape and ragged, and at the edges of the wgmma kernel's
+     128-row query and 128- / 64-key KV tiles (Sq < 64, Skv 1, a q_offset
+     off the tiles, GQA rep 8, MQA, MHA, (B, S, H, D) views and
+     causal=False at D 192), within the
      tolerance stated in kernels/flash_attention.py, a q_offset launch bit
      for bit equal to the rows of the full launch, and f32 refused;
      grouped_matmul (bf16) at the deepseek prefill's and decode's shapes
@@ -74,8 +80,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      delegated over the channel (the pack kernel) to the trustees' expert
      FFN (the pack kernel again, then three grouped-matmul launches given
      the pack's per-expert counts) — a check run holding each of its 27
-     flash launches (D 192) and 78 grouped-matmul launches against the
-     plain versions (the filled 128-row tiles counted), then timed runs;
+     flash launches (D 192), 78 grouped-matmul launches and 52 packs
+     (all six outputs, exactly) against the plain versions (the filled
+     128-row tiles counted), then timed runs;
      then repro_torch.launch.serve (8 requests, 64 prompt tokens
      teacher-forced then 64 generated, the latent cache's sequence and the
      experts over 4 trustees); then the prefill's last-position logits on
@@ -161,13 +168,14 @@ SOURCES = {
 KV_KERNELS = ("delegation_pack", "gather", "scatter_last", "segmented_add")
 # what each kernel's launches are called in a profiler trace, and the
 # launches one call makes where that is more than one
-LAUNCHES_PER_CALL = {"scatter_last": 2, "segmented_add": 3}
-KERNEL_NAMES = {"delegation_pack": "delegation_pack_kernel",
+LAUNCHES_PER_CALL = {"scatter_last": 2, "segmented_add": 3,
+                     "delegation_pack": 4}
+KERNEL_NAMES = {"delegation_pack": "delegation_pack_",
                 "gather": "gather_kernel", "scatter_last": "scatter_last_",
                 "segmented_add": "seg_add_",
                 "pagetable_serve": "pagetable_serve_kernel",
                 "paged_attention": "paged_attention_",
-                "flash_attention": "flash_attention_kernel",
+                "flash_attention": "flash_attention_",
                 "grouped_matmul": "grouped_matmul_kernel",
                 "selective_scan": "selective_scan_kernel"}
 PAGED_KERNELS = ("delegation_pack", "pagetable_serve", "paged_attention")
@@ -291,6 +299,15 @@ def phase_kernels(torch, dev, shapes):
                                      seed=5, hot=0.9), False),
         ("int32 words above 2^24", dict(d=8, r=2048, t=8, c=128, c2=128,
                                         w=10, seed=6, big_words=True), False),
+        # the count and rank kernels take 2048-row chunks of a shard: a hot
+        # destination's FIFO run over 6 chunks of rows of 2,049 words, C
+        # and C + C2 inside a chunk, then on a chunk's edge
+        ("6 chunks, a hot destination, W 2049",
+         dict(d=4, r=12_000, t=4, c=2500, c2=2048, w=2049, seed=7, hot=0.5,
+              big_words=True), False),
+        ("C and C + C2 on the chunks' edges",
+         dict(d=2, r=8192, t=2, c=2048, c2=2048, w=3, seed=8, hot=1.0,
+              inactive=0.0), False),
     ]
     for label, kw, main in pack_cases:
         args = pack_case(torch, dev, **kw)
@@ -609,16 +626,21 @@ def device_readings(torch, fn, name, n=5, iters=20, per_call=1):
     """``n`` profiler readings of the ``name`` kernels' device time per
     call, each over ``iters`` calls: (median, min, max, the kernel records
     the profiler kept in each reading — ``iters * per_call`` unless
-    records were lost).  A reading's time per call is the mean of the
-    records it kept times ``per_call``, the launches one call makes, so a
-    reading that lost records is not biased low; one that kept none is
-    left out (all zeros when every reading kept none)."""
+    records were lost).  A call launches ``per_call`` kernels, each of its
+    own name once: a reading's time per call is the sum of each kernel's
+    mean record, so a reading that lost records is not biased (where a
+    kernel kept no record at all, the mean of all records kept times
+    ``per_call``); one that kept none is left out (all zeros when every
+    reading kept none)."""
     xs, seen = [], []
     for _ in range(n):
         evs = device_events(torch, fn, iters, name)
         kept = sum(e.count for e in evs)
         seen.append(kept)
-        if kept:
+        if kept and len(evs) == per_call:
+            xs.append(sum(e.self_device_time_total / e.count for e in evs)
+                      / 1e3)
+        elif kept:
             xs.append(sum(e.self_device_time_total for e in evs) / kept
                       * per_call / 1e3)
     if not xs:
@@ -715,12 +737,18 @@ def sm_clock_under(torch, fn, calls):
     return out
 
 
-def pack_bytes(args):
-    """dst and the payload words in; both slot blocks, request_slot and
-    the counts, counts2 and totals out — all 32-bit."""
+def pack_bytes(torch, args):
+    """dst in and the words of the rows the pack places (each
+    destination's first C + C2 rows: an inactive or dropped row's words
+    need not be read); both slot blocks, request_slot and the counts,
+    counts2 and totals out — all 32-bit."""
     dst, words, t, c, c2 = args
     d, r, w = words.shape
-    return 4 * (dst.numel() + words.numel() + d * t * (c + c2) * w
+    per = torch.zeros((d, t + 1), dtype=torch.int64, device=dst.device)
+    per.scatter_add_(1, torch.where(dst >= 0, dst, t).long(),
+                     torch.ones_like(dst, dtype=torch.int64))
+    placed = int(per[:, :t].clamp(max=c + c2).sum())
+    return 4 * (dst.numel() + placed * w + d * t * (c + c2) * w
                 + dst.numel() + 3 * d * t)
 
 
@@ -790,8 +818,8 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
         lib_txt = "library n/a" if lib is None else reading(
             "library", lib, lib_bytes / HBM_BYTES_PER_S * 1e3)
         say(f"[times] {gpu} | {name} @ {label}: {ms:.6f} ms/call (median "
-            f"of the profiler readings that kept records, each the mean "
-            f"record times the launches a call makes, {lo:.6f}..{hi:.6f}, "
+            f"of the profiler readings that kept records, each the sum of "
+            f"its kernels' mean records, {lo:.6f}..{hi:.6f}, "
             f"records kept per reading of 20 calls {seen}; CUDA events with "
             f"the host {'ahead' if ahead else 'NOT ahead'} {ev:.6f} ms/call,"
             f" host issue {host:.6f} ms/call), bound {bound:.6f} ms "
@@ -806,7 +834,7 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
         emit("delegation_pack", label,
              lambda: kops.delegation_pack(*args),
              lambda: kops.delegation_pack(*args, impl="ref"), None,
-             pack_bytes(args))
+             pack_bytes(torch, args))
 
     for label, key in (("kv_paper", "serve_paper"),
                        ("kv_mixed", "serve_mixed")):
@@ -1112,6 +1140,27 @@ def phase_flash_kernels(torch, dev, errs):
          dict(FA_MLA, bshd=True), {}, False),
         ("D 192, ragged Sq = Skv = 333", dict(b=1, hq=4, hkv=4, sq=333,
                                              skv=333, d=192), {}, False),
+        # the edges of the wgmma kernel's 128-row query tiles and its 128-
+        # (D 128) and 64-key (D 192) KV tiles
+        ("Sq 40 < 64: one warpgroup without rows",
+         dict(b=2, hq=4, hkv=2, sq=40, skv=40, d=128), {}, False),
+        ("Skv 1, D 192", dict(b=2, hq=4, hkv=4, sq=1, skv=1, d=192), {},
+         False),
+        ("ragged Sq = Skv = 300", dict(b=2, hq=4, hkv=2, sq=300, skv=300,
+                                       d=128), {}, False),
+        ("q_offset 197 off the tiles, Skv 397",
+         dict(b=1, hq=8, hkv=2, sq=200, skv=397, d=128),
+         dict(q_offset=197), False),
+        ("D 192, q_offset 77, Skv 377",
+         dict(b=1, hq=8, hkv=8, sq=300, skv=377, d=192),
+         dict(q_offset=77), False),
+        ("D 192, GQA rep 8", dict(b=1, hq=16, hkv=2, sq=512, skv=512,
+                                  d=192), {}, False),
+        ("D 192, MQA", dict(b=1, hq=8, hkv=1, sq=256, skv=256, d=192), {},
+         False),
+        ("D 192, causal=False, Sq 256, Skv 640",
+         dict(b=2, hq=4, hkv=4, sq=256, skv=640, d=192),
+         dict(causal=False), False),
     ]
     errs["flash_attention"] = 0.0
     for i, (label, shape, kw, main) in enumerate(cases):
@@ -1644,7 +1693,7 @@ def phase_deepseek(torch, dev, gpu, report, errs):
     from repro_torch.launch.steps import build_cell
     from repro_torch.models import model as M
     from repro_torch.testing.model import (DecodeLogits, FlashCheck,
-                                           GmmCheck, MoEStats,
+                                           GmmCheck, MoEStats, PackCheck,
                                            logits_agreement)
     cfg = get_arch(DS_ARCH)
     n_moe = cfg.n_layers - 1
@@ -1667,12 +1716,19 @@ def phase_deepseek(torch, dev, gpu, report, errs):
                            device=dev)
     kops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    with FlashCheck() as fchk, GmmCheck() as gchk, MoEStats() as moe, \
-            FirstCalls("delegation_pack", 2) as packs:
+    with FlashCheck() as fchk, GmmCheck() as gchk, PackCheck() as pchk, \
+            MoEStats() as moe, FirstCalls("delegation_pack", 2) as packs:
         logits = plan.step_fn(params, {"tokens": tokens})
         torch.cuda.synchronize()
     counts = kops.launch_counts()
-    f, g = fchk.summary(), gchk.summary()
+    f, g, pk = fchk.summary(), gchk.summary(), pchk.summary()
+    require(counts["delegation_pack"] == 2 * n_moe
+            and pk["pack_calls"] == 2 * n_moe
+            and pk["pack_calls_out_of_tolerance"] == 0,
+            f"deepseek prefill check run: {counts['delegation_pack']} pack "
+            f"launches, {pk['pack_calls']} checked, "
+            f"{pk['pack_calls_out_of_tolerance']} differing from the plain "
+            f"version; want {2 * n_moe}, all equal")
     require(counts["flash_attention"] == cfg.n_layers
             and f["flash_calls"] == cfg.n_layers,
             f"deepseek prefill check run: {counts['flash_attention']} flash "
@@ -1701,7 +1757,9 @@ def phase_deepseek(torch, dev, gpu, report, errs):
         f"grouped-matmul launches at {g['gmm_shapes']}, every call == plain "
         f"over its whole output (max abs err flash "
         f"{f['flash_max_abs_err']:.3g}, grouped matmul "
-        f"{g['gmm_max_abs_err']:.3g}); the pack's counts left "
+        f"{g['gmm_max_abs_err']:.3g}); {pk['pack_calls']} pack launches "
+        f"at {pk['pack_shapes']}, every call == plain in all six outputs "
+        f"(exact); the pack's counts left "
         f"{g['gmm_filled_tiles']} of {g['gmm_tiles']} 128-row tiles of the "
         f"{g['gmm_calls']} launches filled; logits ({b}, {cfg.vocab_size}) f32, "
         f"finite; MoE dropped fraction of tokens mean "
@@ -1714,7 +1772,7 @@ def phase_deepseek(torch, dev, gpu, report, errs):
     # the stacked leaf, so the leaf can be freed)
     mla_inputs = fchk.first
     gmm_prefill = (gchk.first[0], gchk.first[1].clone(), gchk.first[2])
-    del fchk, gchk, logits
+    del fchk, gchk, pchk, logits
 
     secs = []
     for _ in range(DS_TIMED_RUNS):
@@ -2036,20 +2094,23 @@ def phase_ds_pack_times(torch, gpu, packs, counts):
                            packs):
         pk = lambda: kops.delegation_pack(*args)
         ms, lo, hi, seen = device_readings(
-            torch, pk, KERNEL_NAMES["delegation_pack"], iters=5)
+            torch, pk, KERNEL_NAMES["delegation_pack"], iters=5,
+            per_call=LAUNCHES_PER_CALL["delegation_pack"])
         ev, host, ahead = ahead_ms(torch, pk, iters=5)
         if ms == 0:                 # the profiler kept no kernel record
             ms = ev
         plain = yardstick(torch, lambda: kops.delegation_pack(
             *args, impl="ref"), iters=3)
-        nbytes = pack_bytes(args)
+        nbytes = pack_bytes(torch, args)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         d, r, w = args[1].shape
         say(f"[times] {gpu} | delegation_pack @ deepseek prefill, {label} "
             f"({d} shards x {r} rows of {w} words to {args[2]} "
             f"destinations, capacity {args[3]} + {args[4]}): {ms:.6f} "
             f"ms/call (median of the profiler readings of 5 calls that "
-            f"kept records, {lo:.6f}..{hi:.6f}, records kept {seen}; CUDA "
+            f"kept records, each the sum of the "
+            f"{LAUNCHES_PER_CALL['delegation_pack']} kernels' mean records, "
+            f"{lo:.6f}..{hi:.6f}, records kept {seen}; CUDA "
             f"events with the host {'ahead' if ahead else 'NOT ahead'} "
             f"{ev:.6f} ms/call), bound {bound:.6f} ms ({nbytes} bytes), "
             f"{reading('plain', plain, bound)}, library n/a, "

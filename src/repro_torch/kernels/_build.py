@@ -4,9 +4,10 @@ Every source under ``csrc/`` has a plain C interface (no PyTorch headers),
 so each compiles in seconds into its own shared library under
 ``src/repro_torch/build/`` (ignored by git).  The libraries are built at
 first use, all sources in parallel (one ``nvcc`` per source, started
-together), and cached under a name that hashes the source and the flags,
-so an edited source is rebuilt.  A failed build raises with ``nvcc``'s
-output.  Nothing here runs at import time.
+together), and cached under a name that hashes the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt.  A failed build raises with ``nvcc``'s output.  Nothing here
+runs at import time.
 """
 from __future__ import annotations
 
@@ -44,8 +45,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    # the source and every shared header under csrc/ it may include
+    for name in [source] + sorted(f for f in os.listdir(CSRC)
+                                  if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD, f"lib{stem}-{digest.hexdigest()[:12]}.so")
 

@@ -2,14 +2,18 @@
 prompt, the prefill's attention.
 
 Counterpart of ``repro/kernels/flash_attention.py`` (``_fa_kernel``).  The
-CUDA kernel (``csrc/flash_attention.cu``) runs one block per (batch, query
-head, 64-row query tile), loops over 64-key tiles up to the causal
-diagonal with the online softmax in registers, and runs both products on
-the tensor cores (``mma.sync`` bf16 -> f32); ``ref.flash_attention`` is
-its plain version.  On CPU tensors the wrapper runs the plain version; on
-CUDA tensors it launches the kernel or raises.  The kernel takes bf16
-only: f32 or f16 on the card raises ``TypeError``.  A ragged tail of Sq
-or Skv is masked in the kernel (the Pallas wrapper refuses one).
+CUDA kernels (``csrc/flash_attention.cu``) run one block per query tile
+of a (batch, query head), loop over KV tiles up to the causal diagonal
+with the online softmax in registers, and run both products on the
+tensor cores; ``ref.flash_attention`` is their plain version.  Which
+kernel a launch takes is a choice by head dimension (``kernel_for``):
+D 64, 128 and 192 — every main path's — the warp-specialised one (TMA
+loads into an mbarrier ring, ``wgmma`` for both products, 128-row query
+tiles); D 32 the simple ``mma.sync`` one (64-row query tiles).  On CPU
+tensors the wrapper runs the plain version; on CUDA tensors it launches
+a kernel or raises.  The kernels take bf16 only: f32 or f16 on the card
+raises ``TypeError``.  A ragged tail of Sq or Skv is masked in the kernel
+(the Pallas wrapper refuses one).
 """
 from __future__ import annotations
 
@@ -25,6 +29,23 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 _SIG = {"flash_attention_launch": (_P,) * 4 + (_I,) * 6 + (_L,) * 12
         + (_F, _I, _I, _P)}
 HEAD_DIMS = (32, 64, 128, 192)
+WGMMA_HEAD_DIMS = (64, 128, 192)
+
+
+def kernel_for(d: int) -> str:
+    """The kernel that takes head dimension ``d``: "wgmma" (TMA + wgmma,
+    warp-specialised) for D 64, 128 and 192, "mma.sync" for D 32.  The
+    C launcher makes the same choice."""
+    if d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if d in HEAD_DIMS:
+        return "mma.sync"
+    _fail(f"head dim {d} not in {HEAD_DIMS}")
+
+
+def query_tile(d: int) -> int:
+    """Query rows a block of ``kernel_for(d)`` takes."""
+    return 128 if kernel_for(d) == "wgmma" else 64
 
 
 def tolerance(v: torch.Tensor):
@@ -44,8 +65,9 @@ def _fail(msg, exc=ValueError):
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """``x`` if its pointer is 16-byte aligned, its last dimension
-    contiguous and its other strides multiples of 8 values (the kernel's
-    16-byte row loads); else a contiguous copy."""
+    contiguous and its other strides multiples of 8 values (TMA's 16-byte
+    strides, the mma.sync kernel's 16-byte row loads); else a contiguous
+    copy."""
     if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
             and all(s % 8 == 0 for s in x.stride()[:-1])):
         return x
@@ -87,8 +109,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _fail(f"{hq} query heads do not group over {hkv} KV heads")
     if off < 0:
         _fail(f"q_offset must be >= 0, got {off}")
-    if b * hq > 65535:
-        _fail(f"B * Hq = {b * hq} exceeds the grid's 65535")
+    if b * hq > 65535 or -(-sq // query_tile(d)) * b * hq >= 2 ** 31:
+        _fail(f"B * Hq = {b * hq} x {sq} queries exceed the grid")
     if max(sq, skv) + off >= 2 ** 31:
         _fail("positions exceed int32")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
@@ -97,7 +119,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     if b * hq * sq == 0:
         return out
+    if skv == 0:                        # nothing to attend to: l = 0
+        return out.zero_()
     sc = float(scale) if scale is not None else 1.0 / float(d) ** 0.5
+    if not sc > 0:
+        _fail(f"scale must be > 0 (the kernels fold it into the "
+              f"exponent), got {sc}")
     lib = _build.library("flash_attention.cu", _SIG)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.flash_attention_launch(

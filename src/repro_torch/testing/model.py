@@ -2,8 +2,9 @@
 
   * ``FlashCheck`` holds every flash-attention kernel call against its
     plain version on the same inputs (the prefill's check run);
-    ``GmmCheck`` does the same for the grouped-matmul kernel and
-    ``ScanCheck`` for the selective-scan kernel;
+    ``GmmCheck`` does the same for the grouped-matmul kernel,
+    ``ScanCheck`` for the selective-scan kernel and ``PackCheck`` for the
+    pack kernels (exactly);
   * ``MoEStats`` keeps each MoE layer's dropped fraction and max load
     while the model runs unchanged;
   * ``DecodeLogits`` keeps the decode step's logits at one position while
@@ -167,6 +168,31 @@ class GmmCheck(_KernelCheck):
     def summary(self):
         return dict(super().summary(), gmm_tiles=self.tiles,
                     gmm_filled_tiles=self.filled_tiles)
+
+
+def pack_within(got, want):
+    """(every output equal, max abs err) of a pack kernel call against its
+    plain version: the pack moves 32-bit words, so it is held exactly."""
+    err = 0.0
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            err = max(err, float((a.double() - b.double()).abs().max())
+                      if a.numel() and a.shape == b.shape else float("inf"))
+    return err == 0.0, err
+
+
+class PackCheck(_KernelCheck):
+    """``_KernelCheck`` of ``delegation_pack`` (all six outputs, exact);
+    ``first`` is (dst, words, n_trustees, capacity, capacity2)."""
+    name, label = "delegation_pack", "pack"
+
+    @staticmethod
+    def _args(dst, words, n_trustees, capacity, capacity2=0):
+        return dst, words, n_trustees, capacity, capacity2
+
+    @staticmethod
+    def _within(out, want, call):
+        return pack_within(out, want)
 
 
 def scan_within(got, want, call):

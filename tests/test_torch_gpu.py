@@ -46,6 +46,40 @@ def test_pack_kernel_matches_plain(cuda, r, c, c2, hot):
         assert torch.equal(g, w)
 
 
+# the pack kernels' count and rank blocks take 2048-row chunks of a shard
+# (kernels/delegation_pack.py: CHUNK)
+@pytest.mark.parametrize("d,r,t,c,c2,w,hot,inactive", [
+    (4, 50_000, 8, 5000, 2000, 5, 0.3, 0.1),     # 25 chunks a shard
+    # one destination's FIFO run over the chunks' edges, C and C + C2
+    # inside a chunk ...
+    (2, 9000, 4, 2500, 1000, 3, 0.9, 0.0),
+    # ... and on a chunk's edge: rank 2048 opens slots2, 4096 is dropped
+    (2, 8192, 2, 2048, 2048, 3, 1.0, 0.0),
+    (4, 12_000, 4, 2500, 2048, 2049, 0.5, 0.1),  # the MoE channel's rows
+    (4, 6000, 16, 512, 0, 1024, 0.0, 0.5),       # the trustees' pack
+    (3, 5000, 8, 200, 100, 1, 0.0, 0.1),         # W 1
+    (2, 3000, 8, 10, 10, 4, 0.0, 1.0),           # every row inactive
+    (3, 1, 4, 2, 1, 7, 0.0, 0.0),                # R 1
+])
+def test_pack_kernel_matches_plain_where_the_chunks_meet(
+        cuda, d, r, t, c, c2, w, hot, inactive):
+    """Exact in all six outputs where the chunked design can go wrong."""
+    rng = np.random.default_rng(r + w)
+    dst = rng.integers(0, t, (d, r))
+    dst = np.where(rng.random((d, r)) < hot, 0, dst)
+    dst = np.where(rng.random((d, r)) < inactive, -1, dst).astype(np.int32)
+    words = rng.integers(-2 ** 31, 2 ** 31 - 1, (d, r, w), dtype=np.int64)
+    dst, words = (torch.as_tensor(a, device=cuda)
+                  for a in (dst, words.astype(np.int32)))
+    got = tops.delegation_pack(dst, words, t, c, c2, impl="kernel")
+    torch.cuda.synchronize()
+    want = tops.delegation_pack(dst, words, t, c, c2, impl="ref")
+    for g, w_, what in zip(got, want, ("slots", "slots2", "counts",
+                                       "counts2", "request_slot",
+                                       "totals")):
+        assert torch.equal(g, w_), what
+
+
 def _serve_case(dev, seed, t=8, n=5000, k=700, integer=True, hot=0.6,
                 w=VW):
     rng = np.random.default_rng(seed)

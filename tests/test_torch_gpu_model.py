@@ -60,6 +60,31 @@ def test_flash_kernel_matches_plain(cuda, shape, kw):
     assert got.shape == q.shape and got.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("shape,kw", [
+    # the wgmma kernel's 128-row query tiles, its 128-key (D 128) and
+    # 64-key (D 192) KV tiles: ragged Sq and Skv at both
+    (dict(b=2, hq=4, hkv=2, sq=300, skv=300, d=128), {}),
+    (dict(b=1, hq=4, hkv=4, sq=333, skv=333, d=192), {}),
+    (dict(b=2, hq=4, hkv=2, sq=40, skv=40, d=128), {}),            # Sq < 64
+    (dict(b=2, hq=4, hkv=4, sq=1, skv=1, d=192), {}),              # Skv 1
+    (dict(b=1, hq=8, hkv=2, sq=200, skv=397, d=128),
+     dict(q_offset=197)),                          # offset off the tiles
+    (dict(b=1, hq=8, hkv=8, sq=300, skv=377, d=192), dict(q_offset=77)),
+    (dict(b=1, hq=16, hkv=2, sq=512, skv=512, d=192), {}),         # rep 8
+    (dict(b=1, hq=8, hkv=1, sq=256, skv=256, d=192), {}),          # MQA
+    (dict(b=2, hq=4, hkv=4, sq=256, skv=256, d=192), {}),          # MHA
+    (dict(b=2, hq=16, hkv=16, sq=384, skv=384, d=192, bshd=True), {}),
+    (dict(b=2, hq=4, hkv=4, sq=256, skv=640, d=192), dict(causal=False)),
+])
+def test_flash_kernel_matches_plain_at_the_tile_edges(cuda, shape, kw):
+    q, k, v = _qkv(cuda, seed=7, **shape)
+    got = tops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = tops.flash_attention(q, k, v, impl="ref", **kw)
+    ok, err = flash_within(got, want, v)
+    assert ok, err
+
+
 def test_flash_offset_equals_rows_of_full_launch(cuda):
     q, k, v = _qkv(cuda, 1, 4, 2, 1024, 1024, 128, seed=3)
     full = tops.flash_attention(q, k, v)
@@ -76,6 +101,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         tops.flash_attention(q[..., :96], k[..., :96], v[..., :96])
     with pytest.raises(ValueError, match="q_offset"):
         tops.flash_attention(q, k, v, q_offset=-1)
+    with pytest.raises(ValueError, match="scale"):
+        tops.flash_attention(q, k, v, scale=-0.1)
 
 
 def test_full_width_prefill_through_the_kernel(cuda):

@@ -125,3 +125,60 @@ def test_channel_pack_matches_jax_channel(impl, overflow, c, c2):
         if c2:
             assert np.array_equal(packed.counts2[i].numpy(),
                                   np.asarray(want.counts2))
+
+
+@pytest.mark.parametrize("r", [1, 97, 2048, 4096, 5000, 50_000])
+def test_pack_launch_plan_covers_each_row_once_in_order(r):
+    """The count and rank kernels' chunks (``launch_plan``, shapes only)
+    take each row of a shard exactly once, in row order: ragged R, R 1 and
+    R a multiple of the chunk."""
+    from repro_torch.kernels import delegation_pack as dp
+    plan = dp.launch_plan(r, 6, 8, 8 * 8 * 20, sms=132)
+    assert plan.n_chunks == -(-r // dp.CHUNK)
+    rows = [i for lo, hi in dp.chunk_rows(plan, r) for i in range(lo, hi)]
+    assert rows == list(range(r))
+    assert all(hi > lo for lo, hi in dp.chunk_rows(plan, r))
+    assert plan.rank_threads % 32 == 0 and 32 <= plan.rank_threads <= 1024
+
+
+@pytest.mark.parametrize("w,aligned", [(1, True), (3, True), (6, True),
+                                       (10, True), (32, True), (33, True),
+                                       (64, False), (1024, True),
+                                       (1024, False), (2049, True)])
+@pytest.mark.parametrize("slot_rows", [0, 1, 7, 300])
+def test_pack_place_walk_covers_each_slot_word_once(w, aligned, slot_rows):
+    """The place kernel's grid-stride walk (a thread a word for rows under
+    32 words, else a group of lanes a slot row) writes every word of every
+    slot row of both blocks exactly once, with a grid set from the shapes
+    alone; 16-byte copies only where W % 4 == 0 and the words are
+    aligned."""
+    from repro_torch.kernels import delegation_pack as dp
+    plan = dp.launch_plan(4096, w, 16, slot_rows, sms=2, aligned=aligned)
+    assert plan.vec == (aligned and w % 4 == 0 and w >= 32)
+    if w < 32:
+        assert plan.group == 0
+    else:
+        lanes = w // 4 if plan.vec else w
+        assert plan.group in (8, 16, 32) and plan.group >= min(lanes, 32)
+    assert plan.place_blocks <= 8 * 2
+    assert sorted(dp.place_rows(plan, slot_rows, w)) == list(
+        range(slot_rows * w))
+
+
+def test_plain_pack_matches_jax_at_multi_chunk_hot_destination():
+    """A shard of several of the kernels' chunks with a hot destination
+    whose FIFO run crosses the chunks' edges, capacity inside a chunk:
+    the plain pack == JAX's ref == the Pallas pack in interpret mode."""
+    from repro_torch.kernels import delegation_pack as dp
+    r, t, cap = 2 * dp.CHUNK + 901, 8, dp.CHUNK + 333
+    dst, payload = _case(17, r, t, 3, int_payload=True, hot=0.6)
+    got = tref.delegation_pack(torch.as_tensor(dst), torch.as_tensor(payload),
+                               t, cap)
+    want_ref = jref.delegation_pack(jnp.asarray(dst), jnp.asarray(payload),
+                                    t, cap)
+    want_pallas = jops.delegation_pack(jnp.asarray(dst), jnp.asarray(payload),
+                                       t, cap, impl="pallas")
+    assert int((dst == 0).sum()) > cap       # the hot run overflows
+    for want in (want_ref, want_pallas):
+        for g, w, what in zip(got, want, ("slots", "counts", "request_slot")):
+            assert np.array_equal(g.numpy(), np.asarray(w)), what
