@@ -6,7 +6,9 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
   1. device and build — the card's name and power limit, then the nine
-     CUDA kernels built from csrc/ with nvcc (in parallel);
+     CUDA kernels built from csrc/ with nvcc (in parallel), and the
+     registers, spills, shared memory and resident warps of the
+     page-table serve and the selective scan as built;
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at adversarial ones: for the KV kernels a hot
      segment spanning many scan blocks, all-distinct keys, ragged row
@@ -60,7 +62,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      driver depth 2, 256 requests (prompts 16-255 tokens, 64-511 generated):
      a check run (every request completes, zero leaked pages, every wave's
      page-table responses == the oracle replayed in serve order, every
-     attention call == the plain version), then the timed run;
+     page-table pass == the plain version bit for bit, every attention
+     call == the plain version), then the timed run;
   6. qwen serve — the qwen2.5-3b model path at full width (36 layers,
      d_model 2048, 16 / 2 heads of 128, d_ff 11008, vocab 151936, bf16;
      3.40 B random parameters drawn on the card): prefill_step at B 4 x
@@ -113,7 +116,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      SM at the measured clock), its plain version and a library call where one
      PyTorch call computes the same function (flash also at the MLA
      prefill's D 192, grouped_matmul at the prefill's and a decode step's
-     shapes, paged_attention with the L2 warm and flushed).  Every plain
+     shapes, paged_attention with the L2 warm and flushed; the page-table
+     serve beside an empty launch of its grid, its latency floor; the
+     selective scan beside its inner loop's issue floor from the SASS).
+     Every plain
      and library reading is CUDA events with the host ahead, the
      profiler's reading and the records it kept beside it, and its share
      of its own work's bound (torch.bmm's counts every slot, as it
@@ -1332,15 +1338,22 @@ def paged_run(torch, dev, inputs, check=False, n_requests=None):
                       **PAGED)
 
 
+PT_STATE = ("used", "chains", "chain_len", "last_used", "clock",
+            "evictions")
+
+
 class KernelRecorder:
-    """During the check run: keeps, per page-table op, the pass with the
-    most valid rows (state before and after, rows, responses), and the
-    paged_attention call over the most live pages — the main path's own
-    inputs, for the bit-for-bit check and the timings."""
+    """During the check run: holds every page-table pass against the plain
+    version (on a copy of the state the pass found: the valid rows'
+    responses and the whole state after it, bit for bit), keeps per op the
+    pass with the most valid rows (state before and after, rows,
+    responses), and the paged_attention call over the most live pages —
+    the main path's own inputs, for the timings."""
 
     def __init__(self, kops):
         self.kops = kops
         self.passes, self.attention, self.best_pages = {}, None, -1
+        self.checked, self.differ = 0, []
         self._pt, self._pa = kops.pagetable_serve, kops.paged_attention
 
     def __enter__(self):
@@ -1353,15 +1366,26 @@ class KernelRecorder:
         self.kops.paged_attention = self._pa
 
     def pagetable_serve(self, op, state, seq, arg, valid, t, ps, **kw):
+        import torch
+        from repro_torch.kernels import ref
         n = int(valid.sum())
-        if n <= self.passes.get(op, (0,))[0]:
-            return self._pt(op, state, seq, arg, valid, t, ps, **kw)
         before = {k: v.clone() for k, v in state.items()}
         out = self._pt(op, state, seq, arg, valid, t, ps, **kw)
-        self.passes[op] = (n, before, (seq.clone(), arg.clone(),
-                                       valid.clone(), t, ps),
-                           [o.clone() for o in out],
-                           {k: v.clone() for k, v in state.items()})
+        plain = {k: v.clone() for k, v in before.items()}
+        want = ref.pagetable_serve(op, *[plain[k] for k in PT_STATE], seq,
+                                   arg, valid, t, ps)
+        self.checked += 1
+        # the kernel leaves the responses of rows that are not valid
+        # unwritten: compare valid rows only
+        if not (all(torch.equal(x[valid], y[valid])
+                    for x, y in zip(out, want))
+                and all(torch.equal(state[k], plain[k]) for k in plain)):
+            self.differ.append((op, n))
+        if n > self.passes.get(op, (0,))[0]:
+            self.passes[op] = (n, before, (seq.clone(), arg.clone(),
+                                           valid.clone(), t, ps),
+                               [o.clone() for o in out],
+                               {k: v.clone() for k, v in state.items()})
         return out
 
     def paged_attention(self, q, k, v, tbl, lengths, scale=None,
@@ -1381,10 +1405,9 @@ def phase_paged(torch, dev, gpu, report, errs):
     (a) a check run: every request completes, the audit is clean, every
     wave's page-table responses equal the oracle replayed in serve order,
     every attention call's kernel output equals the plain version, and
-    the page-table passes with the most rows equal the plain serve bit for
-    bit; (b) the timed run, counters zeroed just before it."""
+    every page-table pass equals the plain serve bit for bit; (b) the
+    timed run, counters zeroed just before it."""
     from repro_torch.kernels import ops as kops
-    from repro_torch.kernels import ref
     inputs = paged_inputs(torch, dev)
     with KernelRecorder(kops) as rec:
         stats = paged_run(torch, dev, inputs, check=True)
@@ -1403,24 +1426,17 @@ def phase_paged(torch, dev, gpu, report, errs):
             f"{chk['attention_max_abs_err']})")
     errs["paged_attention"] = max(errs.get("paged_attention", 0.0),
                                   chk["attention_max_abs_err"])
-    for op, (n, before, args, out, after) in sorted(rec.passes.items()):
-        state = {k: v.clone() for k, v in before.items()}
-        want = ref.pagetable_serve(op, *[state[k] for k in (
-            "used", "chains", "chain_len", "last_used", "clock",
-            "evictions")], *args)
-        valid = args[2]          # the kernel leaves other rows unwritten
-        require(all(torch.equal(x[valid], y[valid])
-                    for x, y in zip(out, want)) and
-                all(torch.equal(after[k], state[k]) for k in state),
-                f"pagetable_serve: main-path pass of op {op} ({n} rows) "
-                f"differs from the plain version")
+    require(not rec.differ, f"pagetable_serve: {len(rec.differ)} of "
+            f"{rec.checked} main-path passes differ from the plain version "
+            f"(op, valid rows): {rec.differ[:8]}")
     say(f"[paged check] {N_REQUESTS}/{N_REQUESTS} requests, "
         f"{stats['tokens']} tokens, {stats['restarts']} restarts, "
         f"{a['evictions']} evictions, audit clean; {chk['waves']} waves, "
         f"{chk['rows_replayed']} page-table rows == the sequential oracle "
         f"in serve order; {chk['attention_calls']} attention calls == plain "
-        f"(bf16, max abs err {chk['attention_max_abs_err']:.3g}); the "
-        f"largest main-path pass of each op == plain bit for bit ("
+        f"(bf16, max abs err {chk['attention_max_abs_err']:.3g}); all "
+        f"{rec.checked} page-table passes == plain bit for bit (the "
+        f"largest of each op: "
         + ", ".join(f"op {o}: {v[0]} rows"
                     for o, v in sorted(rec.passes.items())) + ")")
 
@@ -2152,6 +2168,42 @@ SCAN_F32_INSTR = 4
 # pipes (exp2: range reduction 2, a degree-3 Horner 3, the exponent's
 # scale 1) — an assumed count, not measured
 POLY_EXP_INSTR = 6
+SCHEDULERS_PER_SM = 4           # each issues one warp instruction a clock
+
+
+def sass_loop(lib_path, must):
+    """(instructions, MUFU instructions) of the innermost loop (the
+    shortest backward branch's body) holding MUFU instructions in the
+    first function of the library whose mangled name holds every string
+    of ``must``, from cuobjdump's SASS; None where cuobjdump or the
+    function is missing."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True).stdout
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        if not all(m in func.split("\n", 1)[0] for m in must):
+            continue
+        code = []               # (address, opcode, operands) in order
+        for line in func.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_.]*)(.*)", line)
+            if m:
+                code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+        best = None
+        for at, op, rest in code:
+            b = re.match(r"\s+(0x[0-9a-f]+)", rest) if op == "BRA" else None
+            if b is None or int(b.group(1), 16) >= at:
+                continue
+            body = [o for a, o, _ in code if int(b.group(1), 16) <= a <= at]
+            mufu = sum(o.startswith("MUFU") for o in body)
+            if mufu and (best is None or len(body) < best[0]):
+                best = (len(body), mufu)
+        return best
+    return None
 
 
 def scan_case(torch, dev, b, s, di, n, dtype, seed, h0=False):
@@ -2545,6 +2597,22 @@ def phase_scan_times(torch, dev, gpu, inputs, launches):
     r_s, r_f = SFU_EXP_PER_CLOCK, F32_LANES_PER_CLOCK
     share = (r_f - SCAN_F32_INSTR * r_s) / (r_f + POLY_EXP_INSTR * r_s)
     t_mixed = max(t_exp * (1 - share), t_bytes)
+    # the schedulers' floor for the inner loop as compiled: its warp
+    # instructions per exponential, one issued a clock per scheduler
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import scan_plan
+    lanes, _ = scan_plan(inputs[2].shape[1])
+    loop = sass_loop(_build._lib_path("selective_scan.cu"),
+                     ("selective_scan_kernel", "nv_bfloat16",
+                      f"Li{lanes}EE"))
+    if loop is None:
+        issue = "the inner loop's issue floor not measured (no cuobjdump)"
+    else:
+        t_issue = (exps / 32 * loop[0] / loop[1]
+                   / (SCHEDULERS_PER_SM * SM_COUNT * mhz * 1e6) * 1e3)
+        issue = (f"the inner loop issues {loop[0]} instructions for "
+                 f"{loop[1]} exponentials a thread (SASS): the schedulers' "
+                 f"issue floor {t_issue:.6f} ms")
     bsz, s, di = inputs[0].shape
     say(f"[times] {gpu} | selective_scan @ falcon prefill (B {bsz}, S {s}, "
         f"DI {di}, N {inputs[2].shape[1]}, {inputs[0].dtype}): {ms:.6f} "
@@ -2561,8 +2629,8 @@ def phase_scan_times(torch, dev, gpu, inputs, launches):
         f"{flops}, bytes {t_bytes:.6f} ms for {nbytes}; the SFU and the "
         f"f32 pipes together, {share * 100:.1f}% of the exponentials as "
         f"{POLY_EXP_INSTR}-instruction polynomials beside "
-        f"{SCAN_F32_INSTR} f32 instructions an element: {t_mixed:.6f} ms), "
-        f"library n/a: no "
+        f"{SCAN_F32_INSTR} f32 instructions an element: {t_mixed:.6f} ms; "
+        f"{issue}), library n/a: no "
         f"PyTorch call computes the recurrence, {launches} launches a "
         f"prefill call")
     return ("selective_scan", launches, ms, plain[0], bound, None,
@@ -2608,17 +2676,24 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
     # device work, the restore timed alone and subtracted
     op, (n, before, args, out, _) = 1, rec.passes[1]
     work = {k: v.clone() for k, v in before.items()}
-    names = ("used", "chains", "chain_len", "last_used", "clock", "evictions")
 
     def restore():
-        for k in names:
+        for k in PT_STATE:
             work[k].copy_(before[k])
-    st = [work[k] for k in names]
+    st = [work[k] for k in PT_STATE]
     ms, lo, hi, seen = device_readings(
         torch, lambda: (restore(), kops.pagetable_serve(op, work, *args)),
         KERNEL_NAMES["pagetable_serve"])
     nbytes = pt_bytes(op, before, args)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
+    # the latency floor beside the byte bound: a kernel that does nothing,
+    # launched on the same grid, block and shared memory
+    from repro_torch.kernels import pagetable_serve as kpt
+    pl, (sl, mp) = before["used"].shape[1], before["chains"].shape[1:]
+    smem = kpt.smem_bytes(pl, sl, mp)
+    floor, f_lo, f_hi, f_seen = device_readings(
+        torch, lambda: kpt.empty_launch(args[3], smem, dev),
+        "pagetable_empty_kernel")
     ms_restore = yardstick(torch, restore)
     plain_r = yardstick(torch, lambda: (restore(), ref.pagetable_serve(
         op, *st, *args)), iters=5)
@@ -2637,7 +2712,11 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
         f"{n} valid of {t_} x {n_rows} received rows): {ms:.6f} ms/launch "
         f"(median of 5 profiler readings of the kernel, {lo:.6f}..{hi:.6f},"
         f" kernel records kept per reading of 20 calls {seen}), bound "
-        f"{bound:.6f} ms ({nbytes} bytes), "
+        f"{bound:.6f} ms ({nbytes} bytes), latency floor {floor:.6f} ms "
+        f"(an empty kernel on the same {args[3]} blocks of 256 threads "
+        f"and {smem} bytes of shared memory, median of 5 profiler readings "
+        f"{f_lo:.6f}..{f_hi:.6f}, records kept {f_seen}; the serve "
+        f"{ms - floor:.6f} ms above it), "
         f"{reading('plain', plain_r, bound)} less the state's restore, "
         f"{plain_wall:.3f} ms wall, library n/a, "
         f"{counts['pagetable_serve'] / waves:.3f} launches/wave")
@@ -2720,6 +2799,36 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
     return rows
 
 
+def kernel_info(torch, n_dev):
+    """Registers, spills, shared memory and resident warps of the
+    page-table serve and the selective scan at the main paths' shapes, as
+    built (cudaFuncGetAttributes and the occupancy calculator; ptxas -v
+    reports the same registers)."""
+    from repro_torch.kernels import pagetable_serve as kpt
+    from repro_torch.kernels import selective_scan as kss
+    pl = -(-PAGED["n_pages"] // n_dev)
+    sl = -(-PAGED["max_seqs"] // n_dev)
+    i = kpt.kernel_info(pl, sl, PAGED["max_pages"])
+    say(f"[build] pagetable_serve at the paged decode's trustee (PL {pl}, "
+        f"SL {sl}, MP {PAGED['max_pages']}): {i['registers']} registers, "
+        f"{i['local_bytes']} bytes local (spills), {i['smem']} bytes of "
+        f"shared memory, one block of {i['warps_a_block']} warps a trustee "
+        f"({n_dev} blocks; at most {i['blocks_per_sm']} an SM)")
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float32):
+        i = kss.kernel_info(dtype, SCAN_PREFILL["n"])
+        blocks = SCAN_PREFILL["b"] * -(-SCAN_PREFILL["di"] * i["lanes"]
+                                       // (32 * i["warps_a_block"]))
+        warps = min(i["blocks_per_sm"], blocks / sm) * i["warps_a_block"]
+        say(f"[build] selective_scan ({dtype}, N {SCAN_PREFILL['n']}: "
+            f"{i['lanes']} lanes x {i['states_a_lane']} states a channel): "
+            f"{i['registers']} registers, {i['local_bytes']} bytes local "
+            f"(spills), {i['smem']} bytes of shared memory a block, at most "
+            f"{i['blocks_per_sm']} blocks of {i['warps_a_block']} warps an "
+            f"SM; the falcon prefill's {blocks} blocks keep {warps:.2f} "
+            f"warps resident on each of {sm} SMs")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
@@ -2754,6 +2863,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     n_dev = MESH[0] * MESH[1]
+    kernel_info(torch, n_dev)
     k_local = N_KEYS // n_dev
     r_paper = 2 * 8192 // n_dev          # fused GET + PUT batch per client
     c_paper = max(4, 2 * (r_paper // n_dev))

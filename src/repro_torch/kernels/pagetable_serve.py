@@ -3,9 +3,11 @@
 Port-only kernel: the JAX page table serves each op as a ``lax.scan`` over
 the trustee's rows with an eviction ``while_loop`` per alloc / append step
 (``repro/core/pagetable.py:250-315``), not a Pallas kernel.  The CUDA
-kernel (``csrc/pagetable_serve.cu``) runs one warp per trustee over its
-rows in serve order, the state in shared memory; ``ref.pagetable_serve``
-is its plain version.
+kernel (``csrc/pagetable_serve.cu``) runs one block per trustee: the
+block compacts the pass's valid rows and loads the state into shared
+memory (``used`` as a bitmap), one warp applies the rows in serve order,
+and the block writes back only what the rows changed;
+``ref.pagetable_serve`` is its plain version.
 
 On CPU tensors the wrapper runs the plain version; on CUDA tensors it
 launches the kernel or raises.  Either way the state tensors are updated
@@ -23,8 +25,13 @@ import torch
 from . import _build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"pagetable_serve_launch": (_I,) * 7 + (_P,) * 13 + (_I, _P)}
+_SIG = {"pagetable_serve_launch": (_I,) * 7 + (_P,) * 13 + (_I, _P),
+        "pagetable_empty_launch": (_I, _I, _P),
+        "pagetable_serve_info": (_I, _P)}
 _MAX_SMEM = 227 * 1024
+# csrc/pagetable_serve.cu: NT threads a block, LIST valid rows listed
+# (row, seq, arg) in shared memory for each serial walk
+_THREADS, _LIST = 256, 2048
 _STATE = ("used", "chains", "chain_len", "last_used", "clock", "evictions")
 
 
@@ -40,6 +47,50 @@ def _check(name, x, shape, dtype, device):
                          f"{list(x.shape)}, expected {list(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"pagetable_serve: {name} must be contiguous")
+
+
+def smem_bytes(pl: int, sl: int, mp: int) -> int:
+    """Shared memory a block takes for a trustee of ``pl`` local pages and
+    ``sl`` local sequences of ``mp`` pages: the chains, chain_len and
+    last_used as int32, ``used`` and its dirty marks as bitmaps of ``pl``
+    bits, the touched sequences' bitmap, the row list and the scan's warp
+    sums (``smem_needed`` in the CUDA source)."""
+    words = -(-pl // 32)
+    return 4 * (sl * mp + 2 * sl + 2 * words + -(-sl // 32) + 3 * _LIST
+                + _THREADS // 32 + 1)
+
+
+def check_fits(pl: int, sl: int, mp: int) -> int:
+    """``smem_bytes(pl, sl, mp)``, or ValueError where a trustee's state
+    exceeds the shared memory a block can hold."""
+    smem = smem_bytes(pl, sl, mp)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"pagetable_serve: a trustee's state ({smem} bytes) "
+                         f"exceeds the {_MAX_SMEM} bytes of shared memory "
+                         f"a block can hold")
+    return smem
+
+
+def empty_launch(n_trustees: int, smem: int, device) -> None:
+    """Launch a kernel that does nothing on the serve's grid, block and
+    shared memory: the floor a serve launch is weighed against.  Not
+    counted in ``pagetable_serve.launches``."""
+    lib = _build.library("pagetable_serve.cu", _SIG)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _build.check(lib.pagetable_empty_launch(n_trustees, smem, stream),
+                 "pagetable_serve (empty launch)")
+
+
+def kernel_info(pl: int, sl: int, mp: int) -> dict:
+    """The CUDA kernel as built, at a trustee of ``pl`` pages and ``sl``
+    sequences of ``mp`` pages: registers a thread, local (spill) bytes a
+    thread, its shared memory, resident blocks an SM."""
+    smem = check_fits(pl, sl, mp)
+    lib = _build.library("pagetable_serve.cu", _SIG)
+    out = (ctypes.c_int * 3)()
+    _build.check(lib.pagetable_serve_info(smem, out), "pagetable_serve_info")
+    return dict(registers=out[0], local_bytes=out[1], smem=smem,
+                blocks_per_sm=out[2], warps_a_block=_THREADS // 32)
 
 
 def pagetable_serve(op: int, used: torch.Tensor, chains: torch.Tensor,
@@ -77,11 +128,7 @@ def pagetable_serve(op: int, used: torch.Tensor, chains: torch.Tensor,
     _check("valid", valid, (t, n), torch.bool, dev)
     if max(t * n * mp, t * sl * mp, t * pl) >= 2 ** 31:
         raise ValueError("pagetable_serve: buffers exceed 2^31 elements")
-    smem = 4 * (pl + sl * mp + 2 * sl)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"pagetable_serve: a trustee's state ({smem} bytes) "
-                         f"exceeds the {_MAX_SMEM} bytes of shared memory "
-                         f"a block can hold")
+    smem = check_fits(pl, sl, mp)
     kw = dict(dtype=i32, device=dev)
     pages = torch.empty((t, n, mp), **kw)
     page = torch.empty((t, n), **kw)

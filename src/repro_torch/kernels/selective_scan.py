@@ -1,14 +1,15 @@
 """Selective scan — the Mamba-1 SSM recurrence of the prefill.
 
 Counterpart of ``repro/kernels/selective_scan.py`` (``_scan_kernel``).  The
-CUDA kernel (``csrc/selective_scan.cu``) runs one block of 128 threads per
-(128-channel tile of DI, batch row); each thread keeps its channel's N
-states in f32 registers and walks time in staged chunks of 64 steps;
-``ref.selective_scan`` is its plain version.  On CPU tensors the wrapper
-runs the plain version; on CUDA tensors it launches the kernel or raises.
-x and dt are bf16 or f32 (the same), y comes back in x's dtype, every
-other operand is f32.  A ragged S or DI is masked in the kernel (the
-Pallas wrapper asserts S % 64 == 0 and DI % 256 == 0).
+CUDA kernel (``csrc/selective_scan.cu``) splits each channel's N states
+over a few lanes of a warp (``scan_plan``), keeps them in f32 registers,
+walks time in chunks double-buffered in shared memory, and sums y over
+the channel's lanes with shuffles; ``ref.selective_scan`` is its plain
+version.  On CPU tensors the wrapper runs the plain version; on CUDA
+tensors it launches the kernel or raises.  x and dt are bf16 or f32 (the
+same), y comes back in x's dtype, every other operand is f32.  A ragged
+S or DI is masked in the kernel (the Pallas wrapper asserts S % 64 == 0
+and DI % 256 == 0).
 """
 from __future__ import annotations
 
@@ -20,9 +21,15 @@ import torch
 from . import _build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"selective_scan_launch": (_I,) + (_P,) * 9 + (_I,) * 4 + (_P,)}
+_SIG = {"selective_scan_launch": (_I,) + (_P,) * 9 + (_I,) * 5 + (_P,),
+        "selective_scan_info": (_I, _I, _P)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 64          # N past this raises: csrc/selective_scan.cu N_MAX
+# lanes a channel of the kernel's instances (SCAN_PLANS in
+# csrc/selective_scan.cu), each lane holding STATES_A_LANE states
+LANES = (1, 2, 4, 8)
+STATES_A_LANE = 8
+_THREADS = 256          # a block's threads: csrc/selective_scan.cu NT
 _ULP = 2.0 ** -23       # an f32 ulp, relative to the value, at most
 # the f32 difference one step may add between the kernel and the plain
 # version, in ulps of the step's magnitude (see ``tolerance``)
@@ -40,8 +47,9 @@ def tolerance(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     -exp), so each step's decay exp(dt * a) lies in [0, 1].
 
     One step's f32 difference between the two: the kernel's exp is
-    ``__expf``, off by at most 2 + 1.173 |dt a| ulps, the plain version's
-    by 2; (4 + 1.173 x) e^-x <= 4 e^(-x/2) for x >= 0, so the decayed state
+    ``__expf``'s ``ex2.approx`` of x log2 e (its .ftz form), off by at
+    most 2 + 1.173 |dt a| ulps, the plain version's by 2;
+    (4 + 1.173 x) e^-x <= 4 e^(-x/2) for x >= 0, so the decayed state
     moves by at most 4 ulps of sqrt(exp(dt a)) |h|.  The kernel multiplies
     dt * x then B (the plain version dt * B then x) and may contract the
     update into an FMA: a few ulps of |dt x B| and of the sum.  Under 8
@@ -74,6 +82,31 @@ def tolerance(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return 1.01 * 2.0 ** -7, 1.01 * atol_y + 1e-30, atol_h
 
 
+def scan_plan(n: int) -> Tuple[int, int]:
+    """(lanes, states a lane) of the kernel for N states a channel: the
+    fewest lanes that hold N.  Lane g of a channel keeps states g * spl ..
+    g * spl + spl - 1; those at N and past it are padding (zeros)."""
+    if not 1 <= n <= MAX_STATE:
+        _fail(f"the kernel keeps at most {MAX_STATE} states a channel; "
+              f"got N = {n}")
+    return next((lanes, STATES_A_LANE) for lanes in LANES
+                if n <= lanes * STATES_A_LANE)
+
+
+def kernel_info(dtype: torch.dtype, n: int) -> dict:
+    """The CUDA kernel of ``scan_plan(n)`` for x in ``dtype``, as built:
+    registers a thread, local (spill) bytes a thread,
+    dynamic shared memory a block, resident blocks an SM, warps a block."""
+    lanes, spl = scan_plan(n)
+    lib = _build.library("selective_scan.cu", _SIG)
+    out = (ctypes.c_int * 4)()
+    _build.check(lib.selective_scan_info(_DTYPES[dtype], lanes, out),
+                 "selective_scan_info")
+    return dict(lanes=lanes, states_a_lane=spl, registers=out[0],
+                local_bytes=out[1], smem=out[2], blocks_per_sm=out[3],
+                warps_a_block=_THREADS // 32)
+
+
 def _fail(msg, exc=ValueError):
     raise exc(f"selective_scan: {msg}")
 
@@ -98,9 +131,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if x.dtype not in _DTYPES:
         _fail(f"the kernel takes x in float32 or bfloat16, not {x.dtype}",
               TypeError)
-    if not 1 <= n <= MAX_STATE:
-        _fail(f"the kernel keeps at most {MAX_STATE} states a channel; "
-              f"got N = {n}")
+    lanes, _ = scan_plan(n)
     want = (("dt", dt, (bsz, s, di), x.dtype),
             ("a", a, (di, n), torch.float32),
             ("b", b, (bsz, s, n), torch.float32),
@@ -130,7 +161,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
         b.data_ptr(), c.data_ptr(), d.data_ptr(),
         None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
-        bsz, s, di, n, stream)
+        bsz, s, di, n, lanes, stream)
     _build.check(err, "selective_scan")
     selective_scan.launches += 1
     return y, h

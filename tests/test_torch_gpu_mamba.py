@@ -1,7 +1,9 @@
 """The Mamba slice's CUDA kernel on the card: ``selective_scan`` against
 its plain version at the falcon-mamba-7b prefill's shape and at ragged,
-short and generic-N ones, in bf16 and f32, from h0 and from zeros, within
-``kernels/selective_scan.py::tolerance``; two launches over the halves of
+short and generic-N ones (every lane plan of ``scan_plan``, padded and
+exact, and an 8192-step sequence), in bf16 and f32, from h0 and from
+zeros, within ``kernels/selective_scan.py::tolerance``; every plan built
+without spills; two launches over the halves of
 a sequence, the second from the first's h_final, against one launch; a
 zero dt and a decay that underflows to 0; what the kernel refuses; and a
 2-layer full-width falcon-mamba-7b prefill whose kernel path equals its
@@ -64,9 +66,26 @@ def _check(args):
     (3, 130, 96, 4, False),         # DI under one tile
     (2, 100, 300, 64, True),        # the largest N
     (1, 257, 1000, 1, False),
+    (2, 300, 512, 2, True),         # N 2: padding states in one lane
+    (2, 200, 640, 32, True),        # N 32: four lanes of eight
+    (2, 150, 384, 12, False),       # N 12: two lanes, four states padding
+    (1, 96, 264, 40, True),         # N 40: eight lanes, ragged DI
+    (1, 8192, 512, 16, True),       # the state carried over 8192 steps
 ])
 def test_scan_kernel_matches_plain(cuda, dtype, b, s, di, n, h0):
     _check(_inputs(cuda, b, s, di, n, dtype, h0, seed=s + di))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 8, 16, 32, 64])
+def test_scan_kernel_plans_build_without_spills(cuda, dtype, n):
+    """Every lane plan's kernel holds its states in registers (no local
+    memory) and two blocks fit an SM."""
+    from repro_torch.kernels.selective_scan import kernel_info, scan_plan
+    info = kernel_info(dtype, n)
+    assert (info["lanes"], info["states_a_lane"]) == scan_plan(n)
+    assert info["local_bytes"] == 0 and info["registers"] <= 128
+    assert info["blocks_per_sm"] >= 2
 
 
 def test_scan_kernel_chunk_carry(cuda):

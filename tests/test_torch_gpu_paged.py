@@ -2,7 +2,11 @@
 versions, on the card: ``paged_attention`` in f32, bf16 and f16 at the
 main path's shapes and at the edge cases (a chain over several splits, B
 1, pages read without bulk copies, length 0), ``pagetable_serve`` bit for bit on
-the stress trace.  Every test carries the ``gpu`` marker and skips where
+the stress trace and on random op passes straight through the kernel (a
+main-path geometry, PL 200 off the bitmap's 32-page words, PL 2048 with
+more words than lanes, received rows past the kernel's 8192-row
+compaction pass, more valid rows than its 2048-row list, trustees with no valid row whose state must stay untouched, and
+phantom pages holding 2 that no row touches).  Every test carries the ``gpu`` marker and skips where
 no CUDA device is present (decided in the ``cuda`` fixture); the module
 imports no JAX.
 
@@ -129,3 +133,92 @@ def test_pagetable_serve_kernel_matches_plain_and_oracle(cuda, shortcut):
         for ra, rb in zip(a, b):
             assert all(np.array_equal(ra[k], rb[k]) for k in rb)
     assert all(np.array_equal(gs[k], ws[k]) for k in ws)
+
+
+_PT_NAMES = ("used", "chains", "chain_len", "last_used", "clock",
+             "evictions")
+
+
+def _pt_fresh(t, pl, sl, mp):
+    z = lambda *sh: torch.zeros(sh, dtype=torch.int32)
+    return {"used": z(t, pl), "chains": torch.full((t, sl, mp), -1,
+                                                   dtype=torch.int32),
+            "chain_len": z(t, sl), "last_used": z(t, sl), "clock": z(t, 1),
+            "evictions": z(t, 1)}
+
+
+def _pt_rows(rng, t, sl, n, p_valid, idle, arg):
+    """seq (each row routed to its own trustee), arg, valid; the trustees
+    in ``idle`` get no valid row."""
+    seq = rng.integers(0, sl, (t, n)) * t + np.arange(t)[:, None]
+    valid = rng.random((t, n)) < p_valid
+    valid[list(idle)] = False
+    return (torch.as_tensor(seq, dtype=torch.int32),
+            torch.as_tensor(arg, dtype=torch.int32),
+            torch.as_tensor(valid))
+
+
+@pytest.mark.parametrize("t,pl,sl,mp,n,p_valid", [
+    (8, 512, 8, 64, 4112, 0.02),    # the paged decode's geometry
+    (4, 200, 16, 16, 300, 0.02),    # PL off the bitmap's 32-page words
+    (2, 2048, 64, 64, 9000, 0.02),  # 64 words > 32 lanes; 2 passes
+    (2, 256, 32, 16, 5000, 0.6),    # ~3000 valid rows: 2 list windows
+])
+def test_pagetable_serve_kernel_random_passes(cuda, t, pl, sl, mp, n,
+                                              p_valid):
+    """Random alloc / append / lookup / free passes on a state filled by
+    the plain version until allocations evict: every valid row's
+    responses and the whole state bit for bit the plain version's; the
+    idle trustees' state untouched; phantom pages (used == 2) that no
+    row touches still 2.  Where the chains can outgrow the pool, the
+    passes evict."""
+    rng = np.random.default_rng(pl + n)
+    ps = 16
+    plain = _pt_fresh(t, pl, sl, mp)
+    for _ in range(6):       # fill the pools (plain only)
+        rows = _pt_rows(rng, t, sl, 64, 0.5, (),
+                        rng.integers(1, mp + 1, (t, 64)))
+        tops.pagetable_serve(0, plain, *rows, t, ps)
+    free = np.argwhere(plain["used"].numpy() == 0)
+    for ti, p in free[rng.choice(len(free), min(len(free), 3 * t),
+                                 replace=False)]:
+        plain["used"][ti, p] = 2             # phantom: never handed out
+    phantom = plain["used"] == 2
+    card = {k: v.to(cuda, copy=True) for k, v in plain.items()}
+    idle = (t - 1,)
+    passes = [(0, lambda: rng.integers(-2, mp + 4, (t, n))),
+              (1, lambda: rng.integers(-ps, (mp + 2) * ps, (t, n))),
+              (3, lambda: np.zeros((t, n))),
+              (2, lambda: np.zeros((t, n))),
+              (0, lambda: rng.integers(1, mp // 2 + 1, (t, n)))]
+    tops.reset_launch_counts()
+    for op, arg in passes:
+        seq, a, valid = _pt_rows(rng, t, sl, n, p_valid, idle, arg())
+        before = {k: v.clone() for k, v in card.items()}
+        want = tops.pagetable_serve(op, plain, seq, a, valid, t, ps)
+        got = tops.pagetable_serve(op, card, seq.to(cuda), a.to(cuda),
+                                   valid.to(cuda), t, ps)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu()[valid], w[valid]), op
+        for k in _PT_NAMES:
+            assert torch.equal(card[k].cpu(), plain[k]), (op, k)
+            assert torch.equal(card[k][list(idle)], before[k][list(idle)])
+        assert bool((card["used"].cpu()[phantom] == 2).all()), op
+    assert tops.launch_counts()["pagetable_serve"] == len(passes)
+    if pl < sl * mp:          # the chains can outgrow the pool
+        assert int(plain["evictions"].sum()) > 0
+
+
+def test_pagetable_serve_kernel_info_and_empty_launch(cuda):
+    """The kernel as built at the paged decode's trustee (PL 512, SL 8,
+    MP 64) fits a block, and the empty launch of its grid runs without
+    counting as a serve launch."""
+    from repro_torch.kernels import pagetable_serve as kpt
+    info = kpt.kernel_info(512, 8, 64)
+    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    assert info["smem"] == kpt.smem_bytes(512, 8, 64)
+    before = tops.launch_counts()["pagetable_serve"]
+    kpt.empty_launch(8, info["smem"], cuda)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()["pagetable_serve"] == before
