@@ -11,7 +11,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      page-table serve and the selective scan as built;
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at adversarial ones: for the KV kernels a hot
-     segment spanning many scan blocks, all-distinct keys, ragged row
+     segment over many tiles, one ADD segment over every tile of a
+     kv_mixed shard, a scatter_last winner tiles before its segment's
+     end, N one past and one short of a tile multiple, general floats
+     (segmented_add five times, bit for bit run to run), all-distinct
+     keys, ragged row
      counts, capacity 1, int32 words above 2^24, a hot destination whose
      FIFO run crosses the pack kernels' 2048-row chunks (rows of 2,049
      words, C and C + C2 inside a chunk and on a chunk's edge), exact on
@@ -118,7 +122,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      prefill's D 192, grouped_matmul at the prefill's and a decode step's
      shapes, paged_attention with the L2 warm and flushed; the page-table
      serve beside an empty launch of its grid, its latency floor; the
-     selective scan beside its inner loop's issue floor from the SASS).
+     selective scan beside its inner loop's issue floor from the SASS;
+     scatter_last and segmented_add beside the random read through
+     order that each makes for every row, alone: torch.gather of the
+     flag / lane words).
      Every plain
      and library reading is CUDA events with the host ahead, the
      profiler's reading and the records it kept beside it, and its share
@@ -174,11 +181,11 @@ SOURCES = {
 KV_KERNELS = ("delegation_pack", "gather", "scatter_last", "segmented_add")
 # what each kernel's launches are called in a profiler trace, and the
 # launches one call makes where that is more than one
-LAUNCHES_PER_CALL = {"scatter_last": 2, "segmented_add": 3,
-                     "delegation_pack": 4}
+LAUNCHES_PER_CALL = {"delegation_pack": 4}
 KERNEL_NAMES = {"delegation_pack": "delegation_pack_",
-                "gather": "gather_kernel", "scatter_last": "scatter_last_",
-                "segmented_add": "seg_add_",
+                "gather": "gather_kernel",
+                "scatter_last": "scatter_last_kernel",
+                "segmented_add": "segmented_add_kernel",
                 "pagetable_serve": "pagetable_serve_kernel",
                 "paged_attention": "paged_attention_",
                 "flash_attention": "flash_attention_",
@@ -271,9 +278,11 @@ def run_serve_kernel(torch, name, case, impl, base=None):
         kops.gather(table, case["keys"], case["lane"], 0, out, impl=impl)
         return [out, flag]
     if name == "scatter_last":
-        flag = (case["lane"] == 1).to(torch.int32)
-        kops.scatter_last(table, case["keys"], case["order"], case["sid"],
-                          flag, case["value"], impl=impl)
+        flag = case.get("flag")
+        if flag is None:
+            flag = (case["lane"] == 1).to(torch.int32)
+        kops.scatter_last(table, case["keys"], case["order"],
+                          case["seg_end"], flag, case["value"], impl=impl)
         return [table]
     resp = base.clone()
     kops.segmented_add(table, case["keys"], case["lane"], case["order"],
@@ -294,6 +303,9 @@ def phase_kernels(torch, dev, shapes):
     """Each kernel against its plain version; returns max abs err per
     kernel over the main-path-shape cases."""
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.delegation_serve import (SCATTER_TILE_ROWS,
+                                                      SEGADD_TILE_ROWS)
+    from repro_torch.testing.serve import far_winner_flags
     errs = {k: 0.0 for k in SOURCES}
     p_main, p_mixed = shapes["pack_paper"], shapes["pack_mixed"]
     pack_cases = [
@@ -334,9 +346,20 @@ def phase_kernels(torch, dev, shapes):
     serve_cases = [
         ("kv_paper shape", dict(**s_paper, seed=11), True, True),
         ("kv_mixed shape", dict(**s_mixed, seed=12), True, True),
-        ("hot segment over 32 scan blocks",
+        ("hot segment over 8 tiles",
          dict(t=8, n=8192, k=4096, w=4, mix=(0.0, 0.0, 1.0, 0.0), seed=13,
               hot=0.98, inactive=0.0), False, True),
+        # every tile of a kv_mixed-sized shard looks back to tile 0
+        ("one ADD segment over every tile of a kv_mixed shard",
+         dict(t=8, n=s_mixed["n"], k=s_mixed["k"], w=4,
+              mix=(0.0, 0.0, 1.0, 0.0), seed=18, hot=1.0, inactive=0.0),
+         False, True),
+        ("N one past a tile multiple",
+         dict(t=8, n=3 * SEGADD_TILE_ROWS + 1, k=999, w=4,
+              mix=(0.1, 0.3, 0.4, 0.2), seed=19, hot=0.5), False, True),
+        ("N one short of a tile multiple",
+         dict(t=8, n=3 * SEGADD_TILE_ROWS - 1, k=999, w=4,
+              mix=(0.1, 0.3, 0.4, 0.2), seed=20, hot=0.5), False, True),
         ("all-distinct keys", dict(t=8, n=6000, k=8192, w=4,
                                    mix=(0.25, 0.25, 0.25, 0.25), seed=14,
                                    distinct=True), False, True),
@@ -350,6 +373,18 @@ def phase_kernels(torch, dev, shapes):
                                 mix=(0.0, 0.0, 1.0, 0.0), seed=16, hot=0.5,
                                 integer=False), False, False),
     ]
+    far = serve_case(torch, dev, t=8, n=48 * SCATTER_TILE_ROWS, k=64, w=4,
+                     mix=(0.0, 0.0, 0.0, 1.0), seed=22, hot=1.0,
+                     inactive=0.0)
+    far["flag"] = far_winner_flags(far["order"], SCATTER_TILE_ROWS)
+    got = run_serve_kernel(torch, "scatter_last", far, "kernel")
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], run_serve_kernel(torch, "scatter_last", far,
+                                                 "ref")[0]),
+            "scatter_last [winner tiles before its segment's end]: differs "
+            "from the plain version")
+    say("[kernels] scatter_last [winner tiles before its segment's end] == "
+        "plain (exact)")
     for label, kw, main, exact in serve_cases:
         case = serve_case(torch, dev, **kw)
         base = torch.as_tensor(
@@ -371,7 +406,15 @@ def phase_kernels(torch, dev, shapes):
                 # N(0,1) deltas has prefix sums of magnitude ~100, whose
                 # rounding differs by a few ulps of 100 per add
                 require(err <= 2e-3, f"{name} [{label}]: max abs err {err}")
-                tol = f"max abs err {err:.3g} <= 2e-3"
+                # the kernel's order is fixed: four more runs, bit for bit
+                for _ in range(4):
+                    again = run_serve_kernel(torch, name, case, "kernel",
+                                             base)
+                    require(all(torch.equal(a, b)
+                                for a, b in zip(got, again)),
+                            f"{name} [{label}]: differs from run to run")
+                tol = (f"max abs err {err:.3g} <= 2e-3; five runs bit for "
+                       f"bit")
             if main:
                 errs[name] = max(errs[name], err)
             say(f"[kernels] {name} [{label}] == plain ({tol})")
@@ -769,7 +812,7 @@ def serve_bytes(torch, name, case):
     order, sid = case["order"], case["sid"]
     lane_s = torch.gather(lane, 1, order.long())
     pos = torch.arange(n, device=lane.device)
-    if name == "scatter_last":   # order, sid, flag; a row in, a line out
+    if name == "scatter_last":   # order, seg_end, flag; a row in, a line out
         heads = int(((sid == pos) & (lane_s == 1)).sum())
         return 3 * idx + 2 * 4 * heads * w + 4 * heads
     adds = int((lane_s == 2).sum())
@@ -811,7 +854,8 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
     from repro_torch.kernels import ops as kops
     measured = {}
 
-    def emit(name, label, fn_kernel, fn_plain, fn_lib, nbytes, lib_bytes=0):
+    def emit(name, label, fn_kernel, fn_plain, fn_lib, nbytes, lib_bytes=0,
+             floor=None):
         ms, lo, hi, seen = device_readings(
             torch, fn_kernel, KERNEL_NAMES[name],
             per_call=LAUNCHES_PER_CALL.get(name, 1))
@@ -823,6 +867,9 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
         lib = yardstick(torch, fn_lib) if fn_lib is not None else None
         lib_txt = "library n/a" if lib is None else reading(
             "library", lib, lib_bytes / HBM_BYTES_PER_S * 1e3)
+        if floor is not None:       # (what, call, its bytes)
+            lib_txt += ", " + reading(floor[0], yardstick(torch, floor[1]),
+                                      floor[2] / HBM_BYTES_PER_S * 1e3)
         say(f"[times] {gpu} | {name} @ {label}: {ms:.6f} ms/call (median "
             f"of the profiler readings that kept records, each the sum of "
             f"its kernels' mean records, {lo:.6f}..{hi:.6f}, "
@@ -856,8 +903,8 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
             "gather": lambda impl: kops.gather(
                 table, case["keys"], case["lane"], 0, out, impl=impl),
             "scatter_last": lambda impl: kops.scatter_last(
-                table, case["keys"], case["order"], case["sid"], flag_put,
-                case["value"], impl=impl),
+                table, case["keys"], case["order"], case["seg_end"],
+                flag_put, case["value"], impl=impl),
         }
         if label == "kv_mixed":      # kv_paper's rounds carry no ADD rows
             calls["segmented_add"] = lambda impl: kops.segmented_add(
@@ -889,10 +936,22 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
             "segmented_add": 8 * add_idx.numel() + 4 * add_val.numel()
             + 2 * 4 * int(torch.unique(add_idx).numel()) * w,
         }
+        # the random read through ``order`` that each commit kernel makes
+        # for every row (scatter_last its flag, segmented_add its lane),
+        # alone: torch.gather of int32 words by an int64 index, 16 bytes a
+        # row (index in, word in, word out)
+        order_l = case["order"].long()
+        floors = {name: (f"its {what} gather alone (torch.gather through "
+                         f"order)",
+                         lambda src=src: torch.gather(src, 1, order_l),
+                         16 * t * n)
+                  for name, what, src in (
+                      ("scatter_last", "flag", flag_put),
+                      ("segmented_add", "lane", case["lane"]))}
         for name, call in calls.items():
             emit(name, label, lambda: call("kernel"), lambda: call("ref"),
                  library[name], serve_bytes(torch, name, case),
-                 lib_bytes[name])
+                 lib_bytes[name], floors.get(name))
 
     rows = []
     for name in KV_KERNELS:

@@ -193,24 +193,24 @@ class KVTableServe:
         flag = torch.zeros((t, n), dtype=torch.int32, device=table.device)
         value = rows["value"].to(torch.float32).contiguous() \
             if "value" in rows else None
-        order, sid = g.order.contiguous(), g.seg_start.contiguous()
+        order, seg_end = g.order.contiguous(), g.seg_end.contiguous()
         calls = []                      # (serve op, its arguments), in order
         if "get" in lanes:
             calls.append(("gather", (table, keys, lane, LANE_GET, resp)))
         if "put" in lanes:
             calls.append(("scatter_last", (
-                table, keys, order, sid, (lane == LANE_PUT).to(torch.int32),
-                value)))
+                table, keys, order, seg_end,
+                (lane == LANE_PUT).to(torch.int32), value)))
         if "add" in lanes:
             calls.append(("gather", (table, keys, lane, LANE_ADD, resp)))
             calls.append(("segmented_add", (
-                table, keys, lane, order, sid, g.seg_end.contiguous(), value,
-                resp)))
+                table, keys, lane, order, g.seg_start.contiguous(), seg_end,
+                value, resp)))
         if "cas" in lanes:
             expect = rows["expect"].to(torch.float32).contiguous()
             calls.append(("gather", (table, keys, lane, LANE_CAS, resp,
                                      expect, flag)))
-            calls.append(("scatter_last", (table, keys, order, sid, flag,
+            calls.append(("scatter_last", (table, keys, order, seg_end, flag,
                                            value)))
         # the table is written in place, so every check of the round runs
         # before its first launch: a round that raises there leaves the

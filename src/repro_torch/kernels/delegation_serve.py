@@ -20,9 +20,10 @@ Every kernel serves all T stacked shards in one launch.  On CPU tensors a
 wrapper runs its plain version from ``ref``; on CUDA tensors it launches
 its kernel or raises.  Each wrapper's ``check_*`` holds everything that
 can raise before its launch (argument checks, loading the library), so
-the serve runs all the checks of a round before its first write.  Each wrapper's ``launches`` counts its kernel
-launches (one per call; a call issues one to three CUDA launches, see the
-sources).
+the serve runs all the checks of a round before its first write.  Each
+wrapper's ``launches`` counts its kernel launches, one a call on the card
+(``segmented_add`` first zeroes its descriptors' status words with one
+``cudaMemsetAsync``).
 
 ``row_block`` / ``key_block`` / ``num_row_tiles`` keep the JAX tiling rule
 that ``channel.Grouping.tile_meta`` shares; the CUDA kernels need no row
@@ -140,19 +141,39 @@ gather.launches = 0
 
 # ---------------------------------------------------------------------------
 
-_SCATTER_SIG = {"scatter_last_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                        _I, _I, _P)}
+_SCATTER_SIG = {"scatter_last_launch": (_P,) * 6 + (_I,) * 5 + (_P,)}
+
+# the sorted rows a block takes: each source's TILE = THREADS * ITEMS
+SCATTER_TILE_ROWS = 256      # scatter_last.cu
+SEGADD_TILE_ROWS = 1024      # segmented_add.cu
+
+
+def word_vec(w: int, *xs: torch.Tensor) -> int:
+    """Words a kernel thread moves at once: a float4 where the row width
+    is a multiple of 4 and every row buffer is 16-byte aligned, else 1."""
+    return 4 if w % 4 == 0 and all(x.data_ptr() % 16 == 0 for x in xs) \
+        else 1
+
+
+def segmented_add_plan(t: int, n: int, w: int, vec: int) -> dict:
+    """One ``segmented_add`` launch: its tiles a shard (a block each) and
+    the descriptors, its only scratch — ``agg`` floats (a tile's aggregate
+    row) and ``status`` words (one a tile and group of ``vec`` words, then
+    the ticket; zeroed before the launch)."""
+    tiles = -(-n // SEGADD_TILE_ROWS)
+    return dict(tiles=tiles, agg=t * tiles * w,
+                status=t * tiles * (w // vec) + 1)
 
 
 def check_scatter_last(table: torch.Tensor, keys: torch.Tensor,
-                       order: torch.Tensor, sid: torch.Tensor,
+                       order: torch.Tensor, seg_end: torch.Tensor,
                        flag: torch.Tensor, value: torch.Tensor) -> None:
     """Check a ``scatter_last`` call's arguments and, on the card, load its
     library: everything that can raise before the launch."""
     t, k, w, n = _dims("scatter_last", table, keys)
     dev = table.device
     _check("scatter_last", "table", table, torch.float32, (t, k, w), dev)
-    for name, x in (("keys", keys), ("order", order), ("sid", sid),
+    for name, x in (("keys", keys), ("order", order), ("seg_end", seg_end),
                     ("flag", flag)):
         _check("scatter_last", name, x, torch.int32, (t, n), dev)
     _check("scatter_last", "value", value, torch.float32, (t, n, w), dev)
@@ -161,23 +182,22 @@ def check_scatter_last(table: torch.Tensor, keys: torch.Tensor,
 
 
 def scatter_last(table: torch.Tensor, keys: torch.Tensor,
-                 order: torch.Tensor, sid: torch.Tensor, flag: torch.Tensor,
-                 value: torch.Tensor) -> None:
+                 order: torch.Tensor, seg_end: torch.Tensor,
+                 flag: torch.Tensor, value: torch.Tensor) -> None:
     """In every segment the last flagged row writes its value row into its
     table line, in place.  See ``ref.scatter_last``."""
-    check_scatter_last(table, keys, order, sid, flag, value)
+    check_scatter_last(table, keys, order, seg_end, flag, value)
     if table.device.type == "cpu":
-        return ref.scatter_last(table, keys, order, sid, flag, value)
+        return ref.scatter_last(table, keys, order, seg_end, flag, value)
     t, k, w = table.shape
     n = keys.shape[1]
-    if t * n == 0:
+    if t * n * w == 0:
         return None
-    last = torch.empty((t, n), dtype=torch.int32, device=table.device)
     lib = _build.library("scatter_last.cu", _SCATTER_SIG)
     err = lib.scatter_last_launch(
-        table.data_ptr(), keys.data_ptr(), order.data_ptr(), sid.data_ptr(),
-        flag.data_ptr(), value.data_ptr(), last.data_ptr(), t, n, k, w,
-        _stream(table))
+        table.data_ptr(), keys.data_ptr(), order.data_ptr(),
+        seg_end.data_ptr(), flag.data_ptr(), value.data_ptr(), t, n, k, w,
+        word_vec(w, table, value), _stream(table))
     _build.check(err, "scatter_last")
     scatter_last.launches += 1
     return None
@@ -187,8 +207,7 @@ scatter_last.launches = 0
 
 # ---------------------------------------------------------------------------
 
-_SEGADD_SIG = {"segmented_add_launch": (_P,) * 12 + (_I, _I, _I, _I, _P),
-               "segmented_add_block_rows": ()}
+_SEGADD_SIG = {"segmented_add_launch": (_P,) * 10 + (_I,) * 5 + (_P,)}
 
 
 def check_segmented_add(table: torch.Tensor, keys: torch.Tensor,
@@ -225,18 +244,15 @@ def segmented_add(table: torch.Tensor, keys: torch.Tensor, lane: torch.Tensor,
     if t * n * w == 0:
         return None
     dev = table.device
+    vec = word_vec(w, table, value, resp)
+    plan = segmented_add_plan(t, n, w, vec)
+    agg = torch.empty(plan["agg"], dtype=torch.float32, device=dev)
+    status = torch.empty(plan["status"], dtype=torch.int32, device=dev)
     lib = _build.library("segmented_add.cu", _SEGADD_SIG)
-    nb = -(-n // lib.segmented_add_block_rows())
-    f32 = dict(dtype=torch.float32, device=dev)
-    prior_local = torch.empty((t, n, w), **f32)
-    agg = torch.empty((t, nb, w), **f32)
-    carry_in = torch.empty((t, nb, w), **f32)
-    first_head = torch.empty((t, nb), dtype=torch.int32, device=dev)
     err = lib.segmented_add_launch(
         table.data_ptr(), resp.data_ptr(), keys.data_ptr(), lane.data_ptr(),
         order.data_ptr(), sid.data_ptr(), seg_end.data_ptr(),
-        value.data_ptr(), prior_local.data_ptr(), agg.data_ptr(),
-        carry_in.data_ptr(), first_head.data_ptr(), t, n, k, w,
+        value.data_ptr(), agg.data_ptr(), status.data_ptr(), t, n, k, w, vec,
         _stream(table))
     _build.check(err, "segmented_add")
     segmented_add.launches += 1

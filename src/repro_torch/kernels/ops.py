@@ -82,9 +82,10 @@ def gather(table, keys, lane, which: int, out,
         table, keys, lane, which, out, expect, flag)
 
 
-def scatter_last(table, keys, order, sid, flag, value, impl: str = "kernel"):
+def scatter_last(table, keys, order, seg_end, flag, value,
+                 impl: str = "kernel"):
     return _pick(impl, _scatter_last_kernel, ref.scatter_last)(
-        table, keys, order, sid, flag, value)
+        table, keys, order, seg_end, flag, value)
 
 
 def segmented_add(table, keys, lane, order, sid, seg_end, value, resp,

@@ -123,21 +123,24 @@ def gather(table: torch.Tensor, keys: torch.Tensor, lane: torch.Tensor,
 
 
 def scatter_last(table: torch.Tensor, keys: torch.Tensor,
-                 order: torch.Tensor, sid: torch.Tensor, flag: torch.Tensor,
-                 value: torch.Tensor) -> None:
+                 order: torch.Tensor, seg_end: torch.Tensor,
+                 flag: torch.Tensor, value: torch.Tensor) -> None:
     """Last-writer-wins commit: in every segment, the flagged row with the
     greatest sorted position (the last in request order) writes its whole
-    value row into its key's table line.  One lane per call, so each key
-    has at most one winner."""
+    value row into its key's table line.  ``seg_end[p]`` is one past the
+    last sorted position of p's segment, so ``seg_end - 1`` names the
+    segment.  One lane per call, so each key has at most one winner."""
     t, n = keys.shape
     pos = torch.arange(n, dtype=torch.int32, device=keys.device).expand(t, n)
     flagged = take_rows(flag[..., None], order)[..., 0] != 0
+    seg = seg_end.long() - 1
     last = torch.full((t, n), -1, dtype=torch.int32, device=keys.device) \
-        .scatter_reduce_(1, sid.long(),
+        .scatter_reduce_(1, seg,
                          torch.where(flagged, pos, torch.full_like(pos, -1)),
                          "amax")
-    ti, pi = torch.nonzero((sid == pos) & (last >= 0), as_tuple=True)
-    rows = order[ti, last[ti, pi].long()].long()
+    ti, pi = torch.nonzero(flagged & (torch.gather(last, 1, seg) == pos),
+                           as_tuple=True)
+    rows = order[ti, pi].long()
     table[ti, keys[ti, rows].long()] = value[ti, rows]
 
 

@@ -8,3 +8,4 @@
 # model.py      hold every flash-attention kernel call against the plain
 #               version; keep the serve's decode logits at a position;
 #               prefill against decode logits
+# serve.py      the serve kernels' far-winner flags

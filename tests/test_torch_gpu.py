@@ -81,10 +81,10 @@ def test_pack_kernel_matches_plain_where_the_chunks_meet(
 
 
 def _serve_case(dev, seed, t=8, n=5000, k=700, integer=True, hot=0.6,
-                w=VW):
+                w=VW, mix=None, inactive=0.1):
     rng = np.random.default_rng(seed)
-    lane = rng.choice(4, (t, n))
-    lane = np.where(rng.random((t, n)) < 0.1, -1, lane)
+    lane = rng.choice(4, (t, n), p=mix)
+    lane = np.where(rng.random((t, n)) < inactive, -1, lane)
     keys = np.where(rng.random((t, n)) < hot, 1, rng.integers(0, k, (t, n)))
     keys = np.where(lane >= 0, keys, k)
     draw = (lambda s: rng.integers(0, 8, s).astype(np.float32)) if integer \
@@ -112,7 +112,7 @@ def _run_serve_kernels(c, impl):
     tops.gather(table, c["keys"], c["lane"], 0, out, impl=impl)
     tops.gather(table, c["keys"], c["lane"], 3, out, expect=c["expect"],
                 flag=flag, impl=impl)
-    tops.scatter_last(table, c["keys"], c["order"], c["sid"],
+    tops.scatter_last(table, c["keys"], c["order"], c["seg_end"],
                       (c["lane"] == 1).to(torch.int32), c["value"], impl=impl)
     resp = c["base"].clone()
     tops.segmented_add(table, c["keys"], c["lane"], c["order"], c["sid"],
@@ -123,8 +123,8 @@ def _run_serve_kernels(c, impl):
 
 @pytest.mark.parametrize("seed,hot", [(0, 0.6), (1, 0.0), (2, 0.98)])
 def test_serve_kernels_match_plain(cuda, seed, hot):
-    """Exact on integer-valued payloads; hot=0.98 puts one segment over
-    ~18 scan blocks of 256 rows."""
+    """Exact on integer-valued payloads; hot=0.98 puts each lane's
+    segment of key 1 (~1100 rows) over two segmented_add tiles."""
     c = _serve_case(cuda, seed, hot=hot)
     for g, w in zip(_run_serve_kernels(c, "kernel"),
                     _run_serve_kernels(c, "ref")):
@@ -142,12 +142,67 @@ def test_serve_kernels_rows_wider_than_a_block(cuda):
 
 def test_segmented_add_general_floats(cuda):
     """f32 sums in another order: within 2e-3 on segments of ~3000 N(0,1)
-    deltas (prefix sums of magnitude ~100)."""
+    deltas (prefix sums of magnitude ~100); and the kernel's order is
+    fixed (its look-back sums aggregates only, in a fixed tree), so five
+    runs agree bit for bit."""
     c = _serve_case(cuda, 3, integer=False)
     got = _run_serve_kernels(c, "kernel")
     want = _run_serve_kernels(c, "ref")
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=2e-3)
+    for _ in range(4):
+        for g, again in zip(got, _run_serve_kernels(c, "kernel")):
+            assert torch.equal(g, again)
+
+
+def test_segmented_add_one_segment_over_every_tile(cuda):
+    """A kv_mixed-sized shard (T 8, N 139,264: 136 tiles of 1024 rows)
+    whose rows are all ADD rows of one key: every tile but the first looks
+    back to tile 0.  Exact on integer-valued payloads (sums < 2^24)."""
+    c = _serve_case(cuda, 5, n=139_264, k=125_000, hot=1.0, w=4,
+                    mix=(0.0, 0.0, 1.0, 0.0), inactive=0.0)
+    assert int((c["sid"] == 0).sum()) == 8 * 139_264     # one segment
+    for g, w in zip(_run_serve_kernels(c, "kernel"),
+                    _run_serve_kernels(c, "ref")):
+        assert torch.equal(g, w)
+
+
+def test_scatter_last_winner_tiles_before_its_segment_end(cuda):
+    """One CAS segment a shard; the flagged winner lies tiles before the
+    segment's end with no flagged row after it (its block reads forward
+    over 45 tiles), a tile's last row reads forward four tiles to the next
+    flagged row, a shard has none flagged, one only its last row
+    (testing.serve.far_winner_flags).  Exact."""
+    from repro_torch.kernels.delegation_serve import SCATTER_TILE_ROWS
+    from repro_torch.testing.serve import far_winner_flags
+    tile = SCATTER_TILE_ROWS
+    c = _serve_case(cuda, 6, n=48 * tile, k=64, hot=1.0, w=4,
+                    mix=(0.0, 0.0, 0.0, 1.0), inactive=0.0)
+    flag = far_winner_flags(c["order"], tile)
+    got, want = c["table"].clone(), c["table"].clone()
+    tops.scatter_last(got, c["keys"], c["order"], c["seg_end"], flag,
+                      c["value"], impl="kernel")
+    torch.cuda.synchronize()
+    tops.scatter_last(want, c["keys"], c["order"], c["seg_end"], flag,
+                      c["value"], impl="ref")
+    assert torch.equal(got, want)
+    win = c["order"][0, 2 * tile + 52].long()
+    assert torch.equal(got[0, 1], c["value"][0, win])
+    assert torch.equal(got[2], c["table"][2])            # none flagged
+
+
+@pytest.mark.parametrize("extra", [1, -1])
+def test_serve_kernels_n_off_a_tile_multiple(cuda, extra):
+    """N one past and one short of three segmented_add tiles (twelve
+    scatter_last tiles): the last tile of each is ragged.  Exact on
+    integer-valued payloads."""
+    from repro_torch.kernels.delegation_serve import (SCATTER_TILE_ROWS,
+                                                      SEGADD_TILE_ROWS)
+    assert SEGADD_TILE_ROWS % SCATTER_TILE_ROWS == 0
+    c = _serve_case(cuda, 7, n=3 * SEGADD_TILE_ROWS + extra, hot=0.5)
+    for g, w in zip(_run_serve_kernels(c, "kernel"),
+                    _run_serve_kernels(c, "ref")):
+        assert torch.equal(g, w)
 
 
 def test_store_kernel_path_matches_oracle_on_card(cuda):

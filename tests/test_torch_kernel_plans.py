@@ -11,6 +11,12 @@ here on the CPU where the kernels themselves cannot run.
     trustee's block takes, from the layout the CUDA source states, and
     the refusal (``ValueError``) exactly where it passes the 227 KB a
     block can hold.
+  * the KV serve's ``scatter_last`` / ``segmented_add``: the tiles the
+    wrappers plan are the CUDA sources' THREADS x ITEMS, the look-back
+    descriptors are all the scratch there is (no N-sized buffer), rows
+    move as float4 only where W % 4 == 0 and the buffers are aligned, and
+    the plain ``scatter_last`` under its (order, seg_end) signature equals
+    the JAX package's ``_scatter_last`` Pallas kernel (interpret mode).
 """
 import os
 import re
@@ -19,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import delegation_serve as kds
 from repro_torch.kernels import pagetable_serve as kpt
 from repro_torch.kernels import selective_scan as kss
 
@@ -131,3 +138,105 @@ def test_pagetable_refusal_threshold(pl, mp):
     assert kpt.check_fits(pl, sl, mp) <= limit
     with pytest.raises(ValueError, match="exceeds the 232448 bytes"):
         kpt.check_fits(pl, sl + 1, mp)
+
+
+def _tile(name):
+    src = _source(name)
+    threads = int(re.search(r"constexpr int THREADS = (\d+);", src).group(1))
+    items = int(re.search(r"constexpr int ITEMS = (\d+);", src).group(1))
+    return threads, items
+
+
+def test_serve_tiles_are_the_cuda_constants():
+    threads, items = _tile("scatter_last.cu")
+    assert threads * items == kds.SCATTER_TILE_ROWS
+    assert threads % 32 == 0 and threads * items // 32 <= 32  # chunks
+    threads, items = _tile("segmented_add.cu")
+    assert threads * items == kds.SEGADD_TILE_ROWS
+    assert threads % 32 == 0 and threads // 32 <= 32          # warps
+
+
+@pytest.mark.parametrize("t,n,w,vec", [
+    (8, 139_264, 4, 4),     # kv_mixed: 136 tiles a shard
+    (8, 10_240, 4, 4),      # kv_paper's shape
+    (8, 3 * 1024 + 1, 3, 1),
+    (2, 1500, 1100, 4),     # wide rows: 275 word groups a tile
+    (1, 1, 1, 1),
+])
+def test_segmented_add_plan(t, n, w, vec):
+    """A tile of every shard; the descriptors (a tile's aggregate row, a
+    status word a tile and word group, the ticket) are the only scratch,
+    far below the N x W floats the three-launch design round-tripped."""
+    plan = kds.segmented_add_plan(t, n, w, vec)
+    tiles = -(-n // kds.SEGADD_TILE_ROWS)
+    assert plan == dict(tiles=tiles, agg=t * tiles * w,
+                        status=t * tiles * (w // vec) + 1)
+    scratch = 4 * (plan["agg"] + plan["status"])
+    if n >= kds.SEGADD_TILE_ROWS:
+        assert scratch < 4 * t * n * w / 100
+    if (t, n) == (8, 139_264):
+        assert scratch == 21_764                 # bytes at kv_mixed
+
+
+def test_word_vec_needs_width_and_alignment():
+    x = torch.zeros(64)
+    assert kds.word_vec(4, x, x) == 4
+    assert kds.word_vec(8, x) == 4
+    assert kds.word_vec(3, x) == 1
+    assert kds.word_vec(4, x, x[1:]) == 1        # 4 bytes off 16
+
+
+def _jax_scatter_last(table, keys_s, sid, ok, value_s):
+    """JAX's _scatter_last (interpret mode) on one shard's sorted rows,
+    padded as its delegation_serve wrapper pads them."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import delegation_serve as jds
+    k, w = table.shape
+    n = keys_s.shape[0]
+    br, bk = jds.row_block(n, 128), jds.key_block(k, 128)
+    np_, kp, wp = -(-n // br) * br, -(-k // bk) * bk, -(-w // 128) * 128
+    row = lambda x, fill: jnp.pad(jnp.asarray(x), (0, np_ - n),
+                                  constant_values=fill).reshape(1, np_)
+    run = jax.jit(functools.partial(jds._scatter_last, br=br, bk=bk,
+                                    interpret=True))
+    out = run(jnp.pad(jnp.asarray(table), ((0, kp - k), (0, wp - w))),
+              row(np.where(keys_s >= k, kp, keys_s), kp), row(sid, -1),
+              row(ok, 0),
+              jnp.pad(jnp.asarray(value_s), ((0, np_ - n), (0, wp - w))))
+    return np.asarray(out)[:k, :w]
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("lane_id", [1, 3])
+def test_plain_scatter_last_matches_jax(seed, lane_id):
+    """The serve's PUT commit (every PUT row flagged) and a CAS commit
+    (half the CAS rows flagged), rows grouped by (op, key) with a hot key
+    over several of JAX's 128-row tiles: the plain version, given
+    seg_end, writes the table JAX's kernel writes."""
+    from repro_torch.core import make_grouping
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(seed)
+    n, k, w = 1024, 40, 3
+    lane = rng.choice(4, n, p=(0.2, 0.15, 0.45, 0.2))
+    lane = np.where(rng.random(n) < 0.1, -1, lane)
+    keys = np.where(rng.random(n) < 0.7, 3, rng.integers(0, k, n))
+    keys = np.where(lane >= 0, keys, k).astype(np.int32)
+    table = rng.integers(0, 8, (k, w)).astype(np.float32)
+    value = rng.integers(0, 8, (n, w)).astype(np.float32)
+    flag = (lane == lane_id) & (rng.random(n) < (1.0 if lane_id == 1
+                                                   else 0.5))
+    flag = flag.astype(np.int32)
+    g = make_grouping(torch.as_tensor(
+        np.where(lane >= 0, lane * k + keys, 4 * k).astype(np.int32)))
+    order = g.order.numpy()
+    got = torch.as_tensor(table)[None].clone()
+    tref.scatter_last(got, torch.as_tensor(keys)[None], g.order[None],
+                      g.seg_end[None], torch.as_tensor(flag)[None],
+                      torch.as_tensor(value)[None])
+    want = _jax_scatter_last(table, keys[order], g.seg_start.numpy(),
+                             flag[order], value[order])
+    assert np.array_equal(got[0].numpy(), want)
+    assert not np.array_equal(want, table)          # something was written
