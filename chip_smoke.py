@@ -19,7 +19,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      counts, capacity 1, int32 words above 2^24, a hot destination whose
      FIFO run crosses the pack kernels' 2048-row chunks (rows of 2,049
      words, C and C + C2 inside a chunk and on a chunk's edge), exact on
-     integer-exact payloads; paged_attention in bf16, f32 and f16 (length
+     integer-exact payloads; the gather's three lanes with ``out`` and
+     ``flag`` filled with a sentinel that every other row keeps, lane rows
+     keyed -1 and K reading the clamped line, and the edges of its plan
+     (N one past and one short of the plan's rows a block, a lane with no
+     rows and one with every row, W 3, an ``out`` 4 bytes off 16-byte
+     alignment, W 32, a warp a row at W 33 and 1100), exact;
+     paged_attention in bf16, f32 and f16 (length
      1, lengths on and one past page boundaries, -1 pads inside and past
      the length,
      MP*PS == length, Hkv == Hq, B 1 with one chain over every split, a
@@ -125,7 +131,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      selective scan beside its inner loop's issue floor from the SASS;
      scatter_last and segmented_add beside the random read through
      order that each makes for every row, alone: torch.gather of the
-     flag / lane words).
+     flag / lane words; the gather lane by lane — GET at kv_paper, GET,
+     the ADD base and the CAS current with expect and flag at kv_mixed —
+     with the L2 flushed and warm, beside an empty launch of its grid (its
+     latency floor), its keys and lanes read alone, index_select of the
+     lane's lines (GET, ADD) and its launches per lane on the main
+     paths).
      Every plain
      and library reading is CUDA events with the host ahead, the
      profiler's reading and the records it kept beside it, and its share
@@ -305,7 +316,9 @@ def phase_kernels(torch, dev, shapes):
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.delegation_serve import (SCATTER_TILE_ROWS,
                                                       SEGADD_TILE_ROWS)
-    from repro_torch.testing.serve import far_winner_flags
+    from repro_torch.testing.serve import (far_winner_flags, gather_case,
+                                           gather_contract,
+                                           gather_edge_cases, run_gather)
     errs = {k: 0.0 for k in SOURCES}
     p_main, p_mixed = shapes["pack_paper"], shapes["pack_mixed"]
     pack_cases = [
@@ -418,6 +431,24 @@ def phase_kernels(torch, dev, shapes):
             if main:
                 errs[name] = max(errs[name], err)
             say(f"[kernels] {name} [{label}] == plain ({tol})")
+    # the gather's contract and its plan's edges: out and flag filled with
+    # a sentinel first, the three lanes in the serve's order
+    for label, kw in gather_edge_cases():
+        case = gather_case(dev, **kw)
+        got = run_gather(case, "kernel")
+        torch.cuda.synchronize()
+        want = run_gather(case, "ref")
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"gather [{label}]: differs from the plain version (max abs "
+                f"err {max_err(got, want)})")
+        clamped, kept, kept_flag, n_off = gather_contract(case, *got)
+        require(clamped, f"gather [{label}]: a lane row keyed outside the "
+                f"table did not read its clamped line")
+        require(kept and kept_flag, f"gather [{label}]: a row of another "
+                f"lane lost its sentinel")
+        say(f"[kernels] gather [{label}] == plain (exact); {n_off} lane "
+            f"rows keyed outside the table read the clamped line, every "
+            f"other row kept its sentinel")
     return errs
 
 
@@ -801,14 +832,17 @@ def pack_bytes(torch, args):
                 + dst.numel() + 3 * d * t)
 
 
-def serve_bytes(torch, name, case):
+def serve_bytes(torch, name, case, which=0):
     t, n = case["keys"].shape
     w = case["table"].shape[-1]
     lane = case["lane"]
     idx = 4 * t * n
-    if name == "gather":     # the GET lane: keys, lane, a line in, a row out
-        rows = int((lane == 0).sum())
-        return 2 * idx + 2 * 4 * rows * w
+    if name == "gather":
+        # lane ``which``: keys, lane, a line in and a row out a lane row;
+        # CAS also an expect row in and a flag out
+        rows = int((lane == which).sum())
+        cas = 4 * rows * w + 4 * rows if which == 3 else 0
+        return 2 * idx + 2 * 4 * rows * w + cas
     order, sid = case["order"], case["sid"]
     lane_s = torch.gather(lane, 1, order.long())
     pos = torch.arange(n, device=lane.device)
@@ -846,6 +880,106 @@ def busy_share(torch, run_round, rounds, top=0):
     dev_ops.sort(key=lambda e: -e.self_device_time_total)
     return busy, wall, [(e.key, e.self_device_time_total / 1e3, e.count)
                         for e in dev_ops[:top]]
+
+
+def lane_lines(case, which):
+    """The flat table lines (int64, shard * K + key) that the rows of lane
+    ``which`` read, in row order: an index for index_select / index_add_."""
+    k = case["table"].shape[1]
+    rows = (case["lane"] == which).nonzero()
+    return (rows[:, 0] * k + case["keys"][rows[:, 0], rows[:, 1]]).long()
+
+
+GATHER_LANES = {0: "GET", 2: "ADD", 3: "CAS"}
+
+
+def gather_times(torch, dev, gpu, label, case, per_round, measured):
+    """The gather at one main path's shapes, lane by lane (kv_paper's
+    rounds read GET only; kv_mixed's GET, the ADD base and the CAS current
+    with its compare): the profiler's and CUDA events' readings beside the
+    lane's byte bound, an empty launch of the same grid (the latency
+    floor), the plain version, index_select of the lane's lines (GET, ADD)
+    and the launches per lane on the main path."""
+    from repro_torch.kernels import delegation_serve as kds
+    from repro_torch.kernels import ops as kops
+    table, keys, lane = case["table"], case["keys"], case["lane"]
+    t, n = keys.shape
+    k, w = table.shape[1:]
+    out = torch.zeros((t, n, w), device=dev)
+    flag = torch.zeros((t, n), dtype=torch.int32, device=dev)
+    plan = kds.gather_plan(t, n, w, kds.word_vec(w, table, out,
+                                                 case["expect"]))
+    floor, f_lo, f_hi, f_seen = device_readings(
+        torch, lambda: kds.gather_empty_launch(plan, dev),
+        "gather_empty_kernel")
+    f_ev, _, f_ahead = ahead_ms(torch, lambda: kds.gather_empty_launch(
+        plan, dev))
+    # the keys and lanes alone: the kernel over a lane tensor with no row
+    # of any lane, which reads its T*N keys and lanes and nothing else
+    none = torch.full_like(lane, -1)
+    idx_ms = device_readings(torch, lambda: kds.gather(
+        table, keys, none, 0, out), KERNEL_NAMES["gather"])[0]
+    shape = f"{plan['blocks']} blocks of {kds.GATHER_THREADS} threads"
+    say(f"[times] {gpu} | gather latency floor @ {label}: {floor:.6f} ms "
+        f"(an empty kernel on the gather's grid, {shape}; median of 5 "
+        f"profiler readings {f_lo:.6f}..{f_hi:.6f}, records kept {f_seen}; "
+        f"CUDA events with the host {'ahead' if f_ahead else 'NOT ahead'} "
+        f"{f_ev:.6f} ms/call); the keys and lanes alone (no row of the "
+        f"lane) {idx_ms:.6f} ms by the profiler, bound "
+        f"{8 * t * n / HBM_BYTES_PER_S * 1e3:.6f} ms")
+    # the L2 flushed before each call (a 256 MiB fill), as a serve round's
+    # other work may leave it
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=dev)
+    lanes = (0,) if label == "kv_paper" else (0, 2, 3)
+    for which in lanes:
+        cas = which == 3
+        kw = dict(expect=case["expect"], flag=flag) if cas else {}
+        call = lambda impl, which=which, kw=kw: kops.gather(
+            table, keys, lane, which, out, impl=impl, **kw)
+        ms, lo, hi, seen = device_readings(torch, lambda: call("kernel"),
+                                           KERNEL_NAMES["gather"])
+        cold = device_readings(torch, lambda: (flush.zero_(),
+                                               call("kernel")),
+                               KERNEL_NAMES["gather"])[0]
+        ev, host, ahead = ahead_ms(torch, lambda: call("kernel"))
+        if ms == 0:                 # the profiler kept no kernel record
+            ms = ev
+        nbytes = serve_bytes(torch, "gather", case, which)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        plain = yardstick(torch, lambda: call("ref"), iters=5)
+        if cas:
+            lib_txt = ("library n/a (no one PyTorch call reads the lines "
+                       "and compares them with expect: index_select, eq and "
+                       "all are three calls with two intermediates)")
+            lib = None
+        else:
+            idx = lane_lines(case, which)
+            flat = table.view(-1, w)
+            lib = yardstick(torch, lambda: flat.index_select(0, idx))
+            lib_bound = (8 * idx.numel() + 2 * 4 * idx.numel() * w) \
+                / HBM_BYTES_PER_S * 1e3
+            lib_txt = (reading("library", lib, lib_bound)
+                       + " (index_select of the lane's lines)")
+        rows = int((lane == which).sum())
+        name = GATHER_LANES[which]
+        say(f"[times] {gpu} | gather @ {label} {name} ({rows} of {t} x {n} "
+            f"rows{', expect and flag' if cas else ''}): {ms:.6f} ms/call "
+            f"(median of the profiler readings that kept records, "
+            f"{lo:.6f}..{hi:.6f}, records kept per reading of 20 calls "
+            f"{seen}; L2 flushed before each call {cold:.6f}; CUDA events "
+            f"with the host {'ahead' if ahead else 'NOT ahead'} {ev:.6f} "
+            f"ms/call, host issue {host:.6f} ms/call; {ms - floor:.6f} ms "
+            f"above the latency floor), bound {bound:.6f} ms ({nbytes} bytes; "
+            f"{share(ev, bound)} by events), {reading('plain', plain, bound)}"
+            f", {lib_txt}, "
+            f"{per_round['gather_lanes'][label][which]:.3f} launches/round "
+            f"of this lane on the main path")
+        measured[("gather", f"{label} {name}")] = (
+            ms, plain[0], bound, None if lib is None else lib[0])
+        if which == 0:
+            measured[("gather", label)] = measured[("gather",
+                                                    f"{label} {name}")]
+    del flush
 
 
 def phase_times(torch, dev, shapes, errs, per_round, gpu):
@@ -894,14 +1028,11 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
         case = serve_case(torch, dev, **shapes[key], seed=31)
         t, n = case["keys"].shape
         w = case["table"].shape[-1]
-        out = torch.zeros((t, n, w), device=dev)
         flag_put = (case["lane"] == 1).to(torch.int32)
         resp = torch.zeros((t, n, w), device=dev)
         table = case["table"].clone()
-        k = table.shape[1]
+        gather_times(torch, dev, gpu, label, case, per_round, measured)
         calls = {
-            "gather": lambda impl: kops.gather(
-                table, case["keys"], case["lane"], 0, out, impl=impl),
             "scatter_last": lambda impl: kops.scatter_last(
                 table, case["keys"], case["order"], case["seg_end"],
                 flag_put, case["value"], impl=impl),
@@ -911,19 +1042,14 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
                 table, case["keys"], case["lane"], case["order"],
                 case["sid"], case["seg_end"], case["value"], resp,
                 impl=impl)
-        # library yardsticks (timed here only; the port never calls them):
-        # index_select reads the GET lane's lines, index_add_ adds the ADD
-        # lane's deltas into the table (the totals, not the priors)
-        get_rows = (case["lane"] == 0).nonzero()
-        flat_idx = (get_rows[:, 0] * k
-                    + case["keys"][get_rows[:, 0], get_rows[:, 1]]).long()
+        # library yardstick (timed here only; the port never calls it):
+        # index_add_ adds the ADD lane's deltas into the table (the totals,
+        # not the priors)
+        add_idx = lane_lines(case, 2)
         add_rows = (case["lane"] == 2).nonzero()
-        add_idx = (add_rows[:, 0] * k
-                   + case["keys"][add_rows[:, 0], add_rows[:, 1]]).long()
         add_val = case["value"][add_rows[:, 0], add_rows[:, 1]]
         flat_table = table.view(-1, w)
         library = {
-            "gather": lambda: flat_table.index_select(0, flat_idx),
             "scatter_last": None,
             "segmented_add": lambda: flat_table.index_add_(0, add_idx,
                                                            add_val),
@@ -931,7 +1057,6 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
         # what each library call must move: its int64 indices and the rows
         # read and written (index_add_: each distinct line in and out once)
         lib_bytes = {
-            "gather": 8 * flat_idx.numel() + 2 * 4 * flat_idx.numel() * w,
             "scatter_last": 0,
             "segmented_add": 8 * add_idx.numel() + 4 * add_val.numel()
             + 2 * 4 * int(torch.unique(add_idx).numel()) * w,
@@ -2858,6 +2983,25 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
     return rows
 
 
+def main_shapes(n_dev):
+    """The pack and serve kernels' shapes on the main paths' rounds:
+    kv_paper (a fused GET + PUT batch a client) and kv_mixed."""
+    k_local = N_KEYS // n_dev
+    r_paper = 2 * 8192 // n_dev          # fused GET + PUT batch per client
+    c_paper = max(4, 2 * (r_paper // n_dev))
+    r_mixed = 65536 // n_dev
+    return {
+        "pack_paper": dict(d=n_dev, r=r_paper, t=n_dev, c=c_paper,
+                           c2=c_paper, w=6),
+        "pack_mixed": dict(d=n_dev, r=r_mixed, t=n_dev, c=r_mixed,
+                           c2=r_mixed, w=10),
+        "serve_paper": dict(t=n_dev, n=n_dev * 2 * c_paper + r_paper,
+                            k=k_local, w=VW, mix=(0.95, 0.05, 0.0, 0.0)),
+        "serve_mixed": dict(t=n_dev, n=n_dev * 2 * r_mixed + r_mixed,
+                            k=k_local, w=VW, mix=(0.4, 0.2, 0.2, 0.2)),
+    }
+
+
 def kernel_info(torch, n_dev):
     """Registers, spills, shared memory and resident warps of the
     page-table serve and the selective scan at the main paths' shapes, as
@@ -2923,20 +3067,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     n_dev = MESH[0] * MESH[1]
     kernel_info(torch, n_dev)
-    k_local = N_KEYS // n_dev
-    r_paper = 2 * 8192 // n_dev          # fused GET + PUT batch per client
-    c_paper = max(4, 2 * (r_paper // n_dev))
-    r_mixed = 65536 // n_dev
-    shapes = {
-        "pack_paper": dict(d=n_dev, r=r_paper, t=n_dev, c=c_paper,
-                           c2=c_paper, w=6),
-        "pack_mixed": dict(d=n_dev, r=r_mixed, t=n_dev, c=r_mixed,
-                           c2=r_mixed, w=10),
-        "serve_paper": dict(t=n_dev, n=n_dev * 2 * c_paper + r_paper,
-                            k=k_local, w=VW, mix=(0.95, 0.05, 0.0, 0.0)),
-        "serve_mixed": dict(t=n_dev, n=n_dev * 2 * r_mixed + r_mixed,
-                            k=k_local, w=VW, mix=(0.4, 0.2, 0.2, 0.2)),
-    }
+    shapes = main_shapes(n_dev)
     report = {}
 
     errs = {}
@@ -2952,7 +3083,7 @@ def main(argv=None):
     # ref path launches none); kv_mixed, 8 rounds with the shortcut and 8
     # without; the paged decode's timed run
     launches = {k: 0 for k in SOURCES}
-    per_round = {"kv_paper": {}, "kv_mixed": {}}
+    per_round = {"kv_paper": {}, "kv_mixed": {}, "gather_lanes": {}}
     for phase, label, rounds, run in (
             (3, "kv_paper", 80, lambda: phase_paper(torch, dev, report)),
             (4, "kv_mixed", 16, lambda: phase_mixed(torch, dev, report))):
@@ -2961,9 +3092,15 @@ def main(argv=None):
         kops.reset_launch_counts()
         run()
         counts = kops.launch_counts()
+        lanes = list(kops.KERNELS["gather"].lane_launches)
         per_round[label] = {k: v / rounds for k, v in counts.items()}
+        per_round["gather_lanes"][label] = [v / rounds for v in lanes]
         say(f"[main path] {label} launches over {rounds} kernel-path "
-            f"rounds: {json.dumps(counts)}")
+            f"rounds: {json.dumps(counts)}; gather by lane: "
+            + ", ".join(f"{GATHER_LANES.get(i, 'PUT')} {v}"
+                        for i, v in enumerate(lanes)))
+        require(sum(lanes) == counts["gather"],
+                "gather's launches by lane do not sum to its count")
         for k in (("delegation_pack", "gather", "scatter_last")
                   if label == "kv_paper" else KV_KERNELS):
             require(counts[k] > 0, f"kernel {k} was not launched on the "

@@ -23,7 +23,7 @@ can raise before its launch (argument checks, loading the library), so
 the serve runs all the checks of a round before its first write.  Each
 wrapper's ``launches`` counts its kernel launches, one a call on the card
 (``segmented_add`` first zeroes its descriptors' status words with one
-``cudaMemsetAsync``).
+``cudaMemsetAsync``); ``gather.lane_launches`` splits gather's by lane.
 
 ``row_block`` / ``key_block`` / ``num_row_tiles`` keep the JAX tiling rule
 that ``channel.Grouping.tile_meta`` shares; the CUDA kernels need no row
@@ -86,8 +86,28 @@ def _stream(x):
 
 # ---------------------------------------------------------------------------
 
-_GATHER_SIG = {"gather_launch": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                                 _P)}
+_GATHER_SIG = {"gather_launch": (_P, _P, _P, _I, _P, _P, _P) + (_I,) * 6
+                                 + (_P,),
+               "gather_empty_launch": (_I, _P)}
+
+# gather.cu's launch shape: blocks of GATHER_THREADS, a row a thread;
+# rows wider than GATHER_WIDE_WORDS take a warp each
+GATHER_THREADS = 256
+GATHER_WIDE_WORDS = 32
+
+
+def gather_plan(t: int, n: int, w: int, vec: int) -> dict:
+    """The one grid of a ``gather`` launch over the T*N rows: rows
+    ``wide`` (a warp a row, ``GATHER_THREADS // 32`` rows a block) or not
+    (a row a thread), the rows a block takes and the ``blocks`` that cover
+    every row once.  ``vec`` (``word_vec``: 1 or 4) picks the instance; it
+    does not change the grid."""
+    if vec not in (1, 4):
+        raise ValueError(f"gather_plan: vec={vec} is not 1 or 4")
+    wide = w > GATHER_WIDE_WORDS
+    per = GATHER_THREADS // 32 if wide else GATHER_THREADS
+    return dict(wide=wide, rows_a_block=per, blocks=-(-(t * n) // per),
+                vec=vec)
 
 
 def check_gather(table: torch.Tensor, keys: torch.Tensor,
@@ -99,6 +119,8 @@ def check_gather(table: torch.Tensor, keys: torch.Tensor,
     if which not in (ref.LANE_GET, ref.LANE_PUT, ref.LANE_ADD, ref.LANE_CAS):
         raise ValueError(f"gather: which={which!r} is not a lane id")
     t, k, w, n = _dims("gather", table, keys)
+    if k == 0 and t * n:
+        raise ValueError("gather: the table has no lines to read (K 0)")
     dev = table.device
     _check("gather", "table", table, torch.float32, (t, k, w), dev)
     _check("gather", "keys", keys, torch.int32, (t, n), dev)
@@ -117,9 +139,10 @@ def gather(table: torch.Tensor, keys: torch.Tensor, lane: torch.Tensor,
            which: int, out: torch.Tensor,
            expect: Optional[torch.Tensor] = None,
            flag: Optional[torch.Tensor] = None) -> None:
-    """Rows of lane ``which`` read their table line into ``out``; with
-    ``expect``, also ``flag = all(cur == expect)`` (the CAS lane).  See
-    ``ref.gather``."""
+    """Rows of lane ``which`` read their table line into ``out`` (a key
+    outside [0, K) reads the clamped line); with ``expect``, also ``flag =
+    all(cur == expect)`` (the CAS lane).  Other rows keep ``out`` and
+    ``flag`` as they were.  See ``ref.gather``."""
     check_gather(table, keys, lane, which, out, expect, flag)
     if table.device.type == "cpu":
         return ref.gather(table, keys, lane, which, out, expect, flag)
@@ -127,17 +150,31 @@ def gather(table: torch.Tensor, keys: torch.Tensor, lane: torch.Tensor,
     n = keys.shape[1]
     if t * n == 0:
         return None
+    bufs = (table, out) if expect is None else (table, out, expect)
+    plan = gather_plan(t, n, w, word_vec(w, *bufs))
     lib = _build.library("gather.cu", _GATHER_SIG)
     err = lib.gather_launch(
         table.data_ptr(), keys.data_ptr(), lane.data_ptr(), int(which),
         None if expect is None else expect.data_ptr(), out.data_ptr(),
-        None if flag is None else flag.data_ptr(), t, n, k, w, _stream(table))
+        None if flag is None else flag.data_ptr(), t, n, k, w, plan["vec"],
+        plan["blocks"], _stream(table))
     _build.check(err, "gather")
     gather.launches += 1
+    gather.lane_launches[which] += 1
     return None
 
 
 gather.launches = 0
+gather.lane_launches = [0, 0, 0, 0]     # by lane id: GET, PUT, ADD, CAS
+
+
+def gather_empty_launch(plan: dict, device) -> None:
+    """An empty kernel on ``plan``'s grid and block: the floor a gather
+    launch is weighed against.  Not counted in ``gather.launches``."""
+    lib = _build.library("gather.cu", _GATHER_SIG)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _build.check(lib.gather_empty_launch(plan["blocks"], stream),
+                 "gather (empty launch)")
 
 # ---------------------------------------------------------------------------
 

@@ -60,6 +60,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _gather_kernel.lane_launches = [0, 0, 0, 0]
 
 
 def check(name: str, *args, **kwargs) -> None:

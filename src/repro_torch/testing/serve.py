@@ -2,6 +2,7 @@
 share."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -27,3 +28,104 @@ def far_winner_flags(order: torch.Tensor, tile: int) -> torch.Tensor:
                            device=order.device)
         flag[s, order[s, pos].long()] = 1
     return flag
+
+
+# the fill of ``out`` and ``flag`` before a gather: a row the gather must
+# not touch keeps it
+GATHER_FILL, GATHER_FLAG_FILL = -7.0, -7
+
+
+def gather_case(device, t, n, k, w, seed, mix=(0.4, 0.2, 0.2, 0.2),
+                inactive=0.1, outside=0.0, misalign=False):
+    """One shard set of gather inputs: lanes drawn from ``mix`` (GET, PUT,
+    ADD, CAS), an ``inactive`` share on lane -1 with the sentinel key K;
+    an ``outside`` share of the lane rows keyed -1 or K (read clamped);
+    integer-valued table lines; CAS expect rows half the live line, half
+    another row.  ``misalign`` puts ``out`` 4 bytes off 16-byte alignment
+    (the word-by-word moves)."""
+    rng = np.random.default_rng(seed)
+    lane = rng.choice(4, size=(t, n), p=mix)
+    lane = np.where(rng.random((t, n)) < inactive, -1, lane)
+    keys = rng.integers(0, k, (t, n))
+    off = (lane >= 0) & (rng.random((t, n)) < outside)
+    keys = np.where(off, np.where(rng.random((t, n)) < 0.5, -1, k), keys)
+    keys = np.where(lane >= 0, keys, k)
+    table = rng.integers(0, 8, (t, k, w)).astype(np.float32)
+    other = rng.integers(0, 8, (t, n, w)).astype(np.float32)
+    live = table[np.arange(t)[:, None], np.clip(keys, 0, k - 1)]
+    expect = np.where(rng.random((t, n, 1)) < 0.5, live, other)
+    T = lambda a, dt: torch.as_tensor(a.astype(dt), device=device)
+    return dict(table=T(table, np.float32), keys=T(keys, np.int32),
+                lane=T(lane, np.int32), expect=T(expect, np.float32),
+                misalign=misalign)
+
+
+def run_gather(case, impl):
+    """The serve's three gathers on one case, in its order — GET, the ADD
+    base, the CAS current with expect and flag — into ``out`` and ``flag``
+    filled with GATHER_FILL / GATHER_FLAG_FILL first.  Returns (out,
+    flag)."""
+    from ..kernels import ops as kops
+    table, keys, lane = case["table"], case["keys"], case["lane"]
+    t, n = keys.shape
+    w = table.shape[-1]
+    dev = table.device
+    off = 1 if case["misalign"] else 0
+    out = torch.full((t * n * w + off,), GATHER_FILL, device=dev)[off:] \
+        .view(t, n, w)
+    flag = torch.full((t, n), GATHER_FLAG_FILL, dtype=torch.int32,
+                      device=dev)
+    kops.gather(table, keys, lane, 0, out, impl=impl)
+    kops.gather(table, keys, lane, 2, out, impl=impl)
+    kops.gather(table, keys, lane, 3, out, expect=case["expect"], flag=flag,
+                impl=impl)
+    return out, flag
+
+
+def gather_edge_cases():
+    """(label, ``gather_case`` keywords) at the edges of the gather
+    kernel's plan (``kernels.delegation_serve.gather_plan``)."""
+    from ..kernels.delegation_serve import gather_plan
+    per = gather_plan(1, 307_200, 4, 4)["rows_a_block"]
+    m = 307_200 // per
+    return [
+        ("lane keys -1 and K read the clamped line",
+         dict(t=8, n=5000, k=999, w=4, seed=41, outside=0.3)),
+        ("N one past a multiple of the plan's rows a block",
+         dict(t=1, n=m * per + 1, k=4096, w=4, seed=42)),
+        ("N one short of a multiple of the plan's rows a block",
+         dict(t=1, n=m * per - 1, k=4096, w=4, seed=43)),
+        ("every row GET: ADD and CAS lanes without rows",
+         dict(t=8, n=3000, k=999, w=4, seed=44, mix=(1.0, 0.0, 0.0, 0.0),
+              inactive=0.0)),
+        ("every row CAS", dict(t=8, n=3000, k=999, w=4, seed=45,
+                               mix=(0.0, 0.0, 0.0, 1.0), inactive=0.0)),
+        ("W 3, word moves", dict(t=8, n=5037, k=999, w=3, seed=46,
+                                 outside=0.05)),
+        ("out 4 bytes off 16-byte alignment",
+         dict(t=8, n=5037, k=999, w=4, seed=47, misalign=True)),
+        ("W 32, the widest row a thread moves",
+         dict(t=4, n=2000, k=300, w=32, seed=48, outside=0.05)),
+        ("rows of 1100 words, a warp a row",
+         dict(t=2, n=1500, k=64, w=1100, seed=49, outside=0.05)),
+        ("rows of 33 words, a warp a row, word moves",
+         dict(t=2, n=1500, k=64, w=33, seed=50, misalign=True)),
+    ]
+
+
+def gather_contract(case, out, flag):
+    """What a gather result owes its contract, beside equality with the
+    plain version: (lane rows keyed outside [0, K) that read their clamped
+    line, rows of no read lane that kept ``out``'s fill, rows of no CAS
+    lane that kept ``flag``'s fill) — each a bool — and the number of lane
+    rows keyed outside."""
+    table, keys, lane = case["table"], case["keys"], case["lane"]
+    k = table.shape[1]
+    read = (lane == 0) | (lane == 2) | (lane == 3)
+    off = read & ((keys < 0) | (keys >= k))
+    line = torch.take_along_dim(
+        table, keys.clamp(0, k - 1).long()[..., None], dim=1)
+    clamped = bool(torch.equal(out[off], line[off]))
+    kept = bool((out[~read] == GATHER_FILL).all())
+    kept_flag = bool((flag[lane != 3] == GATHER_FLAG_FILL).all())
+    return clamped, kept, kept_flag, int(off.sum())

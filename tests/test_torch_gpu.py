@@ -17,6 +17,11 @@ pytestmark = pytest.mark.gpu
 VW = 3
 
 
+def _gather_edge_cases():
+    from repro_torch.testing.serve import gather_edge_cases
+    return gather_edge_cases()
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -205,6 +210,52 @@ def test_serve_kernels_n_off_a_tile_multiple(cuda, extra):
         assert torch.equal(g, w)
 
 
+def _gather_both(cuda, kw):
+    from repro_torch.testing.serve import gather_case, run_gather
+    case = gather_case(cuda, **kw)
+    got = run_gather(case, "kernel")
+    torch.cuda.synchronize()
+    want = run_gather(case, "ref")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return case, got
+
+
+def test_gather_lane_keys_outside_the_table_read_the_clamped_line(cuda):
+    """GET, ADD and CAS rows keyed -1 or K read line 0 or K - 1, as the
+    plain version does (a key past the table is clamped on every path).
+    Exact."""
+    from repro_torch.testing.serve import gather_contract
+    case, (out, flag) = _gather_both(
+        cuda, dict(t=8, n=5000, k=999, w=4, seed=41, outside=0.3))
+    clamped, _, _, n_off = gather_contract(case, out, flag)
+    assert clamped and n_off > 1000
+    k = case["keys"]
+    assert bool(((k == -1) & (case["lane"] >= 0)).any())
+    assert bool(((k == 999) & (case["lane"] >= 0)).any())
+
+
+def test_gather_leaves_the_other_rows_as_they_were(cuda):
+    """``out`` and ``flag`` filled with a sentinel first: PUT and inactive
+    rows keep it in ``out``, every row but CAS's keeps it in ``flag``."""
+    from repro_torch.testing.serve import gather_contract
+    case, (out, flag) = _gather_both(
+        cuda, dict(t=8, n=5000, k=999, w=4, seed=40))
+    _, kept, kept_flag, _ = gather_contract(case, out, flag)
+    assert kept and kept_flag
+
+
+@pytest.mark.parametrize("label,kw", _gather_edge_cases())
+def test_gather_kernel_at_the_plan_edges(cuda, label, kw):
+    """N one past / short of the plan's rows a block, lanes with no rows
+    and with every row, W 3, a misaligned ``out``, W 32, and rows a warp
+    each (W 33, 1100): exact, and the contract held."""
+    from repro_torch.testing.serve import gather_contract
+    case, (out, flag) = _gather_both(cuda, kw)
+    clamped, kept, kept_flag, _ = gather_contract(case, out, flag)
+    assert clamped and kept and kept_flag, label
+
+
 def test_store_kernel_path_matches_oracle_on_card(cuda):
     """A mixed GET/PUT/ADD/CAS round trip through the store on the card,
     kernel path, against the sequential oracle (no shortcut, no
@@ -244,3 +295,6 @@ def test_store_kernel_path_matches_oracle_on_card(cuda):
     counts = tops.launch_counts()
     assert all(counts[k] > 0 for k in ("delegation_pack", "gather",
                                        "scatter_last", "segmented_add"))
+    lanes = tops.KERNELS["gather"].lane_launches
+    assert all(lanes[i] > 0 for i in (0, 2, 3)) and lanes[1] == 0
+    assert sum(lanes) == counts["gather"]

@@ -17,6 +17,12 @@ here on the CPU where the kernels themselves cannot run.
     move as float4 only where W % 4 == 0 and the buffers are aligned, and
     the plain ``scatter_last`` under its (order, seg_end) signature equals
     the JAX package's ``_scatter_last`` Pallas kernel (interpret mode).
+  * the KV serve's ``gather``: ``gather_plan`` and its constants are the
+    CUDA source's, its grid fills the card at the main paths' shapes and
+    covers every row once; the plain gather (GET on T0, the ADD base on
+    T1, the CAS current and flag on T2) equals the JAX package's
+    ``_gather`` Pallas kernel (interpret mode), reads a key outside the
+    table clamped and leaves the other rows as they were.
 """
 import os
 import re
@@ -240,3 +246,133 @@ def test_plain_scatter_last_matches_jax(seed, lane_id):
                              flag[order], value[order])
     assert np.array_equal(got[0].numpy(), want)
     assert not np.array_equal(want, table)          # something was written
+
+
+def test_gather_constants_are_the_cuda_source():
+    src = _source("gather.cu")
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                       src).group(1))
+    assert const("THREADS") == kds.GATHER_THREADS
+    assert const("WIDE_WORDS") == kds.GATHER_WIDE_WORDS
+    # the wide path's rows a block: a warp a row
+    assert re.search(r"constexpr int WARPS = THREADS / 32;", src)
+    # the launch takes its grid from the plan: no second grid in the source
+    assert re.search(r"go<<<blocks, THREADS, 0, s>>>", src)
+    assert re.search(r"gather_empty_kernel<<<blocks, THREADS,", src)
+
+
+@pytest.mark.parametrize("t,n,w,vec,blocks", [
+    (8, 10_240, 4, 4, 320),         # kv_paper: two blocks an SM of 132
+    (8, 139_264, 4, 4, 4352),       # kv_mixed
+    (2, 1500, 1100, 4, 375),        # rows of 1,100 words: a warp a row
+    (8, 5037, 3, 1, 158),           # word moves
+    (1, 1, 1, 1, 1),
+])
+def test_gather_plan(t, n, w, vec, blocks):
+    """The grid covers every one of the T*N rows exactly once, a row to a
+    thread (narrow rows) or to a warp (wide rows), with no idle block;
+    at the main paths' shapes it fills the H100's 132 SMs twice over."""
+    plan = kds.gather_plan(t, n, w, vec)
+    rows = t * n
+    assert plan["wide"] == (w > kds.GATHER_WIDE_WORDS)
+    assert plan["vec"] == vec and plan["blocks"] == blocks
+    per = kds.GATHER_THREADS // 32 if plan["wide"] else kds.GATHER_THREADS
+    assert plan["rows_a_block"] == per
+    b, slot = np.meshgrid(np.arange(plan["blocks"]), np.arange(per),
+                          indexing="ij")
+    taken = (b * per + slot).ravel()
+    taken = taken[taken < rows]
+    assert np.array_equal(np.sort(taken), np.arange(rows))  # each row once
+    assert (plan["blocks"] - 1) * per < rows                # no idle block
+    if n in (10_240, 139_264):
+        assert plan["blocks"] >= 2 * 132
+
+
+def test_gather_plan_refuses_a_vec_without_an_instance():
+    with pytest.raises(ValueError, match="vec=2"):
+        kds.gather_plan(8, 100, 4, 2)
+
+
+def test_gather_refuses_an_empty_table():
+    """K 0 has no line to clamp to: refused before any launch."""
+    table = torch.zeros((2, 0, 4))
+    idx = torch.zeros((2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="K 0"):
+        kds.gather(table, idx, idx, 0, torch.zeros((2, 3, 4)))
+
+
+def _gather_edge_cases():
+    from repro_torch.testing.serve import gather_edge_cases
+    return gather_edge_cases()
+
+
+@pytest.mark.parametrize("label,kw", _gather_edge_cases())
+def test_plain_gather_keeps_its_contract(label, kw):
+    """The wrapper on CPU tensors (the plain version) at the kernel plan's
+    edges: lane rows keyed outside the table read the clamped line, PUT
+    and inactive rows keep ``out``, non-CAS rows keep ``flag``."""
+    from repro_torch.testing.serve import (gather_case, gather_contract,
+                                           run_gather)
+    case = gather_case(torch.device("cpu"), **kw)
+    out, flag = run_gather(case, "kernel")
+    clamped, kept, kept_flag, _ = gather_contract(case, out, flag)
+    assert clamped and kept and kept_flag, label
+
+
+def _jax_gather(t0, t1, t2, keys, lane):
+    """JAX's _gather (interpret mode) on one shard with zero ADD deltas
+    (priors 0, so no carry: ``cont`` 0), padded as its delegation_serve
+    wrapper pads; returns the (N, W) responses."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import delegation_serve as jds
+    k, w = t0.shape
+    n = keys.shape[0]
+    br, bk = jds.row_block(n, 128), jds.key_block(k, 128)
+    np_, kp, wp = -(-n // br) * br, -(-k // bk) * bk, -(-w // 128) * 128
+    row = lambda x, fill: jnp.pad(jnp.asarray(x), (0, np_ - n),
+                                  constant_values=fill).reshape(1, np_)
+    tbl = lambda x: jnp.pad(jnp.asarray(x), ((0, kp - k), (0, wp - w)))
+    run = jax.jit(functools.partial(jds._gather, br=br, bk=bk,
+                                    interpret=True))
+    resp = run(tbl(t0), tbl(t1), tbl(t2),
+               row(np.where(keys >= k, kp, keys), kp), row(lane, -1),
+               row(np.zeros(n, np.int32), -1),
+               jnp.zeros((np_, wp), jnp.float32),
+               jnp.zeros((1, np_ // br), jnp.int32))
+    return np.asarray(resp)[:n, :w]
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("w", [3, 4])
+def test_plain_gather_matches_jax(seed, w):
+    """Three table snapshots T0 / T1 / T2 (the serve's GET, ADD-base and
+    CAS-current phases): three plain gathers equal JAX's one-hot gather
+    kernel row for row, and the plain CAS flag equals JAX's ``ok_cas``
+    (``lane == 3 & all(resp == expect)``, delegation_serve.py:317).
+    Exact on integer-valued tables."""
+    from repro_torch.kernels import ref as tref
+    rng = np.random.default_rng(seed)
+    n, k = 700, 300
+    lane = rng.choice(4, n, p=(0.3, 0.2, 0.25, 0.25))
+    lane = np.where(rng.random(n) < 0.1, -1, lane)
+    keys = np.where(rng.random(n) < 0.3, 5, rng.integers(0, k, n))
+    keys = np.where(lane >= 0, keys, k).astype(np.int32)
+    snaps = [rng.integers(0, 8, (k, w)).astype(np.float32) for _ in range(3)]
+    live = snaps[2][np.minimum(keys, k - 1)]
+    expect = np.where(rng.random((n, 1)) < 0.5, live,
+                      rng.integers(0, 8, (n, w))).astype(np.float32)
+    T = lambda a: torch.as_tensor(a)[None]
+    out = torch.zeros((1, n, w))
+    flag = torch.zeros((1, n), dtype=torch.int32)
+    tref.gather(T(snaps[0]), T(keys), T(lane.astype(np.int32)), 0, out)
+    tref.gather(T(snaps[1]), T(keys), T(lane.astype(np.int32)), 2, out)
+    tref.gather(T(snaps[2]), T(keys), T(lane.astype(np.int32)), 3, out,
+                T(expect), flag)
+    resp = _jax_gather(*snaps, keys, lane.astype(np.int32))
+    ok_cas = (lane == 3) & np.all(resp == expect, axis=-1)
+    assert np.array_equal(out[0].numpy(), resp)
+    assert np.array_equal(flag[0].numpy(), ok_cas.astype(np.int32))
+    assert ok_cas.any() and (~ok_cas[lane == 3]).any()     # both outcomes
