@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --phases 1,2,4a,4b   # a subset
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -65,6 +66,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   4. kv_mixed — all four ops every round (65,536 rows, GET/PUT/ADD/CAS
      40/20/20/20, Zipf(1), integer-valued payloads), against the oracle,
      with the local shortcut on and off;
+ 4a. kv_mux — the multiplexed session round: two trusts' batches in ONE
+     session.step() a round, 20 Zipf(1) rounds on kv_paper's mesh and
+     1,000,000 x 4 table, shortcut off, overflow "drop", capacity the rows
+     of a client shard of the fused batch: (a) the lane layout — kv
+     (kv_paper's traffic, 8192 rows) beside the inner table of a
+     FetchRMWStore (8192 rows of kv_mixed's mix); (b) the masked layout —
+     kv beside the Fig. 6 counters (8192 x 1, 4096 ADDs a round); (c) one
+     round where the lock table only PUTs. Each round: every trust's
+     responses and final table == its sequential oracle and the kernel
+     path == the ref path bit for bit, both trusts fused, 2 block
+     transposes a step (in (c) the request's and lane 0's response);
+     ops/s of the fused step beside the same batches flushed one trust at
+     a time, and the busy share of each;
+ 4b. kv_locks — the paper's lock lanes beside delegation at kv_paper's
+     size (benchmarks/kv_store.py, fetch_add.py): rw-lock (GETs in one
+     round, writes serialised by rank, capped at 32 and padded) and mutex
+     (an rmw of every row, capped at 32) over 10 rounds of 8192 requests
+     (5% writes; 5 Zipf(1), 5 uniform) beside the delegated store of
+     phase 3; Fig. 6 fetch-and-add (delegated add, MCS rmw capped at 64,
+     atomic add) over 4096 requests on 1, 64 and 8192 counters, uniform
+     and Zipf(1). Every lane: kernel == ref bit for bit, == the oracle
+     applied in request order; fetch-and-add tables == the bincount;
+     n_rounds_executed as the ranks imply; ops/s raw and, for a capped
+     lane, charged for the uncapped convoy;
   5. paged decode — repro_torch.launch.paged_decode at qwen2.5-3b attention
      width (16 query / 2 KV heads of 128, QKV bias, bf16 weights,
      activations and pool), a 4096-page pool of 16-token pages, 64-page
@@ -81,7 +106,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      its 36 launches against the plain version, then timed runs), then
      repro_torch.launch.serve (8 requests, 128 prompt tokens teacher-forced
      then 128 generated, the KV cache's sequence split over 4 stacked
-     trustees), then the prefill's last-position logits on the serve's
+     trustees), then the same serve with --session --stream-depth 2
+     --serve-impl pallas (each generated token's ledger and meter ADDs in
+     one fused round through the CUDA serve kernels: tokens == the plain
+     serve's, the ledger 128 a request, the meter summing 8 x 128, every
+     wave fused), then the prefill's last-position logits on the serve's
      prompt against the serve's decode logits at that position;
   7. deepseek serve — the deepseek-v2-lite-16b MoE path at full width
      and depth (27 layers: a dense first layer and 26 MoE layers of 64
@@ -147,10 +176,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      taken at the end of phases 7 and 8, while their weights are on the
      card).
 
-Launch counters are zeroed just before each main path (phases 3, 4, the
-timed run of 5, each timed prefill of 6, 7 and 8, and the serves of 7
-and 8) and read just after; every kernel of a path must have launched
-there. The line
+Phase 2 also holds the multiplexed round's kernel shapes: the pack at
+virtual bins (8 trustees x 2 lanes, a hot lane and an empty one) and
+the three serve kernels on one lane's sub-buffer as the strided serve
+forms it, exact.
+
+Launch counters are zeroed just before each main path (phases 3, 4, 4a,
+4b, the timed run of 5, each timed prefill of 6, 7 and 8, the session
+serve of 6 and the serves of 7 and 8) and read just after; every kernel
+of a path must have launched there. The line
 before the last is {"kernels": [...]}; the last is the device line.
 """
 import argparse
@@ -452,6 +486,54 @@ def phase_kernels(torch, dev, shapes):
     return errs
 
 
+def phase_mux_kernels(torch, dev):
+    """The multiplexed round's kernel shapes against the plain versions,
+    exact: the pack at virtual bins (8 trustees x 2 lanes, a hot lane and
+    an empty one), and gather, scatter_last and segmented_add on one
+    lane's sub-buffer as the strided serve forms it (``lane_rows``)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.testing.serve import (lane_serve_case,
+                                           virtual_bin_pack_case)
+    n_dev = MESH[0] * MESH[1]
+    c = -(-3 * MUX_ROWS // n_dev)        # kv_mux's lane capacity (3072)
+    for label, kw in (
+            ("kv_mux shape, lane 0 hot, lane 1 empty",
+             dict(d=n_dev, r=c, t=n_dev, lanes=2, c=c, c2=0, w=10, seed=81,
+                  hot_lane=0, empty_lane=1)),
+            ("lane 1 hot past C + C2, lane 0 empty",
+             dict(d=n_dev, r=4096, t=n_dev, lanes=2, c=256, c2=128, w=10,
+                  seed=82, hot_lane=1, empty_lane=0))):
+        args = virtual_bin_pack_case(dev, **kw)
+        got = kops.delegation_pack(*args, impl="kernel")
+        torch.cuda.synchronize()
+        want = kops.delegation_pack(*args, impl="ref")
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"delegation_pack [virtual bins: {label}]: differs from the "
+                f"plain version")
+        require(bool((got[5][:, kw["empty_lane"]::2] == 0).all()),
+                f"delegation_pack [virtual bins: {label}]: the empty lane "
+                f"has rows")
+        say(f"[kernels] delegation_pack [virtual bins, {n_dev} trustees x 2 "
+            f"lanes: {label}] == plain (exact)")
+    for label, kw in (
+            ("kv_mux shape, lane 1 (kv_mixed's mix)",
+             dict(t=n_dev, n_lanes=2, c1=c, c2=0, k=N_KEYS // n_dev, w=VW,
+                  seed=83, tid=1)),
+            ("lane 0 with a second_round block and a local tail",
+             dict(t=n_dev, n_lanes=2, c1=512, c2=256, k=999, w=VW, seed=84,
+                  tid=0, n_local=700, hot=0.5))):
+        case = lane_serve_case(dev, **kw)
+        for name in ("gather", "scatter_last", "segmented_add"):
+            got = run_serve_kernel(torch, name, case, "kernel", case["base"])
+            torch.cuda.synchronize()
+            want = run_serve_kernel(torch, name, case, "ref", case["base"])
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"{name} [lane sub-buffer: {label}]: differs from the "
+                    f"plain version (max abs err {max_err(got, want)})")
+        say(f"[kernels] gather, scatter_last, segmented_add [lane sub-buffer:"
+            f" {label}, {tuple(case['keys'].shape)} rows] == plain (exact)")
+
+
 # ---------------------------------------------------------------------------
 # phases 3-4: the main path
 # ---------------------------------------------------------------------------
@@ -678,6 +760,541 @@ def phase_mixed(torch, dev, report):
             f"the final table)")
         report[f"kv_mixed_shortcut_{shortcut}_ops_s"] = \
             r_total * len(trace) / secs
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: the multiplexed session round (kv_mux)
+# ---------------------------------------------------------------------------
+
+MUX_ROUNDS = 20
+MUX_ROWS = 8192
+MIXED_SHARES = (("get", 0.4), ("put", 0.2), ("add", 0.2), ("cas", 0.2))
+
+
+def kv_batches(rng):
+    """kv_paper's traffic as two op batches (GET, PUT; inactive rows keyed
+    -1): 95% GET / 5% PUT, Zipf(1), integer-valued payloads."""
+    from repro_torch.core.routing import sample_keys
+    r = MUX_ROWS
+    keys = sample_keys(rng, N_KEYS, r, "zipf").astype(np.int32)
+    is_put = rng.random(r) < 0.05
+    vals = rng.integers(0, 8, (r, VW)).astype(np.float32)
+    return [("get", np.where(is_put, -1, keys), vals, None),
+            ("put", np.where(is_put, keys, -1), vals, None)]
+
+
+def mixed_batches(rng, sim, put_only=False):
+    """kv_mixed's op mix (GET/PUT/ADD/CAS 40/20/20/20, Zipf(1)) as op
+    batches; CAS expects hit ``sim``'s table about half the time, and
+    ``sim`` replays the round.  ``put_only``: one PUT batch of r rows."""
+    from repro_torch.core.routing import sample_keys
+    r = MUX_ROWS
+    shares = (("put", 1.0),) if put_only else MIXED_SHARES
+    sizes = [int(r * s) for _op, s in shares]
+    sizes[-1] = r - sum(sizes[:-1])
+    batches = []
+    for (op, _s), n in zip(shares, sizes):
+        keys = sample_keys(rng, N_KEYS, n, "zipf").astype(np.int32)
+        vals = rng.integers(0, 8, (n, VW)).astype(np.float32)
+        expect = None
+        if op == "cas":
+            live = sim.table[keys].copy()
+            rand = rng.integers(0, 8, (n, VW)).astype(np.float32)
+            expect = np.where(rng.random(n)[:, None] < 0.5, live, rand)
+        batches.append((op, keys, vals, expect))
+    oracle_round(sim, batches, False, 8)
+    return batches
+
+
+def submit_batches(torch, dev, store, batches):
+    """Queue op batches (inactive rows keyed -1) on a store's typed
+    handles; returns their futures."""
+    op = store.trust.op
+    futs = []
+    for name, keys, vals, expect in batches:
+        k = torch.as_tensor(keys, device=dev)
+        where = k >= 0
+        if name == "get":
+            futs.append(op.get.then(k, where=where))
+        elif name == "cas":
+            futs.append(op.cas.then(k, value=torch.as_tensor(vals,
+                                                             device=dev),
+                                    expect=torch.as_tensor(expect,
+                                                           device=dev),
+                                    where=where))
+        else:
+            futs.append(op[name].then(k, torch.as_tensor(vals, device=dev),
+                                      where=where))
+    return futs
+
+
+def results(futs, batches):
+    out = []
+    for (name, *_), fut in zip(batches, futs):
+        r = fut.result()
+        if name in ("get", "add"):
+            out.append(r["value"].cpu().numpy())
+        elif name == "cas":
+            out.append((r["flag"].cpu().numpy(), r["value"].cpu().numpy()))
+        else:
+            out.append(None)
+    return out
+
+
+def same_answers(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, tuple):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+    return np.array_equal(a, b)
+
+
+def mux_pair(dev, layout, impl, session, init):
+    """The two stores of a kv_mux layout on kv_paper's mesh: "strided" —
+    kv (1,000,000 x 4) and the inner table of a FetchRMWStore (1,000,000 x
+    4); "masked" — kv beside the Fig. 6 counters (8192 x 1).  Shortcut
+    off, overflow "drop", capacity the rows of a client shard of the
+    fused batch."""
+    from repro_torch.core import (DelegatedKVStore, FetchRMWStore,
+                                  StackedMesh)
+    mesh = StackedMesh(MESH, device=dev)
+    fused_rows = MUX_ROWS * 2 + (MUX_ROWS if layout == "strided"
+                                 else MUX_ROWS // 2)
+    kw = dict(capacity=-(-fused_rows // (MESH[0] * MESH[1])),
+              overflow="drop", pack_impl=impl, serve_impl=impl,
+              session=session)
+    kv = DelegatedKVStore(mesh, N_KEYS, VW, local_shortcut=False, name="kv",
+                          **kw)
+    if layout == "strided":
+        other = FetchRMWStore(mesh, N_KEYS, VW, **kw).store
+    else:
+        other = DelegatedKVStore(mesh, MUX_ROWS, 1, local_shortcut=False,
+                                 name="counters", **kw)
+    for st, v in zip((kv, other), init):
+        st.prefill(v)
+    return kv, other
+
+
+def mux_traces(layout, rounds=MUX_ROUNDS, put_only=False):
+    """Per round the kv batches and the other trust's batches: kv_mixed's
+    mix on the lock table ("strided"; ``put_only``: PUTs alone), 4096
+    counter ADDs ("masked").  Returns the two initial tables and the
+    trace."""
+    from repro_torch.core import SequentialKVReference
+    rng = np.random.default_rng(4040 if layout == "strided" else 4041)
+    init_kv = rng.integers(0, 8, (N_KEYS, VW)).astype(np.float32)
+    if layout == "strided":
+        init_o = rng.integers(0, 8, (N_KEYS, VW)).astype(np.float32)
+        sim = SequentialKVReference(N_KEYS, VW)
+        sim.prefill(init_o)
+    else:
+        init_o = np.zeros((MUX_ROWS, 1), np.float32)
+    trace = []
+    for _ in range(rounds):
+        kvb = kv_batches(rng)
+        if layout == "strided":
+            other = mixed_batches(rng, sim, put_only=put_only)
+        else:
+            keys = rng.integers(0, MUX_ROWS, MUX_ROWS // 2).astype(np.int32)
+            other = [("add", keys, np.ones((len(keys), 1), np.float32),
+                      None)]
+        trace.append((kvb, other))
+    return (init_kv, init_o), trace
+
+
+def run_mux(torch, dev, stores, trace, session, fused=True, moves=None):
+    """The trace's rounds, one ``session.step()`` each (``fused``) or one
+    flush a trust.  Returns (answers per round per trust, seconds on the
+    host clock around a synchronize, last step infos); the answers reach
+    the host after the clock stops, as phase 3's do."""
+    from repro_torch.core import collect_transposes
+    futs_all, infos = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batches in trace:
+        futs = [submit_batches(torch, dev, st, b)
+                for st, b in zip(stores, batches)]
+        if fused:
+            with collect_transposes() as tr:
+                stats = session.step()
+            infos.append(session.last_step_info)
+            if moves is not None:
+                moves.append(list(tr))
+        else:
+            for st in stores:
+                st.flush()
+            stats = session.last_stats()
+        for st in stores:
+            require(stats[st.trust.name]["dropped"] == 0
+                    and stats[st.trust.name]["impl_fallback"] == 0,
+                    f"kv_mux: {st.trust.name} dropped rows or fell back from "
+                    f"the kernels")
+        futs_all.append(futs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    outs = [[results(f, b) for f, b in zip(futs, batches)]
+            for futs, batches in zip(futs_all, trace)]
+    return outs, secs, infos
+
+
+def mux_oracle(init, trace, widths):
+    from repro_torch.core import SequentialKVReference
+    refs = []
+    for v, w in zip(init, widths):
+        ref = SequentialKVReference(v.shape[0], w)
+        ref.prefill(v)
+        refs.append(ref)
+    outs = [[oracle_round(ref, b, False, 8) for ref, b in zip(refs, batches)]
+            for batches in trace]
+    return outs, [ref.dump() for ref in refs]
+
+
+def check_mux(label, got, tables, want, want_tables):
+    for i, (g_round, w_round) in enumerate(zip(got, want)):
+        for tid, (g, w) in enumerate(zip(g_round, w_round)):
+            for j, (a, b) in enumerate(zip(g, w)):
+                require(same_answers(a, b), f"{label} round {i}: trust {tid}"
+                        f" batch {j} differs")
+    for tid, (a, b) in enumerate(zip(tables, want_tables)):
+        require(np.array_equal(a, b), f"{label}: trust {tid}'s final table "
+                f"differs")
+
+
+def phase_mux(torch, dev, gpu):
+    """kv_mux: two trusts' batches in ONE session.step() a round, on
+    kv_paper's mesh and table.  (a) the lane layout — kv (kv_paper's
+    traffic) beside the inner table of a FetchRMWStore (kv_mixed's op
+    mix); (b) the masked layout — kv beside the Fig. 6 counters; (c) a
+    round where the lock table only PUTs, its lane off the response
+    transpose.  Each: == each trust's sequential oracle and the ref path
+    bit for bit, both trusts fused, 2 transposes a step.  Times: the fused
+    step against the same batches flushed one trust at a time."""
+    from repro_torch.core import TrustSession
+    half = MUX_ROUNDS // 2
+    busy = {}
+    for layout, widths in (("strided", (VW, VW)), ("masked", (VW, 1))):
+        init, trace = mux_traces(layout)
+        want, want_tables = mux_oracle(init, trace, widths)
+        pairs = {}
+        for label in ("ref", "fused", "solo"):
+            sess = TrustSession()
+            pairs[label] = (mux_pair(dev, layout, "ref" if label == "ref"
+                                     else "kernel", sess, init), sess)
+        got = {k: [] for k in pairs}
+        secs = {k: [] for k in pairs}
+        moves, infos = [], []
+        # the ref path, then the kernel path fused and one trust at a time
+        # in the order fused, solo, solo, fused over the two halves of the
+        # trace (each pair of stores still takes the rounds in order)
+        for label, part in (("ref", trace), ("fused", trace[:half]),
+                            ("solo", trace[:half]), ("solo", trace[half:]),
+                            ("fused", trace[half:])):
+            stores, sess = pairs[label]
+            out, t, inf = run_mux(torch, dev, stores, part, sess,
+                                  fused=label != "solo", moves=moves)
+            got[label] += out
+            secs[label].append(t)
+            infos += inf
+        for label, (stores, _s) in pairs.items():
+            check_mux(f"kv_mux {layout} {label}", got[label],
+                      [st.dump() for st in stores], want, want_tables)
+        other = pairs["fused"][0][1].trust.name
+        require(all(info["fused"] == [["kv", other]] for info in infos),
+                f"kv_mux {layout}: a step did not fuse both trusts")
+        require(all(m == ["request", "response"] for m in moves),
+                f"kv_mux {layout}: transposes a step {moves[:3]}")
+        say(f"[kv_mux {layout}] {MUX_ROUNDS} rounds x 2 trusts (kv + "
+            f"{other}): the kernel path fused, the same batches flushed one "
+            f"trust at a time and the ref path fused each == both trusts' "
+            f"sequential oracles bit for bit (every response, both final "
+            f"tables); every step fused both trusts, 2 block transposes a "
+            f"step (request, response)")
+        ops = sum(int((b[1] >= 0).sum()) for batches in trace
+                  for bs in batches for b in bs)
+        fused_secs, solo_secs = sum(secs["fused"]), sum(secs["solo"])
+        fused_stores, fused_sess = pairs["fused"]
+        stores, sess = pairs["solo"]
+        for label, st_pair, ses, fused in (
+                ("fused", fused_stores, fused_sess, True),
+                ("solo", stores, sess, False)):
+            batches = trace[0]
+
+            def one_round():
+                for s, b in zip(st_pair, batches):
+                    submit_batches(torch, dev, s, b)
+                if fused:
+                    ses.step()
+                else:
+                    for s in st_pair:
+                        s.flush()
+            busy[label] = busy_share(torch, one_round, 10)
+        say(f"[kv_mux {layout}] {gpu} | {ops} ops over {MUX_ROUNDS} rounds: "
+            f"fused step {ops / fused_secs:.1f} ops/s, one trust at a time "
+            f"{ops / solo_secs:.1f} ops/s (host clock around a synchronize;"
+            f" halves in the order fused, solo, solo, fused: "
+            + ", ".join(f"{1e3 * t:.1f}" for t in (
+                secs["fused"][0], *secs["solo"], secs["fused"][1]))
+            + " ms); device busy " + ", ".join(
+                f"{lb} {100 * b / w:.1f}% ({b * 1e3:.3f} of {w * 1e3:.3f} ms"
+                f" over 10 rounds)" if b > 0 else f"{lb} not measured"
+                for lb, (b, w) in busy.items()))
+
+    # (c) one round where the lock table only PUTs
+    init, trace = mux_traces("strided", rounds=1, put_only=True)
+    want, want_tables = mux_oracle(init, trace, (VW, VW))
+    for impl in ("kernel", "ref"):
+        sess = TrustSession()
+        stores = mux_pair(dev, "strided", impl, sess, init)
+        moves = []
+        got, _, infos = run_mux(torch, dev, stores, trace, sess, moves=moves)
+        check_mux(f"kv_mux put-only {impl}", got,
+                  [st.dump() for st in stores], want, want_tables)
+        require(moves == [["request", "response lanes [0]"]],
+                f"kv_mux put-only: transposes {moves}")
+        saved = sess.last_stats()["rmw-lock"]["resp_bytes_saved"]
+    say(f"[kv_mux put-only] rmw-lock only PUTs: == the oracles and kernel "
+        f"== ref bit for bit; the step made 1 request transpose and 1 "
+        f"response transpose of lane 0 (kv) alone: lane 1 (rmw-lock) stayed "
+        f"off it ({saved} response bytes a shard saved)")
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the paper's lock lanes at kv_paper's size (kv_locks)
+# ---------------------------------------------------------------------------
+
+LOCK_ROUNDS = 10                # 5 Zipf(1) then 5 uniform
+RW_CAP, MUTEX_CAP, MCS_CAP = 32, 32, 64
+FA_REQUESTS = 4096
+FA_OBJECTS = (1, 64, 8192)
+
+
+def lock_trace(rng):
+    """kv_paper's requests for the lock lanes: (keys, is_put, values) a
+    round, 5% writes, Zipf(1) then uniform."""
+    from repro_torch.core.routing import sample_keys
+    trace = []
+    for i in range(LOCK_ROUNDS):
+        dist = "zipf" if i < LOCK_ROUNDS // 2 else "uniform"
+        keys = sample_keys(rng, N_KEYS, MUX_ROWS, dist).astype(np.int32)
+        is_put = rng.random(MUX_ROWS) < 0.05
+        vals = rng.integers(0, 8, (MUX_ROWS, VW)).astype(np.float32)
+        trace.append((keys, is_put, vals))
+    return trace
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def rw_lane(torch, dev, store, trace, n_dev):
+    """benchmarks/kv_store.py's rwlock lane: the GETs in one parallel
+    round, the writes serialised by rank (capped at 32, padded)."""
+    from repro_torch.core import conflict_ranks, pad_writes
+    outs, rounds = [], []
+    for keys, is_put, vals in trace:
+        v = torch.as_tensor(vals, device=dev)
+        outs.append(store.get(torch.as_tensor(np.where(is_put, -1, keys),
+                                              device=dev)))
+        wranks, wrounds = conflict_ranks(keys[is_put], n_dev)
+        capped = min(wrounds, RW_CAP)
+        if is_put.any():
+            wk, wv, wr, _ = pad_writes(keys[is_put],
+                                       v[torch.as_tensor(np.flatnonzero(
+                                           is_put), device=dev)],
+                                       np.minimum(wranks, capped - 1),
+                                       capped, n_dev)
+            store.put(wk, wv, wr, capped)
+        rounds.append((wrounds, capped))
+    return outs, rounds
+
+
+def mutex_lane(torch, dev, store, trace, n_dev):
+    """benchmarks/kv_store.py's mutex lane: every row (GET and PUT) an rmw
+    of ``crit_fn = lambda v, p: p``, ranks capped at 32."""
+    from repro_torch.core import conflict_ranks
+    outs, rounds = [], []
+    for keys, _is_put, vals in trace:
+        ranks, n = conflict_ranks(keys, n_dev)
+        capped = min(n, MUTEX_CAP)
+        outs.append(store.rmw(torch.as_tensor(keys, device=dev),
+                              lambda _v, p: p, np.minimum(ranks, capped - 1),
+                              capped, payload=torch.as_tensor(vals,
+                                                              device=dev)))
+        rounds.append((n, capped))
+    return outs, rounds
+
+
+def lock_oracle_rw(init, trace, n_dev):
+    from repro_torch.core import SequentialKVReference, conflict_ranks
+    ref = SequentialKVReference(N_KEYS, VW)
+    ref.prefill(init)
+    outs = []
+    for keys, is_put, vals in trace:
+        outs.append(ref.get(np.where(is_put, -1, keys)))
+        wk, wv = keys[is_put], vals[is_put]
+        wranks, wrounds = conflict_ranks(wk, n_dev)
+        rk = np.minimum(wranks, min(wrounds, RW_CAP) - 1)
+        for r in range(min(wrounds, RW_CAP) if len(wk) else 0):
+            ks = np.where(rk == r, wk, -1)
+            ref.get(ks)
+            ref.put(ks, wv)
+    return outs, ref.dump()
+
+
+def rmw_oracle(ref, keys, ranks, rounds, crit):
+    out = np.zeros((len(keys), ref.value_width), np.float32)
+    for r in range(rounds):
+        ks = np.where(ranks == r, keys, -1)
+        got = ref.get(ks)
+        ref.put(ks, crit(got))
+        out[ranks == r] = got[ranks == r]
+    return out
+
+
+def phase_locks(torch, dev, gpu):
+    """kv_locks: the paper's lock lanes beside delegation, at kv_paper's
+    size (benchmarks/kv_store.py, fetch_add.py): rw-lock and mutex over
+    10 rounds of 8192 requests (5% writes; 5 Zipf(1), 5 uniform) beside
+    the delegated store of phase 3; the Fig. 6 fetch-and-add lanes
+    (delegated add, MCS rmw, atomic add) over 4096 requests on 1, 64 and
+    8192 counters, uniform and Zipf(1).  Every lane: kernel path == ref
+    path bit for bit, == the oracle applied in request order; the
+    fetch-and-add tables == the bincount of the keys (MCS where no rank
+    is capped); n_rounds_executed what the ranks imply."""
+    from repro_torch.core import (AtomicAddStore, DelegatedKVStore,
+                                  FetchRMWStore, SequentialKVReference,
+                                  StackedMesh, TrustSession, conflict_ranks)
+    from repro_torch.core.routing import sample_keys
+    n_dev = MESH[0] * MESH[1]
+    rng = np.random.default_rng(2025)
+    init = rng.integers(0, 8, (N_KEYS, VW)).astype(np.float32)
+    trace = lock_trace(rng)
+    ops = LOCK_ROUNDS * MUX_ROWS
+    mesh = StackedMesh(MESH, device=dev)
+    cap = MUX_ROWS // n_dev               # the rows of a client shard
+
+    # the delegated store of phase 3 on the same trace
+    sess = TrustSession()
+    st = make_store(dev, "kernel", "kernel", None, init, sess, "kv_locks")
+    _o, _d, secs = run_paper(torch, dev, st, trace, sess)
+    lines = [f"delegated {ops / secs:.1f}"]
+
+    want_rw = lock_oracle_rw(init, trace, n_dev)
+    ref = SequentialKVReference(N_KEYS, VW)
+    ref.prefill(init)
+    want_mx = []
+    for keys, _p, vals in trace:
+        ranks, n = conflict_ranks(keys, n_dev)
+        c = min(n, MUTEX_CAP)
+        want_mx.append(rmw_oracle(ref, keys, np.minimum(ranks, c - 1), c,
+                                  lambda g, v=vals: v))
+    want_mx = (want_mx, ref.dump())
+    for lane, fn, kw, want in (("rw-lock", rw_lane, dict(rw_lock=True),
+                                want_rw),
+                               ("mutex", mutex_lane, {}, want_mx)):
+        got = {}
+        for impl in ("kernel", "ref"):
+            lock = FetchRMWStore(mesh, N_KEYS, VW, capacity=cap,
+                                 pack_impl=impl, serve_impl=impl,
+                                 session=TrustSession(), **kw)
+            lock.prefill(init)
+            (outs, rounds), secs = timed(
+                torch, lambda: fn(torch, dev, lock, trace, n_dev))
+            got[impl] = ([o.cpu().numpy() for o in outs], lock.dump())
+            check_stats(lock.store.session.last_stats(),
+                        lock.store.trust.name)
+            implied = sum(c for _n, c in rounds)
+            require(lock.n_rounds_executed == implied,
+                    f"kv_locks {lane} {impl}: {lock.n_rounds_executed} "
+                    f"rounds executed, the ranks imply {implied}")
+            if impl == "kernel":
+                k_secs, k_rounds = secs, rounds
+        for impl in ("kernel", "ref"):
+            outs, table = got[impl]
+            require(all(np.array_equal(a, b) for a, b in zip(outs, want[0]))
+                    and np.array_equal(table, want[1]),
+                    f"kv_locks {lane} {impl}: differs from the oracle")
+        full = sum(n for n, _c in k_rounds)
+        done = sum(c for _n, c in k_rounds)
+        charged = k_secs * full / done
+        lines.append(f"{lane} raw {ops / k_secs:.1f} ({done} serialised "
+                     f"rounds, ranks capped at "
+                     f"{RW_CAP if lane == 'rw-lock' else MUTEX_CAP}), "
+                     f"charged for the uncapped convoy ({full} rounds) "
+                     f"{ops / charged:.1f}")
+        say(f"[kv_locks {lane}] {LOCK_ROUNDS} rounds x {MUX_ROWS}: kernel "
+            f"== ref == the oracle in request order bit for bit (every "
+            f"returned row, the final table); n_rounds_executed {done} as "
+            f"the capped ranks imply")
+    say(f"[kv_locks] {gpu} | ops/s over {ops} requests: " + "; ".join(lines))
+
+    # Fig. 6: fetch-and-add over 1, 64 and 8192 counters
+    fa = []
+    for n_obj in FA_OBJECTS:
+        for dist in ("uniform", "zipf"):
+            keys = sample_keys(rng, n_obj, FA_REQUESTS, dist).astype(np.int32)
+            k = torch.as_tensor(keys, device=dev)
+            ones = torch.ones((FA_REQUESTS, 1), device=dev)
+            count = np.bincount(keys, minlength=n_obj).astype(np.float32)
+            ranks, n = conflict_ranks(keys, n_dev)
+            capped = min(n, MCS_CAP)
+            ref = SequentialKVReference(n_obj, 1)
+            want_mcs = rmw_oracle(ref, keys, np.minimum(ranks, capped - 1),
+                                  capped, lambda g: g + 1)
+            want_mcs_table = ref.dump()
+            zeros = np.zeros((n_obj, 1), np.float32)
+            fcap = FA_REQUESTS // n_dev
+            row = {}
+            for impl in ("kernel", "ref"):
+                skw = dict(capacity=fcap, pack_impl=impl, serve_impl=impl,
+                           session=TrustSession())
+                deleg = DelegatedKVStore(mesh, n_obj, 1, name="fa", **skw)
+                mcs = FetchRMWStore(mesh, n_obj, 1, **skw)
+                atom = AtomicAddStore(mesh, n_obj, 1, **skw)
+                for s in (deleg, mcs, atom):
+                    s.prefill(zeros)
+                d_out, d_secs = timed(torch, lambda: deleg.add(k, ones))
+                m_out, m_secs = timed(torch, lambda: mcs.rmw(
+                    k, lambda v, p: v + 1.0, np.minimum(ranks, capped - 1),
+                    capped))
+                a_out, a_secs = timed(torch, lambda: atom.add(k, ones))
+                for st in (deleg, mcs.store, atom.store):
+                    check_stats(st.session.last_stats(), st.trust.name)
+                require(mcs.n_rounds_executed == capped,
+                        f"fetch-add mcs: {mcs.n_rounds_executed} rounds, "
+                        f"want {capped}")
+                require(np.array_equal(deleg.dump()[:, 0], count)
+                        and np.array_equal(atom.dump()[:, 0], count),
+                        f"fetch-add {n_obj} {dist} {impl}: the delegated or "
+                        f"atomic table is not the bincount of the keys")
+                require(np.array_equal(m_out.cpu().numpy(), want_mcs)
+                        and np.array_equal(mcs.dump(), want_mcs_table),
+                        f"fetch-add {n_obj} {dist} {impl}: mcs differs from "
+                        f"the oracle")
+                require(capped < n or np.array_equal(mcs.dump()[:, 0],
+                                                     count),
+                        f"fetch-add {n_obj} {dist}: uncapped mcs is not the "
+                        f"bincount")
+                row[impl] = [x.cpu().numpy() for x in (d_out, m_out, a_out)]
+                if impl == "kernel":
+                    secs = (d_secs, m_secs, a_secs)
+            require(all(np.array_equal(a, b)
+                        for a, b in zip(row["kernel"], row["ref"])),
+                    f"fetch-add {n_obj} {dist}: kernel and ref paths differ")
+            d_s, m_s, a_s = secs
+            r = FA_REQUESTS
+            fa.append(f"{n_obj} {dist}: delegated {r / d_s:.1f}, mcs raw "
+                      f"{r / m_s:.1f} ({capped} rounds) charged "
+                      f"{r / (m_s * n / capped):.1f} ({n} rounds), atomic "
+                      f"{r / a_s:.1f}")
+    say(f"[kv_locks fetch-add] {FA_REQUESTS} requests, every lane kernel == "
+        f"ref bit for bit, delegated and atomic tables == the bincount, mcs "
+        f"== the round-by-round oracle (== the bincount where uncapped)")
+    say(f"[kv_locks fetch-add] {gpu} | ops/s: " + "; ".join(fa))
 
 
 # ---------------------------------------------------------------------------
@@ -1771,6 +2388,38 @@ def phase_qwen(torch, dev, gpu, report, errs):
         f"{stats['ms_per_step']:.3f} ms/step, {stats['tokens_per_s']:.1f} "
         f"tokens/s (batch x steps over the loop's wall time)")
 
+    # the --session serve: each generated token's ledger and meter ADDs in
+    # one fused round, through a streaming driver of depth 2, on the CUDA
+    # serve kernels
+    sstats = {}
+    kops.reset_launch_counts()
+    sout = serve.main(qwen_serve_argv() + ["--session", "--stream-depth",
+                                           "2", "--serve-impl", "pallas"],
+                      stats=sstats)
+    session_counts = kops.launch_counts()
+    say(f"[main path] qwen session serve launches: "
+        f"{json.dumps(session_counts)}")
+    for k in ("delegation_pack", "segmented_add", "gather"):
+        require(session_counts[k] > 0, f"kernel {k} was not launched on the "
+                f"session serve's path")
+    b, g = QWEN_SERVE["batch"], QWEN_SERVE["gen"]
+    require(np.array_equal(sout, out), "session serve: the generated tokens "
+            "differ from the plain serve's")
+    require(sstats["ledger"].tolist() == [g] * b,
+            f"session serve: ledger {sstats['ledger'].tolist()}")
+    require(int(sstats["meter"].sum()) == b * g,
+            f"session serve: meter {sstats['meter'].tolist()}")
+    require(sstats["fused_waves"] == [[["ledger", "meter"]]] * g,
+            "session serve: a wave was not one fused round of both trusts")
+    report["qwen_session_serve"] = sstats
+    say(f"[qwen session] {gpu} | serve --session --stream-depth 2 "
+        f"--serve-impl pallas: tokens == the plain serve's, ledger "
+        f"{g} for each of {b} requests, meter {sstats['meter'].tolist()} "
+        f"(sum {b * g}), all {g} waves fused [['ledger', 'meter']]; "
+        f"{sstats['tokens_per_s']:.1f} tokens/s beside the plain serve's "
+        f"{stats['tokens_per_s']:.1f} ({sstats['ms_per_step']:.3f} vs "
+        f"{stats['ms_per_step']:.3f} ms/step)")
+
     # the serve's weights (seed 0 on the card, as serve.main draws them)
     # through prefill_step on the serve's prompt
     params = M.init_params(cfg, run, dev)
@@ -1789,7 +2438,7 @@ def phase_qwen(torch, dev, gpu, report, errs):
         f"on {agree['argmax_agree'] * 100:.1f}% of rows")
     report["qwen_agreement"] = agree
     del params, pre
-    return cfg.n_layers, chk_inputs, run
+    return cfg.n_layers, chk_inputs, run, session_counts
 
 
 # ---------------------------------------------------------------------------
@@ -2186,6 +2835,8 @@ def phase_flash_times(torch, dev, gpu, inputs, launches,
     ms, lo, hi, seen = device_readings(torch, fa,
                                        KERNEL_NAMES["flash_attention"])
     ev, host, ahead = ahead_ms(torch, fa)
+    if ms == 0:                 # the profiler kept no kernel record
+        ms = ev
     clk = sm_clock_under(torch, fa, max(1, int(800 / max(ev, 1e-3))))
     plain = yardstick(torch, lambda: kops.flash_attention(
         q, k, v, q_offset, causal, scale, impl="ref"), iters=5)
@@ -3034,10 +3685,10 @@ def kernel_info(torch, n_dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,4a,4b,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
-    phases = {int(p) for p in args.phases.split(",")}
+    phases = set(args.phases.split(","))
 
     import torch
     if not torch.cuda.is_available():
@@ -3071,12 +3722,13 @@ def main(argv=None):
     report = {}
 
     errs = {}
-    if 2 in phases:
+    if "2" in phases:
         errs = phase_kernels(torch, dev, shapes)
         phase_paged_kernels(torch, dev, errs)
         phase_flash_kernels(torch, dev, errs)
         phase_gmm_kernels(torch, dev, errs)
         phase_scan_kernels(torch, dev, errs)
+        phase_mux_kernels(torch, dev)
 
     # the main paths, each with the counters zeroed just before it and read
     # just after: kv_paper (a) and (b), 40 kernel-path rounds each (the (a)
@@ -3085,8 +3737,8 @@ def main(argv=None):
     launches = {k: 0 for k in SOURCES}
     per_round = {"kv_paper": {}, "kv_mixed": {}, "gather_lanes": {}}
     for phase, label, rounds, run in (
-            (3, "kv_paper", 80, lambda: phase_paper(torch, dev, report)),
-            (4, "kv_mixed", 16, lambda: phase_mixed(torch, dev, report))):
+            ("3", "kv_paper", 80, lambda: phase_paper(torch, dev, report)),
+            ("4", "kv_mixed", 16, lambda: phase_mixed(torch, dev, report))):
         if phase not in phases:
             continue
         kops.reset_launch_counts()
@@ -3109,38 +3761,57 @@ def main(argv=None):
             launches[k] += v
     for k, v in report.items():
         say(f"[ops/s] {gpu} | {k}: {v:.1f}")
+    # the multiplexed session round and the lock lanes, counters zeroed
+    # just before each and read just after (their ref paths launch none)
+    for phase, label, run in (
+            ("4a", "kv_mux", lambda: phase_mux(torch, dev, gpu)),
+            ("4b", "kv_locks", lambda: phase_locks(torch, dev, gpu))):
+        if phase not in phases:
+            continue
+        kops.reset_launch_counts()
+        run()
+        counts = kops.launch_counts()
+        say(f"[main path] {label} launches: {json.dumps(counts)}")
+        for k in KV_KERNELS:
+            require(counts[k] > 0, f"kernel {k} was not launched on the "
+                    f"{label} main path")
+        for k, v in counts.items():
+            launches[k] += v
     paged = None
-    if 5 in phases:
+    if "5" in phases:
         paged = phase_paged(torch, dev, gpu, report, errs)
         for k, v in paged[0].items():
             launches[k] += v
     qwen = None
-    if 6 in phases:
+    if "6" in phases:
         qwen = phase_qwen(torch, dev, gpu, report, errs)
         launches["flash_attention"] += qwen[0]
+        for k, v in qwen[3].items():
+            launches[k] += v
     deep = None
-    if 7 in phases:
+    if "7" in phases:
         deep = phase_deepseek(torch, dev, gpu, report, errs)
         for k, v in deep[0].items():
             launches[k] += v
-        if 9 in phases:
+        if "9" in phases:
             # the deepseek prefill's busy share now: its weights leave the
             # card before phase 8 draws falcon-mamba-7b's
             phase_deepseek_busy(torch, dev, gpu, deep[5], deep[6])
         deep = deep[:5] + (deep[6],)
         torch.cuda.empty_cache()
     falcon = None
-    if 8 in phases:
+    if "8" in phases:
         falcon = phase_falcon(torch, dev, gpu, report, errs,
-                              busy=9 in phases)
+                              busy="9" in phases)
         for k, v in falcon[0].items():
             launches[k] += v
     per_round["launches"] = launches
     say(f"[main path] kernel launches over phases 3-8 (one prefill call in "
-        f"phases 6, 7 and 8): {json.dumps(launches)}")
+        f"phases 6, 7 and 8; 4a, 4b and the session serve included): "
+        f"{json.dumps(launches)}")
 
-    if 9 in phases:
-        require(phases >= {2, 3, 4, 5, 6, 7, 8},
+    if "9" in phases:
+        require(phases >= set("2345678"),
                 "phase 9 reports the main paths' launches and the kernels' "
                 "errors against their plain versions: run phases 2-8")
         rows = phase_times(torch, dev, shapes, errs, per_round, gpu)
@@ -3163,7 +3834,8 @@ def main(argv=None):
         timed.append(phase_scan_times(torch, dev, gpu, falcon[1],
                                       falcon[0]["selective_scan"]))
         phase_qwen_busy(torch, dev, gpu, qwen[2])
-        for k in ("qwen_prefill", "qwen_serve", "deepseek_prefill",
+        for k in ("qwen_prefill", "qwen_serve", "qwen_session_serve",
+                  "deepseek_prefill",
                   "deepseek_serve", "falcon_prefill", "falcon_serve"):
             say(f"[tokens/s] {gpu} | {k}: {report[k]['tokens_per_s']:.1f}")
         for (kname, n, ms, plain, bound, lib, label, by) in timed:

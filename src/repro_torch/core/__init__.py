@@ -8,20 +8,24 @@
 # trust.py     TrusteeGroup / Trust / TrustFuture
 # engine.py    DelegationEngine / TrustSession — executes the rounds
 # kvstore.py   DelegatedKVStore + make_kv_schema (paper §6.3)
-# lockstore.py SequentialKVReference oracle + conflict_ranks
+# lockstore.py FetchRMWStore / AtomicAddStore lock baselines,
+#              SequentialKVReference oracle + conflict_ranks
 # pagetable.py DelegatedPageTable + make_pagetable_schema (paged KV cache)
 #              + SequentialPageTable oracle
 from .opspec import (Combine, Field, ListField, OpSpec, SchemaError,
                      TrustSchema)
 from .channel import (ChannelConfig, ChannelInfo, DelegatedOp, Grouping,
                       Packed, Received, check_response_structs,
-                      collect_impl_events, delegate, make_grouping, pack,
-                      report_impl_event, respond, serve_optable, transmit,
-                      unpack)
-from .engine import DelegationEngine, TrustSession, check_payload_fields
+                      collect_impl_events, collect_transposes, delegate,
+                      make_grouping, pack, report_impl_event, respond,
+                      serve_multiplex, serve_multiplex_strided,
+                      serve_optable, transmit, unpack)
+from .engine import (CapacityPlanner, DelegationEngine, TrustSession,
+                     check_payload_fields)
 from .trust import Trust, TrusteeGroup, TrustFuture, local_trustees
 from .kvstore import DelegatedKVStore, kv_reshard, make_kv_schema
-from .lockstore import SequentialKVReference, conflict_ranks
+from .lockstore import (AtomicAddStore, FetchRMWStore, SequentialKVReference,
+                        conflict_ranks, pad_writes)
 from .pagetable import (DelegatedPageTable, SequentialPageTable,
                         initial_pagetable_state, make_pagetable_schema)
 from .meshctx import (StackedMesh, current_mesh, current_session,
@@ -31,12 +35,15 @@ from .meshctx import (StackedMesh, current_mesh, current_session,
 __all__ = [
     "Combine", "Field", "ListField", "OpSpec", "SchemaError", "TrustSchema",
     "ChannelConfig", "ChannelInfo", "DelegatedOp", "Grouping", "Packed",
-    "Received", "check_response_structs", "collect_impl_events", "delegate",
-    "make_grouping", "pack", "report_impl_event", "respond",
-    "serve_optable", "transmit", "unpack", "DelegationEngine",
-    "TrustSession", "check_payload_fields", "Trust", "TrusteeGroup",
-    "TrustFuture", "local_trustees", "DelegatedKVStore", "kv_reshard",
-    "make_kv_schema", "SequentialKVReference", "conflict_ranks",
+    "Received", "check_response_structs", "collect_impl_events",
+    "collect_transposes", "delegate", "make_grouping", "pack",
+    "report_impl_event", "respond", "serve_multiplex",
+    "serve_multiplex_strided", "serve_optable", "transmit", "unpack",
+    "CapacityPlanner", "DelegationEngine", "TrustSession",
+    "check_payload_fields", "Trust", "TrusteeGroup", "TrustFuture",
+    "local_trustees", "DelegatedKVStore", "kv_reshard", "make_kv_schema",
+    "AtomicAddStore", "FetchRMWStore", "SequentialKVReference",
+    "conflict_ranks", "pad_writes",
     "DelegatedPageTable", "SequentialPageTable", "initial_pagetable_state",
     "make_pagetable_schema",
     "StackedMesh", "current_mesh", "current_session", "resolve_device",

@@ -15,6 +15,13 @@ the JAX channel's: each trustee serves all clients' primary blocks in
 client order, then all second_round blocks, then — with the local
 shortcut — its own self-addressed rows, appended after the channel rows.
 Within one (client, trustee) block rows keep their issue order (FIFO).
+
+A multiplexed round (``engine.py``) gives each Trust its own ``capacity``
+lane inside every (client, trustee) block: ``dst`` then holds virtual
+bins ``trustee * n_lanes + lane``, and with ``wire_fmt="planes"`` every
+payload leaf and the validity column ride ONE int32 word matrix, so a
+block moves in one transpose each way.  ``collect_transposes`` counts
+them (the jaxpr ``all_to_all`` count of the JAX tests).
 """
 from __future__ import annotations
 
@@ -57,6 +64,58 @@ def collect_impl_events():
         _impl_event_sinks.remove(events)
 
 
+# ---------------------------------------------------------------------------
+# Block-transpose side channel: every (src, dst) block transpose that
+# transmit and respond make — the all_to_all of the JAX channel — is
+# reported here, so a caller can count a round's transposes.
+# ---------------------------------------------------------------------------
+
+_transpose_sinks: List[List[str]] = []
+
+
+@contextlib.contextmanager
+def collect_transposes():
+    """Collect one entry per block transpose made while the body runs:
+    "request", "request counts" (the tree format's count header),
+    "response", or "response lanes [..]" when elided lanes stay off the
+    wire (the lanes that moved)."""
+    events: List[str] = []
+    _transpose_sinks.append(events)
+    try:
+        yield events
+    finally:
+        _transpose_sinks.remove(events)
+
+
+# ---------------------------------------------------------------------------
+# Deferred launches: a multiplexed serve runs every member's pre-launch
+# checks before the first kernel writes a table in place, so a round that
+# raises leaves every member's state as it was.
+# ---------------------------------------------------------------------------
+
+_launch_sinks: List[List[Callable[[], None]]] = []
+
+
+@contextlib.contextmanager
+def deferred_launches():
+    """Collect the launches ``launch_or_defer`` is handed while the body
+    runs; the caller issues them, in order, once the body returns."""
+    calls: List[Callable[[], None]] = []
+    _launch_sinks.append(calls)
+    try:
+        yield calls
+    finally:
+        _launch_sinks.remove(calls)
+
+
+def launch_or_defer(fn: Callable[[], None]) -> None:
+    """Run ``fn`` now, or queue it on the innermost ``deferred_launches``."""
+    if _launch_sinks:
+        _launch_sinks[-1].append(fn)
+    else:
+        fn()
+
+
 @dataclass(frozen=True)
 class ChannelConfig:
     """Channel knobs (see ``repro.core.channel.ChannelConfig``).
@@ -65,7 +124,16 @@ class ChannelConfig:
     (the CUDA kernels; their plain versions on CPU tensors), and
     ``serve_impl`` also "masked" (the per-op reference serve).  The JAX
     Pallas tile-size fields have no counterpart: the CUDA kernels pick
-    their own launch shapes."""
+    their own launch shapes.
+
+    ``wire_fmt`` "tree" moves each payload leaf in its own transpose,
+    "planes" moves the whole block as one int32 word matrix with the
+    validity column beside it (exact for every dtype ``_encode_words``
+    takes; JAX's f32 hi/lo split exists only for its MXU and has no
+    counterpart).  ``n_lanes`` is the slot lanes a destination slot holds
+    (the multiplexed round's per-trust lanes), and ``elide_lanes`` the
+    lanes whose trust writes no response field: their rows stay off the
+    response transpose ("planes" only)."""
     axis: Any = "model"
     capacity: int = 0
     overflow: str = "drop"          # "drop" | "second_round"
@@ -79,6 +147,9 @@ class ChannelConfig:
     elide_resp: Tuple[str, ...] = ()
     strict_impl: bool = False
     combine_impl: str = "off"
+    wire_fmt: str = "tree"          # "tree" | "planes"
+    n_lanes: int = 1
+    elide_lanes: Tuple[int, ...] = ()
 
     def second_capacity(self) -> int:
         """Rows per pair in the second_round block (0 when there is none)."""
@@ -109,6 +180,9 @@ class Packed(NamedTuple):
     counts2: Optional[torch.Tensor]
     request_slot: torch.Tensor    # (D, R) int32 in [0, T*C + T*C2) or -1
     dropped: torch.Tensor         # (D, R) bool — active but not sent
+    # "planes" wire of the pack kernel: (words, words2, decs) — the slots
+    # as the kernel wrote them, left undecoded (``slots`` is then None)
+    wire: Any = None
 
 
 class Received(NamedTuple):
@@ -288,10 +362,16 @@ def _pack_with_kernel(dst: torch.Tensor, payload: Pytree, n_trustees: int,
     words, decs = _encode_words(payload, d, r)
     s1, s2, counts1, counts2, request_slot, totals = kops.delegation_pack(
         dst.to(torch.int32).contiguous(), words, n_trustees, c1, c2)
-    slots2 = _decode_words(s2, decs) if c2 else None
     dropped = (request_slot < 0) & (dst >= 0)
-    return Packed(_decode_words(s1, decs), counts1, slots2,
-                  counts2 if c2 else None, request_slot, dropped), totals
+    counts2 = counts2 if c2 else None
+    if cfg.wire_fmt == "planes":
+        # the slots are already the plane matrix: transmit moves them
+        # without a decode and a re-encode
+        return Packed(None, counts1, None, counts2, request_slot, dropped,
+                      wire=(s1, s2 if c2 else None, decs)), totals
+    slots2 = _decode_words(s2, decs) if c2 else None
+    return Packed(_decode_words(s1, decs), counts1, slots2, counts2,
+                  request_slot, dropped), totals
 
 
 def pack(dst: torch.Tensor, payload: Pytree, n_trustees: int,
@@ -352,18 +432,71 @@ def _transpose_blocks(leaf: torch.Tensor, c: int) -> torch.Tensor:
         .reshape((b, a * c) + trail)
 
 
-def transmit(packed: Packed, n_trustees: int, cfg: ChannelConfig) -> Received:
-    """Move request slots to their trustees: the delegation message."""
+def _a2a(leaf: torch.Tensor, c: int, what: str) -> torch.Tensor:
+    """One counted block transpose (see ``collect_transposes``)."""
+    for sink in _transpose_sinks:
+        sink.append(what)
+    return _transpose_blocks(leaf, c)
+
+
+def _block_meta(cnt: torch.Tensor, c: int, lanes: int):
+    """Validity and originating client (T, D*lanes*c) of a transposed
+    block of ``c`` rows a (client, lane), from its transposed count header
+    (T, D*lanes)."""
+    t, n = cnt.shape
+    dev = cnt.device
+    valid = (torch.arange(c, device=dev) < cnt[..., None]).reshape(t, n * c)
+    client = torch.arange(n // lanes, dtype=torch.int32, device=dev) \
+        .repeat_interleave(lanes * c).expand(t, n * c)
+    return valid, client
+
+
+def _transmit_planes(packed: Packed, n_bins: int,
+                     cfg: ChannelConfig) -> Received:
+    """``transmit`` with ``wire_fmt="planes"``: ONE transpose a block.  The
+    plane matrix is the payload's int32 words (``_encode_words``, exact)
+    plus one word column of validity from the count header; decoding
+    after the transpose gives back the tree format's rows bit for bit."""
     d = packed.counts.shape[0]
-    dev = packed.counts.device
+    lanes = cfg.n_lanes
+    if packed.wire is not None:
+        w1, w2, decs = packed.wire
+    else:
+        w1, decs = _encode_words(packed.slots, d, n_bins * cfg.capacity)
+        w2 = None if packed.slots2 is None else _encode_words(
+            packed.slots2, d, n_bins * cfg.overflow_capacity)[0]
+
+    def send_block(words, counts, c):
+        valid = (torch.arange(c, device=counts.device)
+                 < counts[..., None]).reshape(d, n_bins * c, 1)
+        planes = _a2a(torch.cat([words, valid.to(torch.int32)], -1),
+                      lanes * c, "request")
+        # the client column is static: only the validity rides the wire
+        _, client = _block_meta(_transpose_blocks(counts, lanes), c, lanes)
+        return _decode_words(planes[..., :-1], decs), planes[..., -1] != 0, \
+            client
+
+    rows, valid, client = send_block(w1, packed.counts, cfg.capacity)
+    if w2 is not None:
+        rows2, valid2, client2 = send_block(w2, packed.counts2,
+                                            cfg.overflow_capacity)
+        rows = {k: torch.cat([rows[k], rows2[k]], 1) for k in rows}
+        valid = torch.cat([valid, valid2], 1)
+        client = torch.cat([client, client2], 1)
+    return Received(rows, valid, client)
+
+
+def transmit(packed: Packed, n_bins: int, cfg: ChannelConfig) -> Received:
+    """Move request slots to their trustees: the delegation message.
+    ``n_bins`` counts destination bins: trustees x ``cfg.n_lanes``."""
+    if cfg.wire_fmt == "planes":
+        return _transmit_planes(packed, n_bins, cfg)
+    lanes = cfg.n_lanes
 
     def send_block(slots, counts, c):
-        rows = {k: _transpose_blocks(v, c) for k, v in slots.items()}
-        cnt = counts.transpose(0, 1)                      # (T, D)
-        valid = (torch.arange(c, device=dev)[None, None, :]
-                 < cnt[..., None]).reshape(n_trustees, d * c)
-        client = torch.arange(d, dtype=torch.int32, device=dev) \
-            .repeat_interleave(c).expand(n_trustees, d * c)
+        rows = {k: _a2a(v, lanes * c, "request") for k, v in slots.items()}
+        valid, client = _block_meta(_a2a(counts, lanes, "request counts"), c,
+                                    lanes)
         return rows, valid, client
 
     rows, valid, client = send_block(packed.slots, packed.counts,
@@ -377,18 +510,45 @@ def transmit(packed: Packed, n_trustees: int, cfg: ChannelConfig) -> Received:
     return Received(rows, valid, client)
 
 
-def respond(responses: Pytree, n_trustees: int, cfg: ChannelConfig) -> Pytree:
+def respond(responses: Pytree, n_bins: int, cfg: ChannelConfig) -> Pytree:
     """Move response rows back to their clients' slots (the transpose
-    back).  Leaves (T, n_chan, ...) -> (D, T*C [+ T*C2], ...)."""
+    back).  Leaves (T, n_chan, ...) -> (D, bins*C [+ bins*C2], ...).
+    With ``wire_fmt="planes"`` every leaf rides one word matrix, and the
+    rows of ``cfg.elide_lanes`` stay off the transpose and come back as
+    zeros."""
     c1, c2 = cfg.capacity, cfg.second_capacity()
-    out = {}
-    for k, leaf in responses.items():
-        n1 = (leaf.shape[1] // (c1 + c2)) * c1
-        back = _transpose_blocks(leaf[:, :n1], c1)
+    lanes = cfg.n_lanes
+    first = next(iter(responses.values()))
+    t = first.shape[0]
+    n1 = (first.shape[1] // (c1 + c2)) * c1
+
+    def blocks(leaf, back):
+        out = back(leaf[:, :n1], c1)
         if c2:
-            back = torch.cat([back, _transpose_blocks(leaf[:, n1:], c2)], 1)
-        out[k] = back
-    return out
+            out = torch.cat([out, back(leaf[:, n1:], c2)], 1)
+        return out
+
+    if cfg.wire_fmt != "planes":
+        return {k: blocks(v, lambda x, c: _a2a(x, lanes * c, "response"))
+                for k, v in responses.items()}
+    keep = [ln for ln in range(lanes) if ln not in cfg.elide_lanes]
+    words, decs = _encode_words(responses, t, first.shape[1])
+    wp = words.shape[-1]
+
+    def back(block, c):
+        if len(keep) == lanes:
+            return _a2a(block, lanes * c, "response")
+        d = block.shape[1] // (lanes * c)
+        full = torch.zeros((d, t, lanes, c, wp), dtype=words.dtype,
+                           device=words.device)
+        if keep:
+            sub = block.reshape(t, d, lanes, c, wp)[:, :, keep]
+            moved = _a2a(sub.reshape(t, d * len(keep) * c, wp),
+                         len(keep) * c, f"response lanes {keep}")
+            full[:, :, keep] = moved.reshape(d, t, len(keep), c, wp)
+        return full.reshape(d, t * lanes * c, wp)
+
+    return _decode_words(blocks(words, back), decs)
 
 
 def unpack(responses_at_client: Pytree, request_slot: torch.Tensor) -> Pytree:
@@ -418,21 +578,41 @@ class ChannelInfo(NamedTuple):
     impl_fallback: int = 0      # implementation fallbacks in the serve
 
 
+def _resp_bytes_per_row(leaf: torch.Tensor, wire_fmt: str) -> int:
+    """Wire bytes one response row of this leaf occupies: its own bytes in
+    the tree format, one 32-bit word an element in the planes matrix."""
+    trailing = 1
+    for s in leaf.shape[1:]:
+        trailing *= int(s)
+    return trailing * (4 if wire_fmt == "planes" else leaf.element_size())
+
+
 def resp_elision_bytes(resp_like: Pytree, cfg: ChannelConfig,
                        n_rows: int) -> int:
-    """Response-transpose bytes per shard saved by eliding the fields no
-    op of the round writes (one row of a leaf is its trailing size times
-    its itemsize)."""
+    """Response-transpose bytes per shard saved by elision: whole fields
+    no op of the round writes, plus the elided lanes' rows of the other
+    fields (multiplexed rounds, "planes" wire)."""
     if not isinstance(resp_like, dict) or n_rows <= 0:
         return 0
-    saved = 0
+    saved = kept_bpr = 0
     for name, leaf in resp_like.items():
+        bpr = _resp_bytes_per_row(leaf, cfg.wire_fmt)
         if name in cfg.elide_resp:
-            trailing = 1
-            for s in leaf.shape[1:]:
-                trailing *= int(s)
-            saved += n_rows * trailing * leaf.element_size()
+            saved += n_rows * bpr
+        else:
+            kept_bpr += bpr
+    if cfg.elide_lanes and cfg.n_lanes > 1 and cfg.wire_fmt == "planes":
+        saved += (n_rows // cfg.n_lanes) * len(cfg.elide_lanes) * kept_bpr
     return saved
+
+
+def _elide_split(resp_rows: Pytree, cfg: ChannelConfig):
+    """Split response rows into (kept, elided) by ``cfg.elide_resp``."""
+    if not cfg.elide_resp or not isinstance(resp_rows, dict):
+        return resp_rows, {}
+    kept = {k: v for k, v in resp_rows.items() if k not in cfg.elide_resp}
+    elided = {k: v for k, v in resp_rows.items() if k in cfg.elide_resp}
+    return kept, elided
 
 
 def _merge_local(responses: Pytree, local_resp: Pytree,
@@ -446,34 +626,35 @@ def _merge_local(responses: Pytree, local_resp: Pytree,
 
 
 def _respond_unpack(resp_rows: Pytree, request_slot: torch.Tensor,
-                    n_trustees: int, cfg: ChannelConfig,
+                    n_bins: int, cfg: ChannelConfig,
                     local_resp: Optional[Pytree] = None,
                     local_mask: Optional[torch.Tensor] = None) -> Pytree:
     """respond -> unpack -> merge-local; fields in ``cfg.elide_resp`` skip
     the transpose and come back as zeros (a PUT-only round moves no
     response at all)."""
-    kept = {k: v for k, v in resp_rows.items() if k not in cfg.elide_resp}
+    kept, elided = _elide_split(resp_rows, cfg)
     out = {}
     if kept:
-        out = unpack(respond(kept, n_trustees, cfg), request_slot)
+        out = unpack(respond(kept, n_bins, cfg), request_slot)
         if local_resp is not None:
             out = _merge_local(out, {k: local_resp[k] for k in kept},
                                local_mask)
     shape = tuple(request_slot.shape)
-    for k, v in resp_rows.items():
-        if k not in kept:
-            out[k] = torch.zeros(shape + tuple(v.shape[2:]), dtype=v.dtype,
-                                 device=v.device)
+    for k, v in elided.items():
+        out[k] = torch.zeros(shape + tuple(v.shape[2:]), dtype=v.dtype,
+                             device=v.device)
     return {k: out[k] for k in resp_rows}
 
 
-def _split_local(dst: torch.Tensor, payload: Pytree):
+def _split_local(dst: torch.Tensor, payload: Pytree, n_lanes: int = 1):
     """Local-trustee shortcut: requests addressed to their own shard skip
     the channel and are appended to that trustee's serve batch, after the
-    channel rows (shared mode: client shard d is trustee d)."""
+    channel rows (shared mode: client shard d is trustee d).  With lanes
+    ``dst`` holds virtual bins: a row is local when its DEVICE slot
+    (``dst // n_lanes``) is its own shard, whichever lane it rides."""
     d, r = dst.shape
     my_id = torch.arange(d, dtype=torch.int32, device=dst.device)[:, None]
-    local_mask = dst == my_id
+    local_mask = torch.div(dst, n_lanes, rounding_mode="floor") == my_id
     remote_dst = torch.where(local_mask, torch.full_like(dst, -1), dst)
     local_recv = Received(rows=payload, valid=local_mask,
                           client=my_id.expand(d, r))
@@ -490,27 +671,32 @@ def _concat_received(a: Received, b: Received) -> Received:
 def delegate(state: Pytree, dst: torch.Tensor, payload: Pytree,
              serve_fn: ServeFn, n_trustees: int, cfg: ChannelConfig):
     """Synchronous delegation: pack -> transmit -> serve -> respond ->
-    unpack over every shard at once.  ``dst`` (D, R) holds trustee ids.
-    Returns (new_state, responses (D, R, ...), ChannelInfo)."""
+    unpack over every shard at once.  ``dst`` (D, R) holds trustee ids —
+    virtual bins ``trustee * n_lanes + lane`` when ``cfg.n_lanes > 1``, so
+    each lane keeps its solo pack, capacity and FIFO semantics inside the
+    shared block.  Returns (new_state, responses (D, R, ...),
+    ChannelInfo); ``group_sizes`` is per bin."""
     if cfg.mode != "shared":
         raise NotImplementedError(
             "dedicated trustee mode is not ported yet (ROADMAP.md queue A: "
             "dedicated mode)")
     d, r = dst.shape
+    n_bins = n_trustees * cfg.n_lanes
     local_recv = local_mask = None
     if cfg.local_shortcut:
-        dst, local_recv, local_mask = _split_local(dst, payload)
+        dst, local_recv, local_mask = _split_local(dst, payload, cfg.n_lanes)
         if n_trustees == 1:
             with collect_impl_events() as events:
                 new_state, local_resp = serve_fn(state, local_recv)
             info = ChannelInfo(
-                torch.zeros((d, 1), dtype=torch.int32, device=dst.device),
+                torch.zeros((d, n_bins), dtype=torch.int32,
+                            device=dst.device),
                 torch.zeros((d, r), dtype=torch.bool, device=dst.device), 0,
                 impl_fallback=len(events))
             return new_state, local_resp, info
 
-    packed, group_sizes = pack(dst, payload, n_trustees, cfg)
-    received = transmit(packed, n_trustees, cfg)
+    packed, group_sizes = pack(dst, payload, n_bins, cfg)
+    received = transmit(packed, n_bins, cfg)
     n_chan = received.valid.shape[1]
     if local_recv is not None:
         received = _concat_received(received, local_recv)
@@ -520,10 +706,10 @@ def delegate(state: Pytree, dst: torch.Tensor, payload: Pytree,
     if local_recv is not None:
         local_resp = {k: v[:, n_chan:] for k, v in resp_rows.items()}
         resp_rows = {k: v[:, :n_chan] for k, v in resp_rows.items()}
-    responses = _respond_unpack(resp_rows, packed.request_slot, n_trustees,
+    responses = _respond_unpack(resp_rows, packed.request_slot, n_bins,
                                 cfg, local_resp, local_mask)
     info = ChannelInfo(group_sizes, packed.dropped,
-                       n_trustees * cfg.total_capacity(),
+                       n_bins * cfg.total_capacity(),
                        impl_fallback=len(events))
     return new_state, responses, info
 
@@ -652,4 +838,153 @@ def serve_optable(ops: Tuple[DelegatedOp, ...],
         if fused is not None and grouping is not None:
             return fused.serve(ops, ids, state, received, serve_impl, cfg)
         return _masked_pass(ops, ids, state, received)
+    return serve
+
+
+def _serve_members(serves, states, members):
+    """Serve each trust's ``Received``; every kernel launch waits until all
+    members' pre-launch checks have passed, so a round that raises leaves
+    every member's state as it was."""
+    new_states, resps = [], []
+    with deferred_launches() as launches:
+        for serve_t, state, recv_t in zip(serves, states, members):
+            s, r = serve_t(state, recv_t)
+            new_states.append(s)
+            resps.append(r)
+    for fn in launches:
+        fn()
+    return tuple(new_states), resps
+
+
+def _where_rows(m: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    return torch.where(m.reshape(tuple(m.shape) + (1,) * (a.dim() - m.dim())),
+                       a, b)
+
+
+def serve_multiplex(tables, renames, merge_resp: bool = False,
+                    serve_impl: str = "kernel",
+                    cfg: Optional[ChannelConfig] = None) -> ServeFn:
+    """Merged serve table for one MULTIPLEXED round over several Trusts,
+    the masked layout (see ``repro.core.channel.serve_multiplex``).
+
+    ``states`` is a tuple of per-trust states; the rows carry a "trust"
+    lane next to the "op" lane, and trust ``tid``'s payload field ``f``
+    rides the wire lane ``renames[tid][f]``.  Trust ``tid`` serves the
+    rows where ``trust == tid`` through its own op table with its own
+    state, in (registration, op-table) order.  With ``merge_resp`` (every
+    trust's responses agree in structure) one response dict carries each
+    row's own trust's response; otherwise the dict holds every trust's
+    fields as ``field@tid``."""
+    serves = tuple(serve_optable(ops, active, serve_impl=serve_impl, cfg=cfg)
+                   for ops, active in tables)
+
+    def serve(states, received: Received):
+        rows = received.rows
+        trust_col = rows["trust"]
+        members = []
+        for tid in range(len(serves)):
+            rows_t = {"op": rows["op"]} if "op" in rows else {}
+            for field, lane in renames[tid].items():
+                rows_t[field] = rows[lane]
+            members.append(Received(rows_t, received.valid & (trust_col == tid),
+                                    received.client))
+        new_states, resps = _serve_members(serves, states, members)
+        if merge_resp:
+            out = resps[0]
+            for tid in range(1, len(resps)):
+                m = trust_col == tid
+                out = {k: _where_rows(m, v, out[k])
+                       for k, v in resps[tid].items()}
+            return new_states, out
+        return new_states, {f"{k}@{tid}": v for tid, r in enumerate(resps)
+                            for k, v in r.items()}
+    return serve
+
+
+def lane_rows(leaf: torch.Tensor, tid: int, n_lanes: int, t_send: int,
+              c1: int, c2: int) -> torch.Tensor:
+    """The rows of lane ``tid`` in a received buffer of the lane layout
+    (T, t_send*n_lanes*(c1 + c2) [+ local tail], ...): its ``c1`` rows of
+    every client block, its ``c2`` rows of every second_round block, then
+    the whole local-shortcut tail — gathered once into a contiguous
+    tensor (the serve kernels take contiguous rows only)."""
+    t = leaf.shape[0]
+    trail = tuple(leaf.shape[2:])
+    n1, n2 = t_send * n_lanes * c1, t_send * n_lanes * c2
+
+    def block(part, c):
+        return part.reshape((t, t_send, n_lanes, c) + trail)[:, :, tid] \
+            .reshape((t, t_send * c) + trail)
+
+    parts = [block(leaf[:, :n1], c1)]
+    if n2:
+        parts.append(block(leaf[:, n1:n1 + n2], c2))
+    if leaf.shape[1] > n1 + n2:
+        parts.append(leaf[:, n1 + n2:])
+    return torch.cat(parts, 1) if len(parts) > 1 else parts[0].contiguous()
+
+
+def serve_multiplex_strided(tables, renames, n_lanes: int, t_send: int,
+                            c1: int, c2: int, serve_impl: str = "kernel",
+                            cfg: Optional[ChannelConfig] = None) -> ServeFn:
+    """``serve_multiplex`` for the LANE slot layout (``cfg.n_lanes > 1``):
+    each trust serves only its own ``t_send * (c1 + c2)`` channel rows plus
+    the local-shortcut tail, so the serve work stays linear in the number
+    of trusts; the per-trust responses restack into one buffer (every
+    trust's response structure must match)."""
+    serves = tuple(serve_optable(ops, active, serve_impl=serve_impl, cfg=cfg)
+                   for ops, active in tables)
+    n1, n2 = t_send * n_lanes * c1, t_send * n_lanes * c2
+
+    def serve(states, received: Received):
+        rows, valid, client = received.rows, received.valid, received.client
+        n_local = valid.shape[1] - n1 - n2
+        if n_local < 0:
+            raise ValueError("strided multiplex serve called with a "
+                             "non-lane row layout")
+        trust_col = rows.get("trust")
+        if n_local and trust_col is None:
+            raise ValueError("a local-shortcut tail needs the trust lane on "
+                             "the wire")
+
+        def sub(leaf, tid):
+            return lane_rows(leaf, tid, n_lanes, t_send, c1, c2)
+
+        members = []
+        for tid in range(len(serves)):
+            rows_t = {"op": sub(rows["op"], tid)} if "op" in rows else {}
+            for field, lane in renames[tid].items():
+                rows_t[field] = sub(rows[lane], tid)
+            valid_t = sub(valid, tid)
+            if trust_col is not None:
+                # channel rows of lane tid always carry trust == tid; the
+                # mask only bites on the shared local-shortcut tail
+                valid_t = valid_t & (sub(trust_col, tid) == tid)
+            members.append(Received(rows_t, valid_t, sub(client, tid)))
+        new_states, resps = _serve_members(serves, states, members)
+
+        t = valid.shape[0]
+        tail_trust = trust_col[:, n1 + n2:] if n_local else None
+
+        def join(leaves):
+            shp = tuple(leaves[0].shape[2:])
+            o1 = t_send * c1
+            parts = [torch.stack(
+                [x[:, :o1].reshape((t, t_send, c1) + shp) for x in leaves],
+                2).reshape((t, n1) + shp)]
+            if n2:
+                parts.append(torch.stack(
+                    [x[:, o1:o1 + t_send * c2].reshape((t, t_send, c2) + shp)
+                     for x in leaves], 2).reshape((t, n2) + shp))
+            if n_local:
+                o_l = t_send * (c1 + c2)
+                tail = leaves[0][:, o_l:]
+                for tid in range(1, len(leaves)):
+                    tail = _where_rows(tail_trust == tid,
+                                       leaves[tid][:, o_l:], tail)
+                parts.append(tail)
+            return torch.cat(parts, 1) if len(parts) > 1 else parts[0]
+
+        return new_states, {k: join([r[k] for r in resps]) for k in resps[0]}
     return serve

@@ -2,8 +2,10 @@
 
 The torch counterpart of ``repro.core.engine``.  Trusts register here at
 ``entrust`` time (weakly); ``submit`` marks a trust dirty and ``step()``
-flushes every dirty trust.  A round runs eagerly — PyTorch has no ``jit``
-boundary to cache — as the JAX solo program does:
+flushes every dirty trust: channel-compatible trusts (equal
+``Trust.fuse_signature``) fuse into ONE multiplexed round, the rest flush
+solo.  A round runs eagerly — PyTorch has no ``jit`` boundary to cache —
+as the JAX programs do:
 
   * concatenate the queued batches (an "op" column when more than one op
     is queued; payload fields a batch lacks are zero-filled);
@@ -13,9 +15,18 @@ boundary to cache — as the JAX solo program does:
   * one ``channel.delegate`` round over all shards, responses sliced back
     per batch.
 
-This slice flushes each pending trust solo.  A step in which two or more
-channel-compatible trusts are pending would fuse them into one
-multiplexed round in JAX; that round is not ported yet and raises.
+The multiplexed round lays the trusts' batches out trust-major with a
+"trust" id lane, moves them on the "planes" wire (one request transpose,
+one response transpose), and serves each trust's rows through its own op
+table and state: with the lane layout (every trust's responses agree)
+each trust owns a ``capacity`` lane of every (client, trustee) block,
+otherwise every trust takes a masked pass over the shared block.  Each
+trust's semantics are its solo semantics over the engine's row layout.
+
+A ``CapacityPlanner`` turns the per-round demand (``group_sizes``) into an
+EMA that sizes the next auto-capacity round: every fused round that holds
+an auto-capacity trust, and solo rounds of trusts entrusted with
+``plan_capacity=True``.
 
 ``step(sync=False)`` issues the rounds and returns without reading any
 device value; it records a ``torch.cuda.Event`` per wave on PyTorch's
@@ -25,8 +36,9 @@ that wave alone, not for the waves issued after it.
 from __future__ import annotations
 
 import dataclasses
+import math
 import weakref
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -68,17 +80,69 @@ def _elidable_fields(ops, active_ids, resp_like) -> Tuple[str, ...]:
     return tuple(sorted(set(resp_like.keys()) - written))
 
 
+class CapacityPlanner:
+    """EMA-based primary-block sizing (paper §5.3.1, adaptive; see
+    ``repro.core.engine.CapacityPlanner``).
+
+    Observes the realized max per-(client, trustee) pair demand of each
+    round and plans the next round's ``capacity`` as ``headroom * EMA``,
+    rounded up to a power of two.  Observations are kept as device
+    tensors and read back on the host only inside ``plan()`` / ``ema()``,
+    so the round that produced them is never waited for on the hot path."""
+
+    def __init__(self, alpha: float = 0.5, headroom: float = 1.5,
+                 min_capacity: int = 4):
+        self.alpha = alpha
+        self.headroom = headroom
+        self.min_capacity = min_capacity
+        self._ema: Dict[Any, float] = {}
+        self._staged: Dict[Any, Any] = {}
+
+    def observe(self, sig, demand_max) -> None:
+        self._staged[sig] = demand_max
+
+    def prune(self, live_sigs) -> None:
+        """Drop the entries no live trust can produce again."""
+        live = set(live_sigs)
+        for d in (self._ema, self._staged):
+            for sig in [s for s in d if s not in live]:
+                del d[sig]
+
+    def _resolve(self, sig) -> None:
+        staged = self._staged.pop(sig, None)
+        if staged is None:
+            return
+        d = float(torch.as_tensor(staged).reshape(-1)[0])
+        prev = self._ema.get(sig)
+        self._ema[sig] = d if prev is None else \
+            self.alpha * d + (1.0 - self.alpha) * prev
+
+    def ema(self, sig) -> Optional[float]:
+        self._resolve(sig)
+        return self._ema.get(sig)
+
+    def plan(self, sig, fallback: int) -> int:
+        """Planned primary capacity, or ``fallback`` with no history yet."""
+        ema = self.ema(sig)
+        if ema is None or ema <= 0:
+            return fallback
+        need = max(1, int(math.ceil(self.headroom * ema)))
+        return max(self.min_capacity, 1 << (need - 1).bit_length())
+
+
 class DelegationEngine:
     """Session-wide execution engine for delegation rounds
     (``TrustSession``)."""
 
-    def __init__(self):
+    def __init__(self, planner: Optional[CapacityPlanner] = None):
         self._trusts: Dict[int, Any] = {}
         self._next_token = 0
         self._dirty: List[int] = []
+        self.planner = planner if planner is not None else CapacityPlanner()
         self.rounds_dispatched = 0
         self._last_step_stats: Dict[str, Dict[str, Any]] = {}
         self._stats_owner: Dict[str, int] = {}
+        self.last_step_info: Dict[str, Any] = {"fused": [], "solo": []}
         self.wave_events: List[Any] = []
 
     # -- registry -----------------------------------------------------------
@@ -98,6 +162,15 @@ class DelegationEngine:
             self._stats_owner = {n: tok for n, tok in
                                  self._stats_owner.items()
                                  if tok not in gone}
+            # planner entries are keyed ("solo", token) / ("mux", fuse
+            # signature): evict the ones no live trust can produce again
+            live = [r() for r in self._trusts.values()]
+            live_sigs = set()
+            for t in live:
+                if t is not None:
+                    live_sigs.add(("solo", t.token))
+                    live_sigs.add(("mux", self._mux_signature(t)))
+            self.planner.prune(live_sigs)
 
     def notify(self, trust) -> None:
         if trust.token not in self._dirty:
@@ -113,7 +186,9 @@ class DelegationEngine:
         ``{trust_name: {rounds, residual, demand_max, dropped,
         resp_bytes_saved, rows_combined, req_bytes_saved,
         impl_fallback}}``.  Reading them waits for the round's device
-        work (``dropped`` and ``demand_max`` are device counts)."""
+        work (``dropped`` and ``demand_max`` are device counts).  A fused
+        round's members report its round-level ``resp_bytes_saved`` and
+        their own ``residual`` (= ``dropped``) and ``demand_max``."""
         return {name: {k: int(v) for k, v in d.items()}
                 for name, d in self._last_step_stats.items()}
 
@@ -127,9 +202,9 @@ class DelegationEngine:
 
     # -- step ---------------------------------------------------------------
     def trusts(self) -> List[Any]:
-        """The live registered trusts."""
+        """The live registered trusts, in registration order."""
         self._prune()
-        return [t for t in (r() for r in self._trusts.values())
+        return [t for t in (self._trusts[k]() for k in sorted(self._trusts))
                 if t is not None]
 
     def quiesced(self) -> bool:
@@ -137,14 +212,25 @@ class DelegationEngine:
         rounds the trustee's linear op history has no in-flight prefix)."""
         return not self._dirty and all(not t._pending for t in self.trusts())
 
+    def _mux_signature(self, trust):
+        """The trust's fuse signature (``Trust.fuse_signature``), cached on
+        the trust."""
+        sig = getattr(trust, "_mux_sig", None)
+        if sig is None:
+            sig = trust.fuse_signature()
+            trust._mux_sig = sig
+        return sig
+
     def step(self, sync: bool = True):
-        """Flush every pending batch.  Returns ``last_stats()``, UNLESS
-        ``sync=False``: reading the stats waits for the round's device work,
-        the barrier a dispatch-ahead driver (``launch/streaming.py``) must
-        not pay.  ``sync=False`` issues the rounds, records ``wave_events``
-        (one event on the current stream of each CUDA device the rounds ran
-        on; none on the CPU) and returns None; ``last_stats()`` later gives
-        the same numbers."""
+        """Flush every pending batch in as few channel rounds as possible:
+        channel-compatible trusts fuse into ONE multiplexed round, the rest
+        flush solo; ``last_step_info`` names them.  Returns
+        ``last_stats()``, UNLESS ``sync=False``: reading the stats waits
+        for the round's device work, the barrier a dispatch-ahead driver
+        (``launch/streaming.py``) must not pay.  ``sync=False`` issues the
+        rounds, records ``wave_events`` (one event on the current stream
+        of each CUDA device the rounds ran on; none on the CPU) and
+        returns None; ``last_stats()`` later gives the same numbers."""
         self._prune()
         pending = []
         for tok in list(self._dirty):
@@ -152,20 +238,31 @@ class DelegationEngine:
             t = ref() if ref is not None else None
             if t is not None and t._pending:
                 pending.append(t)
-        groups: Dict[Any, List[Any]] = {}
-        for t in pending:
-            groups.setdefault(t.fuse_signature(), []).append(t)
-        fusable = [[t.name for t in g] for g in groups.values() if len(g) > 1]
-        if fusable:
-            raise NotImplementedError(
-                f"session.step() with channel-compatible trusts "
-                f"{fusable} pending would fuse them into one multiplexed "
-                f"round, which is not ported to repro_torch yet (ROADMAP.md "
-                f"queue A: multiplexed round); flush() them one by one")
         self._dirty.clear()
         self._last_step_stats = {}
+        self.last_step_info = {"fused": [], "solo": []}
+        groups: Dict[Any, List[Any]] = {}
         for t in pending:
-            t.flush()
+            groups.setdefault(self._mux_signature(t), []).append(t)
+        remaining = list(pending)
+        try:
+            for members in groups.values():
+                if len(members) == 1:
+                    self.last_step_info["solo"].append(members[0].name)
+                    members[0].flush()
+                else:
+                    self.last_step_info["fused"].append(
+                        [t.name for t in members])
+                    self._run_mux(members)
+                for t in members:
+                    remaining.remove(t)
+        except Exception:
+            # one group failing must not strand the others' pending batches
+            # (the failed group restores its own queue and re-notifies)
+            for t in remaining:
+                if t._pending:
+                    self.notify(t)
+            raise
         if sync:
             return self.last_stats()
         self.wave_events = []
@@ -178,11 +275,20 @@ class DelegationEngine:
     # -- the solo round -----------------------------------------------------
     def run_solo(self, trust, batches, capacity=None):
         """Run ``batches`` ([(op_id, dst, payload)]) of one trust as ONE
-        channel round.  Returns the per-batch responses in request
-        order."""
+        channel round; its demand feeds the planner, which sizes the round
+        when the trust was entrusted with ``plan_capacity=True`` and auto
+        capacity.  Returns the per-batch responses in request order."""
         sizes = [int(b[1].shape[0]) for b in batches]
         r_total = sum(sizes)
         cfg = trust._cfg_for(r_total, capacity)
+        sig = ("solo", trust.token)
+        if capacity is None and trust.cfg.capacity == 0 \
+                and trust.plan_capacity:
+            cap = self.planner.plan(sig, cfg.capacity)
+            over = cap if trust.cfg.overflow == "second_round" else 0
+            cfg = dataclasses.replace(
+                cfg, capacity=cap,
+                overflow_capacity=trust.cfg.overflow_capacity or over)
         ops = trust.ops
         op_ids = [b[0] for b in batches]
         check_payload_fields(
@@ -193,43 +299,23 @@ class DelegationEngine:
         serve = ch.serve_optable(ops, active_ids=active,
                                  serve_impl=cfg.serve_impl, cfg=cfg)
         dev = trust.device
-        dsts = [b[1].to(dev, torch.int32) for b in batches]
-        payloads = [b[2] for b in batches]
-        dst = torch.cat(dsts, 0)
         rows: Dict[str, torch.Tensor] = {}
         if len(set(op_ids)) > 1:
             rows["op"] = torch.cat(
                 [torch.full((n,), oid, dtype=torch.int16, device=dev)
                  for oid, n in zip(op_ids, sizes)], 0)
-        names = set()
-        for p in payloads:
-            names |= set(p.keys())
-        for name in sorted(names):
-            like = next(p[name] for p in payloads if name in p)
-            rows[name] = torch.cat(
-                [p[name].to(dev) if name in p else
-                 torch.zeros((n,) + tuple(like.shape[1:]), dtype=like.dtype,
-                             device=dev)
-                 for p, n in zip(payloads, sizes)], 0)
-
-        # pad so every client shard gets an equal CONTIGUOUS slice (the
-        # JAX batch sharding); padding rows are inactive (dst = -1)
+        payloads = [b[2] for b in batches]
+        rows.update(_concat_lanes([{k: k for k in p} for p in payloads],
+                                  payloads, sizes, dev))
         d = trust.group.mesh.size
-        r_dev = -(-r_total // d)
-        pad = d * r_dev - r_total
-        if pad:
-            dst = torch.cat([dst, torch.full((pad,), -1, dtype=torch.int32,
-                                             device=dev)])
-            rows = {k: torch.cat([v, torch.zeros((pad,) + tuple(v.shape[1:]),
-                                                 dtype=v.dtype, device=dev)])
-                    for k, v in rows.items()}
-        dst = dst.reshape(d, r_dev)
-        rows = {k: v.reshape((d, r_dev) + tuple(v.shape[1:]))
-                for k, v in rows.items()}
+        dst, rows, r_dev = _shard_rows(
+            torch.cat([b[1].to(dev, torch.int32) for b in batches], 0),
+            rows, d)
 
         new_state, resp, info = ch.delegate(trust._state, dst, rows, serve,
                                             trust.n_trustees, cfg)
         trust._state = new_state
+        self.planner.observe(sig, info.group_sizes.max())
         self.rounds_dispatched += 1
         n_rows = trust.n_trustees * cfg.total_capacity()
         saved = 0 if (trust.n_trustees == 1 and cfg.local_shortcut) \
@@ -240,13 +326,276 @@ class DelegationEngine:
             "dropped": info.dropped.sum(),
             "resp_bytes_saved": saved, "rows_combined": 0,
             "req_bytes_saved": 0, "impl_fallback": info.impl_fallback}
-        flat = {k: v.reshape((d * r_dev,) + tuple(v.shape[2:]))
-                for k, v in resp.items()}
-        out, off = [], 0
+        return _split_spans(resp, d * r_dev, [sizes])[0]
+
+    # -- the multiplexed round ----------------------------------------------
+    def _mux_cfg(self, trusts, r_totals) -> ch.ChannelConfig:
+        """One channel config for the fused round.  ``capacity`` is PER
+        LANE: the trusts' shared explicit capacity (part of the fuse
+        signature), or — with an auto-capacity trust — the planner's
+        EMA-sized block, falling back to the static per-trust mean rule
+        before any history exists."""
+        base = trusts[0].cfg
+        explicit = [t.cfg.capacity for t in trusts if t.cfg.capacity > 0]
+        fallback = max(t._auto_capacity(rt)
+                       for t, rt in zip(trusts, r_totals))
+        cap = max(explicit) if explicit else 0
+        if any(t.cfg.capacity == 0 for t in trusts):
+            cap = max(cap, self.planner.plan(
+                ("mux", self._mux_signature(trusts[0])), fallback))
+        over = 0
+        if base.overflow == "second_round":
+            over = max((t.cfg.overflow_capacity for t in trusts),
+                       default=0) or cap
+        return dataclasses.replace(base, capacity=cap,
+                                   overflow_capacity=over,
+                                   wire_fmt="planes")
+
+    def _run_mux(self, trusts) -> None:
+        """One multiplexed round over ``trusts``' queued batches.  A round
+        that raises puts every member's queue back (its state untouched)
+        and re-notifies it, so the caller can drop the offending submit
+        and step again."""
+        entries = []
+        for t in trusts:
+            pending, t._pending = t._pending, []
+            entries.append((t, pending))
+        try:
+            batches = [[(o, d, p) for (o, d, p, _f) in pend]
+                       for _t, pend in entries]
+            cfg = self._mux_cfg(
+                trusts, [sum(int(b[1].shape[0]) for b in tb)
+                         for tb in batches])
+            new_states, resps, tel = _mux_round(trusts, batches, cfg)
+        except Exception:
+            for t, pend in entries:
+                t._pending = pend + t._pending
+                self.notify(t)
+            raise
+        self.rounds_dispatched += 1
+        self.planner.observe(("mux", self._mux_signature(trusts[0])),
+                             tel["demand_merged"])
+        for i, (t, pend) in enumerate(entries):
+            t._state = new_states[i]
+            self._last_step_stats[self._stats_key(t)] = {
+                "rounds": 1, "residual": tel["residual"][i],
+                "demand_max": tel["demand"][i],
+                "dropped": tel["residual"][i],
+                "resp_bytes_saved": tel["saved"], "rows_combined": 0,
+                "req_bytes_saved": 0, "impl_fallback": tel["impl_fallback"]}
+            for (_o, _d, _p, fut), resp in zip(pend, resps[i]):
+                fut._fulfil(resp)
+
+
+# ---------------------------------------------------------------------------
+# Round builders
+# ---------------------------------------------------------------------------
+
+def _concat_lanes(lane_maps, payloads, sizes, dev) -> Dict[str, torch.Tensor]:
+    """Concatenate the batches' payload fields into wire lanes:
+    ``lane_maps[i]`` maps batch i's field names to lanes; a batch that
+    lacks a lane gets zeros shaped like the first batch that has it."""
+    like: Dict[str, torch.Tensor] = {}
+    for lmap, p in zip(lane_maps, payloads):
+        for field, leaf in p.items():
+            like.setdefault(lmap[field], leaf)
+    rows = {}
+    for lane in sorted(like):
+        parts = []
+        for lmap, p, n in zip(lane_maps, payloads, sizes):
+            field = next((f for f, ln in lmap.items() if ln == lane), None)
+            if field is not None and field in p:
+                parts.append(p[field].to(dev))
+            else:
+                parts.append(torch.zeros((n,) + tuple(like[lane].shape[1:]),
+                                         dtype=like[lane].dtype, device=dev))
+        rows[lane] = torch.cat(parts, 0)
+    return rows
+
+
+def _shard_rows(dst: torch.Tensor, rows: Dict[str, torch.Tensor], d: int):
+    """Pad a fused batch so every client shard gets an equal CONTIGUOUS
+    slice (the JAX batch sharding; padding rows are inactive, dst = -1)
+    and stack it (D, R_dev, ...)."""
+    r_total = dst.shape[0]
+    r_dev = -(-r_total // d)
+    pad = d * r_dev - r_total
+    dev = dst.device
+    if pad:
+        dst = torch.cat([dst, torch.full((pad,), -1, dtype=dst.dtype,
+                                         device=dev)])
+        rows = {k: torch.cat([v, torch.zeros((pad,) + tuple(v.shape[1:]),
+                                             dtype=v.dtype, device=dev)])
+                for k, v in rows.items()}
+    return dst.reshape(d, r_dev), \
+        {k: v.reshape((d, r_dev) + tuple(v.shape[1:]))
+         for k, v in rows.items()}, r_dev
+
+
+def _split_spans(resp, n_flat: int, sizes_per_trust, srcs=None):
+    """Slice the fused responses (D, R_dev, ...) back per (trust, batch),
+    trust-major; ``srcs`` gives each trust its own response dict."""
+    out, off = [], 0
+    for tid, sizes in enumerate(sizes_per_trust):
+        src = resp if srcs is None else srcs[tid]
+        flat = {k: v.reshape((n_flat,) + tuple(v.shape[2:]))
+                for k, v in src.items()}
+        out.append([])
         for n in sizes:
-            out.append({k: v[off:off + n] for k, v in flat.items()})
+            out[-1].append({k: v[off:off + n] for k, v in flat.items()})
             off += n
-        return out
+    return out
+
+
+def _resp_sig(trust):
+    like = trust.resp_like
+    if not isinstance(like, dict):
+        return ("tree", id(like))
+    return tuple((k, tuple(v.shape[1:]), str(v.dtype))
+                 for k, v in sorted(like.items()))
+
+
+def _mux_round(trusts, batches, cfg: ch.ChannelConfig):
+    """ONE multiplexed round for several trusts' queued batches (the JAX
+    ``_build_mux`` program, run eagerly).  Rows concatenate in (trust,
+    batch) order with "trust" and "op" id lanes; payload fields whose
+    dtype and trailing shape agree across trusts share a wire lane, the
+    others get per-trust lanes ``field@tid``.  Returns (new states,
+    per-trust per-batch responses, telemetry)."""
+    # the JAX builder's dedicated and defer branches are not ported
+    # (entrust refuses both first; the round says so too)
+    for what, item, cond in (
+            ("dedicated trustee mode", "dedicated mode", cfg.mode != "shared"),
+            ("overflow='defer'", "defer drain", cfg.overflow == "defer")):
+        if cond:
+            raise NotImplementedError(
+                f"a multiplexed round in {what} is not ported to repro_torch "
+                f"yet (ROADMAP.md queue A: {item})")
+    group = trusts[0].group
+    n_trusts = len(trusts)
+    n_trustees = group.n_trustees
+    d = group.mesh.size
+    dev = trusts[0].device
+
+    # field plan: intra-trust mismatches are errors, cross-trust ones get
+    # namespaced lanes
+    per_trust_fields = []
+    for t, tb in zip(trusts, batches):
+        seen = check_payload_fields(
+            [(f"{t.name}.{t.ops[oid].name}", p) for (oid, _d, p) in tb])
+        per_trust_fields.append({name: sig for name, (_l, sig)
+                                 in seen.items()})
+    lane_of: List[Dict[str, str]] = [dict() for _ in trusts]
+    for name in sorted(set().union(*[set(f) for f in per_trust_fields])):
+        sigs = {tid: f[name] for tid, f in enumerate(per_trust_fields)
+                if name in f}
+        shared = len(set(sigs.values())) == 1
+        for tid in sigs:
+            lane_of[tid][name] = name if shared else f"{name}@{tid}"
+
+    # one merged response dict when every trust's responses agree; the
+    # lane layout needs it, and a channel of local rows only has no lanes
+    merged_resp = len({_resp_sig(t) for t in trusts}) == 1
+    t_send = n_trustees          # client blocks a trustee receives
+    strided = merged_resp and not (t_send == 1 and cfg.local_shortcut)
+    if strided:
+        cfg = dataclasses.replace(cfg, n_lanes=n_trusts)
+    c2 = cfg.second_capacity()
+    tables = tuple((t.ops, tuple(sorted({oid for (oid, _d, _p) in tb})))
+                   for t, tb in zip(trusts, batches))
+
+    # response elision: fields no trust's active ops write leave the
+    # response transpose; in the lane layout so do the rows of a lane whose
+    # trust writes nothing (a PUT-only trust)
+    elidable = [_elidable_fields(ops_t, active, t.resp_like)
+                for t, (ops_t, active) in zip(trusts, tables)]
+    if merged_resp and isinstance(trusts[0].resp_like, dict):
+        all_fields = set(trusts[0].resp_like)
+        common = set.intersection(*[set(e) for e in elidable])
+        lanes_off = tuple(tid for tid, e in enumerate(elidable)
+                          if set(e) == all_fields)
+        if len(lanes_off) == n_trusts:
+            common, lanes_off = all_fields, ()   # nothing responds at all
+        elif not strided:
+            lanes_off = ()                       # masked layout: no lanes
+        cfg = dataclasses.replace(cfg, elide_resp=tuple(sorted(common)),
+                                  elide_lanes=lanes_off)
+
+    if strided:
+        serve = ch.serve_multiplex_strided(
+            tables, tuple(lane_of), n_lanes=n_trusts, t_send=t_send,
+            c1=cfg.capacity, c2=c2, serve_impl=cfg.serve_impl, cfg=cfg)
+    else:
+        serve = ch.serve_multiplex(tables, tuple(lane_of),
+                                   merge_resp=merged_resp,
+                                   serve_impl=cfg.serve_impl, cfg=cfg)
+
+    # wire lanes: "op" only when some trust dispatches several ops, "trust"
+    # only when the serve reads it (masked layout, or a shortcut tail)
+    need_op = any(len(active) > 1 for _ops, active in tables)
+    need_trust = (not strided) or cfg.local_shortcut
+    flat = [(tid, oid, dst, p) for tid, tb in enumerate(batches)
+            for (oid, dst, p) in tb]
+    sizes = [int(x[2].shape[0]) for x in flat]
+    dst = torch.cat([x[2].to(dev, torch.int32) for x in flat], 0)
+    tid_col = torch.cat([torch.full((n,), x[0], dtype=torch.int16,
+                                    device=dev)
+                         for x, n in zip(flat, sizes)], 0)
+    rows: Dict[str, torch.Tensor] = {}
+    if need_op:
+        rows["op"] = torch.cat([torch.full((n,), x[1], dtype=torch.int16,
+                                           device=dev)
+                                for x, n in zip(flat, sizes)], 0)
+    if need_trust:
+        rows["trust"] = tid_col
+    rows.update(_concat_lanes([lane_of[x[0]] for x in flat],
+                              [x[3] for x in flat], sizes, dev))
+    if strided:
+        # virtual bins: lane tid of trustee t is bin t * n_trusts + tid
+        dst = torch.where(dst >= 0, dst * n_trusts + tid_col.to(torch.int32),
+                          -1)
+    rows["__tid"] = tid_col
+    dst, rows, r_dev = _shard_rows(dst, rows, d)
+    tid_l = rows.pop("__tid").long()
+
+    states = tuple(t._state for t in trusts)
+    new_states, resp, info = ch.delegate(states, dst, rows, serve,
+                                         n_trustees, cfg)
+
+    # telemetry, all device tensors: per-trust rows left unserved, per-trust
+    # max pair demand, and the merged demand the planner observes
+    res_pt = torch.zeros(n_trusts + 1, dtype=torch.int64, device=dev) \
+        .index_add_(0, torch.where(info.dropped, tid_l, n_trusts).reshape(-1),
+                    torch.ones(d * r_dev, dtype=torch.int64, device=dev))
+    if strided:
+        demand_pt = info.group_sizes.reshape(d, -1, n_trusts).amax(dim=(0, 1))
+    else:
+        act = dst >= 0
+        if cfg.local_shortcut:
+            act &= dst != torch.arange(d, device=dev)[:, None]
+        idx = torch.where(act, tid_l * n_trustees
+                          + torch.clamp(dst, 0, n_trustees - 1),
+                          n_trusts * n_trustees)
+        pair = torch.zeros((d, n_trusts * n_trustees + 1), dtype=torch.int64,
+                           device=dev).scatter_add_(1, idx,
+                                                    torch.ones_like(idx))
+        demand_pt = pair[:, :-1].reshape(d, n_trusts, n_trustees) \
+            .amax(dim=(0, 2))
+    n_rows = t_send * cfg.n_lanes * cfg.total_capacity()
+    saved = 0 if (t_send == 1 and cfg.local_shortcut) \
+        else ch.resp_elision_bytes(trusts[0].resp_like, cfg, n_rows)
+    srcs = None
+    if not merged_resp:
+        srcs = [{k.rsplit("@", 1)[0]: v for k, v in resp.items()
+                 if k.rsplit("@", 1)[1] == str(tid)}
+                for tid in range(n_trusts)]
+    out = _split_spans(resp, d * r_dev,
+                       [[int(b[1].shape[0]) for b in tb] for tb in batches],
+                       srcs)
+    tel = {"residual": res_pt[:-1], "demand": demand_pt,
+           "demand_merged": info.group_sizes.max(), "saved": saved,
+           "impl_fallback": info.impl_fallback}
+    return new_states, out, tel
 
 
 # ``TrustSession`` is the user-facing name, ``DelegationEngine`` the

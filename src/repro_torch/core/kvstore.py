@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import routing
-from .channel import report_impl_event
+from .channel import launch_or_defer, report_impl_event
 from .meshctx import StackedMesh
 from .opspec import Combine, Field, OpSpec, TrustSchema
 from .trust import TrusteeGroup
@@ -214,11 +214,16 @@ class KVTableServe:
                                            value)))
         # the table is written in place, so every check of the round runs
         # before its first launch: a round that raises there leaves the
-        # table as it was, and Trust.flush may re-queue its batches
+        # table as it was, and Trust.flush may re-queue its batches (a
+        # multiplexed serve holds the launches until every member's checks
+        # have passed)
         for name, args in calls:
             kops.check(name, *args)
-        for name, args in calls:
-            getattr(kops, name)(*args)
+
+        def launch():
+            for name, args in calls:
+                getattr(kops, name)(*args)
+        launch_or_defer(launch)
         return {**state, "table": table}, {"value": resp, "flag": flag}
 
 

@@ -12,10 +12,12 @@ handles a ``TrustSchema`` generates:
     fut   = trust.op.put.then(keys, values)    # apply_then()
     session.step()                             # flush pending batches
 
-Execution lives in the session's ``DelegationEngine`` (engine.py).  This
-slice of the port carries the shared trustee mode over the whole mesh;
-the other knobs of the JAX package raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+Execution lives in the session's ``DelegationEngine`` (engine.py), which
+fuses the pending batches of channel-compatible trusts into one round.
+The port carries the shared trustee mode over the whole mesh; the other
+knobs of the JAX package (dedicated mode, the defer drain, request
+combining, sub-axis groups, Pallas tile sizes) raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -113,8 +115,6 @@ class TrusteeGroup:
         if overflow == "defer" or max_rounds > 1:
             raise _not_ported("overflow='defer' / max_rounds > 1",
                               "defer drain")
-        if plan_capacity:
-            raise _not_ported("plan_capacity=True", "capacity planner")
         if serve_blocks is not None or pack_blocks is not None:
             # the Pallas tile sizes, fixed or "auto"; the CUDA kernels pick
             # their own launch shapes
@@ -155,7 +155,8 @@ class TrusteeGroup:
             serve_impl=serve_impl, mode=self.mode, max_rounds=max_rounds,
             strict_impl=strict_impl, combine_impl=combine)
         return Trust(self, placed, tuple(ops), resp_like, cfg, name=name,
-                     session=session, schema=schema)
+                     plan_capacity=plan_capacity, session=session,
+                     schema=schema)
 
 
 @dataclass
@@ -191,7 +192,8 @@ class Trust:
     def __init__(self, group: TrusteeGroup, state: Pytree,
                  ops: Tuple[DelegatedOp, ...], resp_like: Pytree,
                  cfg: ChannelConfig, name: Optional[str] = None,
-                 session=None, schema: Optional[TrustSchema] = None):
+                 plan_capacity: bool = False, session=None,
+                 schema: Optional[TrustSchema] = None):
         self.group = group
         self._state = state
         self.ops = ops
@@ -200,6 +202,9 @@ class Trust:
         self.cfg = cfg
         self.schema = schema
         self.op = OpNamespace(self, schema) if schema is not None else None
+        # let the engine's EMA planner size this trust's solo rounds (auto
+        # capacity only)
+        self.plan_capacity = plan_capacity
         self._pending: List[Tuple[int, torch.Tensor, Pytree, TrustFuture]] = []
         if session is None:
             from . import meshctx

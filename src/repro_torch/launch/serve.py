@@ -29,11 +29,20 @@ random, drawn on the device from a seeded generator; the prompts come
 from ``np.random.default_rng(0)`` as in JAX, so both packages see the
 same tokens.  Runs on ``cuda`` unless given ``--device cpu``.
 
+``--session`` adds the store-level bookkeeping of the paper's §7: a
+ledger of generated tokens per request and a traffic meter per device
+bucket, two ``DelegatedKVStore``s on a (1, mesh_model) ``StackedMesh``
+on the serve's device, whose ADDs for each generated token ride ONE
+multiplexed ``session.step()``; with ``--stream-depth N`` a
+``StreamingDriver`` keeps up to N of those rounds in flight behind the
+decode loop, under an ``AdmissionControl``.  ``--serve-impl`` picks the
+stores' serve: "pallas" the CUDA serve kernels, "ref" their plain
+versions, "masked" the per-op reference.
+
 Options that need parts not ported yet raise ``NotImplementedError``
 naming their ROADMAP item: ``--delegation-mode dedicated`` (queue A 1),
-``--drain-rounds > 1`` (A 2), ``--session`` / ``--stream-depth`` (A 4),
-``--chaos`` (A 12) and ``--mesh-data > 1`` (A 13: a data axis spans
-cards, and one card has nothing to stack it on).
+``--drain-rounds > 1`` (A 2), ``--chaos`` (A 12) and ``--mesh-data > 1``
+(A 13: a data axis spans cards, and one card has nothing to stack it on).
 """
 from __future__ import annotations
 
@@ -62,8 +71,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--drain-rounds", type=int, default=1)
     ap.add_argument("--serve-impl", default="ref",
                     choices=["ref", "pallas", "masked"],
-                    help="serve path of the session stores, which only "
-                         "--session and the dedicated ledger create")
+                    help="serve path of the --session stores: the CUDA "
+                         "serve kernels (pallas), their plain versions "
+                         "(ref) or the per-op reference (masked)")
     ap.add_argument("--session", action="store_true")
     ap.add_argument("--stream-depth", type=int, default=0)
     ap.add_argument("--chaos", type=int, default=None, metavar="WAVE")
@@ -80,9 +90,6 @@ def _refuse_unported(args) -> None:
          "(ROADMAP queue A 1)"),
         (args.drain_rounds > 1,
          "--drain-rounds > 1 needs the defer drain (ROADMAP queue A 2)"),
-        (args.session or args.stream_depth > 0,
-         "--session / --stream-depth need the multiplexed session round "
-         "(ROADMAP queue A 4)"),
         (args.chaos is not None,
          "--chaos needs failover (ROADMAP queue A 12)"),
         (args.mesh_data > 1,
@@ -98,7 +105,10 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     """Run the serve loop; returns the generated tokens (batch, gen): the
     greedy token after each position from the last prompt position on, as
     JAX's loop collects them.  ``stats``, when given, receives
-    the loop's steps, seconds, ms per step and tokens/s."""
+    the loop's steps, seconds, ms per step and tokens/s, and with
+    ``--session`` the ledger, the meter, the last wave's
+    ``last_step_info`` and the fused waves' ``last_step_info["fused"]``
+    (one entry a wave)."""
     ap = _parser()
     args = ap.parse_args(argv)
     if args.stream_depth > 0 and not args.session:
@@ -145,6 +155,7 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     prompt_ids = rng.integers(0, cfg.vocab_size,
                               size=(args.prompt_len, args.batch))
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int32, device=dev)
+    book = _Bookkeeping(args, dev) if args.session else None
     steps = args.prompt_len + args.gen - 1
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -156,8 +167,14 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
         prev, cache = plan.step_fn(params, cache, tok, pos)
         if i >= args.prompt_len - 1:
             outputs.append(prev)
+            if book is not None:
+                book.wave()
+    if book is not None:
+        book.finish()
     gen = torch.stack(outputs, 1).cpu().numpy()      # ends in a host sync
     dt = time.perf_counter() - t0
+    if book is not None:
+        book.report(stats)
     print(f"[serve] {steps} steps in {dt:.2f}s ({1e3 * dt / steps:.1f} "
           f"ms/step, {args.batch * steps / dt:.0f} tok/s)", flush=True)
     print(f"[serve] generated {gen.shape} tokens; sample: {gen[0][:10]}",
@@ -167,6 +184,70 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
                      tokens_per_s=args.batch * steps / dt,
                      params=M.count_params(params))
     return gen
+
+
+class _Bookkeeping:
+    """The ``--session`` stores: per-request generated-token counters
+    (``ledger``) and per-device-bucket traffic (``meter``), entrusted on a
+    (1, mesh_model) stacked mesh with one channel signature, so each
+    generated token's ADDs to both ride ONE multiplexed engine round."""
+
+    def __init__(self, args, dev):
+        from ..core import DelegatedKVStore, StackedMesh, TrustSession
+        from .streaming import AdmissionControl, StreamingDriver
+        mesh = StackedMesh((1, args.mesh_model), device=dev)
+        self.session = TrustSession()
+        impl = "kernel" if args.serve_impl == "pallas" else args.serve_impl
+        kw = dict(capacity=max(4, args.batch), serve_impl=impl,
+                  session=self.session)
+        self.ledger = DelegatedKVStore(mesh, args.batch, 1, name="ledger",
+                                       **kw)
+        self.meter = DelegatedKVStore(mesh, mesh.size, 1, name="meter", **kw)
+        self.keys = torch.arange(args.batch, dtype=torch.int32, device=dev)
+        self.meter_keys = self.keys % mesh.size
+        self.ones = torch.ones((args.batch, 1), device=dev)
+        self.fused = []
+        self.driver = self.wave_rows = None
+        if args.stream_depth > 0:
+            # dispatch-ahead: token t's round runs behind token t+1's
+            # decode step; admission bounds the ledger rows in flight
+            self.wave_rows = args.batch + mesh.size
+            self.driver = StreamingDriver(
+                self.session, depth=args.stream_depth,
+                admission=AdmissionControl(
+                    self.wave_rows * (args.stream_depth + 1)))
+
+    def wave(self):
+        self.ledger.trust.op.add.then(self.keys, self.ones)
+        self.meter.trust.op.add.then(self.meter_keys, self.ones)
+        if self.driver is not None:
+            self.driver.admit(self.wave_rows)
+            self.driver.dispatch(rows=self.wave_rows)
+        else:
+            self.session.step()
+        self.fused.append(self.session.last_step_info["fused"])
+
+    def finish(self):
+        if self.driver is not None:
+            self.driver.drain()
+
+    def report(self, stats: Optional[dict]):
+        ledger = self.ledger.dump()[:, 0].astype(int)
+        meter = self.meter.dump()[:, 0].astype(int)
+        info = self.session.last_step_info
+        print(f"[serve] ledger (shared): generated tokens per request = "
+              f"{ledger.tolist()}", flush=True)
+        print(f"[serve] meter: tokens per device bucket = {meter.tolist()}",
+              flush=True)
+        print(f"[serve] session engine (last wave): "
+              f"{info['fused'] or 'solo rounds'} — per-trust stats "
+              f"{self.session.last_stats()}", flush=True)
+        if self.driver is not None:
+            print(f"[serve] streaming driver: {self.driver.stats()}",
+                  flush=True)
+        if stats is not None:
+            stats.update(ledger=ledger, meter=meter, step_info=info,
+                         fused_waves=self.fused)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,9 @@ waves in dispatch order and the responses equal a lockstep run's.
 per-user buckets) bounding the rows in flight across unconsumed waves;
 ``admit()`` consumes the oldest waves until the bucket has room.
 
-Not ported yet: ``checkpoint`` / ``recover`` (ROADMAP.md queue A:
-failover) and ``wave_budget`` (queue A: capacity planner) raise.
+``wave_budget`` sizes the next wave from the session planner's demand
+EMA, read only at quiesce points.  Not ported yet: ``checkpoint`` /
+``recover`` (ROADMAP.md queue A: failover) raise.
 """
 from __future__ import annotations
 
@@ -108,12 +109,18 @@ class StreamingDriver:
     consumed."""
 
     def __init__(self, session, depth: int = 1,
-                 admission: Optional[AdmissionControl] = None):
+                 admission: Optional[AdmissionControl] = None,
+                 headroom: float = 1.5, min_wave: int = 64,
+                 max_wave: int = 65536):
         if depth < 0:
             raise ValueError(f"depth must be >= 0, got {depth}")
         self.session = session
         self.depth = depth
         self.admission = admission
+        self.headroom = headroom
+        self.min_wave = min_wave
+        self.max_wave = max_wave
+        self._ema_cache: Dict[Any, float] = {}
         self._inflight: deque = deque()
         self._next_wave = 0
         self.events: List[Tuple[str, int]] = []
@@ -172,6 +179,13 @@ class StreamingDriver:
         self.events.append(("consume", h.wave_id))
         if self.admission is not None:
             self.admission.release(h.rows, h.users)
+        # refresh wave_budget's EMA cache only at QUIESCE points: with waves
+        # still in flight the planner's staged demand belongs to an
+        # unfinished round, and reading it would wait for that round
+        if not self._inflight:
+            planner = self.session.planner
+            for sig in list(planner._staged):
+                self._ema_cache[sig] = planner.ema(sig)
         if h.on_consume is not None:
             h.on_consume(h)
         self.consumed.append(h)
@@ -208,9 +222,23 @@ class StreamingDriver:
             "(ROADMAP.md queue A: failover)")
 
     def wave_budget(self, trusts, fallback: Optional[int] = None) -> int:
-        raise NotImplementedError(
-            "StreamingDriver.wave_budget is not ported to repro_torch yet "
-            "(ROADMAP.md queue A: capacity planner)")
+        """Target rows for the next wave, from the planner's demand EMA: a
+        wave of ``headroom * EMA * n_pairs`` rows keeps the hot pair's
+        expected demand at the planned primary block (§5.3.1).  Reads only
+        the EMA cached at quiesce points; before the first one returns
+        ``fallback`` (or ``max_wave``)."""
+        trusts = [getattr(t, "trust", t) for t in trusts]
+        if len(trusts) > 1:
+            sig = ("mux", self.session._mux_signature(trusts[0]))
+        else:
+            sig = ("solo", trusts[0].token)
+        ema = self._ema_cache.get(sig)
+        if ema is None or ema <= 0:
+            return fallback if fallback is not None else self.max_wave
+        g = trusts[0].group
+        n_pairs = g.n_clients * g.n_trustees * max(1, len(trusts))
+        target = int(self.headroom * ema * n_pairs)
+        return max(self.min_wave, min(self.max_wave, target))
 
     # -- telemetry ----------------------------------------------------------
     def stats(self) -> Dict[str, Any]:

@@ -129,3 +129,67 @@ def gather_contract(case, out, flag):
     kept = bool((out[~read] == GATHER_FILL).all())
     kept_flag = bool((flag[lane != 3] == GATHER_FLAG_FILL).all())
     return clamped, kept, kept_flag, int(off.sum())
+
+
+def virtual_bin_pack_case(device, d, r, t, lanes, c, c2, w, seed,
+                          hot_lane=0, empty_lane=None, inactive=0.1):
+    """Pack inputs at a multiplexed round's virtual bins ``trustee * lanes
+    + lane``: half of every client's rows on lane ``hot_lane`` of trustee
+    0 (past C + C2, so rows drop), none on lane ``empty_lane``, an
+    ``inactive`` share at -1, int32 words above 2^24.  Returns (dst, words,
+    bins, C, C2) in ``delegation_pack``'s argument order."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, t, (d, r))
+    lane = rng.integers(0, lanes, (d, r))
+    if empty_lane is not None:
+        lane = np.where(lane == empty_lane, (empty_lane + 1) % lanes, lane)
+    hot = rng.random((d, r)) < 0.5
+    dst, lane = np.where(hot, 0, dst), np.where(hot, hot_lane, lane)
+    bins = np.where(rng.random((d, r)) < inactive, -1, dst * lanes + lane)
+    words = rng.integers(-2 ** 31, 2 ** 31 - 1, (d, r, w), dtype=np.int64)
+    return (torch.as_tensor(bins.astype(np.int32), device=device),
+            torch.as_tensor(words.astype(np.int32), device=device),
+            t * lanes, c, c2)
+
+
+def lane_serve_case(device, t, n_lanes, c1, c2, k, w, seed, tid=0,
+                    mix=(0.4, 0.2, 0.2, 0.2), n_local=0, hot=0.07):
+    """The serve kernels' inputs on lane ``tid``'s sub-buffer, as the
+    strided multiplexed serve forms it: a received buffer of the lane
+    layout (T trustees x T client blocks x ``n_lanes`` lanes of ``c1``
+    rows, then of ``c2`` rows, then ``n_local`` local rows), each block
+    filled up to a random count; ``channel.lane_rows`` takes the lane's
+    rows (contiguous), which are then grouped by (op lane, key) as the
+    serve groups them.  Integer-valued payloads; a ``hot`` share of the
+    rows on key 0.  Returns the ``serve_case`` dict of chip_smoke.py plus
+    ``base`` (the response rows before an ADD)."""
+    from ..core.channel import lane_rows, make_grouping
+    rng = np.random.default_rng(seed)
+
+    def blocks(c):
+        cnt = rng.integers(0, c + 1, (t, t, n_lanes, 1))
+        return (np.arange(c) < cnt).reshape(t, t * n_lanes * c)
+
+    valid = np.concatenate([blocks(c1)] + ([blocks(c2)] if c2 else [])
+                           + [rng.random((t, n_local)) < 0.5], 1)
+    n = valid.shape[1]
+    lane = np.where(valid, rng.choice(4, size=(t, n), p=mix), -1)
+    keys = np.where(rng.random((t, n)) < hot, 0, rng.integers(0, k, (t, n)))
+    keys = np.where(lane >= 0, keys, k)
+    table = rng.integers(0, 8, (t, k, w)).astype(np.float32)
+    value = rng.integers(0, 8, (t, n, w)).astype(np.float32)
+    live = table[np.arange(t)[:, None], np.minimum(keys, k - 1)]
+    expect = np.where(rng.random((t, n, 1)) < 0.5, live, value)
+    base = rng.integers(0, 8, (t, n, w)).astype(np.float32)
+
+    def sub(a, dt):
+        return lane_rows(torch.as_tensor(a.astype(dt), device=device), tid,
+                         n_lanes, t, c1, c2)
+
+    lane_t, keys_t = sub(lane, np.int32), sub(keys, np.int32)
+    g = make_grouping(torch.where(lane_t >= 0, lane_t * k + keys_t, 4 * k))
+    return dict(table=torch.as_tensor(table, device=device), keys=keys_t,
+                lane=lane_t, value=sub(value, np.float32),
+                expect=sub(expect, np.float32), base=sub(base, np.float32),
+                order=g.order.contiguous(), sid=g.seg_start.contiguous(),
+                seg_end=g.seg_end.contiguous())

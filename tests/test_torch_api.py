@@ -1,7 +1,7 @@
 """The port's API surface: call-time schema validation, the default
-device, the knobs this slice does not carry, state conversion, and the
-import boundary (the port and chip_smoke.py import neither jax nor
-repro)."""
+device, the knobs the port does not carry yet, the fused step, state
+conversion, and the import boundary (the port and chip_smoke.py import
+neither jax nor repro)."""
 import ast
 import os
 import subprocess
@@ -62,7 +62,6 @@ def test_entry_points_default_to_cuda():
     (dict(overflow="defer"), "defer drain"),
     (dict(max_rounds=2), "defer drain"),
     (dict(combine="ref"), "request combining"),
-    (dict(plan_capacity=True), "capacity planner"),
     (dict(serve_blocks="auto"), "'auto' kernel blocks"),
     (dict(pack_blocks="auto"), "'auto' kernel blocks"),
     (dict(serve_blocks=(128, 128)), "'auto' kernel blocks"),
@@ -75,18 +74,45 @@ def test_knobs_not_carried_raise_naming_roadmap(kw, item):
 
 
 def test_async_step_sub_axis_and_fused_round_raise():
-    with use_session() as sess:
-        assert sess.step(sync=False) is None and sess.quiesced()
-        with pytest.raises(NotImplementedError, match="sub-axis"):
-            TrusteeGroup(StackedMesh((2, 4), device="cpu"), "model")
-        a, b = _store(name="a"), _store(name="b")
-        a.get_then(torch.arange(4))
-        b.get_then(torch.arange(4))
-        with pytest.raises(NotImplementedError, match="multiplexed round"):
-            sess.step()
-        a.flush()
-        sess.step()          # one pending trust flushes solo
-        assert not b.trust._pending
+    """``step(sync=False)`` on an idle session; a sub-axis trustee group
+    raises naming its ROADMAP item; two channel-compatible trusts pending
+    fuse into ONE round that answers as the two solo rounds do; a trust
+    pending alone flushes solo."""
+    rng = np.random.default_rng(4)
+    init = rng.integers(0, 8, (37, 2)).astype(np.float32)
+    keys = [torch.as_tensor(rng.integers(0, 37, 24)) for _ in range(2)]
+    vals = [torch.as_tensor(rng.integers(0, 8, (24, 2)).astype(np.float32))
+            for _ in range(2)]
+    runs = {}
+    for fused in (True, False):
+        with use_session() as sess:
+            assert sess.step(sync=False) is None and sess.quiesced()
+            with pytest.raises(NotImplementedError, match="sub-axis"):
+                TrusteeGroup(StackedMesh((2, 4), device="cpu"), "model")
+            # the shortcut's local rows and the auto capacity depend on
+            # the row layout, which fusing changes: both off here
+            a, b = (_store(name=n, capacity=24, local_shortcut=False)
+                    for n in "ab")
+            a.prefill(init)
+            b.prefill(init)
+            futs = [a.add_then(keys[0], vals[0]), b.get_then(keys[1]),
+                    b.put_then(keys[0], vals[1])]
+            if fused:
+                sess.step()
+                assert sess.last_step_info == {"fused": [["a", "b"]],
+                                               "solo": []}
+                assert sess.rounds_dispatched == 1
+            else:
+                a.flush()
+                b.flush()
+                assert sess.rounds_dispatched == 2
+            runs[fused] = [f.result()["value"].numpy() for f in futs] \
+                + [a.dump(), b.dump()]
+            a.get_then(keys[1])
+            sess.step()          # one pending trust flushes solo
+            assert sess.last_step_info == {"fused": [], "solo": ["a"]}
+            assert not a.trust._pending
+    assert all(np.array_equal(x, y) for x, y in zip(runs[True], runs[False]))
 
 
 def test_convert_round_trip_and_store_start_state():

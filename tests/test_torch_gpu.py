@@ -126,6 +126,38 @@ def _run_serve_kernels(c, impl):
     return out, flag, table, resp
 
 
+@pytest.mark.parametrize("hot_lane,empty_lane", [(0, 1), (1, 0)])
+def test_pack_kernel_at_virtual_bins(cuda, hot_lane, empty_lane):
+    """A multiplexed round's pack: 8 trustees x 2 lanes, one lane of
+    trustee 0 hot past C + C2 (rows drop), the other lane empty; exact."""
+    from repro_torch.testing.serve import virtual_bin_pack_case
+    args = virtual_bin_pack_case(cuda, 8, 2048, 8, 2, 64, 32, 10,
+                                 seed=60 + hot_lane, hot_lane=hot_lane,
+                                 empty_lane=empty_lane)
+    got = tops.delegation_pack(*args, impl="kernel")
+    torch.cuda.synchronize()
+    want = tops.delegation_pack(*args, impl="ref")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    counts, totals = got[2], got[5]
+    assert (totals[:, empty_lane::2] == 0).all()
+    assert (counts[:, hot_lane] == 64).all() and \
+        (totals[:, hot_lane] > 96).all()
+
+
+@pytest.mark.parametrize("tid,c2,n_local", [(0, 0, 0), (1, 64, 300)])
+def test_serve_kernels_on_a_lane_sub_buffer(cuda, tid, c2, n_local):
+    """The three serve kernels on one lane's rows as the strided
+    multiplexed serve forms them (``channel.lane_rows``), with and without
+    a second_round block and a local tail; exact."""
+    from repro_torch.testing.serve import lane_serve_case
+    c = lane_serve_case(cuda, 8, 2, 256, c2, 999, VW, seed=70 + tid,
+                        tid=tid, n_local=n_local)
+    for g, w in zip(_run_serve_kernels(c, "kernel"),
+                    _run_serve_kernels(c, "ref")):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("seed,hot", [(0, 0.6), (1, 0.0), (2, 0.98)])
 def test_serve_kernels_match_plain(cuda, seed, hot):
     """Exact on integer-valued payloads; hot=0.98 puts each lane's

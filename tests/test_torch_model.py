@@ -315,8 +315,7 @@ def test_convert_round_trip():
 @pytest.mark.parametrize("extra,item", [
     (["--delegation-mode", "dedicated"], "queue A 1"),
     (["--drain-rounds", "2"], "queue A 2"),
-    (["--session"], "queue A 4"),
-    (["--session", "--stream-depth", "2"], "queue A 4"),
+    (["--session", "--delegation-mode", "dedicated"], "queue A 1"),
     (["--session", "--chaos", "3"], "queue A"),
     (["--mesh-data", "2"], "queue A 13"),
 ])
@@ -324,6 +323,31 @@ def test_unported_serve_flags_raise(extra, item):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=item):
         serve.main(SERVE_ARGV + extra)
+
+
+@pytest.mark.parametrize("extra,t", [
+    ([], 4), (["--stream-depth", "2"], 4),
+    (["--stream-depth", "1", "--serve-impl", "pallas"], 4),
+    (["--serve-impl", "masked"], 1)])
+def test_serve_session_ledger_and_meter(extra, t):
+    """``--session``: each generated token's ledger and meter ADDs ride
+    ONE fused engine round (the lane layout over 4 trustees, the masked
+    layout of local rows on 1), directly or through the streaming driver;
+    the tokens are the plain serve's, the ledger counts every request's
+    generated tokens and the meter sums them."""
+    from repro_torch.launch import serve
+    i = SERVE_ARGV.index("--mesh-model")
+    plain_argv = SERVE_ARGV[:i + 1] + [str(t)] + SERVE_ARGV[i + 2:]
+    argv = plain_argv + ["--session"] + extra
+    stats = {}
+    gen = serve.main(argv, stats=stats)
+    np.testing.assert_array_equal(gen, serve.main(plain_argv))
+    b, g = SERVE["batch"], SERVE["gen"]
+    assert stats["ledger"].tolist() == [g] * b
+    assert int(stats["meter"].sum()) == b * g
+    assert stats["fused_waves"] == [[["ledger", "meter"]]] * g
+    assert stats["step_info"] == {"fused": [["ledger", "meter"]],
+                                  "solo": []}
 
 
 @pytest.mark.parametrize("arch,item", [

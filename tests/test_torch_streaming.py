@@ -11,13 +11,95 @@ KV store on a 2x4 stacked mesh, and against the JAX ``StreamingDriver``:
     per-user buckets refuse a hot user, oversize waves raise;
   * ``quiesce`` flushes what is still queued; the knobs not ported raise
     naming their ROADMAP.md item;
+  * ``wave_budget`` equals the JAX driver's on the same waves, a solo
+    trust's and two trusts' fused into one round, on a 2x4 mesh of 8
+    virtual devices (one subprocess: this module, run as a script);
   * the paged entry points run on ``cuda`` unless asked for the CPU.
 """
+import os
+import sys
+
+if __name__ == "__main__":
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8")
+
+import subprocess
+
 import numpy as np
 import pytest
 import torch
 
 N_KEYS, ROWS = 32, 16
+BUDGET_WAVES = 6
+
+
+def _budgets(stores, drv, waves, conv):
+    """Fetch-and-add waves on every store, one dispatch a wave; the wave
+    budget read after each dispatch (with a fallback of -1) and after the
+    final drain."""
+    out = []
+    for keys in waves:
+        for st in stores:
+            st.add_then(conv(keys), conv(np.ones((len(keys), 1),
+                                                 np.float32)))
+        drv.dispatch(rows=len(keys) * len(stores))
+        out.append(drv.wave_budget(stores, fallback=-1))
+    drv.drain()
+    out.append(drv.wave_budget(stores))
+    return out
+
+
+def budget_runs(pkg, driver, mesh, conv):
+    """``wave_budget`` of a solo trust and of two fused trusts, at depth 1
+    (the cache refreshes when the pipeline empties) and 0."""
+    res = {}
+    for n_stores in (1, 2):
+        for depth in (0, 1):
+            sess = pkg.TrustSession()
+            stores = [pkg.DelegatedKVStore(mesh, N_KEYS, 1, session=sess,
+                                           name=f"kv{i}",
+                                           local_shortcut=False)
+                      for i in range(n_stores)]
+            for st in stores:
+                st.prefill(np.zeros((N_KEYS, 1), np.float32))
+            drv = driver(sess, depth=depth, min_wave=4)
+            res[f"{n_stores}/{depth}"] = np.asarray(_budgets(
+                stores, drv, _waves(BUDGET_WAVES, rows=64, seed=n_stores),
+                conv))
+    return res
+
+
+@pytest.fixture(scope="module")
+def jax_budgets(tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax_budget") / "runs.npz"
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": os.pathsep.join([src,
+                                          os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           str(out)], env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+@pytest.mark.parametrize("n_stores", [1, 2])
+def test_wave_budget_matches_jax_driver(jax_budgets, n_stores, depth):
+    import repro_torch.core as pkg
+    from repro_torch.launch.streaming import StreamingDriver
+    got = budget_runs(pkg, StreamingDriver,
+                      pkg.StackedMesh((2, 4), device="cpu"),
+                      torch.as_tensor)[f"{n_stores}/{depth}"]
+    want = jax_budgets[f"{n_stores}/{depth}"]
+    assert np.array_equal(got, want), (got, want)
+    # the EMA is read only where the pipeline is empty: after every wave
+    # at depth 0, and only after the drain at depth 1 (the fallback, -1,
+    # before it)
+    assert got[-1] > 0
+    assert (got[:-1] > 0).all() if depth == 0 else (got[:-1] == -1).all()
 
 
 def _store(sess, mesh=(2, 4), capacity=ROWS):
@@ -160,9 +242,7 @@ def test_quiesce_and_knobs_not_ported():
         drv.quiesce()
         assert sess.quiesced() and fut.ready() and drv.inflight == 0
         for call, item in ((lambda: drv.checkpoint("x"), "failover"),
-                           (lambda: drv.recover(None, "x"), "failover"),
-                           (lambda: drv.wave_budget([st.trust]),
-                            "capacity planner")):
+                           (lambda: drv.recover(None, "x"), "failover")):
             with pytest.raises(NotImplementedError, match=item):
                 call()
 
@@ -182,3 +262,18 @@ def test_paged_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DelegatedPageTable(StackedMesh((2, 4)), 64)
     assert main(["--device", "cpu"]) == 0
+
+
+def _jax_main(out_path):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+    import repro.core as pkg
+    from repro.launch.streaming import StreamingDriver
+    mesh = Mesh(np.array(jax.devices()).reshape(2, 4), ("data", "model"))
+    np.savez(out_path, **budget_runs(pkg, StreamingDriver, mesh,
+                                     jnp.asarray))
+
+
+if __name__ == "__main__":
+    _jax_main(sys.argv[1])
