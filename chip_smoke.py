@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --phases 1,2,4a,4b   # a subset
+    python3 chip_smoke.py --phases 1,2,4c,4d,4e   # a subset
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -90,6 +90,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      applied in request order; fetch-and-add tables == the bincount;
      n_rounds_executed as the ranks imply; ops/s raw and, for a capped
      lane, charged for the uncapped convoy;
+ 4c. kv_dedicated — kv_paper's table and traffic on the 2x4 stacked mesh
+     with the last 4 shards dedicated trustees serving the first 4 (40
+     rounds), then kv_mixed's mix (65,536 rows, 5 rounds); capacity the
+     rows of a client shard: the kernel path == the ref path == the
+     sequential oracle bit for bit, the client shards' region all zeros;
+     ops/s and busy share beside the shared store's;
+ 4d. kv_drain — kv_mixed's mix with overflow "defer" at capacity 512 (half
+     a pair's mean load), shortcut off: max_rounds 8 drains every row
+     (residual 0, kernel == ref); per-client disjoint keys, one op a
+     round, == the oracle; max_rounds 2 reports a residual and lands
+     exactly R - residual increments; one dedicated drain round; the cost
+     of the retry rounds with nothing left;
+ 4e. kv_combine — Zipf(1.1) over 1,000,000 keys, kv_mixed's mix at 65,536
+     rows a round: combine "ref" == "off" == the oracle bit for bit,
+     rows_combined == the host count of duplicate (client, destination,
+     op, key) rows; ops/s of both and the wire rows saved;
   5. paged decode — repro_torch.launch.paged_decode at qwen2.5-3b attention
      width (16 query / 2 KV heads of 128, QKV bias, bf16 weights,
      activations and pool), a 4096-page pool of 16-token pages, 64-page
@@ -98,7 +114,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      a check run (every request completes, zero leaked pages, every wave's
      page-table responses == the oracle replayed in serve order, every
      page-table pass == the plain version bit for bit, every attention
-     call == the plain version), then the timed run;
+     call == the plain version), then the timed run; before it, a
+     dedicated page table (4 of 8 shards trustees) at this geometry and
+     at phase 2's stress geometry, phase 2's stress trace through it: the
+     card == the plain version == the oracle in serve order, the client
+     shards' state zeros;
   6. qwen serve — the qwen2.5-3b model path at full width (36 layers,
      d_model 2048, 16 / 2 heads of 128, d_ff 11008, vocab 151936, bf16;
      3.40 B random parameters drawn on the card): prefill_step at B 4 x
@@ -110,8 +130,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      --serve-impl pallas (each generated token's ledger and meter ADDs in
      one fused round through the CUDA serve kernels: tokens == the plain
      serve's, the ledger 128 a request, the meter summing 8 x 128, every
-     wave fused), then the prefill's last-position logits on the serve's
-     prompt against the serve's decode logits at that position;
+     wave fused), the same session serve with --delegation-mode
+     dedicated (the ledger and meter on the last 2 of 4 shards) and with
+     --drain-rounds 3 (a one-row block drained over up to 3 rounds, inside
+     the driver's step(sync=False)), each:
+     tokens == the plain serve's, ledger 128 a request, residual 0; then
+     the prefill's last-position logits on the serve's prompt against the
+     serve's decode logits at that position;
   7. deepseek serve — the deepseek-v2-lite-16b MoE path at full width
      and depth (27 layers: a dense first layer and 26 MoE layers of 64
      routed experts top-6 plus 2 shared, d_ff_expert 1408; MLA rank 512,
@@ -181,11 +206,12 @@ virtual bins (8 trustees x 2 lanes, a hot lane and an empty one) and
 the three serve kernels on one lane's sub-buffer as the strided serve
 forms it, exact.
 
-Launch counters are zeroed just before each main path (phases 3, 4, 4a,
-4b, the timed run of 5, each timed prefill of 6, 7 and 8, the session
-serve of 6 and the serves of 7 and 8) and read just after; every kernel
-of a path must have launched there. The line
-before the last is {"kernels": [...]}; the last is the device line.
+Launch counters are zeroed just before each main path (phases 3, 4,
+4a-4e, the timed run of 5, each timed prefill of 6, 7 and 8, the session
+serves of 6 and the serves of 7 and 8) and read just after; every kernel
+of a path must have launched there.  "[time]" lines give the wall time
+through each phase.  The line before the last is {"kernels": [...]};
+the last is the device line.
 """
 import argparse
 import dataclasses
@@ -571,11 +597,14 @@ def oracle_round(ref, batches, shortcut, n_dev):
     return out
 
 
-def make_store(dev, pack_impl, serve_impl, capacity, init, session, name):
+def make_store(dev, pack_impl, serve_impl, capacity, init, session, name,
+               **kw):
+    """A store on kv_paper's mesh and table; ``kw`` the other knobs."""
     from repro_torch.core import DelegatedKVStore, StackedMesh
     st = DelegatedKVStore(StackedMesh(MESH, device=dev), N_KEYS, VW,
                           capacity=capacity, pack_impl=pack_impl,
-                          serve_impl=serve_impl, session=session, name=name)
+                          serve_impl=serve_impl, session=session, name=name,
+                          **kw)
     st.prefill(init)
     return st
 
@@ -672,7 +701,7 @@ def phase_paper(torch, dev, report):
     report["kv_paper_b_kernel_ops_s"] = r * len(trace) / secs
 
 
-def mixed_trace(rng, init, rounds=8, r=65536):
+def mixed_trace(rng, init, rounds=8, r=65536, alpha=1.0):
     from repro_torch.core import SequentialKVReference
     from repro_torch.core.routing import sample_keys
     sizes = {"get": int(r * 0.4), "put": int(r * 0.2), "add": int(r * 0.2)}
@@ -684,7 +713,8 @@ def mixed_trace(rng, init, rounds=8, r=65536):
         batches = []
         for op in ("get", "put", "add", "cas"):
             n = sizes[op]
-            keys = sample_keys(rng, N_KEYS, n, "zipf").astype(np.int32)
+            keys = sample_keys(rng, N_KEYS, n, "zipf",
+                               alpha).astype(np.int32)
             vals = rng.integers(0, 8, (n, VW)).astype(np.float32)
             expect = None
             if op == "cas":
@@ -1295,6 +1325,362 @@ def phase_locks(torch, dev, gpu):
         f"ref bit for bit, delegated and atomic tables == the bincount, mcs "
         f"== the round-by-round oracle (== the bincount where uncapped)")
     say(f"[kv_locks fetch-add] {gpu} | ops/s: " + "; ".join(fa))
+
+
+# ---------------------------------------------------------------------------
+# phases 4c-4e: dedicated mode, the defer drain, request combining
+# ---------------------------------------------------------------------------
+
+DED_TRUSTEES = 4                # kv_dedicated: 4 clients, 4 trustees
+MIXED_ROWS = 65536
+DED_MIXED_ROUNDS = 5
+DRAIN_CAPACITY = 512            # half the 1,024-row mean load of a pair
+DRAIN_ROUNDS = 8
+COMBINE_ROUNDS = 5
+
+
+def run_rounds(torch, dev, store, trace, session):
+    """Op-batch rounds, one ``session.step()`` each, timed on the host
+    clock around a synchronize.  Returns (answers per round, stats per
+    round, seconds); the answers reach the host after the clock stops."""
+    futs_all, stats = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batches in trace:
+        futs_all.append(submit_batches(torch, dev, store, batches))
+        stats.append(session.step()[store.trust.name])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for s in stats:
+        check_stats({store.trust.name: s}, store.trust.name)
+    return ([results(f, b) for f, b in zip(futs_all, trace)], stats, secs)
+
+
+def check_rounds(label, got, want):
+    for i, (g_round, w_round) in enumerate(zip(got, want)):
+        for j, (a, b) in enumerate(zip(g_round, w_round)):
+            require(same_answers(a, b), f"{label} round {i} batch {j} "
+                    f"differs")
+
+
+def step_busy(torch, dev, store, session, batches, rounds=10):
+    """Device busy share of one op-batch round, ``rounds`` times."""
+    def one_round():
+        submit_batches(torch, dev, store, batches)
+        session.step(sync=False)
+    return busy_share(torch, one_round, rounds)
+
+
+def busy_text(b):
+    busy, wall = b
+    return (f"{100 * busy / wall:.1f}% ({busy * 1e3:.3f} of {wall * 1e3:.3f} "
+            f"ms)" if busy > 0 else "not measured")
+
+
+def paper_batches(keys, is_put, vals):
+    return [("get", np.where(is_put, -1, keys), vals, None),
+            ("put", np.where(is_put, keys, -1), vals, None)]
+
+
+def phase_dedicated(torch, dev, gpu, report):
+    """kv_dedicated: kv_paper's table and traffic on the 2x4 stacked mesh
+    with the last 4 shards dedicated trustees serving the first 4 (40
+    rounds of 8192 requests, 20 Zipf(1) then 20 uniform), then kv_mixed's
+    four-op mix (65,536 rows, 5 rounds); capacity the rows of a client
+    shard.  The kernel path == the ref path == the sequential oracle bit
+    for bit, the client shards' region all zeros; ops/s and busy share
+    beside the shared store's."""
+    from repro_torch.core import SequentialKVReference, use_session
+    n_dev = MESH[0] * MESH[1]
+    n_cli = n_dev - DED_TRUSTEES
+    ded = dict(mode="dedicated", n_dedicated=DED_TRUSTEES)
+    rng = np.random.default_rng(2024)        # phase 3's table and traffic
+    init = rng.integers(0, 8, (N_KEYS, VW)).astype(np.float32)
+    trace = [paper_batches(*t) for t in paper_trace(rng)]
+    r = sum(len(b[1]) for b in trace[0]) // 2
+    rng = np.random.default_rng(7)           # phase 4's
+    init_m = rng.integers(0, 8, (N_KEYS, VW)).astype(np.float32)
+    mixed = mixed_trace(rng, init_m, rounds=DED_MIXED_ROUNDS, r=MIXED_ROWS)
+    busy = {}
+    for label, tr, ini in (("paper", trace, init), ("mixed", mixed, init_m)):
+        rows = sum(len(b[1]) for b in tr[0])
+        runs = {}
+        for impl in ("kernel", "ref"):
+            with use_session() as sess:
+                st = make_store(dev, impl, impl, -(-rows // n_cli), ini,
+                                sess, f"kv_ded_{impl}", **ded)
+                got, stats, secs = run_rounds(torch, dev, st, tr, sess)
+                require(all(s["dropped"] == 0 for s in stats),
+                        f"kv_dedicated {label}: rows overflowed")
+                region = st.client_region()
+                require(region.shape == (n_cli * (N_KEYS // DED_TRUSTEES),
+                                         VW) and not region.any(),
+                        f"kv_dedicated {label}: the client region holds "
+                        f"state")
+                runs[impl] = (got, st.dump(), secs)
+                if impl == "kernel":
+                    busy[f"dedicated {label}"] = step_busy(
+                        torch, dev, st, sess, tr[0])
+        ref = SequentialKVReference(N_KEYS, VW)
+        ref.prefill(ini)
+        want = [oracle_round(ref, b, False, n_dev) for b in tr]
+        for impl, (got, table, _s) in runs.items():
+            check_rounds(f"kv_dedicated {label} {impl}", got, want)
+            require(np.array_equal(table, ref.dump()),
+                    f"kv_dedicated {label} {impl}: final table differs")
+        ops = sum(int((b[1] >= 0).sum()) for bs in tr for b in bs)
+        report[f"kv_dedicated_{label}_ops_s"] = ops / runs["kernel"][2]
+        with use_session() as sess:
+            st = make_store(dev, "kernel", "kernel", -(-rows // n_dev), ini,
+                            sess, "kv_shared", local_shortcut=False)
+            busy[f"shared {label}"] = step_busy(torch, dev, st, sess, tr[0])
+        say(f"[kv_dedicated {label}] {len(tr)} rounds x {rows} rows, "
+            f"{DED_TRUSTEES} trustees serving {n_cli} clients: the kernel "
+            f"path == the ref path == the sequential oracle bit for bit "
+            f"(every response, the final table); the {n_cli} client shards' "
+            f"region all zeros")
+    shared = {"paper": report.get("kv_paper_b_kernel_ops_s"),
+              "mixed": report.get("kv_mixed_shortcut_False_ops_s")}
+    say(f"[kv_dedicated] {gpu} | ops/s: kv_paper traffic "
+        f"{report['kv_dedicated_paper_ops_s']:.1f} (phase 3 (b), shared "
+        f"with the shortcut: "
+        + (f"{shared['paper']:.1f}" if shared["paper"] else "not run")
+        + f"), kv_mixed {report['kv_dedicated_mixed_ops_s']:.1f} (phase 4, "
+        f"shared without the shortcut: "
+        + (f"{shared['mixed']:.1f}" if shared["mixed"] else "not run")
+        + "); device busy over 10 rounds: "
+        + ", ".join(f"{k} {busy_text(v)}" for k, v in busy.items()))
+
+
+def owned_key(keys, client, n_trustees, n_clients):
+    """Map keys onto client-owned keys: client c owns {k : (k // T) % C ==
+    c} (tests/_drain_battery.py:57-67); the trustee (k % T) is kept."""
+    span = n_trustees * n_clients
+    return ((keys // span) * n_clients + client) * n_trustees \
+        + keys % n_trustees
+
+
+def disjoint_trace(rng, init):
+    """One op a round (GET, PUT, ADD, CAS), 65,536 rows, Zipf(1) keys
+    mapped onto each row's client's own keys; the CAS round takes each
+    client's keys without repeats, its expects hitting the live table
+    about half the time."""
+    from repro_torch.core import SequentialKVReference
+    from repro_torch.core.routing import sample_keys
+    n_dev = MESH[0] * MESH[1]
+    r_dev = MIXED_ROWS // n_dev
+    client = np.arange(MIXED_ROWS) // r_dev
+    sim = SequentialKVReference(N_KEYS, VW)
+    sim.prefill(init)
+    trace = []
+    for op in ("get", "put", "add", "cas"):
+        if op == "cas":
+            # distinct owned keys: j * T * C + c * T + t, (j, t) drawn once
+            idx = [rng.choice(N_KEYS // n_dev, r_dev, replace=False)
+                   for _ in range(n_dev)]
+            keys = np.concatenate([(i // n_dev) * n_dev * n_dev + c * n_dev
+                                   + i % n_dev for c, i in enumerate(idx)])
+        else:
+            keys = owned_key(sample_keys(rng, N_KEYS, MIXED_ROWS, "zipf"),
+                             client, n_dev, n_dev)
+        keys = keys.astype(np.int32)
+        vals = rng.integers(0, 8, (MIXED_ROWS, VW)).astype(np.float32)
+        expect = None
+        if op == "cas":
+            live = sim.table[keys].copy()
+            rand = rng.integers(0, 8, (MIXED_ROWS, VW)).astype(np.float32)
+            expect = np.where(rng.random(MIXED_ROWS)[:, None] < 0.5, live,
+                              rand)
+        batch = [(op, keys, vals, expect)]
+        oracle_round(sim, batch, False, n_dev)
+        trace.append(batch)
+    return trace
+
+
+def phase_drain(torch, dev, gpu, report):
+    """kv_drain: kv_mixed's mix with overflow="defer" at capacity 512, half
+    a (client, trustee) pair's 1,024-row mean load, shortcut off.  (a)
+    max_rounds 8 drains every row: residual 0, the kernel path == the ref
+    path bit for bit; (b) per-client disjoint keys, one op a round: == the
+    sequential oracle; (c) max_rounds 2: residual > 0, exactly R -
+    residual increments land; (d) one dedicated drain round; (e) the
+    cost of the retry rounds with nothing left (max_rounds 8 against
+    max_rounds = the rounds the trace needs)."""
+    from repro_torch.core import SequentialKVReference, use_session
+    n_dev = MESH[0] * MESH[1]
+    rng = np.random.default_rng(7)
+    init = rng.integers(0, 8, (N_KEYS, VW)).astype(np.float32)
+    trace = mixed_trace(rng, init, rounds=DED_MIXED_ROUNDS, r=MIXED_ROWS)
+    defer = dict(overflow="defer", local_shortcut=False)
+    out = {}
+    for impl in ("kernel", "ref"):
+        with use_session() as sess:
+            st = make_store(dev, impl, impl, DRAIN_CAPACITY, init, sess,
+                            f"kv_drain_{impl}", max_rounds=DRAIN_ROUNDS,
+                            **defer)
+            out[impl] = run_rounds(torch, dev, st, trace, sess) \
+                + (st.dump(),)
+    (kg, ks, ksec, kt), (rg, rs, _rsec, rt) = out["kernel"], out["ref"]
+    check_rounds("kv_drain (a) kernel vs ref", kg, rg)
+    require(np.array_equal(kt, rt), "kv_drain (a): final tables differ")
+    rounds = [int(s["rounds"]) for s in ks]
+    require(all(s["residual"] == 0 for s in ks) and rounds ==
+            [int(s["rounds"]) for s in rs] and max(rounds) > 1,
+            f"kv_drain (a): rounds {rounds}, residual "
+            f"{[s['residual'] for s in ks]}")
+    ops = len(trace) * MIXED_ROWS
+    report["kv_drain_ops_s"] = ops / ksec
+    say(f"[kv_drain a] {len(trace)} rounds x {MIXED_ROWS} rows, capacity "
+        f"{DRAIN_CAPACITY}, max_rounds {DRAIN_ROUNDS}: residual 0, rounds "
+        f"{rounds}; the kernel path == the ref path bit for bit (every "
+        f"response, the final table)")
+
+    dtrace = disjoint_trace(rng, init)
+    ref = SequentialKVReference(N_KEYS, VW)
+    ref.prefill(init)
+    want = [oracle_round(ref, b, False, n_dev) for b in dtrace]
+    with use_session() as sess:
+        st = make_store(dev, "kernel", "kernel", DRAIN_CAPACITY, init, sess,
+                        "kv_drain_disjoint", max_rounds=DRAIN_ROUNDS,
+                        **defer)
+        got, stats, _s = run_rounds(torch, dev, st, dtrace, sess)
+    check_rounds("kv_drain (b) vs the oracle", got, want)
+    require(np.array_equal(st.dump(), ref.dump()),
+            "kv_drain (b): final table differs from the oracle")
+    require(all(s["residual"] == 0 for s in stats),
+            "kv_drain (b): rows left")
+    say(f"[kv_drain b] per-client disjoint keys, GET / PUT / ADD / CAS "
+        f"rounds of {MIXED_ROWS} rows: == the sequential oracle bit for bit "
+        f"(rounds {[int(s['rounds']) for s in stats]}, residual 0)")
+
+    from repro_torch.core.routing import sample_keys
+    keys = sample_keys(rng, N_KEYS, MIXED_ROWS, "zipf").astype(np.int32)
+    with use_session() as sess:
+        st = make_store(dev, "kernel", "kernel", DRAIN_CAPACITY,
+                        np.zeros((N_KEYS, VW), np.float32), sess,
+                        "kv_drain_short", max_rounds=2, **defer)
+        got, stats, _s = run_rounds(
+            torch, dev, st, [[("add", keys,
+                               np.ones((MIXED_ROWS, VW), np.float32),
+                               None)]], sess)
+        s = stats[0]
+        total = float(st.dump().sum())
+    require(s["rounds"] == 2 and s["residual"] > 0
+            and s["dropped"] == s["residual"]
+            and total == (MIXED_ROWS - s["residual"]) * VW,
+            f"kv_drain (c): {s}, table sum {total}")
+    say(f"[kv_drain c] max_rounds 2: residual {s['residual']} of "
+        f"{MIXED_ROWS} rows reported, exactly {MIXED_ROWS - s['residual']} "
+        f"increments landed")
+
+    runs = {}
+    for impl in ("kernel", "ref"):
+        with use_session() as sess:
+            st = make_store(dev, impl, impl, DRAIN_CAPACITY, init, sess,
+                            f"kv_drain_ded_{impl}",
+                            max_rounds=4 * DRAIN_ROUNDS, mode="dedicated",
+                            n_dedicated=DED_TRUSTEES, overflow="defer")
+            runs[impl] = run_rounds(torch, dev, st, trace[:1], sess) \
+                + (st.dump(),)
+    (kg2, ks2, _k, kt2), (rg2, _rs, _r, rt2) = runs["kernel"], runs["ref"]
+    check_rounds("kv_drain (d) dedicated kernel vs ref", kg2, rg2)
+    require(np.array_equal(kt2, rt2) and ks2[0]["residual"] == 0,
+            f"kv_drain (d): {ks2[0]}")
+    say(f"[kv_drain d] dedicated ({DED_TRUSTEES} trustees), one round of "
+        f"{MIXED_ROWS} rows at capacity {DRAIN_CAPACITY}: {ks2[0]['rounds']} "
+        f"rounds, residual 0, kernel == ref bit for bit")
+
+    need = max(rounds)
+    secs = {}
+    for label, m in (("8", DRAIN_ROUNDS), ("need", need),
+                     ("8 again", DRAIN_ROUNDS)):
+        with use_session() as sess:
+            st = make_store(dev, "kernel", "kernel", DRAIN_CAPACITY, init,
+                            sess, "kv_drain_t", max_rounds=m, **defer)
+            _g, stats, t = run_rounds(torch, dev, st, trace, sess)
+            require(all(s["residual"] == 0 for s in stats),
+                    f"kv_drain (e) max_rounds {m}: rows left")
+            secs[label] = t
+            if label == "8":
+                busy = step_busy(torch, dev, st, sess, trace[0])
+    empty = sum(DRAIN_ROUNDS - r for r in rounds)
+    t8 = (secs["8"] + secs["8 again"]) / 2
+    per_empty = (t8 - secs["need"]) / empty if empty else float("nan")
+    report["kv_drain_empty_round_ms"] = 1e3 * per_empty
+    say(f"[kv_drain] {gpu} | {ops} ops: max_rounds {DRAIN_ROUNDS} "
+        f"{ops / secs['8']:.1f} and {ops / secs['8 again']:.1f} ops/s, "
+        f"max_rounds {need} (the most any round needs) "
+        f"{ops / secs['need']:.1f} ops/s; {empty} retry rounds with nothing "
+        f"left cost {1e3 * (t8 - secs['need']):.3f} ms, "
+        f"{1e3 * per_empty:.3f} ms each (host clock around a synchronize); "
+        f"device busy over 10 rounds at max_rounds {DRAIN_ROUNDS} "
+        f"{busy_text(busy)}")
+
+
+def combined_rows(batches, n_dev):
+    """Host count of the rows combining keeps off the wire: rows sharing
+    (client, destination, op, key) with an earlier row, CAS excluded."""
+    r_dev = -(-sum(len(b[1]) for b in batches) // n_dev)
+    off, n = 0, 0
+    for op, keys, _v, _e in batches:
+        pos = off + np.arange(len(keys))
+        off += len(keys)
+        if op == "cas":
+            continue
+        client = pos // r_dev
+        n += len(keys) - len(set(zip(client.tolist(), keys.tolist())))
+    return n
+
+
+def phase_combine(torch, dev, gpu, report):
+    """kv_combine: Zipf(1.1) over 1,000,000 keys, kv_mixed's mix at 65,536
+    rows a round (CAS never combines), shortcut off, capacity the rows of
+    a client shard: combine "ref" == "off" == the sequential oracle bit
+    for bit (every response, the table); rows_combined == the host count
+    of duplicate (client, destination, op, key) rows; ops/s of both."""
+    from repro_torch.core import SequentialKVReference, use_session
+    n_dev = MESH[0] * MESH[1]
+    rng = np.random.default_rng(1111)
+    init = rng.integers(0, 8, (N_KEYS, VW)).astype(np.float32)
+    trace = mixed_trace(rng, init, rounds=COMBINE_ROUNDS, r=MIXED_ROWS,
+                        alpha=1.1)
+    ref = SequentialKVReference(N_KEYS, VW)
+    ref.prefill(init)
+    want = [oracle_round(ref, b, False, n_dev) for b in trace]
+    runs, busy = {}, {}
+    for combine in ("off", "ref"):
+        with use_session() as sess:
+            st = make_store(dev, "kernel", "kernel", MIXED_ROWS // n_dev,
+                            init, sess, f"kv_combine_{combine}",
+                            local_shortcut=False, combine=combine)
+            got, stats, secs = run_rounds(torch, dev, st, trace, sess)
+            require(all(s["dropped"] == 0 for s in stats),
+                    f"kv_combine {combine}: rows overflowed")
+            runs[combine] = (got, stats, secs, st.dump())
+            busy[combine] = step_busy(torch, dev, st, sess, trace[0])
+    for combine, (got, _s, _t, table) in runs.items():
+        check_rounds(f"kv_combine {combine} vs the oracle", got, want)
+        require(np.array_equal(table, ref.dump()),
+                f"kv_combine {combine}: final table differs")
+    host = [combined_rows(b, n_dev) for b in trace]
+    comb = [int(s["rows_combined"]) for s in runs["ref"][1]]
+    require(comb == host and sum(comb) > 0 and not any(
+        s["rows_combined"] for s in runs["off"][1]),
+        f"kv_combine: rows_combined {comb}, host count {host}")
+    saved = sum(int(s["req_bytes_saved"]) for s in runs["ref"][1])
+    ops = len(trace) * MIXED_ROWS
+    for combine in ("off", "ref"):
+        report[f"kv_combine_{combine}_ops_s"] = ops / runs[combine][2]
+    say(f"[kv_combine] {len(trace)} rounds x {MIXED_ROWS} rows, Zipf(1.1): "
+        f"combine ref == off == the sequential oracle bit for bit (every "
+        f"response, the final table); rows combined {comb} == the host "
+        f"count of duplicate (client, destination, op, key) rows")
+    say(f"[kv_combine] {gpu} | combine off "
+        f"{report['kv_combine_off_ops_s']:.1f} ops/s, ref "
+        f"{report['kv_combine_ref_ops_s']:.1f} ops/s; wire rows saved "
+        f"{sum(comb)} of {ops} ({100 * sum(comb) / ops:.1f}%), "
+        f"{saved} request bytes; device busy over 10 rounds: off "
+        f"{busy_text(busy['off'])}, ref {busy_text(busy['ref'])}")
 
 
 # ---------------------------------------------------------------------------
@@ -2201,6 +2587,49 @@ class KernelRecorder:
         return self._pa(q, k, v, tbl, lengths, scale, impl=impl)
 
 
+def paged_dedicated(torch, dev):
+    """A dedicated page table (the last 4 of the 8 shards trustees) at
+    phase 5's geometry and at phase 2's stress geometry, driven by phase
+    2's stress trace: on the card == the plain version (the CPU) bit for
+    bit, every wave == the oracle replayed in serve order, and the client
+    shards' state all zeros after it."""
+    from repro_torch.core import DelegatedPageTable, StackedMesh, use_session
+    from repro_torch.testing.pagetable import (
+        STRESS_GEOMETRY, replay_waves, stress_waves, submit_waves)
+    for label, g in (("phase 5's geometry", PAGED),
+                     ("the stress geometry", STRESS_GEOMETRY)):
+        runs = {}
+        for side, d in (("card", dev), ("plain", torch.device("cpu"))):
+            with use_session():
+                pt = DelegatedPageTable(StackedMesh(MESH, device=d),
+                                        g["n_pages"], max_seqs=g["max_seqs"],
+                                        page_size=g["page_size"],
+                                        max_pages=g["max_pages"],
+                                        capacity=256, mode="dedicated",
+                                        n_dedicated=DED_TRUSTEES)
+                rec = submit_waves(pt, stress_waves(61))
+                rows = replay_waves(pt, rec)
+                resps = [[pt.globalize(f.result(), sq) for _o, sq, _a, f
+                          in w] for w in rec]
+                runs[side] = (resps, pt.dump(), pt.audit(),
+                              pt.client_region())
+        (gw, gs, ga, gr), (ww, ws, _a, _r) = runs["card"], runs["plain"]
+        require(all(all(np.array_equal(ra[k], rb[k]) for k in rb)
+                    for a, b in zip(gw, ww) for ra, rb in zip(a, b))
+                and all(np.array_equal(gs[k], ws[k]) for k in ws),
+                f"pagetable_serve [dedicated, {label}]: the card differs "
+                f"from the plain version")
+        require(ga["consistent"] and ga["leaked"] == 0 and all(
+            v.size and not v.any() for v in gr.values()),
+            f"pagetable_serve [dedicated, {label}]: audit {ga}, or the "
+            f"client region holds state")
+        say(f"[paged dedicated] {label}, {DED_TRUSTEES} trustees serving "
+            f"{MESH[0] * MESH[1] - DED_TRUSTEES} clients, the stress trace: "
+            f"the card == the plain version bit for bit, == the sequential "
+            f"oracle in serve order ({rows} rows, {ga['evictions']} "
+            f"evictions), audit clean, the client shards' state all zeros")
+
+
 def phase_paged(torch, dev, gpu, report, errs):
     """The slice's main path: run_decode at qwen2.5-3b attention width.
     (a) a check run: every request completes, the audit is clean, every
@@ -2240,6 +2669,8 @@ def phase_paged(torch, dev, gpu, report, errs):
         f"largest of each op: "
         + ", ".join(f"op {o}: {v[0]} rows"
                     for o, v in sorted(rec.passes.items())) + ")")
+
+    paged_dedicated(torch, dev)
 
     kops.reset_launch_counts()
     stats = paged_run(torch, dev, inputs)
@@ -2392,10 +2823,10 @@ def phase_qwen(torch, dev, gpu, report, errs):
     # one fused round, through a streaming driver of depth 2, on the CUDA
     # serve kernels
     sstats = {}
+    session_flags = ["--session", "--stream-depth", "2", "--serve-impl",
+                     "pallas"]
     kops.reset_launch_counts()
-    sout = serve.main(qwen_serve_argv() + ["--session", "--stream-depth",
-                                           "2", "--serve-impl", "pallas"],
-                      stats=sstats)
+    sout = serve.main(qwen_serve_argv() + session_flags, stats=sstats)
     session_counts = kops.launch_counts()
     say(f"[main path] qwen session serve launches: "
         f"{json.dumps(session_counts)}")
@@ -2412,6 +2843,41 @@ def phase_qwen(torch, dev, gpu, report, errs):
     require(sstats["fused_waves"] == [[["ledger", "meter"]]] * g,
             "session serve: a wave was not one fused round of both trusts")
     report["qwen_session_serve"] = sstats
+    for label, extra in (("dedicated", ["--delegation-mode", "dedicated"]),
+                         ("drain", ["--drain-rounds", "3"])):
+        xstats = {}
+        kops.reset_launch_counts()
+        xout = serve.main(qwen_serve_argv() + session_flags + extra,
+                          stats=xstats)
+        xcounts = kops.launch_counts()
+        say(f"[main path] qwen session serve ({label}) launches: "
+            f"{json.dumps(xcounts)}")
+        for k in ("delegation_pack", "segmented_add", "gather"):
+            require(xcounts[k] > 0, f"kernel {k} was not launched on the "
+                    f"{label} session serve's path")
+            session_counts[k] += xcounts[k]
+        require(np.array_equal(xout, out), f"{label} session serve: the "
+                f"generated tokens differ from the plain serve's")
+        require(xstats["ledger"].tolist() == [g] * b
+                and int(xstats["meter"].sum()) == b * g,
+                f"{label} session serve: ledger {xstats['ledger'].tolist()},"
+                f" meter {xstats['meter'].tolist()}")
+        require(not xstats["client_region"].any(),
+                f"{label} session serve: the ledger's client region holds "
+                f"state")
+        if label == "drain":
+            require(xstats["drain"]["residual"] == 0,
+                    f"drain session serve: {xstats['drain']}")
+        report[f"qwen_session_{label}_serve"] = xstats
+        say(f"[qwen session {label}] {gpu} | serve "
+            + " ".join(session_flags + extra) + f": tokens == the plain "
+            f"serve's, ledger {g} for each of {b} requests, meter sum "
+            f"{b * g}"
+            + (f", the ledger's drain {xstats['drain']}"
+               if label == "drain" else ", the ledger and meter on the "
+               "last 2 of 4 shards, their client region zeros")
+            + f"; {xstats['tokens_per_s']:.1f} tokens/s "
+            f"({xstats['ms_per_step']:.3f} ms/step)")
     say(f"[qwen session] {gpu} | serve --session --stream-depth 2 "
         f"--serve-impl pallas: tokens == the plain serve's, ledger "
         f"{g} for each of {b} requests, meter {sstats['meter'].tolist()} "
@@ -3685,10 +4151,12 @@ def kernel_info(torch, n_dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,4a,4b,5,6,7,8,9",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,4a,4b,4c,4d,4e,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    started = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -3761,17 +4229,26 @@ def main(argv=None):
             launches[k] += v
     for k, v in report.items():
         say(f"[ops/s] {gpu} | {k}: {v:.1f}")
-    # the multiplexed session round and the lock lanes, counters zeroed
-    # just before each and read just after (their ref paths launch none)
+    say(f"[time] phases 1-4: {time.perf_counter() - started:.1f} s")
+    # the multiplexed session round, the lock lanes, dedicated mode, the
+    # defer drain and combining, counters zeroed just before each and read
+    # just after (their ref paths launch none)
     for phase, label, run in (
             ("4a", "kv_mux", lambda: phase_mux(torch, dev, gpu)),
-            ("4b", "kv_locks", lambda: phase_locks(torch, dev, gpu))):
+            ("4b", "kv_locks", lambda: phase_locks(torch, dev, gpu)),
+            ("4c", "kv_dedicated",
+             lambda: phase_dedicated(torch, dev, gpu, report)),
+            ("4d", "kv_drain", lambda: phase_drain(torch, dev, gpu, report)),
+            ("4e", "kv_combine",
+             lambda: phase_combine(torch, dev, gpu, report))):
         if phase not in phases:
             continue
+        t0 = time.perf_counter()
         kops.reset_launch_counts()
         run()
         counts = kops.launch_counts()
-        say(f"[main path] {label} launches: {json.dumps(counts)}")
+        say(f"[main path] {label} launches: {json.dumps(counts)} "
+            f"({time.perf_counter() - t0:.1f} s)")
         for k in KV_KERNELS:
             require(counts[k] > 0, f"kernel {k} was not launched on the "
                     f"{label} main path")
@@ -3782,12 +4259,14 @@ def main(argv=None):
         paged = phase_paged(torch, dev, gpu, report, errs)
         for k, v in paged[0].items():
             launches[k] += v
+        say(f"[time] through phase 5: {time.perf_counter() - started:.1f} s")
     qwen = None
     if "6" in phases:
         qwen = phase_qwen(torch, dev, gpu, report, errs)
         launches["flash_attention"] += qwen[0]
         for k, v in qwen[3].items():
             launches[k] += v
+        say(f"[time] through phase 6: {time.perf_counter() - started:.1f} s")
     deep = None
     if "7" in phases:
         deep = phase_deepseek(torch, dev, gpu, report, errs)
@@ -3799,12 +4278,14 @@ def main(argv=None):
             phase_deepseek_busy(torch, dev, gpu, deep[5], deep[6])
         deep = deep[:5] + (deep[6],)
         torch.cuda.empty_cache()
+        say(f"[time] through phase 7: {time.perf_counter() - started:.1f} s")
     falcon = None
     if "8" in phases:
         falcon = phase_falcon(torch, dev, gpu, report, errs,
                               busy="9" in phases)
         for k, v in falcon[0].items():
             launches[k] += v
+        say(f"[time] through phase 8: {time.perf_counter() - started:.1f} s")
     per_round["launches"] = launches
     say(f"[main path] kernel launches over phases 3-8 (one prefill call in "
         f"phases 6, 7 and 8; 4a, 4b and the session serve included): "
@@ -3835,6 +4316,7 @@ def main(argv=None):
                                       falcon[0]["selective_scan"]))
         phase_qwen_busy(torch, dev, gpu, qwen[2])
         for k in ("qwen_prefill", "qwen_serve", "qwen_session_serve",
+                  "qwen_session_dedicated_serve", "qwen_session_drain_serve",
                   "deepseek_prefill",
                   "deepseek_serve", "falcon_prefill", "falcon_serve"):
             say(f"[tokens/s] {gpu} | {k}: {report[k]['tokens_per_s']:.1f}")
@@ -3847,6 +4329,7 @@ def main(argv=None):
                          "bound_by": by, "library_ms": lib,
                          "shapes": label})
         phase_busy(torch, dev, gpu)
+        say(f"[time] through phase 9: {time.perf_counter() - started:.1f} s")
         say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

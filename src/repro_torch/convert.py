@@ -24,11 +24,15 @@ import torch
 
 
 def stacked_from_owner_major(host_state: Dict[str, np.ndarray],
-                             n_trustees: int,
-                             device=None) -> Dict[str, torch.Tensor]:
+                             n_trustees: int, device=None,
+                             n_clients: int = 0) -> Dict[str, torch.Tensor]:
     """Owner-major numpy leaves ``(T * rows, ...)`` -> stacked tensors
     ``(T, rows, ...)`` on ``device`` (the port's default device when
-    None), copied: they never alias the caller's arrays."""
+    None), copied: they never alias the caller's arrays.  ``n_clients``
+    > 0 gives dedicated mode's physical layout, ``(n_clients + T, rows,
+    ...)`` with the client shards zero (the JAX dedicated store's physical
+    leaves, ``(n_clients + T) * rows`` long, stack as ``n_trustees =
+    n_clients + T`` with no region to add)."""
     from .core.meshctx import resolve_device
     dev = resolve_device(device)
     out = {}
@@ -38,18 +42,22 @@ def stacked_from_owner_major(host_state: Dict[str, np.ndarray],
             raise ValueError(
                 f"state leaf {name!r}: {a.shape[0]} rows do not split over "
                 f"{n_trustees} trustees")
-        out[name] = torch.tensor(
-            np.ascontiguousarray(a.reshape((n_trustees, -1) + a.shape[1:])),
-            device=dev)
+        a = a.reshape((n_trustees, -1) + a.shape[1:])
+        if n_clients:
+            a = np.concatenate([np.zeros((n_clients,) + a.shape[1:],
+                                         a.dtype), a])
+        out[name] = torch.tensor(np.ascontiguousarray(a), device=dev)
     return out
 
 
-def owner_major_from_stacked(state: Dict[str, torch.Tensor]
-                             ) -> Dict[str, np.ndarray]:
+def owner_major_from_stacked(state: Dict[str, torch.Tensor],
+                             n_clients: int = 0) -> Dict[str, np.ndarray]:
     """Stacked tensors ``(T, rows, ...)`` -> owner-major numpy leaves
     ``(T * rows, ...)``, copied: a store's state is live (its serve writes
-    in place), and the result is a snapshot of it."""
-    return {name: leaf.detach().cpu().numpy().copy().reshape(
+    in place), and the result is a snapshot of it.  ``n_clients`` > 0
+    strips dedicated mode's client region (the first ``n_clients``
+    shards) first."""
+    return {name: leaf[n_clients:].detach().cpu().numpy().copy().reshape(
                 (-1,) + tuple(leaf.shape[2:]))
             for name, leaf in state.items()}
 

@@ -15,6 +15,10 @@ the JAX channel's: each trustee serves all clients' primary blocks in
 client order, then all second_round blocks, then — with the local
 shortcut — its own self-addressed rows, appended after the channel rows.
 Within one (client, trustee) block rows keep their issue order (FIFO).
+In dedicated mode the last T of the D shards are trustees: trustee ids
+become shard slots past the ``n_clients`` client shards, rows that
+originate on a trustee shard are masked off, and the transpose stays over
+all D shards (client slots carry empty blocks).
 
 A multiplexed round (``engine.py``) gives each Trust its own ``capacity``
 lane inside every (client, trustee) block: ``dst`` then holds virtual
@@ -26,11 +30,13 @@ them (the jaxpr ``all_to_all`` count of the JAX tests).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from . import routing
 from ..kernels import ops as kops
 from ..kernels.delegation_serve import row_block
 from ..kernels.ref import take_rows
@@ -151,6 +157,14 @@ class ChannelConfig:
     n_lanes: int = 1
     elide_lanes: Tuple[int, ...] = ()
 
+    def n_slots(self, n_trustees: int) -> int:
+        """Destination slots a shard in the block layout: one a trustee in
+        shared mode; in dedicated mode every shard of the transpose, the
+        trustees at slots ``n_clients + t`` and the client slots empty."""
+        if self.mode == "dedicated":
+            return n_trustees + self.n_clients
+        return n_trustees
+
     def second_capacity(self) -> int:
         """Rows per pair in the second_round block (0 when there is none)."""
         if self.overflow == "second_round" and self.overflow_capacity > 0:
@@ -244,19 +258,32 @@ def _flip_cummin(x: torch.Tensor) -> torch.Tensor:
     return torch.flip(torch.cummin(torch.flip(x, [-1]), dim=-1).values, [-1])
 
 
-def make_grouping(gid: torch.Tensor) -> Grouping:
+def make_grouping(gid: torch.Tensor,
+                  gid2: Optional[torch.Tensor] = None) -> Grouping:
     """The shared grouping from a per-row group id (sentinel = max), over
     the last dimension: one stable sort, then segment boundaries from
-    running max/min scans over the sorted ids."""
+    running max/min scans over the sorted ids.  ``gid2`` adds a secondary
+    key: rows group by the pair ``(gid, gid2)`` (the combine pass's
+    (destination, span) x key, which one int32 could not hold), sorted by
+    two stable sorts, the secondary key first."""
     n = gid.shape[-1]
     dev = gid.device
     pos = torch.arange(n, dtype=torch.int32, device=dev).expand(gid.shape)
-    gid_sorted, order = torch.sort(gid, dim=-1, stable=True)
+    if gid2 is None:
+        gid_sorted, order = torch.sort(gid, dim=-1, stable=True)
+    else:
+        _, order2 = torch.sort(gid2, dim=-1, stable=True)
+        gid_sorted, by1 = torch.sort(torch.gather(gid, -1, order2), dim=-1,
+                                     stable=True)
+        order = torch.gather(order2, -1, by1)
     inv = torch.empty(gid.shape, dtype=torch.int32, device=dev) \
         .scatter_(-1, order, pos)
     order = order.to(torch.int32)
     lead = tuple(gid.shape[:-1])
     changed = gid_sorted[..., 1:] != gid_sorted[..., :-1]
+    if gid2 is not None:
+        gid2_sorted = torch.gather(gid2, -1, order.long())
+        changed = changed | (gid2_sorted[..., 1:] != gid2_sorted[..., :-1])
     one = torch.ones(lead + (1,), dtype=torch.bool, device=dev)
     is_start = torch.cat([one, changed], -1)
     is_end = torch.cat([changed, one], -1)
@@ -445,7 +472,10 @@ def _block_meta(cnt: torch.Tensor, c: int, lanes: int):
     (T, D*lanes)."""
     t, n = cnt.shape
     dev = cnt.device
-    valid = (torch.arange(c, device=dev) < cnt[..., None]).reshape(t, n * c)
+    # contiguous: at c = 1 the reshape would keep the transposed header's
+    # strides, and the serve kernels take contiguous rows only
+    valid = (torch.arange(c, device=dev) < cnt[..., None]).reshape(
+        t, n * c).contiguous()
     client = torch.arange(n // lanes, dtype=torch.int32, device=dev) \
         .repeat_interleave(lanes * c).expand(t, n * c)
     return valid, client
@@ -572,10 +602,18 @@ ServeFn = Callable[[Pytree, Received], Tuple[Pytree, Pytree]]
 
 
 class ChannelInfo(NamedTuple):
-    group_sizes: torch.Tensor   # (D, T) pre-capacity demand per client
+    group_sizes: torch.Tensor   # (D, bins) pre-capacity demand per client
     dropped: torch.Tensor       # (D, R) bool — active rows not sent
-    n_rows: int                 # channel rows per trustee per round
+    #                             (after a drain: still unserved)
+    n_rows: int                 # channel rows per shard per round
     impl_fallback: int = 0      # implementation fallbacks in the serve
+    rounds: Any = 1             # channel rounds (an int32 device count
+    #                             after a drain)
+    residual: Any = 0           # rows still unserved over every shard
+    #                             (device count after a drain)
+    rows_combined: Any = 0      # request rows the combine pass kept off
+    #                             the wire, every shard (device count)
+    req_bytes_saved: Any = 0    # the request-wire bytes of those rows
 
 
 def _resp_bytes_per_row(leaf: torch.Tensor, wire_fmt: str) -> int:
@@ -646,6 +684,22 @@ def _respond_unpack(resp_rows: Pytree, request_slot: torch.Tensor,
     return {k: out[k] for k in resp_rows}
 
 
+def _to_device_slots(dst: torch.Tensor, cfg: ChannelConfig) -> torch.Tensor:
+    """Dedicated mode: trustee ids [0, T) become shard slots past the
+    ``n_clients`` client shards, and rows that originate on a trustee
+    shard (a row's shard is its index on the leading dimension) are masked
+    to -1.  With ``n_lanes > 1`` ``dst`` holds virtual bins trustee * L +
+    lane, which move by ``n_clients`` whole shard slots (L bins each)."""
+    if cfg.mode != "dedicated":
+        return dst
+    if cfg.n_clients < 1:
+        raise ValueError("dedicated mode needs n_clients > 0")
+    d = dst.shape[0]
+    is_client = torch.arange(d, device=dst.device)[:, None] < cfg.n_clients
+    return routing.trustee_device_slot(torch.where(is_client, dst, -1),
+                                       cfg.n_clients * cfg.n_lanes)
+
+
 def _split_local(dst: torch.Tensor, payload: Pytree, n_lanes: int = 1):
     """Local-trustee shortcut: requests addressed to their own shard skip
     the channel and are appended to that trustee's serve batch, after the
@@ -668,24 +722,190 @@ def _concat_received(a: Received, b: Received) -> Received:
         client=torch.cat([a.client, b.client], 1))
 
 
+# ---------------------------------------------------------------------------
+# Client-side request combining (the JAX package's DESIGN.md §13)
+#
+# Between the local-shortcut split and ``pack`` the combine pass groups the
+# remote rows of each shard by (destination, op span, key), sends ONE row a
+# segment and rebuilds every request's response after unpack:
+#
+#   dedupe (GET)  the segment's first row rides; its response fans back to
+#                 every row of the segment (all read the round-entry value);
+#   sum    (ADD)  the first row carries the segment's summed delta; each
+#                 row's prior is the combined prior plus the segment-local
+#                 exclusive prefix of the original deltas;
+#   last   (PUT)  only the segment's last row (the shard's final write)
+#                 rides; last-writer-wins across clients is unchanged.
+#
+# Ops that declare no combine (CAS) pass through as singleton segments.
+# ---------------------------------------------------------------------------
+
+_COMBINE_KINDS = ("dedupe", "sum", "last")
+_C_DEDUPE, _C_SUM, _C_LAST = 0, 1, 2
+
+
+class CombineSpan(NamedTuple):
+    """The combine plan of one batch span of a round (the engine builds
+    one a combinable (trust, op)); rows carry their span in an int32
+    column, -1 never combined.  Lane names are wire lane names."""
+    kind: str                        # "dedupe" | "sum" | "last"
+    key_lane: str                    # wire lane that keys the segment
+    sum_lane: Optional[str] = None   # "sum": wire lane of the delta
+    resp_tid: Optional[int] = None   # a non-merged multiplexed round's
+    #                                  trust (its fields ride "f@tid")
+    resp_field: str = "value"        # "sum": the response field rebuilt
+    #                                  as combined prior + local prefix
+
+
+class CombineCtx:
+    """What ``RequestCombiner.pre`` hands to ``post`` for one round."""
+    __slots__ = ("rep_row", "prefixes", "combined")
+
+    def __init__(self, rep_row, prefixes, combined):
+        self.rep_row = rep_row      # (D, R) int32: each row's representative
+        self.prefixes = prefixes    # ((response field, (D, R, ...)), ...)
+        self.combined = combined    # (D, R) bool: kept off the wire
+
+
+class RequestCombiner:
+    """The combine pass: ``pre`` before ``pack``, ``post`` after unpack.
+    A segment never straddles destinations or spans, and only its one
+    representative can be dropped or deferred: ``post`` spreads that bit
+    over the segment, so a drain retries whole segments."""
+
+    def __init__(self, spans: Tuple[CombineSpan, ...]):
+        if not spans:
+            raise ValueError("RequestCombiner needs at least one CombineSpan")
+        for sp in spans:
+            if sp.kind not in _COMBINE_KINDS:
+                raise ValueError(f"unknown combine kind {sp.kind!r}")
+            if sp.kind == "sum" and sp.sum_lane is None:
+                raise ValueError("a 'sum' span needs its sum_lane")
+        self.spans = tuple(spans)
+
+    def pre(self, dst: torch.Tensor, rows: Pytree, span_col: torch.Tensor):
+        """(dst (D, R), rows, span_col (D, R)) -> (dst', rows', CombineCtx).
+        Only active rows of a declared span combine."""
+        n = dst.shape[-1]
+        dev = dst.device
+        pos = torch.arange(n, dtype=torch.int32, device=dev) \
+            .expand(dst.shape)
+        s = len(self.spans)
+        span_col = torch.where(dst >= 0, span_col, -1)
+        comb = span_col >= 0
+        # the primary key (destination, span) is small; the op's key rides
+        # as the secondary sort key; rows not combined are singletons
+        k1 = torch.where(comb, dst * s + span_col, -1).to(torch.int32)
+        key_col = torch.zeros(dst.shape, dtype=torch.int32, device=dev)
+        for sid, sp in enumerate(self.spans):
+            key_col = torch.where(span_col == sid,
+                                  rows[sp.key_lane].to(torch.int32), key_col)
+        g = make_grouping(k1, gid2=torch.where(comb, key_col, pos))
+        seg_start_row = torch.gather(g.seg_start, -1, g.inv.long())
+        is_first = g.inv == seg_start_row
+        is_last = g.inv == g.seg_end_row - 1
+        kinds = torch.tensor([_COMBINE_KINDS.index(sp.kind)
+                              for sp in self.spans], dtype=torch.int32,
+                             device=dev)
+        keep_last = kinds[torch.clamp(span_col, 0, s - 1).long()] == _C_LAST
+        is_rep = torch.where(comb, torch.where(keep_last, is_last, is_first),
+                             True)
+        new_dst = torch.where(comb & ~is_rep, -1, dst)
+        new_rows = dict(rows)
+        prefixes = []
+        for sid, sp in enumerate(self.spans):
+            if sp.kind != "sum":
+                continue
+            m = comb & (span_col == sid)
+            leaf = rows[sp.sum_lane]
+            delta = _where_rows(m, leaf, torch.zeros_like(leaf))
+            # a global cumsum of the sorted deltas minus the segment base
+            d_s = take_rows(delta, g.order)
+            incl = torch.cumsum(d_s, dim=1)
+            excl = incl - d_s
+            seg_base = take_rows(excl, g.seg_start)
+            prefix = take_rows(excl - seg_base, g.inv)
+            total = take_rows(take_rows(incl, torch.clamp(g.seg_end - 1, 0,
+                                                          n - 1))
+                              - seg_base, g.inv)
+            # the representative (the segment's first row) sends the sum
+            new_rows[sp.sum_lane] = _where_rows(m & is_rep, total,
+                                                new_rows[sp.sum_lane])
+            field = sp.resp_field if sp.resp_tid is None \
+                else f"{sp.resp_field}@{sp.resp_tid}"
+            prefixes.append((field, _where_rows(m, prefix,
+                                                torch.zeros_like(prefix))))
+        rep_sorted = torch.where(keep_last, g.seg_end_row - 1, seg_start_row)
+        rep_row = torch.where(comb, torch.gather(g.order, -1,
+                                                 rep_sorted.long()), pos)
+        return new_dst, new_rows, CombineCtx(rep_row, tuple(prefixes),
+                                             comb & ~is_rep)
+
+    def post(self, responses: Pytree, dropped: torch.Tensor,
+             ctx: CombineCtx):
+        """Fan each representative's response back over its segment, add
+        the sum archetype's prefixes, and spread the representative's
+        dropped bit over the segment.  Returns (responses', dropped')."""
+        rep = ctx.rep_row.long()
+        dropped2 = torch.gather(dropped, -1, rep)
+        out = {k: take_rows(v, rep) for k, v in responses.items()}
+        served = ~dropped2
+        for field, pref in ctx.prefixes:
+            out[field] = out[field] + _where_rows(served, pref,
+                                                  torch.zeros_like(pref))
+        return out, dropped2
+
+
+def as_combine_decl(c) -> Tuple[str, str, str, str]:
+    """An op's combine declaration (an ``opspec.Combine`` or the
+    "dedupe" / "sum" / "last" shorthand) as ``(kind, key_field,
+    sum_field, resp_field)``."""
+    if isinstance(c, str):
+        kind, key, field, resp = c, "key", "value", "value"
+    else:
+        kind, key, field, resp = c.kind, c.key, c.field, c.resp
+    if kind not in _COMBINE_KINDS:
+        raise ValueError(f"unknown combine kind {kind!r}; "
+                         f"expected one of {_COMBINE_KINDS}")
+    return kind, key, field, resp
+
+
+def _req_bytes_per_row(rows: Pytree, wire_fmt: str) -> int:
+    """Request-wire bytes one row of this payload (leaves (D, R, ...))
+    takes: its own bytes in the tree format, a 32-bit word an element on
+    the "planes" wire (JAX counts 8 bytes for an int32 element there, its
+    hi/lo planes; the port's wire moves 4)."""
+    total = 0
+    for leaf in rows.values():
+        n = 1
+        for s in leaf.shape[2:]:
+            n *= int(s)
+        total += n * (4 if wire_fmt == "planes" else leaf.element_size())
+    return total
+
+
 def delegate(state: Pytree, dst: torch.Tensor, payload: Pytree,
-             serve_fn: ServeFn, n_trustees: int, cfg: ChannelConfig):
+             serve_fn: ServeFn, n_trustees: int, cfg: ChannelConfig,
+             combine: Optional[RequestCombiner] = None,
+             combine_span: Optional[torch.Tensor] = None):
     """Synchronous delegation: pack -> transmit -> serve -> respond ->
     unpack over every shard at once.  ``dst`` (D, R) holds trustee ids —
     virtual bins ``trustee * n_lanes + lane`` when ``cfg.n_lanes > 1``, so
     each lane keeps its solo pack, capacity and FIFO semantics inside the
-    shared block.  Returns (new_state, responses (D, R, ...),
-    ChannelInfo); ``group_sizes`` is per bin."""
-    if cfg.mode != "shared":
-        raise NotImplementedError(
-            "dedicated trustee mode is not ported yet (ROADMAP.md queue A: "
-            "dedicated mode)")
+    shared block.  In dedicated mode they become shard slots past the
+    clients, rows on trustee shards are masked off and there is no
+    shortcut.  ``combine`` / ``combine_span`` (with ``cfg.combine_impl !=
+    "off"``) run the combine pass between the shortcut split and the pack,
+    so ``group_sizes`` is the post-combine demand.  Returns (new_state,
+    responses (D, R, ...), ChannelInfo); ``group_sizes`` is per bin."""
     d, r = dst.shape
-    n_bins = n_trustees * cfg.n_lanes
+    n_slots = cfg.n_slots(n_trustees)
+    n_bins = n_slots * cfg.n_lanes
+    dst = _to_device_slots(dst, cfg)
     local_recv = local_mask = None
-    if cfg.local_shortcut:
+    if cfg.local_shortcut and cfg.mode != "dedicated":
         dst, local_recv, local_mask = _split_local(dst, payload, cfg.n_lanes)
-        if n_trustees == 1:
+        if n_slots == 1:
             with collect_impl_events() as events:
                 new_state, local_resp = serve_fn(state, local_recv)
             info = ChannelInfo(
@@ -694,6 +914,13 @@ def delegate(state: Pytree, dst: torch.Tensor, payload: Pytree,
                 torch.zeros((d, r), dtype=torch.bool, device=dst.device), 0,
                 impl_fallback=len(events))
             return new_state, local_resp, info
+
+    cctx = None
+    if combine is not None and combine_span is not None \
+            and cfg.combine_impl != "off":
+        # shortcut rows kept the payload as it was: they serve one by one,
+        # after the channel rows, as with combining off
+        dst, payload, cctx = combine.pre(dst, payload, combine_span)
 
     packed, group_sizes = pack(dst, payload, n_bins, cfg)
     received = transmit(packed, n_bins, cfg)
@@ -708,10 +935,95 @@ def delegate(state: Pytree, dst: torch.Tensor, payload: Pytree,
         resp_rows = {k: v[:, :n_chan] for k, v in resp_rows.items()}
     responses = _respond_unpack(resp_rows, packed.request_slot, n_bins,
                                 cfg, local_resp, local_mask)
-    info = ChannelInfo(group_sizes, packed.dropped,
-                       n_bins * cfg.total_capacity(),
-                       impl_fallback=len(events))
+    dropped = packed.dropped
+    rows_combined = req_bytes_saved = 0
+    if cctx is not None:
+        responses, dropped = combine.post(responses, dropped, cctx)
+        rows_combined = cctx.combined.sum(dtype=torch.int32)
+        req_bytes_saved = rows_combined * _req_bytes_per_row(payload,
+                                                             cfg.wire_fmt)
+    info = ChannelInfo(group_sizes, dropped, n_bins * cfg.total_capacity(),
+                       impl_fallback=len(events),
+                       rows_combined=rows_combined,
+                       req_bytes_saved=req_bytes_saved)
     return new_state, responses, info
+
+
+def _check_retry_serve(state: Pytree, payload: Pytree, serve_fn: ServeFn,
+                       n_bins: int, cfg: ChannelConfig, d: int) -> None:
+    """Run a drain retry round's serve on rows of its shape with no row
+    valid, its launches discarded: every check a retry round's serve makes
+    before its launches raises now, before round 1 writes a table in
+    place.  Only the local shortcut gives round 1 another shape than its
+    retry rounds (they carry no shortcut tail); otherwise round 1's own
+    checks are theirs."""
+    n = n_bins * cfg.total_capacity()
+    dev = next(iter(payload.values())).device
+    rows = {k: torch.zeros((d, n) + tuple(v.shape[2:]), dtype=v.dtype,
+                           device=dev) for k, v in payload.items()}
+    probe = Received(rows, torch.zeros((d, n), dtype=torch.bool, device=dev),
+                     torch.zeros((d, n), dtype=torch.int32, device=dev))
+    with deferred_launches():
+        serve_fn(state, probe)
+
+
+def delegate_drain(state: Pytree, dst: torch.Tensor, payload: Pytree,
+                   serve_fn: ServeFn, n_trustees: int, cfg: ChannelConfig,
+                   max_rounds: Optional[int] = None,
+                   combine: Optional[RequestCombiner] = None,
+                   combine_span: Optional[torch.Tensor] = None):
+    """The defer drain (``overflow="defer"``; the paper's §5.1 "wait for
+    slot availability" as bounded retry rounds).
+
+    Round 1 is a full ``delegate`` (the local shortcut included).  The
+    rows it deferred are re-packed and re-sent in up to ``max_rounds -
+    1`` retry rounds, without the shortcut; responses merge into request
+    order, and FIFO per (client, trustee) holds across rounds (each round
+    serves a pair's next ``capacity`` rows).  JAX loops while rows remain;
+    the port issues every retry round, each masked by the rows still
+    remaining, so no device value is read back on the host: a round with
+    none left sends nothing, leaves tables and responses as they are, and
+    is not counted.  ``info.rounds`` (rounds that carried rows, as JAX
+    counts them) and ``info.residual`` (rows still unserved; they keep
+    zero responses and stay set in ``info.dropped``) are device counts."""
+    if cfg.overflow != "defer":
+        raise ValueError(f"delegate_drain needs overflow='defer', got "
+                         f"{cfg.overflow!r}")
+    max_rounds = cfg.max_rounds if max_rounds is None else max_rounds
+    if max_rounds < 1:
+        raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
+    cfg_retry = dataclasses.replace(cfg, local_shortcut=False)
+    if max_rounds > 1 and cfg.local_shortcut and cfg.mode != "dedicated":
+        _check_retry_serve(state, payload, serve_fn,
+                           cfg.n_slots(n_trustees) * cfg.n_lanes, cfg_retry,
+                           dst.shape[0])
+    state, responses, info = delegate(state, dst, payload, serve_fn,
+                                      n_trustees, cfg, combine=combine,
+                                      combine_span=combine_span)
+    remaining = info.dropped
+    total = remaining.sum(dtype=torch.int32)
+    rounds = torch.ones((), dtype=torch.int32, device=dst.device)
+    if max_rounds == 1:
+        return state, responses, info._replace(rounds=rounds, residual=total)
+    combined, saved = info.rows_combined, info.req_bytes_saved
+    for _ in range(max_rounds - 1):
+        rounds = rounds + (total > 0).to(torch.int32)
+        # a deferred segment stays whole (post marks all of it), so the
+        # retried rows re-form the same segments
+        state, resp_r, info_r = delegate(
+            state, torch.where(remaining, dst, -1), payload, serve_fn,
+            n_trustees, cfg_retry, combine=combine,
+            combine_span=combine_span)
+        sent = remaining & ~info_r.dropped
+        responses = {k: _where_rows(sent, resp_r[k], v)
+                     for k, v in responses.items()}
+        remaining = info_r.dropped
+        total = remaining.sum(dtype=torch.int32)
+        combined = combined + info_r.rows_combined
+        saved = saved + info_r.req_bytes_saved
+    return state, responses, info._replace(
+        dropped=remaining, rounds=rounds, residual=total,
+        rows_combined=combined, req_bytes_saved=saved)
 
 
 # ---------------------------------------------------------------------------
@@ -852,7 +1164,9 @@ def _serve_members(serves, states, members):
             new_states.append(s)
             resps.append(r)
     for fn in launches:
-        fn()
+        # an enclosing deferral (a drain's check of its retry serve) takes
+        # the launches; otherwise they run now
+        launch_or_defer(fn)
     return tuple(new_states), resps
 
 

@@ -9,11 +9,15 @@ as the JAX programs do:
 
   * concatenate the queued batches (an "op" column when more than one op
     is queued; payload fields a batch lacks are zero-filled);
-  * pad the fused batch to a multiple of the mesh size and give each
+  * pad the fused batch to a multiple of the client count and give each
     stacked client shard a CONTIGUOUS slice, exactly as JAX shards a batch
-    with ``P(axes)`` — this is what fixes the (client, slot) serve order;
-  * one ``channel.delegate`` round over all shards, responses sliced back
-    per batch.
+    with ``P(axes)`` — this is what fixes the (client, slot) serve order
+    (dedicated mode packs every row onto the leading ``n_clients`` shards;
+    the trustee shards hold only inactive padding);
+  * one ``channel.delegate`` round over all shards — with
+    ``overflow="defer"`` a ``channel.delegate_drain`` — with the request
+    combiner of the round's combinable ops when ``combine="ref"``,
+    responses sliced back per batch.
 
 The multiplexed round lays the trusts' batches out trust-major with a
 "trust" id lane, moves them on the "planes" wire (one request transpose,
@@ -298,6 +302,9 @@ class DelegationEngine:
             cfg, elide_resp=_elidable_fields(ops, active, trust.resp_like))
         serve = ch.serve_optable(ops, active_ids=active,
                                  serve_impl=cfg.serve_impl, cfg=cfg)
+        # request combining: one span a combinable active op
+        combiner, span_of = _combine_plan(
+            cfg, [(None, oid, ops[oid].combine, None) for oid in active])
         dev = trust.device
         rows: Dict[str, torch.Tensor] = {}
         if len(set(op_ids)) > 1:
@@ -307,25 +314,32 @@ class DelegationEngine:
         payloads = [b[2] for b in batches]
         rows.update(_concat_lanes([{k: k for k in p} for p in payloads],
                                   payloads, sizes, dev))
+        if combiner is not None:
+            rows[_SPAN] = _span_column([span_of.get((None, oid), -1)
+                                        for oid in op_ids], sizes, dev)
         d = trust.group.mesh.size
         dst, rows, r_dev = _shard_rows(
             torch.cat([b[1].to(dev, torch.int32) for b in batches], 0),
-            rows, d)
+            rows, trust.group)
+        span = rows.pop(_SPAN, None)
 
-        new_state, resp, info = ch.delegate(trust._state, dst, rows, serve,
-                                            trust.n_trustees, cfg)
+        new_state, resp, info = _round(trust._state, dst, rows, serve,
+                                       trust.n_trustees, cfg, combiner, span)
         trust._state = new_state
         self.planner.observe(sig, info.group_sizes.max())
         self.rounds_dispatched += 1
-        n_rows = trust.n_trustees * cfg.total_capacity()
-        saved = 0 if (trust.n_trustees == 1 and cfg.local_shortcut) \
-            else ch.resp_elision_bytes(trust.resp_like, cfg, n_rows)
+        n_slots = cfg.n_slots(trust.n_trustees)
+        saved = 0 if (n_slots == 1 and cfg.local_shortcut) \
+            else ch.resp_elision_bytes(trust.resp_like, cfg,
+                                       n_slots * cfg.total_capacity())
+        trust._last_stats = (info.rounds, info.residual)
         self._last_step_stats[self._stats_key(trust)] = {
-            "rounds": 1, "residual": 0,
+            "rounds": info.rounds, "residual": info.residual,
             "demand_max": info.group_sizes.max(),
             "dropped": info.dropped.sum(),
-            "resp_bytes_saved": saved, "rows_combined": 0,
-            "req_bytes_saved": 0, "impl_fallback": info.impl_fallback}
+            "resp_bytes_saved": saved, "rows_combined": info.rows_combined,
+            "req_bytes_saved": info.req_bytes_saved,
+            "impl_fallback": info.impl_fallback}
         return _split_spans(resp, d * r_dev, [sizes])[0]
 
     # -- the multiplexed round ----------------------------------------------
@@ -377,12 +391,15 @@ class DelegationEngine:
                              tel["demand_merged"])
         for i, (t, pend) in enumerate(entries):
             t._state = new_states[i]
+            t._last_stats = (tel["rounds"], tel["residual"][i])
             self._last_step_stats[self._stats_key(t)] = {
-                "rounds": 1, "residual": tel["residual"][i],
+                "rounds": tel["rounds"], "residual": tel["residual"][i],
                 "demand_max": tel["demand"][i],
                 "dropped": tel["residual"][i],
-                "resp_bytes_saved": tel["saved"], "rows_combined": 0,
-                "req_bytes_saved": 0, "impl_fallback": tel["impl_fallback"]}
+                "resp_bytes_saved": tel["saved"],
+                "rows_combined": tel["combined"],
+                "req_bytes_saved": tel["req_saved"],
+                "impl_fallback": tel["impl_fallback"]}
             for (_o, _d, _p, fut), resp in zip(pend, resps[i]):
                 fut._fulfil(resp)
 
@@ -413,23 +430,68 @@ def _concat_lanes(lane_maps, payloads, sizes, dev) -> Dict[str, torch.Tensor]:
     return rows
 
 
-def _shard_rows(dst: torch.Tensor, rows: Dict[str, torch.Tensor], d: int):
-    """Pad a fused batch so every client shard gets an equal CONTIGUOUS
-    slice (the JAX batch sharding; padding rows are inactive, dst = -1)
-    and stack it (D, R_dev, ...)."""
+_SPAN = "__span"          # the combine span column, never on the wire
+
+
+def _shard_rows(dst: torch.Tensor, rows: Dict[str, torch.Tensor], group):
+    """Pad a fused batch so each of the group's client shards (every shard
+    in shared mode, the leading ``n_clients`` in dedicated mode) gets an
+    equal CONTIGUOUS slice of ``ceil(R / n_clients)`` rows (the JAX batch
+    sharding; padding rows are inactive, dst = -1, and the trustee shards
+    of dedicated mode hold only padding) and stack it (D, R_dev, ...).
+    The combine span column pads with -1."""
+    d = group.mesh.size
     r_total = dst.shape[0]
-    r_dev = -(-r_total // d)
+    r_dev = -(-r_total // group.n_clients)
     pad = d * r_dev - r_total
     dev = dst.device
     if pad:
         dst = torch.cat([dst, torch.full((pad,), -1, dtype=dst.dtype,
                                          device=dev)])
-        rows = {k: torch.cat([v, torch.zeros((pad,) + tuple(v.shape[1:]),
-                                             dtype=v.dtype, device=dev)])
+        rows = {k: torch.cat([v, torch.full((pad,) + tuple(v.shape[1:]),
+                                            -1 if k == _SPAN else 0,
+                                            dtype=v.dtype, device=dev)])
                 for k, v in rows.items()}
     return dst.reshape(d, r_dev), \
         {k: v.reshape((d, r_dev) + tuple(v.shape[1:]))
          for k, v in rows.items()}, r_dev
+
+
+def _combine_plan(cfg: ch.ChannelConfig, decls):
+    """The round's combiner: one ``CombineSpan`` for each ``(tid, oid,
+    combine declaration, wire lane map)`` whose op declares an archetype
+    (``tid`` None in a solo round or a merged-response round).  Returns
+    (RequestCombiner or None, {(tid, oid): span})."""
+    if cfg.combine_impl == "off":
+        return None, {}
+    spans, span_of = [], {}
+    for tid, oid, decl, lanes in decls:
+        if decl is None:
+            continue
+        kind, key, field, resp = ch.as_combine_decl(decl)
+        lane = (lambda f: f) if lanes is None else lanes.__getitem__
+        span_of[(tid, oid)] = len(spans)
+        spans.append(ch.CombineSpan(
+            kind, key_lane=lane(key),
+            sum_lane=lane(field) if kind == "sum" else None,
+            resp_tid=tid, resp_field=resp))
+    if not spans:
+        return None, {}
+    return ch.RequestCombiner(tuple(spans)), span_of
+
+
+def _span_column(spans, sizes, dev) -> torch.Tensor:
+    """Each batch's combine span (-1: never combined), row by row."""
+    return torch.cat([torch.full((n,), sp, dtype=torch.int32, device=dev)
+                      for sp, n in zip(spans, sizes)], 0)
+
+
+def _round(state, dst, rows, serve, n_trustees, cfg, combiner, span):
+    """One round: ``delegate``, or under ``overflow="defer"`` the drain
+    (even at ``max_rounds=1``, so rounds and residual are counted)."""
+    fn = ch.delegate_drain if cfg.overflow == "defer" else ch.delegate
+    return fn(state, dst, rows, serve, n_trustees, cfg, combine=combiner,
+              combine_span=span)
 
 
 def _split_spans(resp, n_flat: int, sizes_per_trust, srcs=None):
@@ -462,15 +524,6 @@ def _mux_round(trusts, batches, cfg: ch.ChannelConfig):
     dtype and trailing shape agree across trusts share a wire lane, the
     others get per-trust lanes ``field@tid``.  Returns (new states,
     per-trust per-batch responses, telemetry)."""
-    # the JAX builder's dedicated and defer branches are not ported
-    # (entrust refuses both first; the round says so too)
-    for what, item, cond in (
-            ("dedicated trustee mode", "dedicated mode", cfg.mode != "shared"),
-            ("overflow='defer'", "defer drain", cfg.overflow == "defer")):
-        if cond:
-            raise NotImplementedError(
-                f"a multiplexed round in {what} is not ported to repro_torch "
-                f"yet (ROADMAP.md queue A: {item})")
     group = trusts[0].group
     n_trusts = len(trusts)
     n_trustees = group.n_trustees
@@ -496,7 +549,7 @@ def _mux_round(trusts, batches, cfg: ch.ChannelConfig):
     # one merged response dict when every trust's responses agree; the
     # lane layout needs it, and a channel of local rows only has no lanes
     merged_resp = len({_resp_sig(t) for t in trusts}) == 1
-    t_send = n_trustees          # client blocks a trustee receives
+    t_send = cfg.n_slots(n_trustees)     # client blocks a shard receives
     strided = merged_resp and not (t_send == 1 and cfg.local_shortcut)
     if strided:
         cfg = dataclasses.replace(cfg, n_lanes=n_trusts)
@@ -530,6 +583,14 @@ def _mux_round(trusts, batches, cfg: ch.ChannelConfig):
                                    merge_resp=merged_resp,
                                    serve_impl=cfg.serve_impl, cfg=cfg)
 
+    # request combining: one span a combinable (trust, op), on the wire
+    # lanes; a non-merged round rebuilds the sum prior in "field@tid"
+    combiner, span_of = _combine_plan(
+        cfg, [(None if merged_resp else tid, oid, ops_t[oid].combine,
+               lane_of[tid])
+              for tid, (ops_t, active) in enumerate(tables)
+              for oid in active])
+
     # wire lanes: "op" only when some trust dispatches several ops, "trust"
     # only when the serve reads it (masked layout, or a shortcut tail)
     need_op = any(len(active) > 1 for _ops, active in tables)
@@ -555,12 +616,17 @@ def _mux_round(trusts, batches, cfg: ch.ChannelConfig):
         dst = torch.where(dst >= 0, dst * n_trusts + tid_col.to(torch.int32),
                           -1)
     rows["__tid"] = tid_col
-    dst, rows, r_dev = _shard_rows(dst, rows, d)
+    if combiner is not None:
+        rows[_SPAN] = _span_column(
+            [span_of.get((None if merged_resp else x[0], x[1]), -1)
+             for x in flat], sizes, dev)
+    dst, rows, r_dev = _shard_rows(dst, rows, group)
     tid_l = rows.pop("__tid").long()
+    span = rows.pop(_SPAN, None)
 
     states = tuple(t._state for t in trusts)
-    new_states, resp, info = ch.delegate(states, dst, rows, serve,
-                                         n_trustees, cfg)
+    new_states, resp, info = _round(states, dst, rows, serve, n_trustees,
+                                    cfg, combiner, span)
 
     # telemetry, all device tensors: per-trust rows left unserved, per-trust
     # max pair demand, and the merged demand the planner observes
@@ -594,7 +660,9 @@ def _mux_round(trusts, batches, cfg: ch.ChannelConfig):
                        srcs)
     tel = {"residual": res_pt[:-1], "demand": demand_pt,
            "demand_merged": info.group_sizes.max(), "saved": saved,
-           "impl_fallback": info.impl_fallback}
+           "impl_fallback": info.impl_fallback, "rounds": info.rounds,
+           "combined": info.rows_combined,
+           "req_saved": info.req_bytes_saved}
     return new_states, out, tel
 
 

@@ -27,7 +27,7 @@ from . import routing
 from .channel import launch_or_defer, report_impl_event
 from .meshctx import StackedMesh
 from .opspec import Combine, Field, OpSpec, TrustSchema
-from .trust import TrusteeGroup
+from .trust import TrusteeGroup, pad_client_region
 from ..kernels import ops as kops
 from ..kernels.ref import (LANE_ADD, LANE_CAS, LANE_GET, LANE_PUT,
                            take_rows)
@@ -339,9 +339,12 @@ class DelegatedKVStore:
     """The store facade of the KV-store benchmarks (see
     ``repro.core.kvstore.DelegatedKVStore``), on a ``StackedMesh``.
 
-    ``state`` optionally starts the store from a stacked state dict (for
-    example one carried across from the JAX store by ``convert.py``); it
-    is copied onto the mesh's device."""
+    ``mode="shared"`` entrusts the table to every shard; with
+    ``mode="dedicated"`` the last ``n_dedicated`` shards hold it and serve
+    the other (client) shards, whose region of the physical table stays
+    zero.  ``state`` optionally starts the store from a stacked LOGICAL
+    state dict, (T, rows, ...) (for example one carried across from the
+    JAX store by ``convert.py``); it is copied onto the mesh's device."""
 
     def __init__(self, mesh: StackedMesh, n_keys: int, value_width: int = 4,
                  axis: Any = None, dtype=torch.float32,
@@ -439,6 +442,9 @@ class DelegatedKVStore:
             .transpose(1, 0, 2)
         table = torch.as_tensor(np.ascontiguousarray(stacked),
                                 device=self.trust.device).to(self.dtype)
+        if self.mode == "dedicated":
+            table = pad_client_region({"table": table},
+                                      self.group.n_clients)["table"]
         self.trust.set_state({**self.trust.state(), "table": table})
 
     def dump(self) -> np.ndarray:
@@ -447,3 +453,11 @@ class DelegatedKVStore:
         stacked = self.trust.trustee_state()["table"].cpu().numpy()
         return stacked.transpose(1, 0, 2).reshape(
             self.n_keys_padded, self.value_width)[: self.n_keys].copy()
+
+    def client_region(self) -> np.ndarray:
+        """Dedicated mode: the physical table rows on the client shards,
+        owner-major ``(n_clients * K_local, W)`` (empty in shared mode).
+        They must stay zero: state lives only on the trustee shards."""
+        full = self.trust.state()["table"]
+        n_cli = full.shape[0] - self.t
+        return full[:n_cli].reshape(-1, self.value_width).cpu().numpy()

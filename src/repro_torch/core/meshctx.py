@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -109,6 +109,19 @@ def use_mesh(mesh: StackedMesh):
         yield mesh
     finally:
         _state.mesh = prev
+
+
+def set_delegation_mode(mode: str = "shared", n_dedicated: int = 0) -> None:
+    """Session-wide default trustee mode (the paper's shared and dedicated
+    runtimes), read by ``trust.local_trustees``; the serve driver sets it
+    from its ``--delegation-mode`` flag."""
+    if mode not in ("shared", "dedicated"):
+        raise ValueError(f"unknown delegation mode {mode!r}")
+    _state.delegation_mode = (mode, n_dedicated)
+
+
+def delegation_mode() -> Tuple[str, int]:
+    return getattr(_state, "delegation_mode", ("shared", 0))
 
 
 def current_session():

@@ -120,9 +120,11 @@ class ListField(Field):
 
 @dataclass(frozen=True)
 class Combine:
-    """Client-side request-combining declaration for one op.  Declared and
-    validated here so schemas carry it; the combine pass itself is not
-    part of this port yet (``entrust(combine="ref")`` raises)."""
+    """Client-side request-combining declaration for one op: the
+    archetype ("dedupe", "sum" or "last"), the payload field that keys a
+    segment, the "sum" field and the response field its prior rebuilds.
+    ``entrust(combine="ref")`` runs the combine pass over the ops that
+    declare one (``channel.RequestCombiner``)."""
     kind: str                 # "dedupe" | "sum" | "last"
     key: str = "key"
     field: str = "value"

@@ -36,8 +36,11 @@ local pages, all-or-nothing; under capacity pressure the LRU victim (min
 ``last_used``, ties to the lowest local seq index, never the requesting
 seq) is evicted whole until the request fits or no victim remains.
 
-Not ported yet: dedicated mode (ROADMAP.md queue A: dedicated mode) and
-the failover re-layout ``pagetable_reshard`` (queue A: failover).
+In dedicated mode (``mode="dedicated"``) the last ``n_dedicated`` shards
+own the table and serve the client shards; the serve runs over every
+stacked shard, and a client shard, which receives no rows, keeps its zero
+region.  Not ported yet: the failover re-layout ``pagetable_reshard``
+(ROADMAP.md queue A: failover).
 """
 from __future__ import annotations
 
@@ -443,6 +446,14 @@ class DelegatedPageTable:
         self.trust.flush()
 
     # -- introspection ------------------------------------------------------
+    def client_region(self) -> Dict[str, np.ndarray]:
+        """Dedicated mode: every state leaf's rows on the client shards,
+        owner-major (empty in shared mode); they must stay zero."""
+        n_cli = self.group.n_clients if self.mode == "dedicated" else 0
+        return {k: v[:n_cli].cpu().numpy().reshape((-1,)
+                                                   + tuple(v.shape[2:]))
+                for k, v in self.trust.state().items()}
+
     def dump(self) -> Dict[str, np.ndarray]:
         """Trustee state, owner-major (the JAX layout), on the host: a
         copy, never a view of the live state."""

@@ -14,6 +14,31 @@ def mod_router(keys: torch.Tensor, n_trustees: int) -> torch.Tensor:
     return torch.remainder(keys, n_trustees).to(torch.int32)
 
 
+def default_n_dedicated(axis_size: int) -> int:
+    """Default reserved-trustee count: half the mesh (the paper's balanced
+    dedicated split), at least one shard."""
+    return max(1, axis_size // 2)
+
+
+def partition_clients_trustees(axis_size: int, n_dedicated: int
+                               ) -> tuple[np.ndarray, np.ndarray]:
+    """Split the stacked shards into (client_slots, trustee_slots): the LAST
+    ``n_dedicated`` shards are the reserved trustees, the leading
+    ``axis_size - n_dedicated`` the clients."""
+    if not 0 < n_dedicated < axis_size:
+        raise ValueError(
+            f"n_dedicated must be in (0, {axis_size}), got {n_dedicated}")
+    n_clients = axis_size - n_dedicated
+    return (np.arange(n_clients, dtype=np.int32),
+            np.arange(n_clients, axis_size, dtype=np.int32))
+
+
+def trustee_device_slot(dst: torch.Tensor, n_clients: int) -> torch.Tensor:
+    """Dedicated mode: trustee id [0, T) -> its shard past the clients;
+    -1 stays -1."""
+    return torch.where(dst >= 0, dst + n_clients, -1).to(torch.int32)
+
+
 def local_index(keys: torch.Tensor, n_trustees: int) -> torch.Tensor:
     """Index of a key within its owner's local shard (mod router)."""
     return torch.div(keys, n_trustees, rounding_mode="floor").to(torch.int32)

@@ -14,10 +14,11 @@ handles a ``TrustSchema`` generates:
 
 Execution lives in the session's ``DelegationEngine`` (engine.py), which
 fuses the pending batches of channel-compatible trusts into one round.
-The port carries the shared trustee mode over the whole mesh; the other
-knobs of the JAX package (dedicated mode, the defer drain, request
-combining, sub-axis groups, Pallas tile sizes) raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The port carries both trustee modes over the whole mesh (shared: every
+shard serves; dedicated: the last ``n_dedicated`` shards serve the
+others), the defer drain (``overflow="defer"``, ``max_rounds``) and
+request combining (``combine="ref"``); sub-axis groups and the Pallas
+tile sizes raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -46,8 +47,15 @@ def _not_ported(what: str, item: str):
 
 @dataclass
 class TrusteeGroup:
-    """The trustees of ``mesh`` along ``axis``.  Shared mode over the whole
-    mesh: every stacked shard is both a client and a trustee."""
+    """The trustees of ``mesh`` along ``axis``.
+
+    * ``mode="shared"``: every stacked shard is both a client and a
+      trustee.
+    * ``mode="dedicated"``: the LAST ``n_dedicated`` shards are reserved
+      trustees serving the leading ``n_clients`` client shards; entrusted
+      state lives only on the trustee shards (the client shards hold a
+      zero region) and requests originate only on client shards.  ``axis``
+      must cover the whole mesh."""
     mesh: StackedMesh
     axis: Any = "model"
     mode: str = "shared"
@@ -57,7 +65,14 @@ class TrusteeGroup:
         if self.mode not in ("shared", "dedicated"):
             raise ValueError(f"unknown trustee mode {self.mode!r}")
         if self.mode == "dedicated":
-            raise _not_ported("mode='dedicated'", "dedicated mode")
+            if self.axes != tuple(self.mesh.axis_names):
+                raise ValueError(
+                    "dedicated mode partitions the whole mesh: axis must be "
+                    f"{tuple(self.mesh.axis_names)}, got {self.axes}")
+            if not 0 < self.n_dedicated < self.axis_size:
+                raise ValueError(
+                    f"n_dedicated must be in (0, {self.axis_size}), "
+                    f"got {self.n_dedicated}")
         unknown = [a for a in self.axes if a not in self.mesh.shape]
         if unknown:
             raise ValueError(f"axis {unknown} not in mesh axes "
@@ -81,10 +96,15 @@ class TrusteeGroup:
 
     @property
     def n_trustees(self) -> int:
+        if self.mode == "dedicated":
+            return self.n_dedicated
         return self.axis_size
 
     @property
     def n_clients(self) -> int:
+        """Shards that originate requests (every shard in shared mode)."""
+        if self.mode == "dedicated":
+            return self.axis_size - self.n_dedicated
         return self.axis_size
 
     def entrust(self, state: Dict[str, torch.Tensor],
@@ -103,18 +123,20 @@ class TrusteeGroup:
         ownership and return the Trust handle; see
         ``repro.core.trust.TrusteeGroup.entrust`` for every knob.  The
         state is copied onto the mesh's device, so the caller's tensors
-        are never updated in place."""
+        are never updated in place.  In dedicated mode each leaf is placed
+        behind a zero client region, ``(n_clients + T, rows, ...)``, and
+        the local shortcut is off (a client is never its own trustee).
+        ``overflow="defer"`` re-sends the rows past ``capacity`` in up to
+        ``max_rounds - 1`` retry rounds; ``combine="ref"`` sends one wire
+        row per (destination, op, key) segment of the ops that declare a
+        combine archetype."""
         if combine not in ("off", "ref"):
             raise ValueError(
                 f"combine must be 'off' or 'ref', got {combine!r}")
-        if combine != "off":
-            raise _not_ported("request combining (combine='ref')",
-                              "request combining")
         if overflow not in ("drop", "second_round", "defer"):
             raise ValueError(f"unknown overflow policy {overflow!r}")
-        if overflow == "defer" or max_rounds > 1:
-            raise _not_ported("overflow='defer' / max_rounds > 1",
-                              "defer drain")
+        if max_rounds < 1:
+            raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
         if serve_blocks is not None or pack_blocks is not None:
             # the Pallas tile sizes, fixed or "auto"; the CUDA kernels pick
             # their own launch shapes
@@ -147,16 +169,31 @@ class TrusteeGroup:
                     f"stacked over the {t} trustee shards (T, rows, ...)")
             placed[k] = v.to(self.mesh.device, copy=True,
                              memory_format=torch.contiguous_format)
+        dedicated = self.mode == "dedicated"
+        if dedicated:
+            placed = pad_client_region(placed, self.n_clients)
+            local_shortcut = False
         cfg = ChannelConfig(
             axis=self.axis if len(self.axes) > 1 else self.axes[0],
             capacity=0 if not capacity else capacity, overflow=overflow,
             overflow_capacity=overflow_capacity,
             local_shortcut=local_shortcut, pack_impl=pack_impl,
-            serve_impl=serve_impl, mode=self.mode, max_rounds=max_rounds,
-            strict_impl=strict_impl, combine_impl=combine)
+            serve_impl=serve_impl, mode=self.mode,
+            n_clients=self.n_clients if dedicated else 0,
+            max_rounds=max_rounds, strict_impl=strict_impl,
+            combine_impl=combine)
         return Trust(self, placed, tuple(ops), resp_like, cfg, name=name,
                      plan_capacity=plan_capacity, session=session,
                      schema=schema)
+
+
+def pad_client_region(state: Dict[str, torch.Tensor],
+                      n_clients: int) -> Dict[str, torch.Tensor]:
+    """Dedicated mode's physical layout: each (T, rows, ...) leaf behind
+    ``n_clients`` shards of zeros, (n_clients + T, rows, ...)."""
+    return {k: torch.cat([torch.zeros((n_clients,) + tuple(v.shape[1:]),
+                                      dtype=v.dtype, device=v.device), v])
+            for k, v in state.items()}
 
 
 @dataclass
@@ -206,6 +243,7 @@ class Trust:
         # capacity only)
         self.plan_capacity = plan_capacity
         self._pending: List[Tuple[int, torch.Tensor, Pytree, TrustFuture]] = []
+        self._last_stats = None
         if session is None:
             from . import meshctx
             session = meshctx.current_session()
@@ -222,16 +260,34 @@ class Trust:
         return self.group.mesh.device
 
     def state(self) -> Pytree:
-        """The live state: the kernel serve updates these tensors in place,
-        so later rounds change them.  Clone to keep a snapshot."""
+        """The live physical state (in dedicated mode with the zero client
+        region first): the kernel serve updates these tensors in place, so
+        later rounds change them.  Clone to keep a snapshot."""
         return self._state
 
     def set_state(self, state: Pytree) -> None:
         self._state = state
 
     def trustee_state(self) -> Pytree:
-        """The logical (stacked) state, live as ``state()`` is."""
-        return self._state
+        """The logical (T, rows, ...) state, live as ``state()`` is: in
+        dedicated mode the client region is stripped off."""
+        if self.group.mode != "dedicated":
+            return self._state
+        c = self.group.n_clients
+        return {k: v[c:] for k, v in self._state.items()}
+
+    def last_drain_stats(self) -> Dict[str, int]:
+        """Rounds used and the residual (rows still unserved, > 0 only when
+        ``overflow="defer"`` ran out of ``max_rounds``) of this trust's
+        most recent round.  Reading them waits for that round's device
+        work."""
+        if self._last_stats is None:
+            raise RuntimeError(
+                f"no delegation round has executed yet for trust "
+                f"{self.name!r}: apply/flush it (or run session.step()) "
+                f"before reading drain stats")
+        rounds, residual = self._last_stats
+        return {"rounds": int(rounds), "residual": int(residual)}
 
     # -- core API ------------------------------------------------------------
     def _apply_validated(self, op_id: int, dst: torch.Tensor,
@@ -294,7 +350,9 @@ class Trust:
     # -- execution -----------------------------------------------------------
     def _auto_capacity(self, r_total: int) -> int:
         # mean load per (client, trustee) pair with 2x headroom, min 4 rows
-        per_client = max(1, r_total // max(1, self.group.mesh.size))
+        # every request originates on a client shard (dedicated mode: the
+        # leading n_clients; shared mode: every shard)
+        per_client = max(1, r_total // self.group.n_clients)
         mean = max(1, per_client // self.n_trustees)
         return max(4, 2 * mean)
 
@@ -313,9 +371,24 @@ class Trust:
             + self.cfg.fuse_sig()
 
 
-def local_trustees(axis=None) -> TrusteeGroup:
-    """Shared-mode TrusteeGroup over the ambient mesh, along ``axis``
-    (default "model", as in JAX)."""
+def local_trustees(axis=None, mode: Optional[str] = None,
+                   n_dedicated: Optional[int] = None) -> TrusteeGroup:
+    """TrusteeGroup over the ambient mesh.  With no ``axis``, ``mode`` and
+    ``n_dedicated`` default to the session-wide delegation mode
+    (``meshctx.set_delegation_mode``); an explicit ``axis`` asks for a
+    shared group along it (default "model", as in JAX), and dedicated mode,
+    which partitions the whole mesh, refuses any other axis."""
     from . import meshctx
-    return TrusteeGroup(meshctx.current_mesh(),
-                        "model" if axis is None else axis)
+    mesh = meshctx.current_mesh()
+    d_mode, d_n = meshctx.delegation_mode()
+    if mode is None:
+        mode = d_mode if axis is None else "shared"
+    n_dedicated = d_n if n_dedicated is None else n_dedicated
+    if mode == "dedicated":
+        if axis is not None and _axes_tuple(axis) != tuple(mesh.axis_names):
+            raise ValueError(
+                f"dedicated mode partitions the whole mesh "
+                f"{tuple(mesh.axis_names)}; it cannot honor axis={axis!r}")
+        return TrusteeGroup(mesh, tuple(mesh.axis_names), mode="dedicated",
+                            n_dedicated=n_dedicated)
+    return TrusteeGroup(mesh, "model" if axis is None else axis)

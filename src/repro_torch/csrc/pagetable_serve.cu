@@ -40,6 +40,9 @@
 //   * rows are applied one after another in serve order; rows whose valid
 //     byte is 0 are no-ops and their responses are left unwritten (the
 //     caller's masked pass keeps valid rows only);
+//   * one block a stacked shard: in dedicated mode the first shards are
+//     clients, which receive no rows and return before reading their
+//     (zero) state; T, the trustee count, only divides the sequence ids;
 //   * seq_l = clip(floor(seq / T), 0, SL - 1);
 //   * alloc: k = clip(n, 0, MP); append: k = clip(pos // PS + 1 -
 //     chain_len, 0, MP), only for pos // PS in [0, MP);
@@ -467,15 +470,17 @@ int set_smem(const void* k, int smem_bytes) {
 
 // smem_bytes is the wrapper's kernels/pagetable_serve.smem_bytes(PL, SL,
 // MP); a smaller value is refused
+// shards: the stacked shards (the grid), T: the trustees (the seq divisor)
 extern "C" int pagetable_serve_launch(
-    int op, int T, int N, int pl, int sl, int mp, int ps, void* used,
+    int op, int shards, int T, int N, int pl, int sl, int mp, int ps,
+    void* used,
     void* chains, void* cl, void* lu, void* clock, void* ev, const void* seq,
     const void* arg, const void* valid, void* r_pages, void* r_page,
     void* r_n, void* r_flag, int smem_bytes, void* stream) {
   if (smem_bytes < smem_needed(pl, sl, mp)) return (int)cudaErrorInvalidValue;
   const int e = set_smem((const void*)pagetable_serve_kernel, smem_bytes);
   if (e != 0) return e;
-  pagetable_serve_kernel<<<T, NT, smem_bytes, (cudaStream_t)stream>>>(
+  pagetable_serve_kernel<<<shards, NT, smem_bytes, (cudaStream_t)stream>>>(
       op, T, N, pl, sl, mp, ps, (int*)used, (int*)chains, (int*)cl, (int*)lu,
       (int*)clock, (int*)ev, (const int*)seq, (const int*)arg,
       (const unsigned char*)valid, (int*)r_pages, (int*)r_page, (int*)r_n,

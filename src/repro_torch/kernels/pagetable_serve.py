@@ -25,7 +25,7 @@ import torch
 from . import _build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"pagetable_serve_launch": (_I,) * 7 + (_P,) * 13 + (_I, _P),
+_SIG = {"pagetable_serve_launch": (_I,) * 8 + (_P,) * 13 + (_I, _P),
         "pagetable_empty_launch": (_I, _I, _P),
         "pagetable_serve_info": (_I, _P)}
 _MAX_SMEM = 227 * 1024
@@ -138,8 +138,10 @@ def pagetable_serve(op: int, used: torch.Tensor, chains: torch.Tensor,
         return pages, page, n_out, flag
     lib = _build.library("pagetable_serve.cu", _SIG)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # a block a stacked shard (t: in dedicated mode the client shards
+    # too, which hold no rows); n_trustees divides the sequence ids
     err = lib.pagetable_serve_launch(
-        op, n_trustees, n, pl, sl, mp, page_size, used.data_ptr(),
+        op, t, n_trustees, n, pl, sl, mp, page_size, used.data_ptr(),
         chains.data_ptr(), chain_len.data_ptr(), last_used.data_ptr(),
         clock.data_ptr(), evictions.data_ptr(), seq.data_ptr(),
         arg.data_ptr(), valid.data_ptr(), pages.data_ptr(), page.data_ptr(),

@@ -29,19 +29,24 @@ random, drawn on the device from a seeded generator; the prompts come
 from ``np.random.default_rng(0)`` as in JAX, so both packages see the
 same tokens.  Runs on ``cuda`` unless given ``--device cpu``.
 
-``--session`` adds the store-level bookkeeping of the paper's §7: a
-ledger of generated tokens per request and a traffic meter per device
-bucket, two ``DelegatedKVStore``s on a (1, mesh_model) ``StackedMesh``
-on the serve's device, whose ADDs for each generated token ride ONE
-multiplexed ``session.step()``; with ``--stream-depth N`` a
-``StreamingDriver`` keeps up to N of those rounds in flight behind the
-decode loop, under an ``AdmissionControl``.  ``--serve-impl`` picks the
+The store-level bookkeeping of the paper's §7 lives on a (1, mesh_model)
+``StackedMesh`` on the serve's device: a ledger of generated tokens per
+request (a ``DelegatedKVStore``), one ADD a generated token.  It runs
+with ``--session``, ``--delegation-mode dedicated`` or ``--drain-rounds >
+1``.  ``--session`` adds a traffic meter per device bucket whose ADDs
+ride ONE multiplexed ``session.step()`` with the ledger's; with
+``--stream-depth N`` a ``StreamingDriver`` keeps up to N of those rounds
+in flight behind the decode loop, under an ``AdmissionControl``.
+``--delegation-mode dedicated`` puts the ledger and meter on the last
+``--n-dedicated`` shards (default half), serving the others; the model's
+own channels (the KV cache, the experts) stay shared.  ``--drain-rounds
+N`` gives them a one-row primary block with the defer drain of up to N
+rounds, and prints the ledger's drain stats.  ``--serve-impl`` picks the
 stores' serve: "pallas" the CUDA serve kernels, "ref" their plain
 versions, "masked" the per-op reference.
 
 Options that need parts not ported yet raise ``NotImplementedError``
-naming their ROADMAP item: ``--delegation-mode dedicated`` (queue A 1),
-``--drain-rounds > 1`` (A 2), ``--chaos`` (A 12) and ``--mesh-data > 1``
+naming their ROADMAP item: ``--chaos`` (A 12) and ``--mesh-data > 1``
 (A 13: a data axis spans cards, and one card has nothing to stack it on).
 """
 from __future__ import annotations
@@ -85,11 +90,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = (
-        (args.delegation_mode == "dedicated",
-         "--delegation-mode dedicated needs dedicated trustee mode "
-         "(ROADMAP queue A 1)"),
-        (args.drain_rounds > 1,
-         "--drain-rounds > 1 needs the defer drain (ROADMAP queue A 2)"),
         (args.chaos is not None,
          "--chaos needs failover (ROADMAP queue A 12)"),
         (args.mesh_data > 1,
@@ -105,10 +105,12 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     """Run the serve loop; returns the generated tokens (batch, gen): the
     greedy token after each position from the last prompt position on, as
     JAX's loop collects them.  ``stats``, when given, receives
-    the loop's steps, seconds, ms per step and tokens/s, and with
-    ``--session`` the ledger, the meter, the last wave's
-    ``last_step_info`` and the fused waves' ``last_step_info["fused"]``
-    (one entry a wave)."""
+    the loop's steps, seconds, ms per step and tokens/s; with a ledger
+    (``--session``, ``--delegation-mode dedicated`` or ``--drain-rounds >
+    1``) the ledger, its ``client_region()`` and its drain stats (None
+    without ``--drain-rounds``); with ``--session`` also the meter, the
+    last wave's ``last_step_info`` and the fused waves'
+    ``last_step_info["fused"]`` (one entry a wave)."""
     ap = _parser()
     args = ap.parse_args(argv)
     if args.stream_depth > 0 and not args.session:
@@ -117,12 +119,40 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
         ap.error("--chaos requires --session (it tears a session engine "
                  "round)")
     _refuse_unported(args)
+    if args.delegation_mode == "dedicated" and args.mesh_model < 2:
+        ap.error("--delegation-mode dedicated needs a mesh with >= 2 "
+                 "shards (reserve trustee shards with --mesh-model)")
 
+    from ..core import meshctx
+    prev_mode = meshctx.delegation_mode()
+    try:
+        return _serve(args, stats)
+    finally:
+        meshctx.set_delegation_mode(*prev_mode)
+
+
+def _serve(args, stats: Optional[dict]) -> np.ndarray:
     from ..configs.base import MeshConfig, RunConfig, ShapeConfig
     from ..configs.registry import get_arch, get_smoke_arch
+    from ..core import meshctx
     from ..core.meshctx import resolve_device
+    from ..core.routing import (default_n_dedicated,
+                                partition_clients_trustees)
     from ..models import model as M
     from .steps import build_cell
+
+    if args.delegation_mode == "dedicated":
+        n_ded = args.n_dedicated or default_n_dedicated(args.mesh_model)
+        clients, trustees = partition_clients_trustees(args.mesh_model,
+                                                       n_ded)
+        meshctx.set_delegation_mode("dedicated", n_ded)
+        print(f"[serve] delegation mode: dedicated — client shards "
+              f"{clients.tolist()}, trustee shards {trustees.tolist()} "
+              f"(the store-level delegation — the ledger below and any "
+              f"local_trustees() group — runs dedicated; the model's own "
+              f"channels stay shared)", flush=True)
+    else:
+        meshctx.set_delegation_mode("shared", 0)
 
     cfg = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
     t = args.mesh_model
@@ -155,7 +185,9 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     prompt_ids = rng.integers(0, cfg.vocab_size,
                               size=(args.prompt_len, args.batch))
     prompt = torch.as_tensor(prompt_ids, dtype=torch.int32, device=dev)
-    book = _Bookkeeping(args, dev) if args.session else None
+    book = _Bookkeeping(args, dev) if (
+        args.session or args.delegation_mode == "dedicated"
+        or args.drain_rounds > 1) else None
     steps = args.prompt_len + args.gen - 1
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -187,22 +219,35 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
 
 
 class _Bookkeeping:
-    """The ``--session`` stores: per-request generated-token counters
-    (``ledger``) and per-device-bucket traffic (``meter``), entrusted on a
-    (1, mesh_model) stacked mesh with one channel signature, so each
-    generated token's ADDs to both ride ONE multiplexed engine round."""
+    """The store-level bookkeeping: per-request generated-token counters
+    (``ledger``) and, with ``--session``, per-device-bucket traffic
+    (``meter``) with the ledger's channel signature, so each generated
+    token's ADDs to both ride ONE multiplexed engine round.  Both take the
+    session-wide delegation mode; ``--drain-rounds N`` gives them a
+    one-row primary block drained over up to N rounds."""
 
     def __init__(self, args, dev):
         from ..core import DelegatedKVStore, StackedMesh, TrustSession
+        from ..core.meshctx import delegation_mode
         from .streaming import AdmissionControl, StreamingDriver
         mesh = StackedMesh((1, args.mesh_model), device=dev)
+        self.mode, n_ded = delegation_mode()
+        self.drain_rounds = args.drain_rounds
         self.session = TrustSession()
         impl = "kernel" if args.serve_impl == "pallas" else args.serve_impl
-        kw = dict(capacity=max(4, args.batch), serve_impl=impl,
-                  session=self.session)
+        if args.drain_rounds > 1:
+            # a one-row primary block: the increments trickle through the
+            # defer drain's retry rounds (the paper's §5.1 wait)
+            kw = dict(capacity=1, overflow="defer",
+                      max_rounds=args.drain_rounds)
+        else:
+            kw = dict(capacity=max(4, args.batch))
+        kw.update(serve_impl=impl, session=self.session, mode=self.mode,
+                  n_dedicated=n_ded)
         self.ledger = DelegatedKVStore(mesh, args.batch, 1, name="ledger",
                                        **kw)
-        self.meter = DelegatedKVStore(mesh, mesh.size, 1, name="meter", **kw)
+        self.meter = DelegatedKVStore(mesh, mesh.size, 1, name="meter",
+                                      **kw) if args.session else None
         self.keys = torch.arange(args.batch, dtype=torch.int32, device=dev)
         self.meter_keys = self.keys % mesh.size
         self.ones = torch.ones((args.batch, 1), device=dev)
@@ -218,6 +263,9 @@ class _Bookkeeping:
                     self.wave_rows * (args.stream_depth + 1)))
 
     def wave(self):
+        if self.meter is None:
+            self.ledger.trust.op.add(self.keys, self.ones)
+            return
         self.ledger.trust.op.add.then(self.keys, self.ones)
         self.meter.trust.op.add.then(self.meter_keys, self.ones)
         if self.driver is not None:
@@ -233,10 +281,21 @@ class _Bookkeeping:
 
     def report(self, stats: Optional[dict]):
         ledger = self.ledger.dump()[:, 0].astype(int)
+        print(f"[serve] ledger ({self.mode}): generated tokens per request "
+              f"= {ledger.tolist()}", flush=True)
+        drain = None
+        if self.drain_rounds > 1:
+            drain = self.ledger.trust.last_drain_stats()
+            print(f"[serve] ledger drain: {drain['rounds']} round(s) in the "
+                  f"last step, residual {drain['residual']} (bound "
+                  f"{self.drain_rounds})", flush=True)
+        if stats is not None:
+            stats.update(ledger=ledger, drain=drain,
+                         client_region=self.ledger.client_region())
+        if self.meter is None:
+            return
         meter = self.meter.dump()[:, 0].astype(int)
         info = self.session.last_step_info
-        print(f"[serve] ledger (shared): generated tokens per request = "
-              f"{ledger.tolist()}", flush=True)
         print(f"[serve] meter: tokens per device bucket = {meter.tolist()}",
               flush=True)
         print(f"[serve] session engine (last wave): "
@@ -246,7 +305,7 @@ class _Bookkeeping:
             print(f"[serve] streaming driver: {self.driver.stats()}",
                   flush=True)
         if stats is not None:
-            stats.update(ledger=ledger, meter=meter, step_info=info,
+            stats.update(meter=meter, step_info=info,
                          fused_waves=self.fused)
 
 

@@ -19,7 +19,9 @@ Clients: with S a multiple of T, client shard j owns the sequence slice
 (decode, S = 1) every client sees all tokens and token i belongs to client
 ``i % T``, the per-client results summed over the stacked dimension (the
 JAX ``psum``).  The capacities (``cap``, ``over_cap``, ``cap2``) are
-JAX's, to the row, so the same rows are dropped.
+JAX's, to the row, so the same rows are dropped.  With ``overflow=
+"defer"`` the round is ONE ``delegate``, as in JAX: the rows past the
+capacity are deferred, get no second block, and count as dropped.
 
 Routing is f32: softmax, top-k (ties to the lower expert index, as
 ``lax.top_k``: a stable descending sort), renormalisation, and the
@@ -119,10 +121,8 @@ def moe_block(params, x: torch.Tensor, cfg: ModelConfig, run=None
     e, k = m.num_experts, m.top_k
     if e % t:
         raise ValueError(f"{t} trustees do not split {e} experts")
-    if m.overflow not in ("drop", "second_round"):
-        raise NotImplementedError(
-            f"MoE overflow {m.overflow!r} needs the defer drain (ROADMAP "
-            f"queue A 2)")
+    if m.overflow not in ("drop", "second_round", "defer"):
+        raise ValueError(f"unknown MoE overflow {m.overflow!r}")
     e_local = e // t
     b, s, d = x.shape
 

@@ -37,12 +37,13 @@ def replay_waves(pt: DelegatedPageTable, waves) -> int:
     every response the page table gave, and its final state, to equal the
     oracle's.  Serve order, per trustee: op phase (alloc, append, free,
     lookup), then channel rows before the shortcut's self-addressed rows,
-    then client, then issue order; the fused batch gives each client a
-    contiguous slice (client = fused position // rows per client).  Valid
+    then client, then issue order; the fused batch gives each client
+    shard a contiguous slice (client = fused position // rows per client;
+    in dedicated mode the clients are the leading shards).  Valid
     while no (client, trustee) pair overflows the round's primary block,
     which the replay checks.  Returns the rows replayed."""
     t = pt.t
-    n_clients = pt.group.mesh.size
+    n_clients = pt.group.n_clients      # dedicated: the leading shards
     shortcut = pt.trust.cfg.local_shortcut
     oracle = SequentialPageTable(pt.n_pages, pt.max_seqs, pt.page_size,
                                  pt.max_pages, t)

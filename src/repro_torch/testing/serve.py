@@ -193,3 +193,61 @@ def lane_serve_case(device, t, n_lanes, c1, c2, k, w, seed, tid=0,
                 expect=sub(expect, np.float32), base=sub(base, np.float32),
                 order=g.order.contiguous(), sid=g.seg_start.contiguous(),
                 seg_end=g.seg_end.contiguous())
+
+
+def dedicated_pack_case(device, d, n_clients, r, lanes, c, w, seed,
+                        hot=0.5, inactive=0.1):
+    """Pack inputs of a dedicated round, as ``channel._to_device_slots``
+    gives them: D shards of which the first ``n_clients`` originate rows,
+    bound for the trustee shard slots ``n_clients .. D - 1`` (x ``lanes``
+    virtual bins each); the trustee shards' rows are all -1.  A ``hot``
+    share goes to the first trustee's lane 0, past ``c`` (the defer: no
+    second block, those rows are flagged).  Int32 words above 2^24.
+    Returns (dst, words, bins, C, 0) in ``delegation_pack``'s argument
+    order."""
+    rng = np.random.default_rng(seed)
+    t = d - n_clients
+    dst = n_clients + rng.integers(0, t, (d, r))
+    lane = rng.integers(0, lanes, (d, r))
+    hot_m = rng.random((d, r)) < hot
+    dst, lane = np.where(hot_m, n_clients, dst), np.where(hot_m, 0, lane)
+    bins = dst * lanes + lane
+    bins = np.where(rng.random((d, r)) < inactive, -1, bins)
+    bins[n_clients:] = -1
+    words = rng.integers(-2 ** 31, 2 ** 31 - 1, (d, r, w), dtype=np.int64)
+    return (torch.as_tensor(bins.astype(np.int32), device=device),
+            torch.as_tensor(words.astype(np.int32), device=device),
+            d * lanes, c, 0)
+
+
+def zero_region_serve_case(device, d, n_clients, c, k, w, seed,
+                           mix=(0.4, 0.2, 0.2, 0.2), hot=0.07):
+    """The serve kernels' inputs on a dedicated round's received rows:
+    (D, D * c) blocks, each filled to a random count on the trustee
+    shards and empty on the first ``n_clients`` shards, whose table
+    slices are zeros (the client region).  Integer-valued payloads,
+    grouped by (op lane, key) as the serve groups them.  Returns the
+    ``serve_case`` dict of chip_smoke.py plus ``base``."""
+    from ..core.channel import make_grouping
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(0, c + 1, (d, d, 1))
+    cnt[:n_clients] = 0
+    valid = (np.arange(c) < cnt).reshape(d, d * c)
+    n = valid.shape[1]
+    lane = np.where(valid, rng.choice(4, size=(d, n), p=mix), -1)
+    keys = np.where(rng.random((d, n)) < hot, 0, rng.integers(0, k, (d, n)))
+    keys = np.where(lane >= 0, keys, k)
+    table = rng.integers(0, 8, (d, k, w)).astype(np.float32)
+    table[:n_clients] = 0
+    value = rng.integers(0, 8, (d, n, w)).astype(np.float32)
+    live = table[np.arange(d)[:, None], np.minimum(keys, k - 1)]
+    expect = np.where(rng.random((d, n, 1)) < 0.5, live, value)
+    base = rng.integers(0, 8, (d, n, w)).astype(np.float32)
+    T = lambda a, dt=np.float32: torch.as_tensor(a.astype(dt),
+                                                 device=device)
+    lane_t, keys_t = T(lane, np.int32), T(keys, np.int32)
+    g = make_grouping(torch.where(lane_t >= 0, lane_t * k + keys_t, 4 * k))
+    return dict(table=T(table), keys=keys_t, lane=lane_t, value=T(value),
+                expect=T(expect), base=T(base), order=g.order.contiguous(),
+                sid=g.seg_start.contiguous(),
+                seg_end=g.seg_end.contiguous())

@@ -1,5 +1,6 @@
 """The port's API surface: call-time schema validation, the default
-device, the knobs the port does not carry yet, the fused step, state
+device, the knobs of this slice (dedicated mode, the defer drain,
+combining) and those the port does not carry yet, the fused step, state
 conversion, and the import boundary (the port and chip_smoke.py import
 neither jax nor repro)."""
 import ast
@@ -57,11 +58,49 @@ def test_entry_points_default_to_cuda():
         convert.stacked_from_owner_major({"table": np.zeros((8, 2))}, 8)
 
 
+@pytest.mark.parametrize("kw,stat", [
+    (dict(mode="dedicated", n_dedicated=3), "dropped"),
+    (dict(overflow="defer", capacity=1, max_rounds=8), "rounds"),
+    (dict(overflow="defer", max_rounds=2, capacity=1), "residual"),
+    (dict(combine="ref"), "rows_combined"),
+])
+def test_knobs_carried_now_run(kw, stat):
+    """Dedicated mode, the defer drain and request combining run: a
+    GET / ADD round on 37 keys answers as the sequential oracle, and the
+    knob shows in the round's stats (dedicated: nothing dropped and 5
+    client shards of zeros; capacity 1 with the drain: more than one
+    round; ``max_rounds=2``: rows left over, answering zeros; combining:
+    rows combined)."""
+    from repro_torch.core import SequentialKVReference
+    keys = torch.as_tensor(np.random.default_rng(2).integers(0, 6, 48))
+    init = np.arange(74, dtype=np.float32).reshape(37, 2)
+    with use_session() as sess:
+        st = _store(**kw)
+        st.prefill(init)
+        got = st.get(keys).numpy()
+        st.add(keys, torch.ones(48, 2))
+        stats = sess.last_stats()[st.trust.name]
+    ref = SequentialKVReference(37, 2)
+    ref.prefill(init)
+    want = ref.get(keys.numpy())
+    if stat == "residual":
+        # the rows left over answer zeros; the rest read the table
+        assert stats["residual"] > 0 and stats["rounds"] == 2, stats
+        served = got.any(-1) | ~want.any(-1)
+        assert 0 < served.sum() < 48
+        assert np.array_equal(got[served], want[served])
+        return
+    assert np.array_equal(got, want)
+    ref.add(keys.numpy(), np.ones((48, 2), np.float32))
+    assert np.array_equal(st.dump(), ref.dump())
+    if stat == "dropped":
+        assert stats["dropped"] == 0 and st.client_region().shape == (65, 2)
+        assert not st.client_region().any()
+    else:
+        assert stats[stat] > (1 if stat == "rounds" else 0), stats
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(mode="dedicated", n_dedicated=3), "dedicated mode"),
-    (dict(overflow="defer"), "defer drain"),
-    (dict(max_rounds=2), "defer drain"),
-    (dict(combine="ref"), "request combining"),
     (dict(serve_blocks="auto"), "'auto' kernel blocks"),
     (dict(pack_blocks="auto"), "'auto' kernel blocks"),
     (dict(serve_blocks=(128, 128)), "'auto' kernel blocks"),

@@ -330,3 +330,76 @@ def test_store_kernel_path_matches_oracle_on_card(cuda):
     lanes = tops.KERNELS["gather"].lane_launches
     assert all(lanes[i] > 0 for i in (0, 2, 3)) and lanes[1] == 0
     assert sum(lanes) == counts["gather"]
+
+
+# ---------------------------------------------------------------------------
+# dedicated mode and the defer drain: the kernels' new layouts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_pack_kernel_at_dedicated_slots_with_defer(cuda, lanes):
+    """A dedicated round's pack under the defer drain: 5 client shards
+    send to the 3 trustee shard slots (x lanes), the trustee shards send
+    nothing, a hot lane past C is flagged (no second block); the retry
+    round re-packs only those rows.  Exact in all six outputs."""
+    from repro_torch.testing.serve import dedicated_pack_case
+    dst, words, bins, c, c2 = dedicated_pack_case(cuda, 8, 5, 3000, lanes,
+                                                  64, 6, seed=80 + lanes)
+    for _round in range(2):
+        got = tops.delegation_pack(dst, words, bins, c, c2, impl="kernel")
+        torch.cuda.synchronize()
+        want = tops.delegation_pack(dst, words, bins, c, c2, impl="ref")
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        req, totals = got[4], got[5]
+        assert (req[5:] == -1).all() and (totals[5:] == 0).all()
+        assert (totals[:5, :5 * lanes] == 0).all()
+        deferred = (req < 0) & (dst >= 0)
+        assert deferred[:5].any() or _round == 1
+        dst = torch.where(deferred, dst, -1)     # the retry round's rows
+
+
+def test_serve_kernels_over_a_zero_client_region(cuda):
+    """The three serve kernels on a dedicated round's received rows: the
+    client shards receive none and their table slices (zeros) stay zero;
+    the trustee shards' rows exact against the plain versions."""
+    from repro_torch.testing.serve import zero_region_serve_case
+    c = zero_region_serve_case(cuda, 8, 5, 256, 999, VW, seed=90)
+    got = _run_serve_kernels(c, "kernel")
+    for g, w in zip(got, _run_serve_kernels(c, "ref")):
+        assert torch.equal(g, w)
+    out, flag, table, resp = got
+    assert not table[:5].any() and not out[:5].any() and not flag[:5].any()
+
+
+def test_pagetable_serve_over_dedicated_shards(cuda):
+    """P2 launched over every stacked shard, 4 of 8 trustees: the stress
+    trace through a dedicated page table on the card equals the CPU run
+    (the plain version) bit for bit, and the 4 client shards' state
+    stays zero."""
+    from repro_torch.core import DelegatedPageTable
+    from repro_torch.testing.pagetable import (STRESS_GEOMETRY,
+                                               replay_waves, stress_waves,
+                                               submit_waves)
+    g = STRESS_GEOMETRY
+    runs = {}
+    tops.reset_launch_counts()
+    for dev in (cuda, torch.device("cpu")):
+        with use_session():
+            pt = DelegatedPageTable(StackedMesh((2, 4), device=dev),
+                                    g["n_pages"], max_seqs=g["max_seqs"],
+                                    page_size=g["page_size"],
+                                    max_pages=g["max_pages"], capacity=256,
+                                    mode="dedicated", n_dedicated=4)
+            rec = submit_waves(pt, stress_waves(7))
+            replay_waves(pt, rec)
+            runs[dev.type] = ([[pt.globalize(f.result(), s) for _, s, _, f
+                                in w] for w in rec], pt.dump(),
+                              pt.client_region())
+    assert tops.launch_counts()["pagetable_serve"] > 0
+    (gw, gs, gr), (ww, ws, _) = runs["cuda"], runs["cpu"]
+    for a, b in zip(gw, ww):
+        for ra, rb in zip(a, b):
+            assert all(np.array_equal(ra[k], rb[k]) for k in rb)
+    assert all(np.array_equal(gs[k], ws[k]) for k in ws)
+    assert all(v.size and not v.any() for v in gr.values())

@@ -312,10 +312,36 @@ def test_convert_round_trip():
     assert bf["final_norm"]["scale"].dtype == torch.float32
 
 
+@pytest.mark.parametrize("extra", [
+    ["--delegation-mode", "dedicated"],
+    ["--drain-rounds", "2"],
+    ["--session", "--delegation-mode", "dedicated"]])
+def test_serve_dedicated_and_drain_flags_run(extra):
+    """``--delegation-mode dedicated`` (alone and with ``--session``) and
+    ``--drain-rounds 2``: the plain serve's tokens, a ledger counting
+    every request's generated tokens (dedicated: on the last 2 of the 4
+    shards, the client shards' region zero; the drain: residual 0), and
+    the session-wide mode restored afterwards."""
+    from repro_torch.core import meshctx
+    from repro_torch.launch import serve
+    stats = {}
+    gen = serve.main(SERVE_ARGV + extra, stats=stats)
+    np.testing.assert_array_equal(gen, serve.main(SERVE_ARGV))
+    b, g = SERVE["batch"], SERVE["gen"]
+    assert stats["ledger"].tolist() == [g] * b
+    if "dedicated" in extra:
+        assert stats["client_region"].shape == (2 * b // 2, 1)
+        assert not stats["client_region"].any()
+    else:
+        assert stats["drain"]["residual"] == 0 and \
+            stats["drain"]["rounds"] <= 2, stats["drain"]
+    if "--session" in extra:
+        assert int(stats["meter"].sum()) == b * g
+        assert stats["fused_waves"] == [[["ledger", "meter"]]] * g
+    assert meshctx.delegation_mode() == ("shared", 0)
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--delegation-mode", "dedicated"], "queue A 1"),
-    (["--drain-rounds", "2"], "queue A 2"),
-    (["--session", "--delegation-mode", "dedicated"], "queue A 1"),
     (["--session", "--chaos", "3"], "queue A"),
     (["--mesh-data", "2"], "queue A 13"),
 ])

@@ -357,24 +357,44 @@ def test_failed_fused_round_restores_every_queue(monkeypatch):
     assert all(np.array_equal(a, b) for a, b in zip(got[False], got[True]))
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("mode", "dedicated", "dedicated mode"),
-    ("overflow", "defer", "defer drain")])
-def test_fused_round_refuses_dedicated_and_defer(field, value, item):
-    """The JAX builder's dedicated and defer branches are not ported: the
-    round refuses them by name (entrust already refuses both)."""
-    import dataclasses
+@pytest.mark.parametrize("field,value,extra", [
+    ("mode", "dedicated", dict(n_dedicated=3)),
+    ("overflow", "defer", dict(capacity=2, max_rounds=16))])
+def test_fused_round_runs_dedicated_and_defer(field, value, extra):
+    """The fused round's dedicated and defer branches (JAX ``_build_mux``'s)
+    run: on per-round distinct keys (order-free under the drain) a round
+    of the kv and rmw-lock tables answers as their solo rounds, both
+    fused every round; the drain takes more than one round and leaves
+    nothing; the client shards stay zero (tests/test_torch_dedicated.py
+    and tests/test_torch_drain.py hold both against JAX)."""
     import torch
     import repro_torch.core as pkg
-    from repro_torch.core.engine import _mux_round
-    sess = pkg.TrustSession()
-    stores = build_pair(pkg, pkg.StackedMesh((2, 4), device="cpu"),
-                        "shared", sess, "kernel")
-    batches = [[(0, st.route(torch.arange(8)), {"key": torch.arange(8)})]
-               for st in stores]
-    cfg = dataclasses.replace(stores[0].trust.cfg, **{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        _mux_round([st.trust for st in stores], batches, cfg)
+    kw = dict(capacity=R, local_shortcut=False, overflow="drop")
+    kw.update({field: value}, **extra)
+    runs = {}
+    for fused in (True, False):
+        sess = pkg.TrustSession()
+        mesh = pkg.StackedMesh((2, 4), device="cpu")
+        stores = [pkg.DelegatedKVStore(mesh, N_KEYS, 2, name="kv",
+                                       session=sess, **kw),
+                  pkg.FetchRMWStore(mesh, N_KEYS, 2, session=sess,
+                                    **{k: v for k, v in kw.items()
+                                       if k != "local_shortcut"}).store]
+        trs = [gen_trace(20 + i, 2, distinct=True) for i in range(2)]
+        for st, (init, _r) in zip(stores, trs):
+            st.prefill(init)
+        runs[fused] = drive(stores, trs, sess, torch.as_tensor, fused)
+        if field == "mode":
+            assert all(not st.client_region().any() for st in stores)
+    got, want = runs[True], runs[False]
+    _same(got, want, f"{field}={value} fused vs solo",
+          [k for k in want if not k.endswith(("stats", "fused"))])
+    assert all((got[f"{r}/fused"] == [2]).all() for r in range(N_ROUNDS))
+    stats = np.stack([got[f"{r}/{t}/stats"] for r in range(N_ROUNDS)
+                      for t in (0, 1)])
+    assert not stats[:, 1].any(), stats
+    if field == "overflow":
+        assert stats[:, 0].max() > 1, stats
 
 
 def test_capacity_planner_matches_jax_class():

@@ -197,9 +197,24 @@ def test_facade_contract_and_list_field():
         assert (r["pages"][:, :2] % T == np.array([[3], [3]])).all()
         assert pt.free([3, 11])["n"].tolist() == [2, 3]
         assert pt.audit()["allocated"] == 0
-    with pytest.raises(NotImplementedError, match="dedicated mode"):
-        DelegatedPageTable(StackedMesh((2, 4), device="cpu"), 64,
-                           mode="dedicated", n_dedicated=2)
+    with use_session():
+        # dedicated mode: 2 trustees own the table, the 6 client shards
+        # keep a zero region, global page ids are local * 2 + owner
+        pt = DelegatedPageTable(StackedMesh((2, 4), device="cpu"), 64,
+                                max_seqs=16, page_size=4, max_pages=8,
+                                mode="dedicated", n_dedicated=2)
+        assert pt.t == 2 and pt.trust.state()["used"].shape == (8, 32)
+        r = pt.alloc([3, 10], [2, 3])
+        assert r["flag"].tolist() == [1, 1] and r["n"].tolist() == [2, 3]
+        assert (r["pages"][0, :2] % 2 == 1).all()
+        assert (r["pages"][1, :3] % 2 == 0).all()
+        assert pt.lookup([3])["pages"][0, :2].tolist() == \
+            r["pages"][0, :2].tolist()
+        assert pt.audit()["allocated"] == 5
+        assert pt.free([3, 10])["n"].tolist() == [2, 3]
+        assert pt.audit()["allocated"] == 0 and pt.audit()["consistent"]
+        assert all(v.size and not v.any()
+                   for v in pt.client_region().values())
     with pytest.raises(NotImplementedError, match="failover"):
         pagetable_reshard({}, 8, 7)
     with pytest.raises(SchemaError, match="row_shape"):
