@@ -1684,6 +1684,249 @@ def phase_combine(torch, dev, gpu, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: failover (kv_failover)
+# ---------------------------------------------------------------------------
+
+FO_ROWS = 8232                  # a wave: divisible by 8 and by 7 shards
+FO_CAPACITY = 2058              # rows of the largest client shard reached
+FO_WAVES = 40
+FO_SNAP_EVERY = 8
+FO_KILL = {"shared": (21, 3), "dedicated": (21, 6)}
+FO_DEDICATED = 3                # (b): 3 of 8 shards trustees
+FO_PAGED_ROWS = 56              # a page-table wave: divisible by 8 and 7
+FO_PAGED_WAVES = 20
+
+
+def fo_store(dev, impl, init, sess, **kw):
+    return make_store(dev, impl, impl, FO_CAPACITY, init, sess, "kv",
+                      local_shortcut=False, **kw)
+
+
+def fo_chaos(torch, dev, impl, init, waves, schedule, snap_every, **kw):
+    """One 40-wave run of ``testing.failover.run_kv_chaos`` on a fresh
+    store; returns its record with the final table, stats and layout."""
+    import shutil
+    import tempfile
+    from repro_torch.core import use_session
+    from repro_torch.testing import failover as fo
+    ckdir = tempfile.mkdtemp(prefix="kv_failover_")
+    try:
+        with use_session() as sess:
+            st = fo_store(dev, impl, init, sess, **kw)
+            out = fo.run_kv_chaos(st, sess, waves, ckdir, dev,
+                                  schedule=schedule, snap_every=snap_every,
+                                  sync=lambda: device_sync(torch, dev))
+            out.update(table=st.dump(), stats=sess.last_stats(), t=st.t,
+                       shards=st.group.axis_size,
+                       region=st.client_region())
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return out
+
+
+def device_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def fo_check(label, init, waves, runs, replays):
+    """(a) / (b)'s checks: one kill, every replayed ack == its original,
+    the whole history and the final table == the oracle, the kernel path
+    == the ref path, ``replayed_rounds``."""
+    from repro_torch.testing import failover as fo
+    k = runs["kernel"]
+    for impl, r in runs.items():
+        require(len(r["failures"]) == 1 and r["failures"][0][0] == "kill",
+                f"kv_failover {label} {impl}: failures {r['failures']}")
+        require(r["replay_equal"], f"kv_failover {label} {impl}: a replayed "
+                f"wave answered otherwise than its original ack")
+        rec = r["stats"]["recovery"]
+        require(rec["replayed_rounds"] == replays and rec["restores"] == 1,
+                f"kv_failover {label} {impl}: recovery {rec}")
+        require(r["shards"] == MESH[0] * MESH[1] - 1,
+                f"kv_failover {label} {impl}: {r['shards']} shards after "
+                f"the kill")
+    bad, want = fo.check_kv_history(init, waves, k["acked"])
+    require(bad is None, f"kv_failover {label}: {bad}")
+    require(np.array_equal(k["table"], want),
+            f"kv_failover {label}: final table differs from the oracle")
+    r = runs["ref"]
+    require(all(fo.same_acks(k["acked"][i][0], r["acked"][i][0])
+                for i in range(len(waves)))
+            and np.array_equal(k["table"], r["table"]),
+            f"kv_failover {label}: the kernel and ref paths differ")
+
+
+def phase_failover(torch, dev, gpu, report):
+    """kv_failover: (a) kv_paper's table (1,000,000 x 4 f32, 2x4 stacked,
+    shared, shortcut off), kv_mixed's mix at 8,232 rows a wave, capacity
+    2,058, 40 waves with a snapshot every 8: shard 3 killed at wave 21,
+    the state re-entrusted onto 7 from the wave-16 snapshot, 5 waves
+    replayed; (b) the same, dedicated with 3 of 8 trustees, trustee shard
+    6 killed; (c) a drop and a tear on the kernel path; (d) the page table
+    at phase 5's geometry, shard 3 killed at a snapshot boundary.  Launch
+    counters are zeroed before each part; (a) must launch the four KV
+    kernels, (d) the page-table serve.  Returns the launches."""
+    import shutil
+    import tempfile
+    from repro_torch.core import (DelegatedPageTable, SequentialKVReference,
+                                  StackedMesh, use_session)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.testing import failover as fo
+    total = {k: 0 for k in SOURCES}
+
+    def counted(need):
+        counts = kops.launch_counts()
+        for k in need:
+            require(counts[k] > 0, f"kernel {k} was not launched on the "
+                    f"kv_failover path")
+        for k, v in counts.items():
+            total[k] += v
+        return counts
+
+    init, waves = fo.mixed_waves(23, N_KEYS, VW, FO_ROWS, FO_WAVES)
+    replays = FO_KILL["shared"][0] - FO_KILL["shared"][0] \
+        // FO_SNAP_EVERY * FO_SNAP_EVERY
+    # (a) shared, shortcut off
+    runs = {}
+    for impl in ("kernel", "ref"):
+        kops.reset_launch_counts()
+        runs[impl] = fo_chaos(torch, dev, impl, init, waves,
+                              {FO_KILL["shared"][0]: ("kill",
+                                                      FO_KILL["shared"][1])},
+                              FO_SNAP_EVERY)
+        counts = counted(KV_KERNELS if impl == "kernel" else ())
+        if impl == "kernel":
+            say(f"[main path] kv_failover (a) launches: "
+                f"{json.dumps(counts)}")
+    fo_check("(a)", init, waves, runs, replays)
+    k = runs["kernel"]
+    require(k["t"] == MESH[0] * MESH[1] - 1, f"kv_failover (a): T {k['t']}")
+    say(f"[kv_failover a] {FO_WAVES} waves x {FO_ROWS} rows, shard "
+        f"{FO_KILL['shared'][1]} killed at wave {FO_KILL['shared'][0]}: "
+        f"re-entrusted onto {k['shards']} shards from the snapshot, "
+        f"{replays} waves replayed, each == its original ack; the whole "
+        f"acked history and the final table == the sequential oracle; "
+        f"kernel path == ref path bit for bit")
+    # snapshots every 8 against none (no kill), kernel path, none first
+    secs = {}
+    for snap in (0, FO_SNAP_EVERY, FO_SNAP_EVERY, 0):
+        kops.reset_launch_counts()
+        r = fo_chaos(torch, dev, "kernel", init, waves, None, snap)
+        counted(KV_KERNELS)
+        require(all(fo.same_acks(r["acked"][i][0], k["acked"][i][0])
+                    for i in range(FO_WAVES)),
+                "kv_failover: an undisturbed run differs from the chaos run")
+        secs.setdefault(snap, []).append(r["seconds"])
+    ops = FO_ROWS * FO_WAVES
+    with_s, without = min(secs[FO_SNAP_EVERY]), min(secs[0])
+    first = k["first_after"]
+    report["kv_failover_snapshots_ops_s"] = ops / with_s
+    report["kv_failover_no_snapshots_ops_s"] = ops / without
+    say(f"[kv_failover a] {gpu} | checkpoint of the {N_KEYS * VW * 4 / 1e6:.0f}"
+        f" MB table: " + ", ".join(f"{x:.3f}" for x in k["ckpt_ms"])
+        + f" ms; recovery_ms {k['stats']['recovery']['recovery_ms']:.3f}; "
+        f"a replayed round " + ", ".join(f"{x:.3f}" for x in k["replay_ms"])
+        + f" ms; the first wave on {k['shards']} shards (wave {first}) "
+        f"{FO_ROWS / k['wave_s'][first]:.1f} ops/s")
+    say(f"[kv_failover a] {gpu} | {FO_WAVES} waves, snapshot every "
+        f"{FO_SNAP_EVERY}: {ops / with_s:.1f} ops/s ("
+        + ", ".join(f"{x:.3f}" for x in secs[FO_SNAP_EVERY])
+        + f" s) against none: {ops / without:.1f} ops/s ("
+        + ", ".join(f"{x:.3f}" for x in secs[0]) + " s)")
+
+    # (b) dedicated, 3 of 8 trustees, a trustee shard killed
+    ded = dict(mode="dedicated", n_dedicated=FO_DEDICATED)
+    kill = FO_KILL["dedicated"]
+    runs = {}
+    for impl in ("kernel", "ref"):
+        kops.reset_launch_counts()
+        runs[impl] = fo_chaos(torch, dev, impl, init, waves,
+                              {kill[0]: ("kill", kill[1])}, FO_SNAP_EVERY,
+                              **ded)
+        counted(KV_KERNELS if impl == "kernel" else ())
+        require(runs[impl]["region"].size and not runs[impl]["region"].any(),
+                f"kv_failover (b) {impl}: the client region holds state")
+    fo_check("(b)", init, waves, runs, replays)
+    require(runs["kernel"]["t"] == FO_DEDICATED,
+            f"kv_failover (b): T {runs['kernel']['t']}")
+    say(f"[kv_failover b] dedicated, {FO_DEDICATED} of {MESH[0] * MESH[1]} "
+        f"shards trustees: trustee shard {kill[1]} killed at wave {kill[0]},"
+        f" re-entrusted onto {runs['kernel']['shards']} shards "
+        f"({runs['kernel']['shards'] - FO_DEDICATED} clients), {replays} "
+        f"waves replayed == the originals; history and table == the "
+        f"oracle, kernel == ref, the client region zeros; recovery_ms "
+        f"{runs['kernel']['stats']['recovery']['recovery_ms']:.3f}")
+
+    # (c) a drop and a tear on the kernel path
+    kops.reset_launch_counts()
+    ref = SequentialKVReference(N_KEYS, VW)
+    ref.prefill(init)
+    with use_session() as sess:
+        st = fo_store(dev, "kernel", init, sess)
+        for i, kind in enumerate(("drop", "tear")):
+            r = fo.tear_and_retry(st, sess, waves[i], dev, kind, shard=2)
+            require(r["raised"] and r["unchanged"] and r["still_open"],
+                    f"kv_failover (c) {kind}: {r}")
+            require(fo.same_acks(r["acks"], fo.oracle_wave(ref, waves[i])),
+                    f"kv_failover (c) {kind}: the retry's acks differ from "
+                    f"the oracle")
+        require(np.array_equal(st.dump(), ref.dump()),
+                "kv_failover (c): the table after the retries differs")
+    counted(KV_KERNELS)
+    say("[kv_failover c] a drop (wave 0) and a tear (wave 1) on the kernel "
+        "path: the round ran, every table stayed bit-identical, the futures "
+        "stayed open and queued; each retry == the oracle")
+
+    # (d) the page table at phase 5's geometry, shard 3 killed
+    g = PAGED
+    pwaves = fo.paged_waves(94, FO_PAGED_ROWS, FO_PAGED_WAVES,
+                            g["max_seqs"], g["max_pages"], g["page_size"])
+    res = {}
+    for pdev in (dev, torch.device("cpu")):
+        kops.reset_launch_counts()
+        ckdir = tempfile.mkdtemp(prefix="paged_failover_")
+        try:
+            with use_session() as sess:
+                pt = DelegatedPageTable(
+                    StackedMesh(MESH, device=pdev), g["n_pages"],
+                    max_seqs=g["max_seqs"], page_size=g["page_size"],
+                    max_pages=g["max_pages"], capacity=FO_PAGED_ROWS,
+                    local_shortcut=False, session=sess)
+                res[pdev.type] = fo.run_paged_chaos(
+                    pt, sess, pwaves, ckdir, kill_wave=8, kill_shard=3,
+                    snap_every=4, survivors=MESH[0] * MESH[1] - 1)
+                res[pdev.type]["t"] = pt.t
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        if pdev.type == "cuda":
+            counted(("pagetable_serve",))
+    card = res[dev.type]
+    plain = res["cpu"]
+    require(card["failures"] == 1 and card["t"] == MESH[0] * MESH[1] - 1,
+            f"kv_failover (d): failures {card['failures']}, T {card['t']}")
+    require(not card["errors"], f"kv_failover (d): {card['errors'][:4]}")
+    require(all(a["consistent"] for a in card["audits"])
+            and card["final_audit"]["allocated"] == 0,
+            f"kv_failover (d): audits {card['audits']}, at the end "
+            f"{card['final_audit']}")
+    require(all(all(np.array_equal(card["acks"][w][f], plain["acks"][w][f])
+                    for f in card["acks"][w]) for w in card["acks"])
+            and all(np.array_equal(card["state"][x], plain["state"][x])
+                    for x in card["state"]),
+            "kv_failover (d): the card differs from the plain version")
+    say(f"[kv_failover d] page table at phase 5's geometry "
+        f"({g['n_pages']} pages of {g['page_size']}, {g['max_pages']}-page "
+        f"chains, {g['max_seqs']} sequences), {FO_PAGED_WAVES} waves x "
+        f"{FO_PAGED_ROWS} rows, shard 3 killed at wave 8 (a snapshot): "
+        f"every ack == the resharded oracle, the card == the plain "
+        f"version, audits consistent "
+        f"({card['audits'][-1]['allocated']} pages allocated), 0 pages "
+        f"leaked at the end")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 9: times
 # ---------------------------------------------------------------------------
 
@@ -2707,6 +2950,7 @@ def phase_paged(torch, dev, gpu, report, errs):
 QWEN_PREFILL = dict(batch=4, seq=2048)
 QWEN_SERVE = dict(batch=8, prompt_len=128, gen=128, mesh_model=4)
 QWEN_TIMED_RUNS = 3
+QWEN_CHAOS = dict(wave=40, snap_every=8)   # the chaos session serve
 
 
 def qwen_serve_argv():
@@ -2878,6 +3122,37 @@ def phase_qwen(torch, dev, gpu, report, errs):
                "last 2 of 4 shards, their client region zeros")
             + f"; {xstats['tokens_per_s']:.1f} tokens/s "
             f"({xstats['ms_per_step']:.3f} ms/step)")
+    # the same session serve with its round torn at wave 40: the snapshot
+    # of wave 40 restored, nothing to replay, the torn wave retried
+    chaos_flags = ["--chaos", str(QWEN_CHAOS["wave"]), "--chaos-snap-every",
+                   str(QWEN_CHAOS["snap_every"])]
+    cstats = {}
+    kops.reset_launch_counts()
+    cout = serve.main(qwen_serve_argv() + session_flags + chaos_flags,
+                      stats=cstats)
+    ccounts = kops.launch_counts()
+    say(f"[main path] qwen session serve (chaos) launches: "
+        f"{json.dumps(ccounts)}")
+    for k in ("delegation_pack", "segmented_add", "gather"):
+        require(ccounts[k] > 0, f"kernel {k} was not launched on the chaos "
+                f"session serve's path")
+        session_counts[k] += ccounts[k]
+    crec = cstats["recovery"]
+    require(np.array_equal(cout, out), "chaos session serve: the generated "
+            "tokens differ from the plain serve's")
+    require(cstats["ledger"].tolist() == [g] * b
+            and int(cstats["meter"].sum()) == b * g,
+            f"chaos session serve: ledger {cstats['ledger'].tolist()}, "
+            f"meter {cstats['meter'].tolist()}")
+    require(crec is not None and crec["restores"] == 1, f"chaos session "
+            f"serve: recovery {crec}")
+    report["qwen_session_chaos_serve"] = cstats
+    say(f"[qwen session chaos] {gpu} | serve " + " ".join(
+        session_flags + chaos_flags) + f": the round torn at wave "
+        f"{QWEN_CHAOS['wave']} recovered ({crec}); tokens == the plain "
+        f"serve's, ledger {g} for each of {b} requests; "
+        f"{cstats['tokens_per_s']:.1f} tokens/s "
+        f"({cstats['ms_per_step']:.3f} ms/step)")
     say(f"[qwen session] {gpu} | serve --session --stream-depth 2 "
         f"--serve-impl pallas: tokens == the plain serve's, ledger "
         f"{g} for each of {b} requests, meter {sstats['meter'].tolist()} "
@@ -4152,7 +4427,7 @@ def kernel_info(torch, n_dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,4a,4b,4c,4d,4e,5,6,7,8,9",
+                    default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -4254,6 +4529,15 @@ def main(argv=None):
                     f"{label} main path")
         for k, v in counts.items():
             launches[k] += v
+    if "4f" in phases:
+        t0 = time.perf_counter()
+        counts = phase_failover(torch, dev, gpu, report)
+        say(f"[main path] kv_failover launches ((a)-(d), the ref paths "
+            f"launch none): {json.dumps(counts)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for k, v in counts.items():
+            launches[k] += v
+        say(f"[time] through phase 4f: {time.perf_counter() - started:.1f} s")
     paged = None
     if "5" in phases:
         paged = phase_paged(torch, dev, gpu, report, errs)
@@ -4317,6 +4601,7 @@ def main(argv=None):
         phase_qwen_busy(torch, dev, gpu, qwen[2])
         for k in ("qwen_prefill", "qwen_serve", "qwen_session_serve",
                   "qwen_session_dedicated_serve", "qwen_session_drain_serve",
+                  "qwen_session_chaos_serve",
                   "deepseek_prefill",
                   "deepseek_serve", "falcon_prefill", "falcon_serve"):
             say(f"[tokens/s] {gpu} | {k}: {report[k]['tokens_per_s']:.1f}")

@@ -11,7 +11,8 @@
 # lockstore.py FetchRMWStore / AtomicAddStore lock baselines,
 #              SequentialKVReference oracle + conflict_ranks
 # pagetable.py DelegatedPageTable + make_pagetable_schema (paged KV cache)
-#              + SequentialPageTable oracle
+#              + SequentialPageTable oracle + pagetable_reshard
+# nested.py    launch_serve — nested delegation (the paper's launch())
 from .opspec import (Combine, Field, ListField, OpSpec, SchemaError,
                      TrustSchema)
 from .channel import (ChannelConfig, ChannelInfo, DelegatedOp, Grouping,
@@ -27,10 +28,12 @@ from .kvstore import DelegatedKVStore, kv_reshard, make_kv_schema
 from .lockstore import (AtomicAddStore, FetchRMWStore, SequentialKVReference,
                         conflict_ranks, pad_writes)
 from .pagetable import (DelegatedPageTable, SequentialPageTable,
-                        initial_pagetable_state, make_pagetable_schema)
+                        initial_pagetable_state, make_pagetable_schema,
+                        pagetable_reshard)
 from .meshctx import (StackedMesh, current_mesh, current_session,
-                      resolve_device, set_mesh, set_session, use_mesh,
-                      use_session)
+                      resolve_device, set_mesh, set_session, survivors_mesh,
+                      use_mesh, use_session)
+from .nested import launch_serve
 
 __all__ = [
     "Combine", "Field", "ListField", "OpSpec", "SchemaError", "TrustSchema",
@@ -45,7 +48,8 @@ __all__ = [
     "AtomicAddStore", "FetchRMWStore", "SequentialKVReference",
     "conflict_ranks", "pad_writes",
     "DelegatedPageTable", "SequentialPageTable", "initial_pagetable_state",
-    "make_pagetable_schema",
+    "make_pagetable_schema", "pagetable_reshard",
     "StackedMesh", "current_mesh", "current_session", "resolve_device",
-    "set_mesh", "set_session", "use_mesh", "use_session",
+    "set_mesh", "set_session", "survivors_mesh", "use_mesh", "use_session",
+    "launch_serve",
 ]

@@ -36,11 +36,26 @@ an auto-capacity trust, and solo rounds of trusts entrusted with
 device value; it records a ``torch.cuda.Event`` per wave on PyTorch's
 current stream (``wave_events``), so a dispatch-ahead driver can wait for
 that wave alone, not for the waves issued after it.
+
+Failover (DESIGN.md §14): every non-empty step takes a wave id
+(``wave_counter``); an installed ``EngineFailureInjector`` kills a shard
+before the round is dispatched, or drops / tears it after, before any
+state commits or any future is fulfilled.  The port's serves write their
+tables in place, so a round that an injector will tear (its entry is
+peeked, not fired) runs on the live state after the engine has cloned it,
+and the clone is copied back when the round tears: a tear leaves every
+table bit-identical, as JAX's functional round does.  Without such an
+entry the round is today's code, with no clone and no host read.
+``checkpoint`` snapshots every trust's logical (owner-major) state at a
+quiesce point, ``restore`` puts it back, ``re_entrust`` moves every trust
+onto the survivors of a killed shard (``meshctx.survivors_mesh``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import time
 import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -148,6 +163,16 @@ class DelegationEngine:
         self._stats_owner: Dict[str, int] = {}
         self.last_step_info: Dict[str, Any] = {"fused": [], "solo": []}
         self.wave_events: List[Any] = []
+        # -- resilience: a wave id per non-empty step (failure schedules key
+        # on it, snapshots record it, replays get fresh ids)
+        self.wave_counter = 0
+        self._current_wave = -1
+        self.injector = None            # EngineFailureInjector, if installed
+        self.dead_shards: set = set()
+        self.recovery = {"restores": 0, "replayed_rounds": 0,
+                         "recovery_ms": 0.0}
+        self._replaying = False
+        self._last_snapshot: Optional[Tuple[str, int]] = None
 
     # -- registry -----------------------------------------------------------
     def register(self, trust) -> int:
@@ -193,8 +218,16 @@ class DelegationEngine:
         work (``dropped`` and ``demand_max`` are device counts).  A fused
         round's members report its round-level ``resp_bytes_saved`` and
         their own ``residual`` (= ``dropped``) and ``demand_max``."""
-        return {name: {k: int(v) for k, v in d.items()}
-                for name, d in self._last_step_stats.items()}
+        out = {name: {k: int(v) for k, v in d.items()}
+               for name, d in self._last_step_stats.items()}
+        # after a recovery: session-lifetime counters (restores, rounds run
+        # inside replaying(), host ms spent restoring and rebinding)
+        if self.recovery["restores"]:
+            out["recovery"] = {
+                "restores": int(self.recovery["restores"]),
+                "replayed_rounds": int(self.recovery["replayed_rounds"]),
+                "recovery_ms": float(self.recovery["recovery_ms"])}
+        return out
 
     def _stats_key(self, trust) -> str:
         name = trust.name
@@ -242,6 +275,15 @@ class DelegationEngine:
             t = ref() if ref is not None else None
             if t is not None and t._pending:
                 pending.append(t)
+        if pending:
+            # one wave id per non-empty step, probed BEFORE the queues are
+            # taken, so a kill leaves them queued and notified
+            self._current_wave = self.wave_counter
+            self.wave_counter += 1
+            if self.injector is not None:
+                hit = self.injector.before_dispatch(self._current_wave)
+                if hit is not None:
+                    self._raise_failure(hit, self._current_wave, pending)
         self._dirty.clear()
         self._last_step_stats = {}
         self.last_step_info = {"fused": [], "solo": []}
@@ -323,11 +365,16 @@ class DelegationEngine:
             rows, trust.group)
         span = rows.pop(_SPAN, None)
 
+        before = self._clone_if_tearing([trust])
         new_state, resp, info = _round(trust._state, dst, rows, serve,
                                        trust.n_trustees, cfg, combiner, span)
+        # a drop / tear fires here, before the state commits
+        self._maybe_tear([trust], before)
         trust._state = new_state
         self.planner.observe(sig, info.group_sizes.max())
         self.rounds_dispatched += 1
+        if self._replaying:
+            self.recovery["replayed_rounds"] += 1
         n_slots = cfg.n_slots(trust.n_trustees)
         saved = 0 if (n_slots == 1 and cfg.local_shortcut) \
             else ch.resp_elision_bytes(trust.resp_like, cfg,
@@ -380,13 +427,17 @@ class DelegationEngine:
             cfg = self._mux_cfg(
                 trusts, [sum(int(b[1].shape[0]) for b in tb)
                          for tb in batches])
+            before = self._clone_if_tearing(trusts)
             new_states, resps, tel = _mux_round(trusts, batches, cfg)
+            self._maybe_tear(trusts, before)
         except Exception:
             for t, pend in entries:
                 t._pending = pend + t._pending
                 self.notify(t)
             raise
         self.rounds_dispatched += 1
+        if self._replaying:
+            self.recovery["replayed_rounds"] += 1
         self.planner.observe(("mux", self._mux_signature(trusts[0])),
                              tel["demand_merged"])
         for i, (t, pend) in enumerate(entries):
@@ -402,6 +453,226 @@ class DelegationEngine:
                 "impl_fallback": tel["impl_fallback"]}
             for (_o, _d, _p, fut), resp in zip(pend, resps[i]):
                 fut._fulfil(resp)
+
+    # -- resilience: snapshot / restore / failover (DESIGN.md §14) ----------
+    def install_injector(self, injector) -> None:
+        """Install an ``EngineFailureInjector`` (``repro_torch.runtime``):
+        its schedule is probed each wave before dispatch (kill) and between
+        dispatch and commit (drop / tear)."""
+        self.injector = injector
+
+    def _raise_failure(self, hit, wave_id: int, trusts) -> None:
+        from ..runtime.fault_tolerance import TrusteeFailure
+        kind, shard = hit
+        if kind == "kill" and shard is not None:
+            self.dead_shards.add(int(shard))
+        snap = self._last_snapshot[1] if self._last_snapshot else None
+        raise TrusteeFailure(
+            f"trustee failure ({kind}) on shard {shard} at wave {wave_id}"
+            f" (last snapshot: {'none' if snap is None else snap})",
+            kind=kind, trusts=tuple(t.name for t in trusts),
+            wave_id=wave_id, shard=shard, last_snapshot_step=snap)
+
+    def _clone_if_tearing(self, trusts):
+        """Each trust's physical state, cloned, when the injector will drop
+        or tear the current wave (peeked, not fired); else None — the
+        round then runs as it would with no injector."""
+        if self.injector is None or \
+                not self.injector.scheduled_after(self._current_wave):
+            return None
+        return [{k: v.clone() for k, v in t._state.items()} for t in trusts]
+
+    def _maybe_tear(self, trusts, before) -> None:
+        """Fire a drop / tear of the current wave after its round ran: the
+        tables the round wrote in place get their clones back, and the
+        failure is raised before any state commits."""
+        if self.injector is None:
+            return
+        hit = self.injector.after_dispatch(self._current_wave)
+        if hit is None:
+            return
+        for t, st in zip(trusts, before):
+            for k, v in st.items():
+                t._state[k].copy_(v)
+        self._raise_failure(hit, self._current_wave, trusts)
+
+    @contextlib.contextmanager
+    def replaying(self):
+        """Mark the enclosed rounds as recovery replays: they count in
+        ``recovery["replayed_rounds"]``."""
+        prev, self._replaying = self._replaying, True
+        try:
+            yield
+        finally:
+            self._replaying = prev
+
+    def _logical_states(self, trusts) -> Dict[str, Dict[str, Any]]:
+        """Each trust's logical state, owner-major numpy (the snapshot and
+        reshard layout), copied off the device."""
+        from ..convert import owner_major_from_stacked
+        return {t.name: owner_major_from_stacked(t.trustee_state())
+                for t in trusts}
+
+    def checkpoint(self, directory: str, step: Optional[int] = None) -> int:
+        """Snapshot every registered trust's LOGICAL state into one atomic,
+        crc-checked checkpoint (``repro_torch.checkpoint``), in the JAX
+        package's layout and manifest, so either package restores it.
+        Requires a quiesced session (the consistent cut between engine
+        rounds) and unique trust names (the manifest key).  The manifest
+        carries each trust's schema fingerprint, fuse signature, trustee
+        count, mode, axes, dedicated count and mesh shape.  Returns the
+        step (default: the current wave counter)."""
+        from ..checkpoint import checkpoint as ckpt
+        trusts = self.trusts()
+        busy = sorted(t.name for t in trusts if t._pending)
+        if busy:
+            raise RuntimeError(
+                f"session.checkpoint requires a quiesced session (snapshots "
+                f"are taken between engine rounds); trusts with pending "
+                f"submissions: {busy} — flush/step/drain first")
+        names = [t.name for t in trusts]
+        if len(set(names)) != len(names):
+            raise ValueError(
+                f"session.checkpoint needs unique trust names (the name is "
+                f"the manifest key), got {sorted(names)}")
+        if step is None:
+            step = self.wave_counter
+        meta = {}
+        for t in trusts:
+            g = t.group
+            meta[t.name] = {
+                "schema": (t.schema.fingerprint()
+                           if t.schema is not None else None),
+                "fuse_sig": repr(t.cfg.fuse_sig()),
+                "n_trustees": g.n_trustees, "mode": g.mode,
+                "axes": list(g.axes), "n_dedicated": g.n_dedicated,
+                "mesh_shape": list(g.mesh.dims)}
+        ckpt.save(directory, step, self._logical_states(trusts),
+                  extra={"kind": "trust_session", "wave": self.wave_counter,
+                         "trusts": meta})
+        self._last_snapshot = (directory, step)
+        return step
+
+    def _read_snapshot(self, directory: str, trusts, step):
+        from ..checkpoint import checkpoint as ckpt
+        tree_like = {t.name: {k: 0 for k in t.trustee_state()}
+                     for t in trusts}
+        try:
+            return ckpt.restore(directory, tree_like, step)
+        except KeyError as e:
+            raise ValueError(
+                f"checkpoint under {directory} has no state for trust "
+                f"leaf {e.args[0]!r}: the live session and the snapshot "
+                f"disagree on registered trusts") from None
+
+    def restore(self, directory: str, step: Optional[int] = None) -> int:
+        """Restore every registered trust's state from a session snapshot,
+        matched by trust NAME, its schema fingerprint checked.  A trustee
+        count other than the snapshot's re-lays the state out through the
+        schema's ``reshard=`` rule.  Pending submissions are dropped:
+        recovery replays them from the snapshot wave.  Returns the
+        restored step."""
+        t0 = time.perf_counter()
+        trusts = {t.name: t for t in self.trusts()}
+        tree, got_step, extra = self._read_snapshot(
+            directory, list(trusts.values()), step)
+        meta = (extra or {}).get("trusts", {})
+        for name, t in trusts.items():
+            m = meta.get(name, {})
+            want = t.schema.fingerprint() if t.schema is not None else None
+            if m and m.get("schema") != want:
+                raise ValueError(
+                    f"trust {name!r}: schema fingerprint mismatch "
+                    f"(checkpoint {m.get('schema')}, live {want}) — "
+                    f"refusing to restore incompatible state")
+            host = tree[name]
+            old_t = int(m.get("n_trustees", t.n_trustees))
+            if old_t != t.n_trustees:
+                if t.schema is None or t.schema.reshard is None:
+                    raise ValueError(
+                        f"trust {name!r}: checkpoint holds {old_t}-trustee "
+                        f"state but the live group has {t.n_trustees} "
+                        f"trustees and the schema declares no reshard= rule")
+                host = t.schema.reshard(host, old_t, t.n_trustees)
+            t.install_trustee_state(host)
+            t._pending = []
+            self.unnotify(t)
+        self._last_snapshot = (directory, got_step)
+        self.recovery["restores"] += 1
+        self.recovery["recovery_ms"] += (time.perf_counter() - t0) * 1e3
+        return got_step
+
+    def re_entrust(self, failed_shards, survivors=None,
+                   ckpt_dir: Optional[str] = None,
+                   step: Optional[int] = None, plan=None) -> None:
+        """Failover: rebuild every live trust's trustee group WITHOUT the
+        dead shards and move its state onto the survivors.
+
+        ``failed_shards`` are flat stacked-shard slots; ``survivors``
+        overrides the surviving slot list; ``plan`` (an ``ElasticPlan``,
+        default the delegation ladder) shapes the shrunk mesh
+        (``meshctx.survivors_mesh``).  State comes from the snapshot under
+        ``ckpt_dir`` (the recovery path: the dead shard's memory is gone,
+        and nothing here reads it) or, with ``ckpt_dir`` None, from the
+        live state (an administrative re-shard).  A dedicated group keeps
+        ``n_dedicated`` clamped to ``[1, axis_size - 1]``.  Each schema is
+        rebuilt for the new trustee count through its factory, every
+        trust rebound (its fuse signature and stats reset: the port has
+        no compiled program to evict) and the planner pruned to the live
+        signatures.  Pending submissions are dropped; the caller replays
+        inside ``replaying()``."""
+        from .meshctx import survivors_mesh
+        from .trust import TrusteeGroup
+        t0 = time.perf_counter()
+        trusts = self.trusts()
+        if not trusts:
+            return
+        failed = {int(s) for s in failed_shards}
+        self.dead_shards |= failed
+        if ckpt_dir is None:
+            host_states = self._logical_states(trusts)
+            metas = {t.name: {"n_trustees": t.n_trustees} for t in trusts}
+        else:
+            host_states, got_step, extra = self._read_snapshot(
+                ckpt_dir, trusts, step)
+            metas = (extra or {}).get("trusts", {})
+            self._last_snapshot = (ckpt_dir, got_step)
+        new_meshes = {}
+        for t in trusts:
+            g = t.group
+            if g.mesh not in new_meshes:
+                new_meshes[g.mesh] = survivors_mesh(g.mesh, failed,
+                                                    survivors, plan)
+            mesh = new_meshes[g.mesh]
+            n_ded = g.n_dedicated
+            if g.mode == "dedicated":
+                n_ded = max(1, min(g.n_dedicated, mesh.size - 1))
+            new_group = TrusteeGroup(mesh, g.axis, mode=g.mode,
+                                     n_dedicated=n_ded)
+            new_t = new_group.n_trustees
+            old_t = int(metas.get(t.name, {}).get("n_trustees",
+                                                  t.n_trustees))
+            host = host_states[t.name]
+            schema = t.schema
+            if new_t != old_t:
+                if schema is None or schema.reshard is None:
+                    raise ValueError(
+                        f"trust {t.name!r}: cannot re-entrust from {old_t} "
+                        f"to {new_t} trustees — the schema declares no "
+                        f"reshard= rule")
+                host = schema.reshard(host, old_t, new_t)
+                if t.schema_factory is not None:
+                    schema = t.schema_factory(new_t)
+            t._pending = []
+            self.unnotify(t)
+            t.rebind(new_group, schema=schema, logical_state=host)
+        live_sigs = set()
+        for t in self.trusts():
+            live_sigs.add(("solo", t.token))
+            live_sigs.add(("mux", self._mux_signature(t)))
+        self.planner.prune(live_sigs)
+        self.recovery["restores"] += 1
+        self.recovery["recovery_ms"] += (time.perf_counter() - t0) * 1e3
 
 
 # ---------------------------------------------------------------------------

@@ -332,7 +332,8 @@ def make_kv_schema(n_trustees: int, value_width: int,
                     writes=("value", "flag"), serve=cas, kernel_lane="cas",
                     **kw)],
         state={"table": Field("table", (value_width,), dtype)},
-        route=lambda payload, t: routing.mod_router(payload["key"], t))
+        route=lambda payload, t: routing.mod_router(payload["key"], t),
+        reshard=kv_reshard)
 
 
 class DelegatedKVStore:
@@ -368,7 +369,11 @@ class DelegatedKVStore:
         self.value_width = value_width
         self.t = t
         self.dtype = dtype
-        self.schema = make_kv_schema(t, value_width, dtype)
+        # the factory lets failover rebuild the schema for another trustee
+        # count (the serve's local index bakes T in); the schema's
+        # reshard= rule re-lays the table out
+        schema_factory = lambda t_: make_kv_schema(t_, value_width, dtype)
+        self.schema = schema_factory(t)
         if state is None:
             state = {"table": torch.zeros(
                 (t, self.n_keys_padded // t, value_width), dtype=dtype,
@@ -380,7 +385,20 @@ class DelegatedKVStore:
             pack_impl=pack_impl, serve_impl=serve_impl, name=name,
             plan_capacity=plan_capacity, session=session,
             strict_impl=strict_impl, serve_blocks=serve_blocks,
-            pack_blocks=pack_blocks, combine=combine)
+            pack_blocks=pack_blocks, combine=combine,
+            schema_factory=schema_factory)
+        self.trust._on_rebuild.append(self._on_trust_rebuild)
+
+    def _on_trust_rebuild(self, trust) -> None:
+        """Failover hook: the trust was rebound onto a new trustee group —
+        refresh the cached layout (trustee count, schema, padded key
+        space) so route / prefill / dump follow the survivors' layout."""
+        self.group = trust.group
+        self.mode = trust.group.mode
+        self.t = trust.n_trustees
+        self.schema = trust.schema
+        table = trust.trustee_state()["table"]
+        self.n_keys_padded = int(table.shape[0] * table.shape[1])
 
     @property
     def session(self):

@@ -87,6 +87,31 @@ class StackedMesh:
                 f"{self.axis_names}, device={str(self.device)!r})")
 
 
+def survivors_mesh(old_mesh: StackedMesh, failed_shards, survivors=None,
+                   plan=None) -> StackedMesh:
+    """The shrunk mesh a failover re-entrusts onto (see
+    ``repro.core.meshctx.survivors_mesh``): the shard slots of
+    ``old_mesh`` minus the dead flat slots ``failed_shards`` (or the
+    explicit slot list ``survivors``), shaped by the ``ElasticPlan``'s
+    rung (default: the delegation ladder, 1-D trustee rings shrinking one
+    shard at a time) with the OLD axis names — leading axes 1, the last
+    axis the surviving ring — on the same device.  A stacked shard has no
+    device identity, so survivors are slots and only their count shapes
+    the mesh; the state itself comes from the logical snapshot."""
+    failed = {int(s) for s in failed_shards}
+    surv = (list(survivors) if survivors is not None else
+            [i for i in range(old_mesh.size) if i not in failed])
+    if not surv:
+        raise RuntimeError("survivors_mesh: no surviving shards")
+    if plan is None:
+        from ..runtime.fault_tolerance import delegation_elastic_plan
+        plan = delegation_elastic_plan(old_mesh.size)
+    shape = plan.choose(len(surv))
+    n = shape[0] * shape[1]
+    dims = (1,) * (len(old_mesh.axis_names) - 1) + (n,)
+    return StackedMesh(dims, old_mesh.axis_names, device=old_mesh.device)
+
+
 def current_mesh() -> StackedMesh:
     """The ambient mesh (a ``(1, 1)`` mesh on the default device when none
     was installed)."""

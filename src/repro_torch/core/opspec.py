@@ -29,6 +29,11 @@ class SchemaError(ValueError):
     round runs, naming the op and field with expected vs got."""
 
 
+def dtype_name(dt: torch.dtype) -> str:
+    """A torch dtype's numpy name ("int32", "float32", "bfloat16")."""
+    return str(dt).replace("torch.", "")
+
+
 def _dtype_kind(dt: torch.dtype) -> str:
     if dt == torch.bool or not (dt.is_floating_point or dt.is_complex):
         return "integer"
@@ -264,13 +269,18 @@ def _check_consistent(kind: str, per_op) -> Dict[str, Field]:
 class TrustSchema:
     """A delegated object's contract: op table + state schema + routing
     rule.  ``route(payload, n_trustees) -> dst`` computes each row's
-    destination trustee from the validated payload."""
+    destination trustee from the validated payload.  ``reshard(host_state,
+    old_t, new_t) -> host_state`` re-lays a logical owner-major state (the
+    JAX layout, numpy ``(T * rows, ...)`` leaves) out for another trustee
+    count: it lets failover move the state onto a shrunk mesh."""
 
     def __init__(self, name: str, ops: Sequence[OpSpec],
                  state: Optional[Dict[str, Field]] = None,
-                 route: Optional[Callable] = None):
+                 route: Optional[Callable] = None,
+                 reshard: Optional[Callable] = None):
         self.name = name
         self.ops = tuple(ops)
+        self.reshard = reshard
         if not self.ops:
             raise SchemaError(f"schema {name!r} declares no ops")
         names = [o.name for o in self.ops]
@@ -294,6 +304,27 @@ class TrustSchema:
                     f"(declare the full struct and use writes= for the "
                     f"subset actually written)")
         self._delegated = None
+
+    def fingerprint(self) -> str:
+        """Identity for checkpoint manifests: a hash of the contract a
+        restore must match (op names, payload / response field layouts,
+        writes, the state schema), not of the trustee count.  Dtypes are
+        named as numpy names them, so the port and the JAX package give
+        one contract the same hex string."""
+        import hashlib
+        parts = [self.name]
+        for o in self.ops:
+            parts.append(f"op:{o.name}")
+            for kind, fields in (("p", o.payload), ("r", o.response)):
+                for f in fields:
+                    parts.append(f"{kind}:{f.name}:{dtype_name(f.dtype)}:"
+                                 f"{f.row_shape}")
+            parts.append(f"w:{sorted(o.writes or ())}")
+        if self.state is not None:
+            for n in sorted(self.state):
+                f = self.state[n]
+                parts.append(f"s:{n}:{dtype_name(f.dtype)}:{f.row_shape}")
+        return hashlib.sha256("|".join(parts).encode()).hexdigest()[:16]
 
     def resp_like(self) -> Dict[str, torch.Tensor]:
         """One one-row zeros leaf per response field, in declaration

@@ -39,8 +39,9 @@ seq) is evicted whole until the request fits or no victim remains.
 In dedicated mode (``mode="dedicated"``) the last ``n_dedicated`` shards
 own the table and serve the client shards; the serve runs over every
 stacked shard, and a client shard, which receives no rows, keeps its zero
-region.  Not ported yet: the failover re-layout ``pagetable_reshard``
-(ROADMAP.md queue A: failover).
+region.  ``pagetable_reshard`` (a copy of the JAX package's, on the
+owner-major host state) re-lays the table out for failover onto another
+trustee count.
 """
 from __future__ import annotations
 
@@ -91,11 +92,78 @@ def initial_pagetable_state(n_pages: int, max_seqs: int, max_pages: int,
     }
 
 
-def pagetable_reshard(host_state, old_t: int, new_t: int):
-    """The failover re-layout of the JAX package; not ported yet."""
-    raise NotImplementedError(
-        "pagetable_reshard is not ported to repro_torch yet (ROADMAP.md "
-        "queue A: failover)")
+def pagetable_reshard(host_state: Dict[str, np.ndarray], old_t: int,
+                      new_t: int) -> Dict[str, np.ndarray]:
+    """Re-layout a page table for a different trustee count (failover).
+
+    Unlike the KV table, rows cannot simply move: both the seq→owner map
+    (``seq % T``) and the page-id map (``local * T + owner``) change with
+    ``T``, and a chain must reference pages on its OWN owner.  So the
+    reshard keeps the logical contents (which seqs hold how many pages,
+    their LRU stamps) and deterministically RE-ALLOCATES every chain on
+    its new owner: seqs in ascending global id take the lowest-numbered
+    free local pages.  Page identities change across failover — clients
+    must re-``lookup`` (the decode driver re-gathers page lists every
+    wave anyway; DESIGN.md §15 documents the contract).  If a new owner
+    cannot hold its seqs' pages (shrunk pool / lumpy assignment), LRU
+    seqs are dropped — the same victim rule the serve path uses — and
+    count as evictions.  Conservation (no leaked, no double-chained
+    pages) holds by construction."""
+    used = np.asarray(host_state["used"])
+    chains = np.asarray(host_state["chains"])
+    cl = np.asarray(host_state["chain_len"])
+    lu = np.asarray(host_state["last_used"])
+    clock = np.asarray(host_state["clock"])
+    ev = np.asarray(host_state["evictions"])
+    mp = chains.shape[1]
+    s_old, p_old = cl.shape[0], used.shape[0]
+    assert s_old % old_t == 0 and p_old % old_t == 0, (s_old, p_old, old_t)
+    sl_old, pl_old = s_old // old_t, p_old // old_t
+
+    def key_order(a, nl):
+        out = np.zeros_like(a)
+        for i in range(old_t):
+            out[np.arange(i, a.shape[0], old_t)] = a[i * nl:(i + 1) * nl]
+        return out
+
+    used_k = key_order(used, pl_old)          # global page id -> status
+    cl_k = key_order(cl, sl_old).copy()       # global seq id  -> chain len
+    lu_k = key_order(lu, sl_old)
+    n_real = int(np.sum(used_k != 2))
+
+    p_new = _ceil_to(n_real, new_t)
+    s_new = _ceil_to(s_old, new_t)
+    pl_new, sl_new = p_new // new_t, s_new // new_t
+    used2 = np.zeros((new_t, pl_new), np.int32)
+    for g in range(n_real, p_new):
+        used2[g % new_t, g // new_t] = 2
+    chains2 = np.full((new_t, sl_new, mp), -1, np.int32)
+    cl2 = np.zeros((new_t, sl_new), np.int32)
+    lu2 = np.zeros((new_t, sl_new), np.int32)
+
+    dropped = 0
+    for o in range(new_t):
+        cap = int(np.sum(used2[o] == 0))
+        seqs = [s for s in range(s_old) if s % new_t == o and cl_k[s] > 0]
+        while sum(int(cl_k[s]) for s in seqs) > cap:
+            victim = min(seqs, key=lambda s: (int(lu_k[s]), s))
+            cl_k[victim] = 0
+            seqs.remove(victim)
+            dropped += 1
+        for s in seqs:
+            n = int(cl_k[s])
+            pages = np.flatnonzero(used2[o] == 0)[:n]
+            used2[o, pages] = 1
+            chains2[o, s // new_t, :n] = pages.astype(np.int32)
+            cl2[o, s // new_t] = n
+            lu2[o, s // new_t] = lu_k[s]
+
+    clock2 = np.full((new_t,), int(clock.max(initial=0)), np.int32)
+    ev2 = np.zeros((new_t,), np.int32)
+    ev2[0] = int(ev.sum()) + dropped
+    return {"used": used2.reshape(-1), "chains": chains2.reshape(s_new, mp),
+            "chain_len": cl2.reshape(-1), "last_used": lu2.reshape(-1),
+            "clock": clock2, "evictions": ev2}
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +221,8 @@ def make_pagetable_schema(n_trustees: int, page_size: int,
                "last_used": Field("last_used", (), torch.int32),
                "clock": Field("clock", (), torch.int32),
                "evictions": Field("evictions", (), torch.int32)},
-        route=lambda payload, t_: routing.mod_router(payload["seq"], t_))
+        route=lambda payload, t_: routing.mod_router(payload["seq"], t_),
+        reshard=pagetable_reshard)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +260,12 @@ class SequentialPageTable:
                 "evictions": self.evictions.copy()}
 
     def reshard(self, new_t: int) -> None:
-        pagetable_reshard(self.dump(), self.t, new_t)
+        """Re-lay the oracle out for ``new_t`` trustees with the very
+        ``pagetable_reshard`` the failover path runs, so a chaos trace
+        stays comparable across a trustee-count change."""
+        st = pagetable_reshard(self.dump(), self.t, new_t)
+        self.t = new_t
+        self._load(st)
 
     # -- core allocator (mirrors the serve's _evict_alloc exactly) ---------
     def _evict_alloc(self, o: int, seq_l: int, k: int, want: bool) -> bool:
@@ -337,14 +411,28 @@ class DelegatedPageTable:
         self.mode = mode
         host0 = initial_pagetable_state(n_pages, max_seqs, max_pages, t)
         state = stacked_from_owner_major(host0, t, device=mesh.device)
-        self.schema = make_pagetable_schema(t, page_size, max_pages)
+        schema_factory = lambda t_: make_pagetable_schema(
+            t_, page_size, max_pages)
+        self.schema = schema_factory(t)
         self.trust = group.entrust(
             state, schema=self.schema, capacity=capacity,
             local_shortcut=local_shortcut, name=name or "pagetable",
-            session=session)
+            session=session, schema_factory=schema_factory)
         self.group = group
         self.t = t
         self._known = set()
+        self.trust._on_rebuild.append(self._on_trust_rebuild)
+
+    def _on_trust_rebuild(self, trust) -> None:
+        """Failover hook: the trust was re-entrusted onto a new group —
+        refresh the cached layout.  Page identities changed with the
+        re-layout (``pagetable_reshard``); the known sequences stay, since
+        sequence ids are stable."""
+        self.group = trust.group
+        self.mode = trust.group.mode
+        self.t = trust.n_trustees
+        self.schema = trust.schema
+        self.n_pages = int((trust.trustee_state()["used"] != 2).sum())
 
     @property
     def session(self):

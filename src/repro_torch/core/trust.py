@@ -16,9 +16,11 @@ Execution lives in the session's ``DelegationEngine`` (engine.py), which
 fuses the pending batches of channel-compatible trusts into one round.
 The port carries both trustee modes over the whole mesh (shared: every
 shard serves; dedicated: the last ``n_dedicated`` shards serve the
-others), the defer drain (``overflow="defer"``, ``max_rounds``) and
-request combining (``combine="ref"``); sub-axis groups and the Pallas
-tile sizes raise ``NotImplementedError`` naming their ROADMAP.md item.
+others), the defer drain (``overflow="defer"``, ``max_rounds``),
+request combining (``combine="ref"``) and failover
+(``install_trustee_state`` / ``rebind``, driven by
+``TrustSession.re_entrust``); sub-axis groups and the Pallas tile sizes
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .channel import ChannelConfig, DelegatedOp
@@ -118,7 +121,9 @@ class TrusteeGroup:
                 session=None, schema: Optional[TrustSchema] = None,
                 strict_impl: bool = False, serve_blocks: Any = None,
                 pack_blocks: Any = None,
-                combine: str = "off") -> "Trust":
+                combine: str = "off",
+                schema_factory: Optional[Callable[[int], TrustSchema]] = None
+                ) -> "Trust":
         """Move ``state`` (a dict of (T, rows, ...) tensors) under trustee
         ownership and return the Trust handle; see
         ``repro.core.trust.TrusteeGroup.entrust`` for every knob.  The
@@ -129,7 +134,10 @@ class TrusteeGroup:
         ``overflow="defer"`` re-sends the rows past ``capacity`` in up to
         ``max_rounds - 1`` retry rounds; ``combine="ref"`` sends one wire
         row per (destination, op, key) segment of the ops that declare a
-        combine archetype."""
+        combine archetype.  ``schema_factory(n_trustees) -> TrustSchema``
+        (given without ``schema=``) builds the schema for this group's
+        trustee count, and failover rebuilds it for the survivors'
+        (``TrustSession.re_entrust``): serve closures bake T in."""
         if combine not in ("off", "ref"):
             raise ValueError(
                 f"combine must be 'off' or 'ref', got {combine!r}")
@@ -148,6 +156,8 @@ class TrusteeGroup:
         if serve_impl not in ("ref", "kernel", "masked"):
             raise ValueError(f"serve_impl must be 'ref', 'kernel' or "
                              f"'masked', got {serve_impl!r}")
+        if schema is None and schema_factory is not None:
+            schema = schema_factory(self.n_trustees)
         if schema is not None:
             if ops is not None or resp_like is not None:
                 raise ValueError(
@@ -184,7 +194,7 @@ class TrusteeGroup:
             combine_impl=combine)
         return Trust(self, placed, tuple(ops), resp_like, cfg, name=name,
                      plan_capacity=plan_capacity, session=session,
-                     schema=schema)
+                     schema=schema, schema_factory=schema_factory)
 
 
 def pad_client_region(state: Dict[str, torch.Tensor],
@@ -230,7 +240,8 @@ class Trust:
                  ops: Tuple[DelegatedOp, ...], resp_like: Pytree,
                  cfg: ChannelConfig, name: Optional[str] = None,
                  plan_capacity: bool = False, session=None,
-                 schema: Optional[TrustSchema] = None):
+                 schema: Optional[TrustSchema] = None,
+                 schema_factory: Optional[Callable] = None):
         self.group = group
         self._state = state
         self.ops = ops
@@ -238,6 +249,10 @@ class Trust:
         self.resp_like = resp_like
         self.cfg = cfg
         self.schema = schema
+        self.schema_factory = schema_factory
+        # failover hooks: ``rebind`` fires them once the trust is on its
+        # new trustee group (facades refresh their cached layout)
+        self._on_rebuild: List[Callable] = []
         self.op = OpNamespace(self, schema) if schema is not None else None
         # let the engine's EMA planner size this trust's solo rounds (auto
         # capacity only)
@@ -275,6 +290,60 @@ class Trust:
             return self._state
         c = self.group.n_clients
         return {k: v[c:] for k, v in self._state.items()}
+
+    # -- resilience ----------------------------------------------------------
+    def install_trustee_state(self, logical_state: Pytree) -> None:
+        """Install a LOGICAL state as the entrusted state: each leaf in the
+        JAX owner-major layout, ``(T * rows, ...)`` (numpy or a tensor, as
+        a snapshot or a ``reshard`` rule gives it), is stacked ``(T, rows,
+        ...)`` on the group's device — in dedicated mode behind a zero
+        client region — and copied, never aliased."""
+        g = self.group
+        t = g.n_trustees
+        placed = {}
+        for k, v in logical_state.items():
+            x = v if isinstance(v, torch.Tensor) else \
+                torch.from_numpy(np.array(v))     # a writable host copy
+            if x.shape[0] % t:
+                raise ValueError(
+                    f"state leaf {k!r}: leading dim {x.shape[0]} not "
+                    f"divisible by {t} trustees")
+            placed[k] = x.reshape((t, -1) + tuple(x.shape[1:])).to(
+                g.mesh.device, copy=True,
+                memory_format=torch.contiguous_format)
+        if g.mode == "dedicated":
+            placed = pad_client_region(placed, g.n_clients)
+        self._state = placed
+
+    def rebind(self, group: TrusteeGroup,
+               schema: Optional[TrustSchema] = None,
+               logical_state: Optional[Pytree] = None) -> None:
+        """Re-home this trust onto a new trustee group (the failover path
+        of ``TrustSession.re_entrust``): swap the group and (optionally)
+        the schema with its op table and handles, reset the config's
+        axis, mode, client count and shortcut (none in dedicated mode) and
+        the cached fuse signature and stats, install ``logical_state``
+        (owner-major) and fire the ``_on_rebuild`` hooks."""
+        self.group = group
+        if schema is not None:
+            self.schema = schema
+            self.ops = tuple(schema.delegated_ops())
+            self.op_index = {o.name: i for i, o in enumerate(self.ops)}
+            self.resp_like = schema.resp_like()
+            self.op = OpNamespace(self, schema)
+        dedicated = group.mode == "dedicated"
+        self.cfg = dataclasses.replace(
+            self.cfg,
+            axis=group.axis if len(group.axes) > 1 else group.axes[0],
+            mode=group.mode,
+            n_clients=group.n_clients if dedicated else 0,
+            local_shortcut=False if dedicated else self.cfg.local_shortcut)
+        self._mux_sig = None
+        self._last_stats = None
+        if logical_state is not None:
+            self.install_trustee_state(logical_state)
+        for cb in self._on_rebuild:
+            cb(self)
 
     def last_drain_stats(self) -> Dict[str, int]:
         """Rounds used and the residual (rows still unserved, > 0 only when

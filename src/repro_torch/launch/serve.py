@@ -43,11 +43,17 @@ own channels (the KV cache, the experts) stay shared.  ``--drain-rounds
 N`` gives them a one-row primary block with the defer drain of up to N
 rounds, and prints the ledger's drain stats.  ``--serve-impl`` picks the
 stores' serve: "pallas" the CUDA serve kernels, "ref" their plain
-versions, "masked" the per-op reference.
+versions, "masked" the per-op reference.  ``--chaos WAVE`` (with
+``--session``) tears the ledger and meter's session round at engine wave
+WAVE — the round runs, its results are lost before any state commits —
+and recovers: the last snapshot (one every ``--chaos-snap-every`` waves,
+at quiesce points) is restored, the waves since it are replayed inside
+``session.replaying()`` and the torn wave is retried; the run fails with
+``SystemExit`` unless the ledger then counts ``--gen`` tokens a request.
 
-Options that need parts not ported yet raise ``NotImplementedError``
-naming their ROADMAP item: ``--chaos`` (A 12) and ``--mesh-data > 1``
-(A 13: a data axis spans cards, and one card has nothing to stack it on).
+``--mesh-data > 1`` raises ``NotImplementedError`` naming its ROADMAP
+item (A 13: a data axis spans cards, and one card has nothing to stack it
+on).
 """
 from __future__ import annotations
 
@@ -90,8 +96,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = (
-        (args.chaos is not None,
-         "--chaos needs failover (ROADMAP queue A 12)"),
         (args.mesh_data > 1,
          "--mesh-data > 1: a data axis spans cards, and one card has "
          "nothing to stack it on (ROADMAP queue A 13)"),
@@ -109,8 +113,9 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     (``--session``, ``--delegation-mode dedicated`` or ``--drain-rounds >
     1``) the ledger, its ``client_region()`` and its drain stats (None
     without ``--drain-rounds``); with ``--session`` also the meter, the
-    last wave's ``last_step_info`` and the fused waves'
-    ``last_step_info["fused"]`` (one entry a wave)."""
+    last wave's ``last_step_info``, the fused waves'
+    ``last_step_info["fused"]`` (one entry a round) and ``recovery``
+    (``last_stats()["recovery"]``, None without a recovery)."""
     ap = _parser()
     args = ap.parse_args(argv)
     if args.stream_depth > 0 and not args.session:
@@ -261,11 +266,32 @@ class _Bookkeeping:
                 self.session, depth=args.stream_depth,
                 admission=AdmissionControl(
                     self.wave_rows * (args.stream_depth + 1)))
+        self.gen = args.gen
+        self.chaos_dir = None
+        if args.chaos is not None:
+            # tear the session round at wave args.chaos (it runs, its
+            # results are lost before any state commits); recover from the
+            # snapshot taken every args.chaos_snap_every waves
+            import tempfile
+            from ..runtime import EngineFailureInjector
+            self.chaos_dir = tempfile.mkdtemp(prefix="serve_chaos_")
+            self.snap_every = args.chaos_snap_every
+            self.since_snap = 0
+            self.session.install_injector(EngineFailureInjector(
+                schedule={args.chaos: ("tear", 0)}))
+            print(f"[serve] chaos: tearing session wave {args.chaos}, "
+                  f"snapshots every {self.snap_every} waves", flush=True)
+            self._snapshot()
 
-    def wave(self):
-        if self.meter is None:
-            self.ledger.trust.op.add(self.keys, self.ones)
-            return
+    def _snapshot(self):
+        if self.driver is not None:
+            self.driver.checkpoint(self.chaos_dir)
+        else:
+            self.session.checkpoint(self.chaos_dir)
+
+    def _session_wave(self):
+        """One generated token's ADDs to the ledger and the meter, in ONE
+        fused session round."""
         self.ledger.trust.op.add.then(self.keys, self.ones)
         self.meter.trust.op.add.then(self.meter_keys, self.ones)
         if self.driver is not None:
@@ -274,6 +300,33 @@ class _Bookkeeping:
         else:
             self.session.step()
         self.fused.append(self.session.last_step_info["fused"])
+
+    def wave(self):
+        if self.meter is None:
+            self.ledger.trust.op.add(self.keys, self.ones)
+            return
+        if self.chaos_dir is None:
+            self._session_wave()
+            return
+        from ..runtime import TrusteeFailure
+        try:
+            self._session_wave()
+        except TrusteeFailure as e:
+            print(f"[serve] chaos: {e}", flush=True)
+            if self.driver is not None:
+                self.driver.recover(e, self.chaos_dir)
+            else:
+                self.session.restore(self.chaos_dir)
+            # replay the acknowledged waves since the snapshot, then retry
+            # the torn one (the restore dropped its queued batches)
+            with self.session.replaying():
+                for _ in range(self.since_snap):
+                    self._session_wave()
+            self._session_wave()
+        self.since_snap += 1
+        if self.since_snap % self.snap_every == 0:
+            self._snapshot()
+            self.since_snap = 0
 
     def finish(self):
         if self.driver is not None:
@@ -304,9 +357,19 @@ class _Bookkeeping:
         if self.driver is not None:
             print(f"[serve] streaming driver: {self.driver.stats()}",
                   flush=True)
+        rec = self.session.last_stats().get("recovery")
         if stats is not None:
             stats.update(meter=meter, step_info=info,
-                         fused_waves=self.fused)
+                         fused_waves=self.fused, recovery=rec)
+        if self.chaos_dir is not None:
+            import shutil
+            shutil.rmtree(self.chaos_dir, ignore_errors=True)
+            ok = bool(np.all(ledger == self.gen))
+            print(f"[serve] chaos recovery: {rec} — ledger counts "
+                  f"{'MATCH' if ok else 'DIVERGE FROM'} the {self.gen} "
+                  f"generated tokens per request", flush=True)
+            if not ok:
+                raise SystemExit("[serve] chaos recovery diverged")
 
 
 if __name__ == "__main__":

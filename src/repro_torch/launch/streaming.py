@@ -13,8 +13,9 @@ per-user buckets) bounding the rows in flight across unconsumed waves;
 ``admit()`` consumes the oldest waves until the bucket has room.
 
 ``wave_budget`` sizes the next wave from the session planner's demand
-EMA, read only at quiesce points.  Not ported yet: ``checkpoint`` /
-``recover`` (ROADMAP.md queue A: failover) raise.
+EMA, read only at quiesce points.  ``checkpoint`` quiesces before the
+session snapshot; ``recover`` drops the torn waves and re-entrusts (a
+kill) or restores (a drop or tear).
 """
 from __future__ import annotations
 
@@ -211,15 +212,33 @@ class StreamingDriver:
             self.drain()
 
     def checkpoint(self, directory: str, step: Optional[int] = None) -> int:
-        raise NotImplementedError(
-            "StreamingDriver.checkpoint is not ported to repro_torch yet "
-            "(ROADMAP.md queue A: failover)")
+        """Quiesce the pipeline, then snapshot the session
+        (``TrustSession.checkpoint``): the only correct way to checkpoint
+        a streaming session with waves in flight.  Returns the step."""
+        self.quiesce()
+        return self.session.checkpoint(directory, step=step)
 
     def recover(self, failure, ckpt_dir: str, survivors=None,
                 plan=None) -> int:
-        raise NotImplementedError(
-            "StreamingDriver.recover is not ported to repro_torch yet "
-            "(ROADMAP.md queue A: failover)")
+        """The failover sequence for a ``TrusteeFailure`` raised out of
+        ``dispatch()``: drop the torn in-flight waves without waiting on
+        them (their state never committed) and the admission ledger's
+        in-flight rows; re-entrust onto the survivors when a shard was
+        killed, else restore the last snapshot in place.  Returns the
+        snapshot step to replay from: the caller re-submits every wave
+        after it inside ``session.replaying()``."""
+        self._inflight.clear()
+        if self.admission is not None:
+            self.admission.inflight_rows = 0
+            self.admission.user_inflight.clear()
+        if getattr(failure, "kind", "kill") == "kill":
+            self.session.re_entrust(
+                [failure.shard] if failure.shard is not None else [],
+                survivors=survivors, ckpt_dir=ckpt_dir, plan=plan)
+        else:
+            self.session.restore(ckpt_dir)
+        snap = self.session._last_snapshot
+        return snap[1] if snap is not None else 0
 
     def wave_budget(self, trusts, fallback: Optional[int] = None) -> int:
         """Target rows for the next wave, from the planner's demand EMA: a

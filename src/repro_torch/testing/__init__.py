@@ -9,3 +9,5 @@
 #               version; keep the serve's decode logits at a position;
 #               prefill against decode logits
 # serve.py      the serve kernels' far-winner flags
+# failover.py   kv_mixed waves with a trustee killed (or a wave torn) and
+#               the page table's chaos run, against their oracles

@@ -403,3 +403,128 @@ def test_pagetable_serve_over_dedicated_shards(cuda):
             assert all(np.array_equal(ra[k], rb[k]) for k in rb)
     assert all(np.array_equal(gs[k], ws[k]) for k in ws)
     assert all(v.size and not v.any() for v in gr.values())
+
+
+# ---------------------------------------------------------------------------
+# failover: the kernels under a drop / tear, a kill and a re-laid page table
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["drop", "tear"])
+@pytest.mark.parametrize("path", ["solo", "fused", "drain"])
+def test_tear_on_the_kernel_path_leaves_every_table(cuda, path, kind):
+    """A drop / tear after a solo round, a fused round of two trusts and a
+    defer drain's rounds, all on the CUDA kernels (which write the tables
+    in place): every member's table bit-identical to before the wave, its
+    futures open and queued; the retry answers as an undisturbed run of
+    the wave does, and leaves its tables."""
+    from repro_torch.core import TrustSession
+    from repro_torch.runtime import EngineFailureInjector, TrusteeFailure
+    from repro_torch.testing import failover as fo
+    n_keys = 997
+    init, waves = fo.mixed_waves(31, n_keys, VW, 1024, 1)
+
+    def stores_of(sess):
+        kw = dict(capacity=1024, local_shortcut=False, session=sess)
+        if path == "drain":
+            kw.update(capacity=16, overflow="defer", max_rounds=12)
+        out = [DelegatedKVStore(StackedMesh((2, 4), device=cuda), n_keys,
+                                VW, name=f"kv{i}", **kw)
+               for i in range(2 if path == "fused" else 1)]
+        for st in out:
+            st.prefill(init)
+        return out
+
+    sess = TrustSession()
+    calm = stores_of(sess)
+    calm_futs = [fo.submit_wave(st, waves[0], cuda) for st in calm]
+    sess.step()
+    sess = TrustSession()
+    stores = stores_of(sess)
+    before = [{k: v.clone() for k, v in st.trust.state().items()}
+              for st in stores]
+    sess.install_injector(EngineFailureInjector(schedule={0: (kind, 1)}))
+    tops.reset_launch_counts()
+    futs = [fo.submit_wave(st, waves[0], cuda) for st in stores]
+    with pytest.raises(TrusteeFailure):
+        sess.step()
+    assert tops.launch_counts()["scatter_last"] > 0     # the round ran
+    for st, b in zip(stores, before):
+        assert all(torch.equal(v, b[k]) for k, v in st.trust.state().items())
+    assert not any(f.ready() for fs in futs for f in fs)
+    assert all(st.trust._pending for st in stores)
+    sess.step()
+    for st, fs, c, cfs in zip(stores, futs, calm, calm_futs):
+        assert fo.same_acks(fo.acks(waves[0], fs), fo.acks(waves[0], cfs))
+        assert np.array_equal(st.dump(), c.dump())
+    if path != "drain":               # in request order: the oracle's
+        ref = SequentialKVReference(n_keys, VW)
+        ref.prefill(init)
+        assert fo.same_acks(fo.acks(waves[0], futs[0]),
+                            fo.oracle_wave(ref, waves[0]))
+
+
+def test_small_chaos_run_kernel_path_equals_ref_path(cuda):
+    """A trustee killed mid-trace, re-entrusted onto 7 shards from the
+    snapshot, the waves since it replayed: the kernel path's acked history
+    and table == the ref path's == the sequential oracle."""
+    import tempfile
+    from repro_torch.core import TrustSession
+    from repro_torch.testing import failover as fo
+    n_keys = 4099
+    init, waves = fo.mixed_waves(32, n_keys, VW, 1176, 12)
+    runs = {}
+    for impl in ("kernel", "ref"):
+        sess = TrustSession()
+        st = DelegatedKVStore(StackedMesh((2, 4), device=cuda), n_keys, VW,
+                              capacity=1176, local_shortcut=False,
+                              pack_impl=impl, serve_impl=impl, session=sess)
+        st.prefill(init)
+        with tempfile.TemporaryDirectory() as ckdir:
+            runs[impl] = fo.run_kv_chaos(
+                st, sess, waves, ckdir, cuda, schedule={7: ("kill", 3)},
+                snap_every=4, sync=torch.cuda.synchronize)
+        runs[impl]["table"] = st.dump()
+        assert sess.last_stats()["recovery"]["replayed_rounds"] == 3
+        assert runs[impl]["replay_equal"] and st.t == 7
+    k, r = runs["kernel"], runs["ref"]
+    assert all(fo.same_acks(k["acked"][i][0], r["acked"][i][0])
+               for i in range(len(waves)))
+    bad, table = fo.check_kv_history(init, waves, k["acked"])
+    assert bad is None
+    assert np.array_equal(k["table"], table)
+    assert np.array_equal(r["table"], table)
+
+
+def test_pagetable_reshard_then_p2_matches_plain(cuda):
+    """The stress trace's state re-laid out for 7 trustees
+    (``pagetable_reshard``, installed through ``re_entrust``), then more
+    stress waves: P2 on the card == its plain version on the CPU, bit for
+    bit, and the audit holds."""
+    from repro_torch.core import DelegatedPageTable
+    from repro_torch.testing.pagetable import (STRESS_GEOMETRY,
+                                               replay_waves, stress_waves,
+                                               submit_waves)
+    g = STRESS_GEOMETRY
+    runs = []
+    tops.reset_launch_counts()
+    for dev in (cuda, torch.device("cpu")):
+        with use_session() as sess:
+            pt = DelegatedPageTable(StackedMesh((2, 4), device=dev),
+                                    g["n_pages"], max_seqs=g["max_seqs"],
+                                    page_size=g["page_size"],
+                                    max_pages=g["max_pages"], capacity=256,
+                                    local_shortcut=False)
+            replay_waves(pt, submit_waves(pt, stress_waves(5)))
+            sess.re_entrust([3])
+            assert pt.t == 7 and pt.audit()["consistent"]
+            rec = submit_waves(pt, stress_waves(6, n_random=8))
+            runs.append(([[pt.globalize(f.result(), s)
+                           for _, s, _, f in w] for w in rec],
+                         pt.dump(), pt.audit()))
+    assert tops.launch_counts()["pagetable_serve"] > 0
+    (gw, gs, ga), (ww, ws, wa) = runs
+    for a, b in zip(gw, ww):
+        for ra, rb in zip(a, b):
+            assert all(np.array_equal(ra[k], rb[k]) for k in rb)
+    assert all(np.array_equal(gs[k], ws[k]) for k in ws)
+    assert ga == wa and ga["consistent"]

@@ -342,13 +342,38 @@ def test_serve_dedicated_and_drain_flags_run(extra):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--session", "--chaos", "3"], "queue A"),
     (["--mesh-data", "2"], "queue A 13"),
 ])
 def test_unported_serve_flags_raise(extra, item):
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=item):
         serve.main(SERVE_ARGV + extra)
+
+
+@pytest.mark.parametrize("extra,replayed", [
+    (["--chaos", "6", "--chaos-snap-every", "4"], 2),
+    (["--stream-depth", "2", "--serve-impl", "pallas", "--chaos", "9",
+      "--chaos-snap-every", "4"], 1),
+    (["--stream-depth", "2", "--chaos", "8", "--chaos-snap-every", "8"], 0),
+])
+def test_serve_chaos_recovers_the_ledger(extra, replayed):
+    """``--session --chaos WAVE``: the session round torn at that wave is
+    recovered (the last snapshot restored, the waves since it replayed,
+    the torn wave retried), directly or through the streaming driver; the
+    tokens are the plain serve's and the ledger counts ``--gen`` tokens a
+    request.  ``--chaos`` without ``--session`` is refused."""
+    from repro_torch.launch import serve
+    stats = {}
+    gen = serve.main(SERVE_ARGV + ["--session"] + extra, stats=stats)
+    np.testing.assert_array_equal(gen, serve.main(SERVE_ARGV))
+    b, g = SERVE["batch"], SERVE["gen"]
+    assert stats["ledger"].tolist() == [g] * b
+    assert int(stats["meter"].sum()) == b * g
+    rec = stats["recovery"]
+    assert rec["restores"] == 1 and rec["replayed_rounds"] == replayed
+    assert len(stats["fused_waves"]) == g + replayed
+    with pytest.raises(SystemExit):
+        serve.main(SERVE_ARGV + ["--chaos", "3"])
 
 
 @pytest.mark.parametrize("extra,t", [

@@ -3,7 +3,9 @@
   * the plain page-table serve (``ref.pagetable_serve``, what the CUDA
     kernel computes) == the JAX schema's per-op ``lax.scan`` serve, pass
     by pass, on numpy-seeded rows that evict, heal and overflow;
-  * the port's copy of ``SequentialPageTable`` == the JAX oracle;
+  * the port's copy of ``SequentialPageTable`` == the JAX oracle, and the
+    port's ``pagetable_reshard`` == JAX's (the oracle's ``reshard`` loads
+    its result);
   * the port's ``DelegatedPageTable`` (8 stacked shards on the CPU) == the
     sequential oracle replayed in serve order, and == the JAX
     ``DelegatedPageTable`` on a 2x4 mesh of 8 virtual CPU devices — every
@@ -104,6 +106,64 @@ def test_oracle_copy_matches_jax_oracle():
             assert all(np.array_equal(ra[k], rb[k]) for k in rb)
     assert all(np.array_equal(a.dump()[k], b.dump()[k]) for k in b.dump())
     assert int(a.evictions.sum()) > 0
+
+
+def _consistent_state(seed, old_t):
+    """A consistent owner-major page-table state: the oracle driven by
+    the stress waves (evictions, heals, frees) over ``old_t`` trustees."""
+    from repro_torch.core import SequentialPageTable
+    from repro_torch.testing.pagetable import stress_waves
+    g = _geometry()
+    oracle = SequentialPageTable(g["n_pages"], g["max_seqs"],
+                                 g["page_size"], g["max_pages"], old_t)
+    for wave in stress_waves(seed):
+        for op, seqs, arg in wave:
+            getattr(oracle, op)(*((seqs,) if arg is None else (seqs, arg)))
+    return oracle
+
+
+def _crowded_state():
+    """Eight 4-page chains of sequences 0, 5, ..., 35 on 8 trustees (one
+    a trustee, its whole pool) — on 5 trustees they all map to trustee
+    0, whose pool holds 3 of them: the re-layout must drop 5 LRU chains."""
+    from repro_torch.core import SequentialPageTable
+    oracle = SequentialPageTable(64, 64, 4, 4, 8)
+    seqs = np.arange(0, 40, 5, dtype=np.int32)
+    oracle.alloc(seqs, np.full(8, 4, np.int32))
+    oracle.lookup(seqs[::-1])         # distinct LRU stamps
+    return oracle
+
+
+@pytest.mark.parametrize("seed,old_t,new_t", [
+    (17, 8, 7), (18, 8, 5), (19, 4, 8), (20, 8, 8), (None, 8, 5)])
+def test_pagetable_reshard_matches_jax(seed, old_t, new_t):
+    """``pagetable_reshard`` (the port's copy) == JAX's on consistent
+    states, 8 -> 7, 8 -> 5, 4 -> 8, 8 -> 8, and a crowded state whose new
+    owner cannot hold its chains (the LRU ones dropped and counted as
+    evictions); the result passes the facade's audit rules, and
+    ``SequentialPageTable.reshard`` takes the new trustee count and loads
+    the re-laid state."""
+    from repro.core.pagetable import pagetable_reshard as j_reshard
+    from repro_torch.core import pagetable_reshard
+    oracle = _crowded_state() if seed is None else \
+        _consistent_state(seed, old_t)
+    before = oracle.dump()
+    got = pagetable_reshard(before, old_t, new_t)
+    want = j_reshard({k: v.copy() for k, v in before.items()}, old_t, new_t)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(
+            got[k], want[k]), k
+    used = got["used"].reshape(new_t, -1)
+    cl = got["chain_len"].reshape(new_t, -1)
+    assert int((used == 1).sum()) == int(cl.sum())      # no leaked page
+    dropped = int(got["evictions"].sum() - before["evictions"].sum())
+    if seed is None:
+        assert dropped == 5 and int(cl.sum()) == 12
+    oracle.reshard(new_t)
+    assert oracle.t == new_t
+    for k, v in oracle.dump().items():
+        assert np.array_equal(v, got[k]), k
 
 
 def _port_run(shortcut):
@@ -215,8 +275,12 @@ def test_facade_contract_and_list_field():
         assert pt.audit()["allocated"] == 0 and pt.audit()["consistent"]
         assert all(v.size and not v.any()
                    for v in pt.client_region().values())
-    with pytest.raises(NotImplementedError, match="failover"):
-        pagetable_reshard({}, 8, 7)
+    # a fresh table re-laid out for 7 trustees is a fresh 7-trustee table
+    from repro_torch.core import initial_pagetable_state
+    got = pagetable_reshard(initial_pagetable_state(64, 16, 8, 8), 8, 7)
+    want = initial_pagetable_state(64, 16, 8, 7)
+    assert sorted(got) == sorted(want)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
     with pytest.raises(SchemaError, match="row_shape"):
         ListField("x", row_shape=(3,), max_len=4)
 

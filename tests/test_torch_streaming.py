@@ -228,9 +228,13 @@ def test_admission_backpressures():
         assert adm2.refused >= 2
 
 
-def test_quiesce_and_knobs_not_ported():
+def test_quiesce_and_knobs_not_ported(tmp_path):
+    """``quiesce`` consumes every wave and flushes the session;
+    ``checkpoint`` quiesces before its snapshot, and ``recover`` after a
+    tear drops the in-flight waves and restores that snapshot."""
     from repro_torch.core import use_session
     from repro_torch.launch.streaming import StreamingDriver
+    from repro_torch.runtime import EngineFailureInjector, TrusteeFailure
     with pytest.raises(ValueError, match="depth"):
         StreamingDriver(None, depth=-1)
     with use_session() as sess:
@@ -241,10 +245,20 @@ def test_quiesce_and_knobs_not_ported():
         assert not sess.quiesced()
         drv.quiesce()
         assert sess.quiesced() and fut.ready() and drv.inflight == 0
-        for call, item in ((lambda: drv.checkpoint("x"), "failover"),
-                           (lambda: drv.recover(None, "x"), "failover")):
-            with pytest.raises(NotImplementedError, match=item):
-                call()
+        st.add_then(torch.arange(4), torch.ones((4, st.value_width)))
+        step = drv.checkpoint(str(tmp_path))
+        assert sess.quiesced() and step == sess.wave_counter
+        snap = st.dump()
+        sess.install_injector(EngineFailureInjector(
+            schedule={sess.wave_counter + 1: ("tear", 0)}))
+        st.add_then(torch.arange(4), torch.ones((4, st.value_width)))
+        drv.dispatch(rows=4)
+        st.add_then(torch.arange(4), torch.ones((4, st.value_width)))
+        with pytest.raises(TrusteeFailure) as ei:
+            drv.dispatch(rows=4)
+        assert drv.recover(ei.value, str(tmp_path)) == step
+        assert drv.inflight == 0 and not st.trust._pending
+        assert np.array_equal(st.dump(), snap)
 
 
 def test_paged_entry_points_default_to_cuda():
