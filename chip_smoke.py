@@ -199,7 +199,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      Then each path's ops/s or tokens/s on a host clock; the device's
      busy share and top device ops (the deepseek and falcon prefills' are
      taken at the end of phases 7 and 8, while their weights are on the
-     card).
+     card);
+ 10. qwen train — (a) repro_torch.launch.train on qwen2.5-3b at full width
+     and depth (bf16 weights, f32 AdamW moments, remat "full", the
+     synthetic stream, B 4 x 1024, 8 steps; weights drawn on the card
+     after the earlier phases' are freed): every loss and grad norm
+     finite, ms a step (median of steps 2-8), tokens/s, peak allocated
+     GB; then two steps on one repeated batch (the second loss lower) and
+     the busy share of one profiled step; (b) the card against the port's
+     CPU path on the same weights and batch in f32 at full width and 2
+     layers — qwen2.5-3b B 1 x 256, deepseek-v2-lite-16b B 1 x 128 (its
+     dense first layer and one MoE layer of 64 experts over 4 stacked
+     trustees: every expert fed a row has a gradient), falcon-mamba-7b B
+     1 x 64: the loss within 1e-5 relative and each gradient leaf within
+     1e-4 relative RMS; remat "full" and "dots" against "none" on the
+     card within 1e-5; (c) the SMOKE trainer resumed after a failure
+     injected at step 12 (a checkpoint every 5) ends on the clean run's
+     loss (rtol 1e-4); (d) tests/_md_battery.py's
+     grad_channel_combiner_int8 on 8 stacked shards: err_final < 0.05 on
+     the card, its final table within 1e-5 of the port's CPU run, and the
+     CPU run's 60 steps replayed on the card from their inputs within
+     1e-5 of its outputs.  The training path runs the plain
+     versions (no kernel has a backward, as JAX trains without its
+     Pallas kernels): its launch counts must read 0.
 
 Phase 2 also holds the multiplexed round's kernel shapes: the pack at
 virtual bins (8 trustees x 2 lanes, a hot lane and an empty one) and
@@ -208,8 +230,8 @@ forms it, exact.
 
 Launch counters are zeroed just before each main path (phases 3, 4,
 4a-4e, the timed run of 5, each timed prefill of 6, 7 and 8, the session
-serves of 6 and the serves of 7 and 8) and read just after; every kernel
-of a path must have launched there.  "[time]" lines give the wall time
+serves of 6, the serves of 7 and 8, and phase 10's trainer) and read just
+after; every kernel of a path must have launched there (phase 10's: none).  "[time]" lines give the wall time
 through each phase.  The line before the last is {"kernels": [...]};
 the last is the device line.
 """
@@ -4375,6 +4397,203 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training (qwen train)
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(batch=4, seq=1024, steps=8, remat="full")
+# (b): the card against the port's CPU path, f32, full width, 2 layers
+TRAIN_CHECK = (("qwen2.5-3b", 256, 1), ("deepseek-v2-lite-16b", 128, 4),
+               ("falcon-mamba-7b", 64, 1))
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RMS, REMAT_GRAD_RMS = 1e-5, 1e-4, 1e-5
+RESUME = ["--arch", "qwen2.5-3b", "--smoke", "--steps", "20", "--batch",
+          "4", "--seq", "32", "--ckpt-every", "5", "--log-every", "1000"]
+COMBINER_TOL = 1e-5
+
+
+def train_argv():
+    t = TRAIN
+    return ["--arch", "qwen2.5-3b", "--steps", str(t["steps"]), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]), "--remat", t["remat"],
+            "--log-every", "1"]
+
+
+def phase_train(torch, dev, gpu, report):
+    """(a) the trainer at qwen2.5-3b's full width and depth in bf16, its
+    times; (b) the card against the port's CPU path in f32 at full width
+    and 2 layers, and remat "full" / "dots" against "none"; (c) resume
+    after an injected failure; (d) the gradient combiner.  Returns the
+    kernel launches of the training path (none is expected: it runs the
+    plain versions, as JAX trains without its Pallas kernels)."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.testing.train import (ExpertRows, combiner_battery,
+                                           combiner_replay,
+                                           expert_grads_follow_rows,
+                                           worst_leaf)
+    torch.cuda.empty_cache()
+    say(f"[train] card memory allocated at the start: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    # (a) the trainer at full width and depth
+    t = TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    hist = train.main(train_argv(), stats=stats)
+    wall = time.perf_counter() - t0
+    launches = kops.launch_counts()
+    for m in stats["metrics"]:
+        require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                f"qwen train: a loss or grad_norm is not finite: {m}")
+    step_ms = sorted(stats["step_s"][1:t["steps"]])[(t["steps"] - 1) // 2] \
+        * 1e3
+    tokens = t["batch"] * t["seq"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    report["qwen_train"] = {"tokens_per_s": tokens / step_ms * 1e3}
+    say(f"[train] {gpu} | qwen2.5-3b train ({stats['n_params'] / 1e9:.3f} B "
+        f"params, bf16, AdamW f32 moments, remat {t['remat']}, B "
+        f"{t['batch']} x {t['seq']}): losses "
+        f"{[round(l, 4) for _, l in hist]}, grad norms "
+        f"{[round(m['grad_norm'], 3) for m in stats['metrics']]}; "
+        f"{step_ms:.1f} ms a step (median of steps 2-{t['steps']}; steps "
+        f"{[round(s * 1e3, 1) for s in stats['step_s']]} ms), "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s, peak allocated {peak:.2f} "
+        f"GB, {wall:.1f} s in all (weights drawn on the card included)")
+    params, opt = stats["state"]
+    plan = stats["plan"]
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             stats["pipeline"].model_batch_at(t["steps"]).items()}
+    losses = []
+    for _ in range(2):
+        params, opt, m = plan.step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+    say(f"[train] {gpu} | two steps on one repeated batch: loss "
+        f"{losses[0]:.6f} -> {losses[1]:.6f}")
+    require(losses[1] < losses[0], f"a second step on the same batch did "
+            f"not lower the loss: {losses}")
+
+    def one_step():
+        nonlocal params, opt
+        params, opt, m = plan.step_fn(params, opt, batch)
+        float(m["loss"])
+    busy, bwall, tops = busy_share(torch, one_step, 1, 10)
+    say(f"[busy] {gpu} | qwen train step: " + (
+        f"device busy {busy * 1e3:.3f} ms of {bwall * 1e3:.3f} ms wall "
+        f"({100 * busy / bwall:.1f}% busy); top device ops: " + "; ".join(
+            f"{short(n)} {ms:.3f} ms / {c} calls" for n, ms, c in tops)
+        if busy > 0 else "device busy share not measured (the profiler "
+                         "recorded no device activity)"))
+    report["qwen_train"]["busy"] = busy / bwall if busy > 0 else None
+    del params, opt, plan, batch, stats
+    torch.cuda.empty_cache()
+    say(f"[time] phase 10 (a): {time.perf_counter() - t0:.1f} s")
+
+    # (b) the card against the port's CPU path, f32, full width, 2 layers
+    t1 = time.perf_counter()
+    for arch, seq, n_trustees in TRAIN_CHECK:
+        cfg = get_arch(arch).with_overrides(n_layers=2)
+        run = RunConfig(model=cfg, shape=ShapeConfig("t", seq, 1, "train"),
+                        mesh=MeshConfig((1, n_trustees), ("data", "model")),
+                        param_dtype="float32", activation_dtype="float32",
+                        remat="none")
+        params = M.init_params(cfg, run, dev)
+        host = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size), cfg,
+                             run.shape).batch_at(0)
+        tc = time.perf_counter()
+        with ExpertRows() as rec:
+            loss_g, met_g, grads_g = value_and_grad(
+                params, {k: torch.as_tensor(v, device=dev)
+                         for k, v in host.items()}, cfg, run)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - tc
+        tc = time.perf_counter()
+        cpu_params = tree_map(lambda p: p.detach().cpu(), params)
+        loss_c, met_c, grads_c = value_and_grad(
+            cpu_params, {k: torch.as_tensor(v) for k, v in host.items()},
+            cfg, run)
+        t_cpu = time.perf_counter() - tc
+        want = tree_leaves(grads_c)
+        rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+        worst, i = worst_leaf(grads_g, want)
+        line = (f"[train] {gpu} | {arch} at full width, 2 layers, f32, B 1 x "
+                f"{seq}, {n_trustees} trustee(s): loss card "
+                f"{loss_g.item():.7f} CPU {loss_c.item():.7f} (relative "
+                f"{rel:.2e}), worst gradient leaf {worst:.2e} relative RMS "
+                f"(leaf {i} of {len(want)}); value and grad {t_card:.1f} s "
+                f"on the card (first call), {t_cpu:.1f} s on the CPU "
+                f"({torch.get_num_threads()} threads)")
+        require(rel < TRAIN_LOSS_RTOL and worst < TRAIN_GRAD_RMS,
+                f"{arch}: the card's loss or gradients disagree with the "
+                f"CPU's: {line}")
+        if n_trustees > 1:
+            r = expert_grads_follow_rows(
+                grads_g["groups"]["pos0"]["moe"]["w_gate"], rec.counts)
+            line += (f"; {r['experts_fed']} experts fed, "
+                     f"{r['fed_without_grad']} of them without a gradient, "
+                     f"dropped {float(met_g['moe_dropped_frac']):.4f}")
+            require(r["experts_fed"] > 0 and r["fed_without_grad"] == 0,
+                    f"{arch}: a fed expert has no gradient: {r}")
+        if arch == "qwen2.5-3b":
+            for remat in ("full", "dots"):
+                _, _, grads_r = value_and_grad(
+                    params, {k: torch.as_tensor(v, device=dev)
+                             for k, v in host.items()}, cfg,
+                    dataclasses.replace(run, remat=remat))
+                w_r, _ = worst_leaf(grads_r, tree_leaves(grads_g))
+                line += f"; remat {remat} vs none {w_r:.2e}"
+                require(w_r < REMAT_GRAD_RMS, f"remat {remat}: {w_r}")
+                del grads_r
+        say(line)
+        del params, cpu_params, grads_g, grads_c
+        torch.cuda.empty_cache()
+    say(f"[time] phase 10 (b): {time.perf_counter() - t1:.1f} s")
+
+    # (c) resume after an injected failure, on the card
+    ckdir = tempfile.mkdtemp(prefix="train_resume_")
+    try:
+        h_fail = train.main(RESUME + ["--ckpt-dir", f"{ckdir}/a",
+                                      "--inject-failure-at", "12"])
+        h_ok = train.main(RESUME + ["--ckpt-dir", f"{ckdir}/b"])
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    say(f"[train] resume on the card (SMOKE, a failure at step 12, a "
+        f"checkpoint every 5): last loss {h_fail[-1][1]:.7f} against the "
+        f"clean run's {h_ok[-1][1]:.7f} (steps {h_fail[-1][0]} / "
+        f"{h_ok[-1][0]}, {len(h_fail) - len(h_ok)} replayed)")
+    require(h_fail[-1][0] == h_ok[-1][0] and math.isclose(
+        h_fail[-1][1], h_ok[-1][1], rel_tol=1e-4),
+        "the resumed run's last loss is not the clean run's")
+
+    # (d) the gradient combiner on 8 stacked shards
+    record = []
+    card = combiner_battery(dev)
+    cpu = combiner_battery("cpu", record=record)
+    replay = combiner_replay(dev, record)
+    diff = float(np.abs(card["table"] - cpu["table"]).max())
+    say(f"[train] grad_channel_combiner_int8 on 8 stacked shards: err_final "
+        f"{card['err_final']:.6f} on the card, {cpu['err_final']:.6f} on the "
+        f"CPU; the CPU's 60 steps replayed on the card from their inputs: "
+        f"worst output {replay:.2e} of its largest magnitude; the two "
+        f"60-step runs' final tables differ by {diff:.2e}")
+    require(card["err_final"] < 0.05, f"err_final {card['err_final']}")
+    require(replay < COMBINER_TOL and diff < COMBINER_TOL,
+            f"the card's combiner against the CPU's: the replay {replay}, "
+            f"the final tables {diff}")
+    say(f"[time] phase 10: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main_shapes(n_dev):
     """The pack and serve kernels' shapes on the main paths' rounds:
     kv_paper (a fused GET + PUT batch a client) and kv_mixed."""
@@ -4427,7 +4646,7 @@ def kernel_info(torch, n_dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,9",
+                    default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -4615,6 +4834,18 @@ def main(argv=None):
                          "shapes": label})
         phase_busy(torch, dev, gpu)
         say(f"[time] through phase 9: {time.perf_counter() - started:.1f} s")
+    if "10" in phases:
+        # counters zeroed just before the trainer and read just after: the
+        # training path runs the plain versions and launches none
+        counts = phase_train(torch, dev, gpu, report)
+        say(f"[main path] qwen train launches: {json.dumps(counts)}")
+        require(not any(counts.values()), "the training path launched a "
+                "kernel: no kernel has a backward")
+        say(f"[tokens/s] {gpu} | qwen_train: "
+            f"{report['qwen_train']['tokens_per_s']:.1f}")
+        say(f"[time] through phase 10: "
+            f"{time.perf_counter() - started:.1f} s")
+    if "9" in phases:
         say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -60,8 +60,11 @@ def _unflatten(like: Pytree, leaves: Dict[str, Any],
         return {k: _unflatten(v, leaves, prefix + (str(k),))
                 for k, v in like.items()}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(v, leaves, prefix + (str(i),))
-                          for i, v in enumerate(like))
+        items = [_unflatten(v, leaves, prefix + (str(i),))
+                 for i, v in enumerate(like)]
+        # a NamedTuple (the optimizer state) takes its fields positionally
+        return type(like)(*items) if hasattr(like, "_fields") \
+            else type(like)(items)
     return leaves[_SEP.join(prefix)]
 
 

@@ -7,7 +7,8 @@ both packages.
 experts, ``MambaConfig`` its selective-SSM mixers), ``ShapeConfig`` one
 (seq_len, global_batch, kind) input cell, ``MeshConfig`` the (data, model)
 mesh whose shards the port stacks on one device, and ``RunConfig`` couples
-them with the precision and kernel settings the serve path reads.
+them with the precision, training and kernel settings the model paths
+read.
 """
 from __future__ import annotations
 
@@ -139,10 +140,23 @@ class RunConfig:
     mesh: MeshConfig = field(default_factory=MeshConfig)
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"
+    opt_dtype: str = "float32"       # AdamW moments
+    grad_accum_dtype: str = "float32"  # the microbatches' grad accumulator
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    grad_accum: int = 1              # microbatches a step
     remat: str = "dots"              # training only: "none" | "dots" | "full"
+    zero_sharding: bool = True       # JAX: optimizer state over the data
+                                     # axis; one card has none to use
+    grad_compression: str = "none"   # "none" | "int8" | "topk" (as in JAX,
+                                     # no step reads it)
     sp_residual: bool = False        # sequence-parallel residual stream
     local_shortcut: bool = True      # MoE dispatch: self-addressed rows
                                      # skip the channel
     mla_absorb: bool = False         # MLA decode scores in latent space
     use_pallas: bool = False         # the port: the CUDA kernels if True
+    unroll_layers: bool = False      # JAX's python-loop groups; the port
+                                     # always loops
+    xent_chunk: int = 512            # seq chunk of the delegated xent
     seed: int = 0

@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Dict, Sequence
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
@@ -113,3 +115,18 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
                            f"{err}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad.  A kernel is
+    a ``ctypes`` call that writes into tensors torch allocated: its output
+    would carry no ``grad_fn``, and the gradient would stop there with no
+    error.  No kernel has a backward; a differentiated path calls the
+    plain versions (``impl="ref"``), as JAX trains without its Pallas
+    kernels."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the CUDA kernel has no "
+            f"backward (its output would be cut from the graph); call the "
+            f"plain version (impl='ref') or run under torch.no_grad()")

@@ -119,6 +119,7 @@ def delegation_pack(dst: torch.Tensor, words: torch.Tensor, n_trustees: int,
     ``ref.pack_stacked`` for the contract.  ``delegation_pack.launches``
     counts calls that launched the kernels (four a call at every main
     path's shapes)."""
+    _build.refuse_grad("delegation_pack", dst, words)
     if capacity < 1 or capacity2 < 0:
         raise ValueError(f"delegation_pack: capacity must be >= 1 and "
                          f"capacity2 >= 0, got {capacity}, {capacity2}")

@@ -143,6 +143,7 @@ def gather(table: torch.Tensor, keys: torch.Tensor, lane: torch.Tensor,
     outside [0, K) reads the clamped line); with ``expect``, also ``flag =
     all(cur == expect)`` (the CAS lane).  Other rows keep ``out`` and
     ``flag`` as they were.  See ``ref.gather``."""
+    _build.refuse_grad("gather", table, out, expect)
     check_gather(table, keys, lane, which, out, expect, flag)
     if table.device.type == "cpu":
         return ref.gather(table, keys, lane, which, out, expect, flag)
@@ -223,6 +224,7 @@ def scatter_last(table: torch.Tensor, keys: torch.Tensor,
                  flag: torch.Tensor, value: torch.Tensor) -> None:
     """In every segment the last flagged row writes its value row into its
     table line, in place.  See ``ref.scatter_last``."""
+    _build.refuse_grad("scatter_last", table, value)
     check_scatter_last(table, keys, order, seg_end, flag, value)
     if table.device.type == "cpu":
         return ref.scatter_last(table, keys, order, seg_end, flag, value)
@@ -272,6 +274,7 @@ def segmented_add(table: torch.Tensor, keys: torch.Tensor, lane: torch.Tensor,
     """ADD rows add their segment-exclusive prior to ``resp``; each
     segment's last ADD row adds the segment total to its table line.  See
     ``ref.segmented_add``."""
+    _build.refuse_grad("segmented_add", table, value, resp)
     check_segmented_add(table, keys, lane, order, sid, seg_end, value, resp)
     if table.device.type == "cpu":
         return ref.segmented_add(table, keys, lane, order, sid, seg_end,

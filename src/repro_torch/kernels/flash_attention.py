@@ -82,6 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     place) -> (B, Hq, Sq, D) in q's dtype and q's layout.  ``q_offset``
     (an int >= 0) shifts the query positions.  ``flash_attention.launches``
     counts kernel launches."""
+    _build.refuse_grad("flash_attention", q, k, v)
     off = 0 if q_offset is None else int(q_offset)
     dev = q.device
     if dev.type == "cpu":

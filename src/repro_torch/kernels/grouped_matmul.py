@@ -55,6 +55,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     ``counts[e]`` must be zero, and the result's rows there are zero (see
     ``ref.grouped_matmul``).  ``grouped_matmul.launches`` counts kernel
     launches."""
+    _build.refuse_grad("grouped_matmul", x, w)
     dev = x.device
     if dev.type == "cpu":
         return ref.grouped_matmul(x, w, counts)

@@ -64,6 +64,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     page_table (B, MP) int32 global page ids (-1 pad); lengths (B,) int32,
     each >= 1 -> (B, Hq, D) in q's dtype.  ``paged_attention.launches``
     counts kernel launches."""
+    _build.refuse_grad("paged_attention", q, k_pages, v_pages)
     dev = q.device
     if dev.type == "cpu":
         return ref.paged_attention(q, k_pages, v_pages, page_table, lengths,

@@ -101,6 +101,8 @@ def pagetable_serve(op: int, used: torch.Tensor, chains: torch.Tensor,
     """One op pass over every trustee; see ``ref.pagetable_serve`` for the
     contract (responses of rows that are not valid are unspecified here).
     ``pagetable_serve.launches`` counts kernel launches."""
+    _build.refuse_grad("pagetable_serve", used, chains, chain_len,
+                       last_used, clock, evictions, seq, arg, valid)
     if op not in ref.PT_OPS.values():
         raise ValueError(f"pagetable_serve: unknown op {op}")
     if page_size < 1 or n_trustees < 1:

@@ -482,9 +482,14 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     h_t = exp(dt_t * a) * h_{t-1} + dt_t * b_t * x_t;
     y_t = c_t . h_t + d * x_t.  Returns (y (B, S, DI) in x's dtype,
     h_final (B, DI, N) f32).  The associative form of JAX's "ref" path
-    computes the same function up to f32 rounding."""
+    computes the same function up to f32 rounding.  Differentiable: under
+    autograd, with an input that requires grad, each step's state is a
+    new tensor (the same products and sums, in the same order) in place
+    of a write into the block's buffer."""
     bsz, s, di = x.shape
     n = a.shape[1]
+    grad = torch.is_grad_enabled() and any(
+        v is not None and v.requires_grad for v in (x, dt, a, b, c, d, h0))
     a, d = a.float(), d.float()
     h = torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device) \
         if h0 is None else h0.float()
@@ -495,11 +500,18 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         da = _decay(dtf, a)                                   # (B, L, DI, N)
         dbx = dtf * b[:, t0:t1, None, :].float() \
             * x[:, t0:t1, :, None].float()
-        hs = torch.empty_like(da)
-        for j in range(t1 - t0):
-            torch.mul(da[:, j], h, out=hs[:, j])
-            hs[:, j] += dbx[:, j]
-            h = hs[:, j]
+        if grad:
+            steps = []
+            for j in range(t1 - t0):
+                h = da[:, j] * h + dbx[:, j]
+                steps.append(h)
+            hs = torch.stack(steps, 1)
+        else:
+            hs = torch.empty_like(da)
+            for j in range(t1 - t0):
+                torch.mul(da[:, j], h, out=hs[:, j])
+                hs[:, j] += dbx[:, j]
+                h = hs[:, j]
         y[:, t0:t1] = torch.einsum("bldn,bln->bld", hs,
                                    c[:, t0:t1].float())
     y += d * x.float()

@@ -119,6 +119,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     or None (zeros) -> (y (B, S, DI) in x's dtype, h_final (B, DI, N)
     f32); see ``ref.selective_scan``.  ``selective_scan.launches`` counts
     kernel launches."""
+    _build.refuse_grad("selective_scan", x, dt, a, b, c, d, h0)
     dev = x.device
     if dev.type == "cpu":
         return ref.selective_scan(x, dt, a, b, c, d, h0)

@@ -5,6 +5,9 @@
 # paged_serve.py   PagedDecodeDriver / DecodeRequest (continuous-batching
 #                  decode over the delegated page table)
 # paged_decode.py  run_decode — the paged-decode entry point
-# steps.py         prefill_step / serve_step and build_cell (the model path)
+# steps.py         train_step / prefill_step / serve_step and build_cell
+#                  (the model path); value_and_grad of forward_loss
 # serve.py         main — the model serve entry point (teacher-forced
 #                  prompt, greedy decode over the trustee-sharded KV cache)
+# train.py         main — the training entry point (the train cell, the
+#                  token pipeline, the fault-tolerant TrainLoop)

@@ -1,21 +1,30 @@
-"""Step functions of the model path: the prefill and decode cells of
-``repro.launch.steps.build_cell``, as plain functions — PyTorch runs
+"""Step functions of the model path: the train, prefill and decode cells
+of ``repro.launch.steps.build_cell``, as plain functions — PyTorch runs
 eagerly, so there is no jit, and the port's one card needs no shardings.
 
+    plan = build_cell(cfg, ShapeConfig("t", 1024, 4, "train"), run)
+    params, opt_state, metrics = plan.step_fn(params, opt_state, batch)
     plan = build_cell(cfg, ShapeConfig("p", 2048, 4, "prefill"), run)
     logits = plan.step_fn(params, {"tokens": tokens})          # (B, V) f32
     plan = build_cell(cfg, ShapeConfig("d", max_len, 8, "decode"), run)
     next_tok, cache = plan.step_fn(params, cache, tokens, pos)
+
+The train step differentiates ``forward_loss`` through the plain
+versions, as JAX trains with ``use_pallas=False``: no kernel has a
+backward, and a train cell with ``run.use_pallas`` is refused.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, NamedTuple
+from typing import Any, Dict, NamedTuple
 
 import torch
 
 from ..configs.base import ModelConfig, RunConfig, ShapeConfig
 from ..models import model as M
+from ..models.layers import dtype_of
+from ..optim import AdamWConfig, adamw_update
+from ..optim.optimizer import tree_leaves, tree_map, tree_unflatten
 
 
 class CellPlan(NamedTuple):
@@ -42,18 +51,87 @@ def serve_step(params, cache, tokens, pos, cfg: ModelConfig, run=None):
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
+def adamw_config(run: RunConfig) -> AdamWConfig:
+    return AdamWConfig(learning_rate=run.learning_rate,
+                       weight_decay=run.weight_decay,
+                       grad_clip=run.grad_clip)
+
+
+def _micro(batch: Dict[str, torch.Tensor], accum: int, i: int):
+    """Microbatch ``i`` of ``accum`` along the batch dimension."""
+    mb = next(iter(batch.values())).shape[0] // accum
+    return {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+
+
+def value_and_grad(params, batch, cfg: ModelConfig, run: RunConfig):
+    """(loss, metrics, grads) of ``forward_loss``; grads in the
+    parameters' dtypes, zeros for a leaf the loss does not reach.  The
+    parameter leaves are set to require grad."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    with torch.enable_grad():
+        loss, metrics = M.forward_loss(params, batch, cfg, run)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [g if g is not None else torch.zeros_like(p)
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        tree_unflatten(params, grads)
+
+
+def train_step(params, opt_state, batch, cfg: ModelConfig, run: RunConfig,
+               acfg: AdamWConfig):
+    """One optimizer step: value-and-grad of ``forward_loss`` (over
+    ``run.grad_accum`` microbatches, the gradients summed in
+    ``run.grad_accum_dtype`` and averaged), then ``adamw_update`` — the
+    parameters and moments updated in place.  Returns (params, opt_state,
+    metrics): ``nll``, ``accuracy``, the ``moe_*``, ``grad_norm``, ``lr``
+    and ``loss``, f32 scalars on the device."""
+    accum = max(1, run.grad_accum)
+    if accum == 1:
+        loss, metrics, grads = value_and_grad(params, batch, cfg, run)
+    else:
+        g_dtype = dtype_of(run.grad_accum_dtype)
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=g_dtype,
+                                               device=p.device), params)
+        loss, metrics = 0.0, None
+        for i in range(accum):
+            l_i, m_i, g_i = value_and_grad(params, _micro(batch, accum, i),
+                                            cfg, run)
+            for a, c in zip(tree_leaves(grads), tree_leaves(g_i)):
+                a.add_(c.to(a.dtype))
+            loss = loss + l_i
+            metrics = m_i if metrics is None else \
+                {k: metrics[k] + m_i[k] for k in metrics}
+        grads = tree_map(lambda g: g.float() / accum, grads)
+        loss = loss / accum
+        metrics = {k: v / accum for k, v in metrics.items()}
+    params, opt_state, om = adamw_update(acfg, opt_state, params, grads)
+    return params, opt_state, {**metrics, **om, "loss": loss}
+
+
 def build_cell(cfg: ModelConfig, shape: ShapeConfig,
                run: RunConfig = None) -> CellPlan:
     """The step of one (arch x shape) cell, with ``cfg`` and ``run``
-    bound: ``prefill_step(params, batch)`` or ``serve_step(params, cache,
-    tokens, pos)``.  Training cells wait for ROADMAP queue A 13(d)."""
+    bound: ``train_step(params, opt_state, batch)``,
+    ``prefill_step(params, batch)`` or ``serve_step(params, cache,
+    tokens, pos)``."""
     if run is None:
         run = RunConfig(model=cfg, shape=shape)
+    if shape.kind == "train":
+        if run.use_pallas:
+            raise ValueError(
+                "a train cell runs the plain versions: no kernel has a "
+                "backward, and JAX trains with use_pallas=False")
+        if shape.global_batch % max(1, run.grad_accum):
+            raise ValueError(f"batch {shape.global_batch} does not split "
+                             f"into {run.grad_accum} microbatches")
+        return CellPlan(cfg, shape, run, functools.partial(
+            train_step, cfg=cfg, run=run, acfg=adamw_config(run)))
     if shape.kind == "prefill":
         fn = prefill_step
     elif shape.kind == "decode":
         fn = serve_step
     else:
-        raise NotImplementedError(f"{shape.kind!r} cells: training is not "
-                                  f"ported yet (ROADMAP queue A 13(d))")
+        raise ValueError(f"unknown cell kind {shape.kind!r}")
     return CellPlan(cfg, shape, run, functools.partial(fn, cfg=cfg, run=run))

@@ -38,6 +38,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ATTN_MLA, ModelConfig
 from ..kernels import ops as kops
@@ -170,12 +171,31 @@ def _project_qkv(params, x: torch.Tensor, positions: torch.Tensor,
 # prefill / train forward
 # ---------------------------------------------------------------------------
 
+def _block_step(qf, kj, vj, m, l, acc, qpos, j: int, causal: bool):
+    """One KV block of ``blockwise_attention``: the running f32 (m, l,
+    acc) updated by keys ``j .. j + block``."""
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kj.float())
+    if causal:
+        kpos = j + torch.arange(kj.shape[2], device=qf.device)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s,
+                        torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.max(dim=-1).values)
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("bgrqk,bgkd->bgrqd", p,
+                                                vj.float())
+    return m_new, l, acc
+
+
 def blockwise_attention(q, k, v, causal: bool = True, scale=None,
                         q_offset: int = 0, block_k: int = 1024):
     """The plain path for long sequences (``attention.blockwise_attention``):
     q (B, Hq, Sq, D), k / v (B, Hkv, Skv, D); KV blocks of ``block_k``
     carrying a running f32 (m, l, acc), so no (Sq, Skv) score matrix is
-    held — O(Sq * block_k) memory."""
+    held — O(Sq * block_k) memory.  Under autograd each block is
+    rematerialised in the backward (JAX's ``jax.checkpoint`` on the scan
+    step), so the backward too holds one block's scores at a time."""
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     rep = hq // hkv
@@ -189,20 +209,12 @@ def blockwise_attention(q, k, v, causal: bool = True, scale=None,
     m = torch.full((b, hkv, rep, sq), NEG_INF, device=q.device)
     l = torch.zeros((b, hkv, rep, sq), device=q.device)
     acc = torch.zeros((b, hkv, rep, sq, dh), device=q.device)
+    remat = torch.is_grad_enabled()
     for j in range(0, skv, block_k):
-        s = torch.einsum("bgrqd,bgkd->bgrqk", qf,
-                         k[:, :, j:j + block_k].float())
-        if causal:
-            kpos = j + torch.arange(block_k, device=q.device)
-            s = torch.where(qpos[:, None] >= kpos[None, :], s,
-                            torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, s.max(dim=-1).values)
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bgrqk,bgkd->bgrqd", p, v[:, :, j:j + block_k].float())
-        m = m_new
+        args = (qf, k[:, :, j:j + block_k], v[:, :, j:j + block_k], m, l,
+                acc, qpos, j, causal)
+        m, l, acc = checkpoint(_block_step, *args, use_reentrant=False) \
+            if remat else _block_step(*args)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, hq, sq, dh).to(q.dtype)
 

@@ -2,11 +2,14 @@
 and logits (the torch counterparts of ``repro.models.layers``).
 Parameters are plain dicts of tensors in the JAX layout; norms, RoPE and
 the MLP's gate activation compute in f32 and return the input's dtype;
-logits are f32.  ``delegated_softmax_xent`` (training) waits for ROADMAP
-queue A 13(d)."""
+logits are f32.  ``delegated_softmax_xent`` is the training loss over T
+vocab shards stacked on the device."""
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def init_rmsnorm(dim: int, dtype=torch.float32, device=None,
@@ -145,3 +148,82 @@ def lm_logits(x: torch.Tensor, w_out: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def _xent_chunk(x_c: torch.Tensor, w_l: torch.Tensor, labels_c: torch.Tensor,
+                softcap: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sequence chunk over the T stacked vocab shards: x_c (b, c, D),
+    w_l (T, V/T, D), labels_c (b, c) -> (nll, accuracy) (b, c) f32.  Each
+    shard holds its own logits (T, b*c, V/T); the max is a max over the
+    shard dimension (JAX's ``pmax``, taken on the detached local maxima:
+    the shift is gradient-neutral) and the sums are sums over it (its
+    ``psum``); the label logit is a delegated GET, answered by the one
+    shard that owns the label."""
+    b, c, d = x_c.shape
+    t, vl, _ = w_l.shape
+    # bf16 values are exact in f32: the f32 product of the upcast operands
+    # is JAX's bf16 einsum with preferred_element_type=f32
+    logits = torch.matmul(x_c.float().reshape(1, b * c, d),
+                          w_l.float().transpose(1, 2))       # (T, bc, V/T)
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    m_loc = logits.max(dim=-1).values.detach()               # (T, bc)
+    m = m_loc.max(dim=0).values                              # pmax
+    se = torch.exp(logits - m[None, :, None]).sum(dim=-1)
+    lse = torch.log(se.sum(dim=0)) + m                       # psum
+    lab = labels_c.reshape(1, b * c).long() \
+        - vl * torch.arange(t, device=x_c.device)[:, None]   # (T, bc)
+    mine = (lab >= 0) & (lab < vl)
+    lab_logit = torch.gather(logits, -1, lab.clamp(0, vl - 1)[..., None])
+    lab_logit = torch.where(mine, lab_logit[..., 0],
+                            torch.zeros_like(m_loc)).sum(dim=0)
+    nll = lse - lab_logit
+    # accuracy: the first argmax inside a shard, then the highest index
+    # among the shards whose local max is the global one (JAX's pmax of
+    # (value, index)); no gradient
+    am_loc = logits.detach().argmax(dim=-1) \
+        + vl * torch.arange(t, device=x_c.device)[:, None]
+    am = torch.where(m_loc >= m, am_loc,
+                     torch.full_like(am_loc, -1)).max(dim=0).values
+    acc = (am == labels_c.reshape(b * c).long()).float()
+    return nll.reshape(b, c), acc.reshape(b, c)
+
+
+def delegated_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
+                           labels: torch.Tensor, cfg,
+                           mask: Optional[torch.Tensor] = None,
+                           chunk: int = 512, n_shards: int = 1
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy with vocab-sharded logits (JAX's
+    ``repro.models.layers.delegated_softmax_xent``),
+    the full (B, S, V) never materialised: w_out (V, D) is split into
+    ``n_shards`` = T vocab shards stacked on the device, (T, V/T, D),
+    shard k owning rows [k V/T, (k+1) V/T).  The sequence goes in chunks
+    of ``c = min(chunk, S)`` positions (``c = S`` where it does not
+    divide S), each chunk under ``torch.utils.checkpoint`` when there is
+    more than one, so the f32 logits are bounded by (T, B * c, V/T) in
+    both passes.  x (B, S, D), labels (B, S), mask (B, S) or None ->
+    (mean nll, correct-token accuracy), both over the mask's positions."""
+    v, d = w_out.shape
+    if v % n_shards:
+        raise ValueError(f"{v} vocab rows do not split over {n_shards} "
+                         f"shards")
+    w_l = w_out.reshape(n_shards, v // n_shards, d)
+    s = x.shape[1]
+    c = min(chunk, s)
+    if s % c:
+        c = s
+    softcap = float(cfg.logit_softcap)
+    if c == s:
+        nll, acc = _xent_chunk(x, w_l, labels, softcap)
+    else:
+        outs = [checkpoint(_xent_chunk, x[:, i:i + c], w_l,
+                           labels[:, i:i + c], softcap, use_reentrant=False)
+                for i in range(0, s, c)]
+        nll = torch.cat([o[0] for o in outs], dim=1)
+        acc = torch.cat([o[1] for o in outs], dim=1)
+    if mask is None:
+        return nll.mean(), acc.mean()
+    mf = mask.float()
+    denom = torch.clamp(mf.sum(), min=1.0)
+    return (nll * mf).sum() / denom, (acc * mf).sum() / denom

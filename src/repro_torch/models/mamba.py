@@ -8,10 +8,11 @@ Parameters keep the JAX layout and names — ``w_in`` (D, 2 DI), ``conv_w``
 ``convert`` carries JAX weights across as they are.  The four projections
 are plain ``torch.matmul`` (the JAX package leaves them to XLA).
 
-``mamba_block`` is the prefill: the causal depthwise conv, SiLU, the
-input-dependent dt / B / C, and the selective scan over the whole
-sequence — the CUDA kernel under ``run.use_pallas``, else the sequential
-plain scan.  JAX's plain path is the associative form of the same
+``mamba_block`` is the prefill and training forward: the causal
+depthwise conv, SiLU, the input-dependent dt / B / C, and the selective
+scan over the whole sequence — the CUDA kernel under ``run.use_pallas``,
+else the sequential plain scan, which training differentiates (the kernel
+has no backward, as JAX's Pallas scan has none).  JAX's plain path is the associative form of the same
 function, and its ``run.mamba_chunked`` option chunks that form to bound
 its (B, S, DI, N) memory; the sequential scan holds one (B, DI, N) state,
 so the port has no such option.

@@ -22,6 +22,10 @@ def init_params(cfg: ModelConfig, run=None, device=None, gen=None):
     return _decoder_only(cfg).init_params(cfg, run, device, gen)
 
 
+def forward_loss(params, batch, cfg: ModelConfig, run=None):
+    return _decoder_only(cfg).forward_loss(params, batch, cfg, run)
+
+
 def prefill(params, batch, cfg: ModelConfig, run=None):
     return _decoder_only(cfg).prefill(params, batch, cfg, run)
 

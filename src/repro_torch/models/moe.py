@@ -9,10 +9,19 @@ stacked on one device: trustee t holds experts ``t * E/T .. (t+1) * E/T
 payload is the token's hidden row and the expert's local index; the
 channel capacity is the MoE capacity factor and its second_round block the
 overflow round.  The trustee's serve packs the rows it received by local
-expert (the pack kernel, ``ops.delegation_pack``) and runs the gated
-expert FFN over all E experts at once as three grouped-matmul launches
-(``ops.grouped_matmul``).  Responses return to the requesting client,
-which combines them with its router weights.
+expert and runs the gated expert FFN over all E experts at once as three
+grouped matmuls.  Responses return to the requesting client, which
+combines them with its router weights.
+
+Under ``run.use_pallas`` (the serve) both packs are the pack kernel
+(``ops.delegation_pack``, on the rows' 32-bit words) and the grouped
+matmuls the grouped-matmul kernel; otherwise every step is plain PyTorch
+on the rows themselves — the channel's "ref" pack, as JAX's MoE always
+packs, the block transpose, the trustees' pack by expert
+(``ref.delegation_pack``), the expert FFN and the unpack — so the
+dispatch carries gradients to the experts' inputs and the router's
+weights (the kernels are called through ``ctypes`` and refuse inputs that
+require grad).
 
 Clients: with S a multiple of T, client shard j owns the sequence slice
 ``[j S/T, (j+1) S/T)`` of every row (seq mode, the prefill); otherwise
@@ -97,11 +106,16 @@ def _expert_serve(weights, e_local: int, cap2: int, act: str,
         t, n, d = h.shape
         el = torch.where(received.valid, received.rows["el"],
                          torch.full_like(received.rows["el"], -1))
-        # the rows ride as 32-bit words, bit for bit (d_model is even)
-        words = h.contiguous().view(torch.int32)
-        slots, _, counts, _, req_slot, _ = kops.delegation_pack(
-            el.to(torch.int32).contiguous(), words, e_local, cap2, 0)
-        x_e = slots.view(h.dtype).reshape(t * e_local, cap2, d)
+        if use_kernel:
+            # the rows ride as 32-bit words, bit for bit (d_model is even)
+            words = h.contiguous().view(torch.int32)
+            slots, _, counts, _, req_slot, _ = kops.delegation_pack(
+                el.to(torch.int32).contiguous(), words, e_local, cap2, 0)
+            slots = slots.view(h.dtype)
+        else:
+            slots, counts, req_slot = kref.delegation_pack(el, h, e_local,
+                                                           cap2)
+        x_e = slots.reshape(t * e_local, cap2, d)
         y_e = _expert_ffn(x_e, weights, act, use_kernel,
                           counts.reshape(t * e_local))
         flat = y_e.reshape(t, e_local * cap2, d)
@@ -140,12 +154,13 @@ def moe_block(params, x: torch.Tensor, cfg: ModelConfig, run=None
     cap = _round8(math.ceil(m.capacity_factor * max(1, r_local) / t))
     over_cap = _round8(math.ceil(m.overflow_factor * max(1, r_local) / t)) \
         if m.overflow == "second_round" else 0
+    use_kernel = bool(run is not None and run.use_pallas)
     cfg_ch = ch.ChannelConfig(
         axis="model", capacity=cap, overflow=m.overflow,
         overflow_capacity=over_cap,
-        local_shortcut=bool(run is None or run.local_shortcut))
+        local_shortcut=bool(run is None or run.local_shortcut),
+        pack_impl="kernel" if use_kernel else "ref")
     cap2 = _round8(math.ceil(4.0 * max(1, r_local) / e_local))
-    use_kernel = bool(run is not None and run.use_pallas)
     weights = {n: params[n] for n in ("w_gate", "w_up", "w_down")}
     serve = _expert_serve(weights, e_local, cap2, cfg.act, use_kernel)
     w_tok = top_w.to(x.dtype)

@@ -18,16 +18,27 @@ layers' aux metrics as JAX's ``_stack_forward`` does.  The decode cache
 holds each attention layer's KV over T trustees and each Mamba layer's
 (conv, ssm) state, whole.
 
+``forward_loss`` is the training objective: the stack, then the delegated
+cross-entropy over T = ``run.mesh.model_size`` stacked vocab shards, plus
+the MoE layers' load-balance loss.  Under autograd ``run.remat`` applies
+to each group as JAX's ``jax.checkpoint`` does: "full" recomputes the
+whole group in the backward (and, for a multi-layer group, each layer
+inside it again), "dots" keeps only the matmul outputs
+(``torch.utils.checkpoint`` with a selective policy), "none" keeps
+everything.  The dense prefix layers are not rematerialised, as in JAX.
+
 Not ported yet, raising ``NotImplementedError`` with their ROADMAP item:
-the sequence-parallel residual, remat and ``forward_loss`` (training,
-13(d)), and embedding inputs.
+the sequence-parallel residual and embedding inputs.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import (BLOCK_ATTN, BLOCK_MAMBA, FFN_DENSE, FFN_MOE,
                             FFN_MOE_DENSE, ModelConfig)
@@ -35,8 +46,11 @@ from ..core.meshctx import resolve_device
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
-from .layers import (dtype_of, embed_lookup, init_embed, init_mlp,
-                     init_rmsnorm, lm_logits, mlp, rmsnorm, unembed_weight)
+from .layers import (delegated_softmax_xent, dtype_of, embed_lookup,
+                     init_embed, init_mlp, init_rmsnorm, lm_logits, mlp,
+                     rmsnorm, unembed_weight)
+
+REMAT = ("none", "dots", "full")
 
 
 class LayerDesc(NamedTuple):
@@ -76,6 +90,9 @@ def _check(cfg: ModelConfig, run=None
     if run is not None and run.sp_residual:
         raise NotImplementedError("the sequence-parallel residual stream "
                                   "is not ported yet (ROADMAP queue A 13)")
+    if run is not None and run.remat not in REMAT:
+        raise ValueError(f"unknown remat {run.remat!r} (want one of "
+                         f"{REMAT})")
     descs, prefix_len, n_groups = layer_descs(cfg)
     if run is not None and cfg.ffn_kind != FFN_DENSE \
             and cfg.moe.num_experts % run.mesh.model_size:
@@ -93,6 +110,17 @@ def _index(tree, g: int):
     if isinstance(tree, dict):
         return {k: _index(v, g) for k, v in tree.items()}
     return tree[g]
+
+
+def _unstack(tree, n: int) -> List[Any]:
+    """The ``n`` layers of a tree of stacked leaves, each leaf split by
+    one ``unbind`` (views): its backward stacks the layers' gradients in
+    one allocation, where indexing each layer would give every layer's
+    gradient the whole stacked shape, zero-filled and summed."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in tree} for g in range(n)]
+    return list(tree.unbind(0))
 
 
 def _leaves(tree):
@@ -165,7 +193,7 @@ def count_params(params) -> int:
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill)
+# forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _ffn(p, h, cfg: ModelConfig, desc: LayerDesc, run, seq: bool):
@@ -204,26 +232,60 @@ def _add_aux(acc, aux):
                                           aux["moe_max_load"])}
 
 
+# JAX's ``checkpoint_dots``: the results of matmuls are saved, the rest
+# is recomputed in the backward
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: str):
+    """``fn`` under ``torch.utils.checkpoint`` for ``remat`` "full" (save
+    nothing inside) or "dots" (save only the matmul outputs)."""
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _dots_policy))
+
+
 def _stack_forward(params, x, positions, cfg: ModelConfig, run):
     """Every layer over x (B, S, D), then the final norm -> ((B, S, D),
     aux): the MoE layers' load-balance losses and dropped fractions
-    summed, their max loads maxed (JAX's ``_stack_forward``)."""
+    summed, their max loads maxed (JAX's ``_stack_forward``).  Under
+    autograd each group is rematerialised as ``run.remat`` says."""
     descs, prefix_len, n_groups = _check(cfg, run)
-    if run is not None and run.remat != "none" and x.requires_grad:
-        raise NotImplementedError("remat applies to a differentiated "
-                                  "forward: training is not ported yet "
-                                  "(ROADMAP queue A 13(d))")
     aux = {k: torch.zeros((), device=x.device) for k in
            ("moe_aux_loss", "moe_dropped_frac", "moe_max_load")}
     for i in range(prefix_len):
         x, a = _apply_layer(params["prefix"][i], x, positions, cfg,
                             _prefix_desc(cfg, i), run)
         aux = _add_aux(aux, a)
-    for g in range(n_groups):
+    remat = run.remat if run is not None and torch.is_grad_enabled() \
+        else "none"
+    # nested remat: a multi-layer group (jamba's period 8) also
+    # checkpoints each layer, so its backward holds one layer's internals
+    # at a time
+    nest = remat == "full" and len(descs) > 1
+
+    def group_fn(gp, x, aux):
         for j, desc in enumerate(descs):
-            x, a = _apply_layer(_index(params["groups"][f"pos{j}"], g), x,
-                                positions, cfg, desc, run)
+            layer = functools.partial(_apply_layer, positions=positions,
+                                      cfg=cfg, desc=desc, run=run)
+            if nest:
+                layer = _remat(layer, "full")
+            x, a = layer(gp[f"pos{j}"], x)
             aux = _add_aux(aux, a)
+        return x, aux
+    if remat != "none":
+        group_fn = _remat(group_fn, remat)
+    for gp in _unstack(params["groups"], n_groups):
+        x, aux = group_fn(gp, x, aux)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -235,6 +297,20 @@ def _inputs_to_hidden(params, batch, cfg: ModelConfig):
     if positions is None:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
     return x, positions
+
+
+def forward_loss(params, batch, cfg: ModelConfig, run=None):
+    """The training objective: batch {"tokens" (B, S), "labels" (B, S),
+    optional "mask" (B, S), "positions"} -> (loss, metrics), loss = the
+    mean nll + the MoE load-balance loss, metrics ``nll``, ``accuracy``
+    and the three ``moe_*`` (f32 scalars)."""
+    x, positions = _inputs_to_hidden(params, batch, cfg)
+    x, aux = _stack_forward(params, x, positions, cfg, run)
+    nll, acc = delegated_softmax_xent(
+        x, unembed_weight(params["embed"], cfg), batch["labels"], cfg,
+        batch.get("mask"), chunk=run.xent_chunk if run is not None else 512,
+        n_shards=run.mesh.model_size if run is not None else 1)
+    return nll + aux["moe_aux_loss"], {"nll": nll, "accuracy": acc, **aux}
 
 
 def prefill(params, batch, cfg: ModelConfig, run=None) -> torch.Tensor:

@@ -22,6 +22,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
+
 from ..checkpoint import checkpoint as ckpt
 
 
@@ -170,12 +172,41 @@ class TrainLoopConfig:
     max_retries: int = 5
 
 
+def _host_copy(tree: Any) -> Any:
+    """Every tensor of a (dict / list / tuple) tree copied to the host."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [_host_copy(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _placed_like(tree: Any, like: Any) -> Any:
+    """``tree`` (a ``_host_copy``) with each tensor on ``like``'s device."""
+    if isinstance(tree, dict):
+        return {k: _placed_like(v, like[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [_placed_like(v, w) for v, w in zip(tree, like)]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(like.device)
+    return tree
+
+
 class TrainLoop:
     """Generic fault-tolerant step loop.
 
     step_fn(state, step) -> (state, metrics) must be pure w.r.t. the step
-    index (deterministic data by step).  save_fn/restore_fn adapt the state
-    pytree to the checkpoint module.
+    index (deterministic data by step).  It may update the state's
+    tensors in place (the port's AdamW does): with an injector, the loop
+    keeps a host copy of the initial state, which a restart with no
+    checkpoint on disk begins from, as JAX's loop restarts from its
+    (immutable) initial arrays.
     """
 
     def __init__(self, cfg: TrainLoopConfig, step_fn: Callable,
@@ -195,7 +226,8 @@ class TrainLoop:
         return 0 if s is None else s
 
     def run(self, n_steps: int, start_step: Optional[int] = None) -> Dict:
-        init_state = self.state
+        init_state = self.state if self.injector is None \
+            else _host_copy(self.state)
         step = self.resume_step() if start_step is None else start_step
         if step > 0:
             self.state, step, _ = ckpt.restore(self.cfg.ckpt_dir, self.state)
@@ -227,7 +259,7 @@ class TrainLoop:
                     # no checkpoint on disk: a real restart begins from the
                     # INITIAL state, not the partially-advanced one
                     step = 0
-                    self.state = init_state
+                    self.state = _placed_like(init_state, self.state)
                 else:
                     self.state, step, _ = ckpt.restore(self.cfg.ckpt_dir,
                                                        self.state)

@@ -11,3 +11,5 @@
 # serve.py      the serve kernels' far-winner flags
 # failover.py   kv_mixed waves with a trustee killed (or a wave torn) and
 #               the page table's chaos run, against their oracles
+# train.py      gradients leaf by leaf, the experts a MoE call fed, the
+#               gradient-combine battery and its replay

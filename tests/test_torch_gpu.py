@@ -528,3 +528,88 @@ def test_pagetable_reshard_then_p2_matches_plain(cuda):
             assert all(np.array_equal(ra[k], rb[k]) for k in rb)
     assert all(np.array_equal(gs[k], ws[k]) for k in ws)
     assert ga == wa and ga["consistent"]
+
+
+# ---------------------------------------------------------------------------
+# training: no kernel cuts a gradient; the card's loss and gradients
+# ---------------------------------------------------------------------------
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad_on_card(cuda):
+    """Every wrapper raises on a CUDA input that requires grad, before it
+    launches (its counter does not move); under ``torch.no_grad()`` the
+    same call launches."""
+    bf = dict(device=cuda, dtype=torch.bfloat16)
+    q = torch.randn(1, 2, 64, 128, **bf).requires_grad_()
+    x = torch.randn(2, 8, 64, **bf).requires_grad_()
+    w = torch.randn(2, 64, 32, **bf)
+    f32 = dict(device=cuda, dtype=torch.float32)
+    scan = dict(x=torch.randn(1, 8, 16, **f32).requires_grad_(),
+                dt=torch.rand(1, 8, 16, **f32), a=-torch.rand(16, 4, **f32),
+                b=torch.randn(1, 8, 4, **f32), c=torch.randn(1, 8, 4, **f32),
+                d=torch.ones(16, **f32))
+    pages = torch.randn(4, 1, 16, 128, **bf).requires_grad_()
+    table = torch.zeros(1, 8, 4, **f32).requires_grad_()
+    i32 = dict(device=cuda, dtype=torch.int32)
+    calls = {
+        "flash_attention": lambda: tops.flash_attention(q, q, q),
+        "grouped_matmul": lambda: tops.grouped_matmul(x, w),
+        "selective_scan": lambda: tops.selective_scan(**scan),
+        "paged_attention": lambda: tops.paged_attention(
+            q[0, :, :1, :].transpose(0, 1).contiguous(), pages, pages,
+            torch.arange(4, **i32)[None], torch.full((1,), 40, **i32)),
+        "gather": lambda: tops.gather(
+            table, torch.zeros(1, 3, **i32), torch.zeros(1, 3, **i32), 0,
+            torch.zeros(1, 3, 4, **f32)),
+    }
+    for name, call in calls.items():
+        tops.reset_launch_counts()
+        with pytest.raises(RuntimeError, match=f"{name}: an input requires "
+                                               f"grad"):
+            call()
+        assert tops.launch_counts()[name] == 0, name
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        assert tops.launch_counts()[name] == 1, name
+
+
+@pytest.mark.parametrize("arch,t", [("qwen2.5-3b", 1),
+                                    ("deepseek-v2-lite-16b", 4),
+                                    ("falcon-mamba-7b", 1)])
+def test_smoke_forward_loss_on_card_matches_cpu(cuda, arch, t):
+    """The SMOKE config's loss and every gradient leaf on the card against
+    the port's CPU path on the same weights and batch, f32: loss rtol
+    1e-5, each leaf 1e-4 in relative RMS (cuBLAS and the CPU's BLAS sum
+    in other orders); deepseek's every fed expert has a gradient."""
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import model as TM
+    from repro_torch.optim.optimizer import tree_map
+    from repro_torch.testing.train import (ExpertRows,
+                                           expert_grads_follow_rows,
+                                           worst_leaf)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_arch(arch)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 32, 2, "train"),
+                    mesh=MeshConfig((1, t), ("data", "model")),
+                    param_dtype="float32", activation_dtype="float32",
+                    remat="dots", xent_chunk=16)
+    params = TM.init_params(cfg, run, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 33)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss_c, _, grads_c = value_and_grad(params, batch, cfg, run)
+    on_card = tree_map(lambda p: p.detach().to(cuda), params)
+    with ExpertRows() as rec:
+        loss_g, _, grads_g = value_and_grad(
+            on_card, {k: v.to(cuda) for k, v in batch.items()}, cfg, run)
+    np.testing.assert_allclose(loss_g.item(), loss_c.item(), rtol=1e-5)
+    from repro_torch.optim.optimizer import tree_leaves
+    worst, i = worst_leaf(grads_g, [g.numpy() for g in
+                                    tree_leaves(grads_c)])
+    assert worst < 1e-4, (arch, i, worst)
+    if t > 1:
+        r = expert_grads_follow_rows(
+            grads_g["groups"]["pos0"]["moe"]["w_gate"], rec.counts)
+        assert r["experts_fed"] > 0 and r["fed_without_grad"] == 0, r

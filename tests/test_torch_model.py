@@ -431,16 +431,28 @@ def test_port_config_matches_jax():
 
 
 def test_unported_model_paths_raise():
+    """Embedding inputs and the encoder-decoder still raise, naming their
+    item; a train cell (13(d), ported) builds and takes a step."""
+    import dataclasses
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.steps import build_cell
     from repro_torch.models import model as TM
+    from repro_torch.optim import init_adamw
     tcfg, run = _port_run(1)
     for kw, item in ((dict(input_mode="embeds"), "embedding inputs"),
                      (dict(is_encoder_decoder=True), "encoder-decoder")):
         with pytest.raises(NotImplementedError, match=item):
             TM.init_params(tcfg.with_overrides(**kw), run, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"13\(d\)"):
-        build_cell(tcfg, ShapeConfig("t", 8, 2, "train"))
+    shape = ShapeConfig("t", 8, 2, "train")
+    plan = build_cell(tcfg, shape, dataclasses.replace(run, shape=shape))
+    params = TM.init_params(tcfg, plan.run, device="cpu")
+    before = params["embed"]["embedding"].clone()
+    toks = torch.as_tensor(_tokens(tcfg.vocab_size)[:2, :9])
+    params, opt, metrics = plan.step_fn(
+        params, init_adamw(params),
+        {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert np.isfinite(float(metrics["loss"])) and int(opt.step) == 1
+    assert not torch.equal(before, params["embed"]["embedding"])
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
