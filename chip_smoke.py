@@ -7,7 +7,9 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
   1. device and build — the card's name and power limit, then the nine
-     CUDA kernels built from csrc/ with nvcc (in parallel), and the
+     CUDA kernels built from csrc/ with nvcc (in parallel), the
+     registers, spills and shared memory of the flash-attention kernel at
+     each head dim it takes (D 256 included), and the
      registers, spills, shared memory and resident warps of the
      page-table serve and the selective scan as built;
   2. each kernel against its plain PyTorch version on the card, at the
@@ -41,7 +43,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      prefill's shape and ragged, and at the edges of the wgmma kernel's
      128-row query and 128- / 64-key KV tiles (Sq < 64, Skv 1, a q_offset
      off the tiles, GQA rep 8, MQA, MHA, (B, S, H, D) views and
-     causal=False at D 192), within the
+     causal=False at D 192), D 256 at the gemma-7b prefill's shape and
+     layout, ragged, Skv 1, off-tile q_offset, MQA and causal=False, D 64
+     not causal at the seamless encoder's and cross-attention's shapes,
+     within the
      tolerance stated in kernels/flash_attention.py, a q_offset launch bit
      for bit equal to the rows of the full launch, and f32 refused;
      grouped_matmul (bf16) at the deepseek prefill's and decode's shapes
@@ -110,7 +115,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      width (16 query / 2 KV heads of 128, QKV bias, bf16 weights,
      activations and pool), a 4096-page pool of 16-token pages, 64-page
      chains, 64 sequences over 8 trustees (2x4, shared, shortcut on),
-     driver depth 2, 256 requests (prompts 16-255 tokens, 64-511 generated):
+     driver depth 2, 128 requests (prompts 16-255 tokens, 64-511 generated):
      a check run (every request completes, zero leaked pages, every wave's
      page-table responses == the oracle replayed in serve order, every
      page-table pass == the plain version bit for bit, every attention
@@ -200,20 +205,57 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      busy share and top device ops (the deepseek and falcon prefills' are
      taken at the end of phases 7 and 8, while their weights are on the
      card);
+ 11. the rest of the zoo that fits one card — qwen3-4b (36 layers, d_model
+     2560, 32 / 8 heads of 128, QK norm), gemma-7b (28 layers, d_model
+     3072, 16 heads of 256, GeGLU, tied and scaled embeddings, vocab
+     256000), qwen1.5-32b (64 layers, d_model 5120, 40 heads of 128, QKV
+     bias, d_ff 27392: 35.2 B parameters, 70.4 GB of bf16), qwen2-vl-2b
+     (28 layers, d_model 1536, 12 / 2 heads of 128, M-RoPE, embeddings
+     in) and seamless-m4t-large-v2 (24 encoder + 24 decoder layers,
+     d_model 1024, 16 heads of 64, vocab 256256), each at full width and
+     depth, random weights drawn on the card (every stacked leaf a layer
+     at a time, as every model's are) after the last one's are freed (run
+     after phase 8, before phase 9): serve.main
+     over 4 requests x (32 prompt + 32 generated) over 4 trustees, twice
+     (the tokens equal), qwen2-vl-2b an embeddings prompt and --gen 1;
+     prefill_step at B 4 x 2048 through the flash kernel (a check run
+     holding every launch against the plain version, then 2 timed runs);
+     the prefill's last-position logits on the serve's prompt against
+     the decode's there (5% relative RMS, qwen2-vl-2b's three position
+     streams equal) — for seamless-m4t-large-v2 the prefill is the
+     encoder (D 64, not causal), held to its plain path, and forward_loss
+     under no_grad (S_src 2048, S_tgt 512: causal self-attention and
+     cross-attention over the memory through the kernel, every launch
+     checked) to the plain path, its final decoder hidden state by
+     relative RMS and its loss (testing/model.py ENCDEC_RTOL); prefill
+     and serve tokens/s and peak allocated GB (less what the phase found
+     allocated at its start); then the flash kernel
+     timed at each one's prefill shape as phase 9 times it;
  10. qwen train — (a) repro_torch.launch.train on qwen2.5-3b at full width
      and depth (bf16 weights, f32 AdamW moments, remat "full", the
      synthetic stream, B 4 x 1024, 8 steps; weights drawn on the card
      after the earlier phases' are freed): every loss and grad norm
      finite, ms a step (median of steps 2-8), tokens/s, peak allocated
-     GB; then two steps on one repeated batch (the second loss lower) and
-     the busy share of one profiled step; (b) the card against the port's
+     GB; then two steps on one repeated batch at the schedule's lr, the
+     busy share of one profiled step, and from the trained weights one
+     AdamW step from zero moments on that batch at each lr of
+     TRAIN_SWEEP, each beside the change its gradient predicts
+     (readings), and the gate that a step lowers the loss on these
+     weights: a step sized so that its first-order change is -3e-2
+     lowers the loss by that change within 10% (testing/train.py
+     descent_check); (b) the card against the port's
      CPU path on the same weights and batch in f32 at full width and 2
      layers — qwen2.5-3b B 1 x 256, deepseek-v2-lite-16b B 1 x 128 (its
      dense first layer and one MoE layer of 64 experts over 4 stacked
      trustees: every expert fed a row has a gradient), falcon-mamba-7b B
      1 x 64: the loss within 1e-5 relative and each gradient leaf within
      1e-4 relative RMS; remat "full" and "dots" against "none" on the
-     card within 1e-5; (c) the SMOKE trainer resumed after a failure
+     card within 1e-5; one AdamW step on the CPU's gradients, the card's
+     update against the CPU's within 1e-5 relative RMS a leaf; and the
+     same gate on other draws: qwen2.5-3b at 2 layers in f32 drawn from
+     each of TRAIN_DESCENT_SEEDS, a step sized for a first-order change
+     of -1e-2; (c) the SMOKE
+     trainer resumed after a failure
      injected at step 12 (a checkpoint every 5) ends on the clean run's
      loss (rtol 1e-4); (d) tests/_md_battery.py's
      grad_channel_combiner_int8 on 8 stacked shards: err_final < 0.05 on
@@ -229,10 +271,11 @@ the three serve kernels on one lane's sub-buffer as the strided serve
 forms it, exact.
 
 Launch counters are zeroed just before each main path (phases 3, 4,
-4a-4e, the timed run of 5, each timed prefill of 6, 7 and 8, the session
-serves of 6, the serves of 7 and 8, and phase 10's trainer) and read just
-after; every kernel of a path must have launched there (phase 10's: none).  "[time]" lines give the wall time
-through each phase.  The line before the last is {"kernels": [...]};
+4a-4e, the timed run of 5, each timed prefill of 6, 7, 8 and 11, the
+session serves of 6, the serves of 7, 8 and 11, and phase 10's trainer)
+and read just after; every kernel of a path must have launched there
+(phase 10's: none).  "[time]" lines give the wall time through each
+phase.  The line before the last is {"kernels": [...]};
 the last is the device line.
 """
 import argparse
@@ -292,7 +335,9 @@ PAGED_KERNELS = ("delegation_pack", "pagetable_serve", "paged_attention")
 PAGED = dict(n_pages=4096, page_size=16, max_pages=64, max_seqs=64,
              capacity=4 * 64, mesh_shape=MESH, depth=2,
              admission=(16 * 64, 8 * 64))
-N_REQUESTS, PROMPT, GEN = 256, (16, 256), (64, 512)
+# 128 requests: 256 took ~270 s of the script's time limit in the check
+# and timed runs, room that phase 11 needs
+N_REQUESTS, PROMPT, GEN = 128, (16, 256), (64, 512)
 
 
 def say(*parts):
@@ -2549,6 +2594,8 @@ FA_MAIN = dict(b=4, hq=16, hkv=2, sq=2048, skv=2048, d=128)
 # the deepseek-v2-lite-16b prefill's MLA attention: 16 heads of 128 nope +
 # 64 rope dims, V padded from 128 to 192
 FA_MLA = dict(b=4, hq=16, hkv=16, sq=2048, skv=2048, d=192)
+# the gemma-7b prefill: 16 heads of 256
+FA_GEMMA = dict(b=4, hq=16, hkv=16, sq=2048, skv=2048, d=256)
 
 
 def fa_case(torch, dev, b, hq, hkv, sq, skv, d, seed, bshd=False):
@@ -2618,6 +2665,29 @@ def phase_flash_kernels(torch, dev, errs):
          False),
         ("D 192, causal=False, Sq 256, Skv 640",
          dict(b=2, hq=4, hkv=4, sq=256, skv=640, d=192),
+         dict(causal=False), False),
+        # D 256 (gemma-7b): 64-key KV tiles, the register split
+        ("D 256, the gemma prefill's shape and layout", dict(FA_GEMMA,
+                                                            bshd=True),
+         {}, False),
+        ("D 256, ragged Sq = Skv = 333", dict(b=1, hq=4, hkv=4, sq=333,
+                                             skv=333, d=256), {}, False),
+        ("D 256, Skv 1", dict(b=2, hq=4, hkv=4, sq=1, skv=1, d=256), {},
+         False),
+        ("D 256, q_offset 77, Skv 377",
+         dict(b=1, hq=8, hkv=8, sq=300, skv=377, d=256),
+         dict(q_offset=77), False),
+        ("D 256, MQA", dict(b=1, hq=8, hkv=1, sq=256, skv=256, d=256), {},
+         False),
+        ("D 256, causal=False, Sq 200, Skv 640",
+         dict(b=2, hq=4, hkv=4, sq=200, skv=640, d=256),
+         dict(causal=False), False),
+        # the seamless encoder and its decoder's cross-attention (D 64)
+        ("D 64, causal=False, the seamless encoder's shape",
+         dict(b=4, hq=16, hkv=16, sq=2048, skv=2048, d=64, bshd=True),
+         dict(causal=False), False),
+        ("D 64, causal=False, Sq 512 over Skv 2048 (cross-attention)",
+         dict(b=4, hq=16, hkv=16, sq=512, skv=2048, d=64, bshd=True),
          dict(causal=False), False),
     ]
     errs["flash_attention"] = 0.0
@@ -2767,7 +2837,7 @@ def phase_gmm_kernels(torch, dev, errs):
 def paged_inputs(torch, dev, seed=2026):
     """qwen2.5-3b attention weights (bf16, random from ``seed``; QKV biases
     zero as the JAX init makes them), the token stream made on the card,
-    and 256 requests."""
+    and ``N_REQUESTS`` requests."""
     from repro_torch.configs.qwen2_5_3b import CONFIG
     from repro_torch.launch.paged_decode import make_requests
     from repro_torch.models.attention import init_attention
@@ -3612,7 +3682,8 @@ def phase_flash_times(torch, dev, gpu, inputs, launches,
     bound = max(t_ops, t_bytes)
     b, hq, sq, d = q.shape
     say(f"[times] {gpu} | flash_attention @ {label} (B {b}, Hq {hq}, "
-        f"Hkv {k.shape[1]}, S {sq}, D {d}, causal): {ms:.6f} ms/call (median "
+        f"Hkv {k.shape[1]}, S {sq}, D {d}, "
+        f"{'causal' if causal else 'not causal'}): {ms:.6f} ms/call (median "
         f"of 5 profiler readings of the kernel, {lo:.6f}..{hi:.6f}, kernel "
         f"records kept per reading of 20 calls {seen}; CUDA events with the "
         f"host {'ahead' if ahead else 'NOT ahead'} {ev:.6f} ms/call, host "
@@ -3622,8 +3693,8 @@ def phase_flash_times(torch, dev, gpu, inputs, launches,
         f"{t_bytes:.6f} ms for {nbytes} bytes); "
         f"{reading('plain', plain, bound)}; "
         f"{reading('library', lib, bound)} (scaled_dot_product_attention, "
-        f"is_causal, enable_gqa: the same function); {launches} launches a "
-        f"prefill call")
+        f"is_causal={bool(causal)}, enable_gqa: the same function); "
+        f"{launches} launches a prefill call")
     return ("flash_attention", launches, ms, plain[0], bound, lib[0],
             f"{label}, B {b} x {sq}, D {d}", "operations")
 
@@ -4406,6 +4477,19 @@ TRAIN = dict(batch=4, seq=1024, steps=8, remat="full")
 TRAIN_CHECK = (("qwen2.5-3b", 256, 1), ("deepseek-v2-lite-16b", 128, 4),
                ("falcon-mamba-7b", 64, 1))
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RMS, REMAT_GRAD_RMS = 1e-5, 1e-4, 1e-5
+# (a): the lrs of the one-step readings from the trained weights (the
+# first is the schedule's at step 9 of 8: 3e-3 x 9 / 20)
+TRAIN_SWEEP = (1.35e-3, 3e-4, 1e-4, 3e-5)
+# (a)'s gate: descent_check on the trained bf16 weights.  A bf16 weight
+# of 0.022 has an ulp of 1.2e-4 and keeps a step under half of it, so the
+# step is sized for a larger first-order change than f32's (lr = 3e-2 /
+# the gradient's L1 norm, ~2.6e-5 on PR 25's run, where lr 3e-5 read
+# 98% of its first-order change)
+TRAIN_DROP_BF16 = 3e-2
+# (b): one AdamW step, the card's against the CPU's on the same gradients
+# (the same f32 arithmetic in another order: ~1e-7); the descent gate's
+# weight seeds
+UPDATE_RMS, TRAIN_DESCENT_SEEDS = 1e-5, (0, 1, 2)
 RESUME = ["--arch", "qwen2.5-3b", "--smoke", "--steps", "20", "--batch",
           "4", "--seq", "32", "--ckpt-every", "5", "--log-every", "1000"]
 COMBINER_TOL = 1e-5
@@ -4435,11 +4519,14 @@ def phase_train(torch, dev, gpu, report):
     from repro_torch.launch import train
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models import model as M
+    from repro_torch.optim import adamw_update, init_adamw
     from repro_torch.optim.optimizer import tree_leaves, tree_map
-    from repro_torch.testing.train import (ExpertRows, combiner_battery,
-                                           combiner_replay,
+    from repro_torch.testing.train import (DESCENT_DROP, DESCENT_RTOL,
+                                           ExpertRows, combiner_battery,
+                                           combiner_replay, constant_lr,
+                                           descent_check,
                                            expert_grads_follow_rows,
-                                           worst_leaf)
+                                           first_adamw_step, worst_leaf)
     torch.cuda.empty_cache()
     say(f"[train] card memory allocated at the start: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
@@ -4470,18 +4557,19 @@ def phase_train(torch, dev, gpu, report):
         f"{[round(s * 1e3, 1) for s in stats['step_s']]} ms), "
         f"{tokens / step_ms * 1e3:.1f} tokens/s, peak allocated {peak:.2f} "
         f"GB, {wall:.1f} s in all (weights drawn on the card included)")
-    params, opt = stats["state"]
+    params, opt = stats.pop("state")
     plan = stats["plan"]
     batch = {k: torch.as_tensor(v, device=dev) for k, v in
              stats["pipeline"].model_batch_at(t["steps"]).items()}
-    losses = []
+    losses, lrs = [], []
     for _ in range(2):
         params, opt, m = plan.step_fn(params, opt, batch)
         losses.append(float(m["loss"]))
-    say(f"[train] {gpu} | two steps on one repeated batch: loss "
-        f"{losses[0]:.6f} -> {losses[1]:.6f}")
-    require(losses[1] < losses[0], f"a second step on the same batch did "
-            f"not lower the loss: {losses}")
+        lrs.append(float(m["lr"]))
+    say(f"[train] {gpu} | two steps on one repeated batch at the "
+        f"schedule's lr {lrs[0]:.4g}, {lrs[1]:.4g}: loss {losses[0]:.6f} "
+        f"-> {losses[1]:.6f} (a reading; the gates are the descent checks below)")
+    report["qwen_train"]["repeated_batch"] = losses
 
     def one_step():
         nonlocal params, opt
@@ -4495,7 +4583,32 @@ def phase_train(torch, dev, gpu, report):
         if busy > 0 else "device busy share not measured (the profiler "
                          "recorded no device activity)"))
     report["qwen_train"]["busy"] = busy / bwall if busy > 0 else None
-    del params, opt, plan, batch, stats
+    del opt
+    torch.cuda.empty_cache()
+    loss0, _, grads = value_and_grad(params, batch, plan.cfg, plan.run)
+    l1 = sum(float(g.double().abs().sum()) for g in tree_leaves(grads))
+    sweep = [first_adamw_step(params, grads, batch, plan.cfg, plan.run, lr,
+                              restore=True) for lr in TRAIN_SWEEP]
+    say(f"[train] {gpu} | from the trained weights, one AdamW step from "
+        f"zero moments on that batch (loss {float(loss0):.6f}, gradient "
+        f"L1 norm {l1:.6g}): " + "; ".join(
+            f"lr {r['lr']:.3g}: loss {r['loss']:.6f}, change "
+            f"{r['loss'] - float(loss0):+.6f} against {r['first_order']:+.6f}"
+            f" to first order" for r in sweep))
+    report["qwen_train"]["sweep"] = dict(loss0=float(loss0), grad_l1=l1,
+                                         steps=sweep)
+    del grads
+    r = descent_check(params, batch, plan.cfg, plan.run,
+                      drop=TRAIN_DROP_BF16)
+    say(f"[train] {gpu} | the gate at full depth, bf16: a step of lr "
+        f"{r['lr']:.4g} (= {TRAIN_DROP_BF16} / the gradient's L1 norm "
+        f"{r['grad_l1']:.6g}) changes the loss {r['loss0']:.6f} -> "
+        f"{r['loss']:.6f} ({r['change']:+.6f}) against "
+        f"{r['first_order']:+.6f} to first order")
+    require(r["ok"], f"qwen2.5-3b at full depth: the step did not lower the "
+            f"loss by its first-order change within {DESCENT_RTOL}: {r}")
+    report["qwen_train"]["descent"] = [r]
+    del params, plan, batch, stats
     torch.cuda.empty_cache()
     say(f"[time] phase 10 (a): {time.perf_counter() - t0:.1f} s")
 
@@ -4554,9 +4667,52 @@ def phase_train(torch, dev, gpu, report):
                 line += f"; remat {remat} vs none {w_r:.2e}"
                 require(w_r < REMAT_GRAD_RMS, f"remat {remat}: {w_r}")
                 del grads_r
+            # one AdamW step on the CPU's gradients, the card's update
+            # against the CPU's
+            moved = []
+            for p, g in ((params, tree_map(lambda x: x.to(dev), grads_c)),
+                         (cpu_params, grads_c)):
+                q = tree_map(lambda x: x.detach().clone(), p)
+                adamw_update(constant_lr(run, TRAIN_SWEEP[-1]),
+                             init_adamw(q), q, g)
+                moved.append([a - b.detach() for a, b in
+                              zip(tree_leaves(q), tree_leaves(p))])
+                del q, g
+            w_u, _ = worst_leaf(moved[0], moved[1])
+            line += (f"; one AdamW step (lr {TRAIN_SWEEP[-1]:.3g}) on the "
+                     f"CPU's gradients, the card's update vs the CPU's "
+                     f"{w_u:.2e}")
+            require(w_u < UPDATE_RMS, f"the card's AdamW update against "
+                    f"the CPU's: {w_u}")
+            del moved
         say(line)
         del params, cpu_params, grads_g, grads_c
         torch.cuda.empty_cache()
+
+    # (b) the gate: a step lowers the loss on any draw of the weights
+    arch, seq, _ = TRAIN_CHECK[0]
+    cfg = get_arch(arch).with_overrides(n_layers=2)
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", seq, 1, "train"),
+                    mesh=MeshConfig((1, 1), ("data", "model")),
+                    param_dtype="float32", activation_dtype="float32",
+                    remat="none")
+    host = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size), cfg,
+                         run.shape).batch_at(0)
+    dbatch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    for seed in TRAIN_DESCENT_SEEDS:
+        params = M.init_params(cfg, dataclasses.replace(run, seed=seed), dev)
+        r = descent_check(params, dbatch, cfg, run)
+        say(f"[train] {gpu} | {arch} at full width, 2 layers, f32, weight "
+            f"seed {seed}: a step of lr {r['lr']:.4g} (= {DESCENT_DROP} / "
+            f"the gradient's L1 norm {r['grad_l1']:.6g}) changes the loss "
+            f"{r['loss0']:.7f} -> {r['loss']:.7f} ({r['change']:+.7f}) "
+            f"against {r['first_order']:+.7f} to first order")
+        require(r["ok"], f"{arch} seed {seed}: the step did not lower the "
+                f"loss by its first-order change within {DESCENT_RTOL}: {r}")
+        report["qwen_train"]["descent"].append(r)
+        del params
+    del dbatch
+    torch.cuda.empty_cache()
     say(f"[time] phase 10 (b): {time.perf_counter() - t1:.1f} s")
 
     # (c) resume after an injected failure, on the card
@@ -4594,6 +4750,294 @@ def phase_train(torch, dev, gpu, report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the rest of the model zoo that fits one card, at full width
+# ---------------------------------------------------------------------------
+
+# every architecture of the JAX registry that fits one card and no earlier
+# phase drives, at full width and depth, random weights from seed 0 drawn
+# on the card (every stacked leaf a layer at a time): prefill_step at B 4
+# x 2048, serve.main
+# over 4 requests x (32 prompt + 32 generated), 4 stacked trustees
+ZOO = ("qwen3-4b", "gemma-7b", "qwen1.5-32b", "qwen2-vl-2b",
+       "seamless-m4t-large-v2")
+ZOO_PREFILL = dict(batch=4, seq=2048)
+ZOO_SERVE = dict(batch=4, prompt_len=32, gen=32, mesh_model=4)
+ZOO_TIMED_RUNS = 2
+ENCDEC_TGT = 512                # seamless forward_loss: S_src 2048, S_tgt 512
+
+
+def zoo_serve_argv(arch, gen):
+    z = ZOO_SERVE
+    return ["--arch", arch, "--batch", str(z["batch"]), "--prompt-len",
+            str(z["prompt_len"]), "--gen", str(gen), "--mesh-model",
+            str(z["mesh_model"])]
+
+
+def zoo_batch(torch, M, cfg, run, b, s, dev, seed):
+    """A prefill batch of ``cfg`` at B x S, by ``model.input_specs``:
+    token ids; embeddings N(0, 0.02^2) in the activation dtype (the
+    serve's prompt's scale); M-RoPE's three position streams equal (plain
+    RoPE, so the prefill compares with the decode)."""
+    from repro_torch.configs.base import ShapeConfig
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {}
+    for name, (shape, dtype) in M.input_specs(
+            cfg, ShapeConfig("p", s, b, "prefill"), run).items():
+        if name == "positions":
+            batch[name] = torch.arange(s, dtype=dtype, device=dev)[
+                None, None].expand(shape)
+        elif dtype.is_floating_point:
+            batch[name] = (torch.randn(shape, generator=gen, device=dev)
+                           * 0.02).to(dtype)
+        else:
+            batch[name] = torch.randint(0, cfg.vocab_size, shape,
+                                        generator=gen, device=dev,
+                                        dtype=dtype)
+    return batch
+
+
+def zoo_checked(torch, kops, fn, want, label):
+    """``fn()`` inside a FlashCheck, counters zeroed just before it:
+    ``want`` flash launches, every one within the tolerance of its plain
+    version.  Returns (fn's result, the check's summary, its first call's
+    inputs)."""
+    from repro_torch.testing.model import FlashCheck
+    kops.reset_launch_counts()
+    with FlashCheck() as chk:
+        out = fn()
+        torch.cuda.synchronize()
+    n = kops.launch_counts()["flash_attention"]
+    c = chk.summary()
+    require(n == want and c["flash_calls"] == want,
+            f"{label}: {n} flash launches, {c['flash_calls']} checked, "
+            f"want {want}")
+    require(c["flash_calls_out_of_tolerance"] == 0,
+            f"{label}: {c['flash_calls_out_of_tolerance']} flash calls "
+            f"beyond the tolerance (max abs err {c['flash_max_abs_err']})")
+    return out, c, chk.first
+
+
+def phase_zoo_arch(torch, dev, gpu, report, errs, arch):
+    """One architecture of phase 11: (a) serve.main, 4 x (32 + 32)
+    tokens over 4 trustees (qwen2-vl-2b: an embeddings prompt of 32 and
+    --gen 1, all JAX's loop defines), the decode logits at the last
+    prompt position kept; (b) the serve's weights drawn again (seed 0) and
+    prefill_step at B 4 x 2048 — a check run holding every flash launch
+    against its plain version, then timed runs, counters zeroed just
+    before each and the layers' launches read just after; (c) the
+    prefill's last-position logits on the serve's prompt against the
+    decode's there (qwen2-vl-2b's three position streams equal).  For
+    seamless-m4t-large-v2 the prefill is the encoder (non-causal, D 64)
+    and (c) is (c') the encoder through the kernel against its plain path
+    and forward_loss under no_grad through the kernel (causal
+    self-attention, non-causal cross-attention over the memory; S_src
+    2048, S_tgt 512) against the plain path.  Returns (one prefill's
+    flash launches, and forward_loss's for seamless; one prefill's; the
+    first check call's inputs)."""
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    from repro_torch.testing.model import (ENCDEC_RTOL, DecodeLogits,
+                                           FinalHidden, logits_agreement,
+                                           relative_agreement)
+    cfg = get_arch(arch)
+    encdec = M.is_encdec(cfg)
+    embeds = cfg.input_mode == "embeds" and not encdec
+    b, s = ZOO_PREFILL["batch"], ZOO_PREFILL["seq"]
+    pl, nb = ZOO_SERVE["prompt_len"], ZOO_SERVE["batch"]
+    gen = 1 if embeds else ZOO_SERVE["gen"]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the serve, its own weights drawn inside it.  The cached blocks
+    # go back to the driver before each of qwen1.5-32b's three draws of
+    # 70.4 GB: what the earlier phases leave cached is cut up, and a
+    # stacked w_down alone is 17.9 GB in one piece
+    stats = {}
+    torch.cuda.empty_cache()
+    kops.reset_launch_counts()
+    with DecodeLogits(pos=pl - 1) as rec:
+        out = serve.main(zoo_serve_argv(arch, gen), stats=stats)
+    counts = kops.launch_counts()
+    require(out.shape == (nb, gen) and int(out.min()) >= 0
+            and int(out.max()) < cfg.vocab_size,
+            f"{arch} serve tokens: shape {out.shape}, range "
+            f"{out.min()}..{out.max()}")
+    require(rec.logits is not None and bool(torch.isfinite(rec.logits)
+                                            .all()),
+            f"{arch} serve: no finite decode logits at position {pl - 1}")
+    torch.cuda.empty_cache()
+    again = serve.main(zoo_serve_argv(arch, gen))
+    require(np.array_equal(out, again), f"{arch} serve: two runs' tokens "
+            f"differ")
+    report[f"{arch}_serve"] = stats
+    say(f"[zoo {arch}] {gpu} | serve {nb} x ({pl} + {gen}) over "
+        f"{ZOO_SERVE['mesh_model']} trustees: {stats['steps']} steps in "
+        f"{stats['seconds']:.3f} s, {stats['ms_per_step']:.3f} ms/step, "
+        f"{stats['tokens_per_s']:.1f} tokens/s; tokens equal run to run; "
+        f"launches {json.dumps(counts)} (the decode's attention is the "
+        f"plain trustee island, as in JAX)")
+    if embeds:
+        say(f"[zoo {arch}] --gen {gen}: JAX's serve loop defines only the "
+            f"first token generated after an embeddings prompt")
+
+    # (b) the prefill on the serve's weights
+    mesh = MeshConfig((1, ZOO_SERVE["mesh_model"]), ("data", "model"))
+    run = RunConfig(model=cfg, shape=ShapeConfig("prefill", s, b, "prefill"),
+                    mesh=mesh, remat="none", use_pallas=True)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, run, dev)
+    torch.cuda.synchronize()
+    n_params = M.count_params(params)
+    say(f"[zoo {arch}] {n_params / 1e9:.3f} B parameters drawn on the card "
+        f"in {time.perf_counter() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated)")
+    plan = build_cell(cfg, run.shape, run)
+    batch = zoo_batch(torch, M, cfg, run, b, s, dev, seed=17)
+    n_layers = M.encdec.n_encoder_layers(cfg) if encdec else cfg.n_layers
+    res, c, first = zoo_checked(torch, kops,
+                                lambda: plan.step_fn(params, batch),
+                                n_layers, f"{arch} prefill check run")
+    want = (b, s, cfg.d_model) if encdec else (b, cfg.vocab_size)
+    require(tuple(res.shape) == want and bool(torch.isfinite(res).all()),
+            f"{arch} prefill: {tuple(res.shape)}, want {want}, finite "
+            f"{bool(torch.isfinite(res).all())}")
+    errs["flash_attention"] = max(errs.get("flash_attention", 0.0),
+                                  c["flash_max_abs_err"])
+    say(f"[zoo {arch} check] prefill B {b} x {s}: {n_layers} flash "
+        f"launches at {c['flash_shapes'][0]}, every one == plain (max abs "
+        f"err {c['flash_max_abs_err']:.3g}); "
+        + ("the encoder memory" if encdec else "the last position's logits")
+        + f" {want}, finite")
+    secs = []
+    for _ in range(ZOO_TIMED_RUNS):
+        kops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = plan.step_fn(params, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = kops.launch_counts()
+        require(counts["flash_attention"] == n_layers
+                and bool(torch.isfinite(timed).all()),
+                f"{arch} prefill timed run: {counts['flash_attention']} "
+                f"flash launches, want {n_layers}")
+    say(f"[main path] {arch} prefill launches (each of {ZOO_TIMED_RUNS} "
+        f"timed runs): {json.dumps(counts)}")
+    med = sorted(secs)[len(secs) // 2]
+    report[f"{arch}_prefill"] = dict(seconds=secs, tokens_per_s=b * s / med)
+    del timed
+    launches = n_layers
+
+    if not encdec:
+        # (c) prefill on the serve's prompt against the decode
+        prompt = np.random.default_rng(0)
+        if embeds:
+            emb = torch.as_tensor(prompt.normal(size=(pl, nb, cfg.d_model))
+                                  * 0.02).to(device=dev,
+                                             dtype=torch.bfloat16)
+            pos = torch.arange(pl, dtype=torch.int32, device=dev)
+            pbatch = {"embeds": emb.transpose(0, 1),
+                      "positions": pos[None, None].expand(3, nb, pl)}
+        else:
+            ids = prompt.integers(0, cfg.vocab_size, size=(pl, nb)).T
+            pbatch = {"tokens": torch.as_tensor(ids, device=dev)}
+        pre = build_cell(cfg, ShapeConfig("prompt", pl, nb, "prefill"),
+                         run).step_fn(params, pbatch)
+        agree = logits_agreement(pre, rec.logits, torch.bfloat16, cfg)
+        require(agree["ok"], f"{arch} prefill vs serve decode logits at "
+                f"position {pl - 1}: {agree}")
+        say(f"[zoo {arch} check] prefill logits at position {pl - 1} == "
+            f"the serve's decode logits there: relative RMS "
+            f"{agree['rel_rms']:.4g} <= {agree['rtol']}, max abs "
+            f"{agree['max_abs']:.4g}, argmax agrees on "
+            f"{agree['argmax_agree'] * 100:.1f}% of rows")
+        report[f"{arch}_agreement"] = agree
+    else:
+        # (c') the encoder and forward_loss, the kernel against the plain
+        # path on the card
+        prun = dataclasses.replace(run, use_pallas=False)
+        with torch.no_grad():
+            plain = M.prefill(params, batch, cfg, prun)
+        mem = relative_agreement(res, plain, ENCDEC_RTOL["memory"])
+        require(mem["ok"], f"{arch} encoder memory, kernel vs plain: {mem}")
+        gl = torch.Generator(device=dev).manual_seed(19)
+        lbatch = {"src_embeds": batch["src_embeds"],
+                  "tokens": torch.randint(0, cfg.vocab_size,
+                                          (b, ENCDEC_TGT), generator=gl,
+                                          device=dev)}
+        lbatch["labels"] = torch.roll(lbatch["tokens"], -1, dims=1)
+        n_loss = 3 * cfg.n_layers
+        with torch.no_grad(), FinalHidden() as kh:
+            (loss, _), lc, _ = zoo_checked(
+                torch, kops, lambda: M.forward_loss(params, lbatch, cfg,
+                                                    run),
+                n_loss, f"{arch} forward_loss check run")
+        with torch.no_grad(), FinalHidden() as ph:
+            ploss, _ = M.forward_loss(params, lbatch, cfg, prun)
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      lc["flash_max_abs_err"])
+        hid = relative_agreement(kh.hidden, ph.hidden, ENCDEC_RTOL["hidden"])
+        require(hid["ok"], f"{arch} forward_loss's final decoder hidden "
+                f"state, kernel vs plain: {hid}")
+        lrel = abs(float(loss) - float(ploss)) / abs(float(ploss))
+        require(bool(torch.isfinite(loss)) and lrel <= ENCDEC_RTOL["loss"],
+                f"{arch} forward_loss, kernel {float(loss)} vs plain "
+                f"{float(ploss)}: relative {lrel}")
+        launches += n_loss
+        say(f"[zoo {arch} check] encoder memory through the kernel == the "
+            f"plain path: relative RMS {mem['rel_rms']:.4g} <= "
+            f"{mem['rtol']}, max abs {mem['max_abs']:.4g}; forward_loss "
+            f"(S_src {s}, S_tgt {ENCDEC_TGT}, no_grad) through the kernel: "
+            f"its final decoder hidden state relative RMS "
+            f"{hid['rel_rms']:.4g} <= {hid['rtol']}, max abs "
+            f"{hid['max_abs']:.4g}; its loss "
+            f"{float(loss):.6f} vs plain {float(ploss):.6f}: relative "
+            f"{lrel:.3g} <= {ENCDEC_RTOL['loss']}; its {n_loss} flash "
+            f"launches at {lc['flash_shapes']} each == plain (max abs err "
+            f"{lc['flash_max_abs_err']:.3g})")
+        report[f"{arch}_agreement"] = dict(memory=mem, hidden=hid,
+                                           loss=float(loss),
+                                           plain_loss=float(ploss),
+                                           loss_rel=lrel)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    report[f"{arch}_peak_gb"] = peak
+    say(f"[zoo {arch}] {gpu} | prefill B {b} x {s}: "
+        + ", ".join(f"{x * 1e3:.3f}" for x in secs)
+        + f" ms; median {b * s / med:.1f} tokens/s; serve "
+        f"{stats['tokens_per_s']:.1f} tokens/s; peak allocated {peak:.2f} "
+        f"GB above the {base / 1e9:.2f} GB allocated at the start "
+        f"({n_params / 1e9:.3f} B parameters)")
+    del params, batch, res
+    torch.cuda.empty_cache()
+    return launches, n_layers, first
+
+
+def phase_zoo(torch, dev, gpu, report, errs):
+    """Phase 11: every architecture of ``ZOO`` in turn (``phase_zoo_arch``),
+    each model's weights freed before the next is drawn, then the flash
+    kernel timed at each one's prefill shape as phase 9 times it.
+    Returns the flash launches of one prefill call each (and seamless's
+    forward_loss)."""
+    launches, runs = 0, {}
+    for arch in ZOO:
+        t0 = time.perf_counter()
+        n, *runs[arch] = phase_zoo_arch(torch, dev, gpu, report, errs, arch)
+        launches += n
+        say(f"[time] phase 11 {arch}: {time.perf_counter() - t0:.1f} s")
+    for arch, (per_prefill, first) in runs.items():
+        phase_flash_times(torch, dev, gpu, first, per_prefill,
+                          label=f"{arch} prefill")
+    return launches
+
+
 def main_shapes(n_dev):
     """The pack and serve kernels' shapes on the main paths' rounds:
     kv_paper (a fused GET + PUT batch a client) and kv_mixed."""
@@ -4614,7 +5058,9 @@ def main_shapes(n_dev):
 
 
 def kernel_info(torch, n_dev):
-    """Registers, spills, shared memory and resident warps of the
+    """Registers, spills and shared memory of the flash-attention kernel
+    at each head dim it takes (D 256 new, gemma-7b's); registers, spills,
+    shared memory and resident warps of the
     page-table serve and the selective scan at the main paths' shapes, as
     built (cudaFuncGetAttributes and the occupancy calculator; ptxas -v
     reports the same registers)."""
@@ -4628,6 +5074,12 @@ def kernel_info(torch, n_dev):
         f"{i['local_bytes']} bytes local (spills), {i['smem']} bytes of "
         f"shared memory, one block of {i['warps_a_block']} warps a trustee "
         f"({n_dev} blocks; at most {i['blocks_per_sm']} an SM)")
+    from repro_torch.kernels import flash_attention as kfa
+    for d in kfa.HEAD_DIMS:
+        i = kfa.kernel_info(d)
+        say(f"[build] flash_attention D {d} ({i['kernel']} kernel): "
+            f"{i['registers']} registers, {i['local_bytes']} bytes local "
+            f"(spills), {i['smem']} bytes of shared memory a block")
     sm = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.bfloat16, torch.float32):
         i = kss.kernel_info(dtype, SCAN_PREFILL["n"])
@@ -4646,7 +5098,7 @@ def kernel_info(torch, n_dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,9,10",
+                    default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,11,9,10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -4789,10 +5241,23 @@ def main(argv=None):
         for k, v in falcon[0].items():
             launches[k] += v
         say(f"[time] through phase 8: {time.perf_counter() - started:.1f} s")
+    if "11" in phases:
+        t0 = time.perf_counter()
+        n_zoo = phase_zoo(torch, dev, gpu, report, errs)
+        launches["flash_attention"] += n_zoo
+        say(f"[main path] phase 11 flash launches (one prefill call of each "
+            f"architecture, and seamless's forward_loss): {n_zoo} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for arch in ZOO:
+            say(f"[tokens/s] {gpu} | {arch}: prefill "
+                f"{report[arch + '_prefill']['tokens_per_s']:.1f}, serve "
+                f"{report[arch + '_serve']['tokens_per_s']:.1f}; peak "
+                f"allocated {report[arch + '_peak_gb']:.2f} GB")
+        say(f"[time] through phase 11: {time.perf_counter() - started:.1f} s")
     per_round["launches"] = launches
-    say(f"[main path] kernel launches over phases 3-8 (one prefill call in "
-        f"phases 6, 7 and 8; 4a, 4b and the session serve included): "
-        f"{json.dumps(launches)}")
+    say(f"[main path] kernel launches over phases 3-8 and 11 (one prefill "
+        f"call in phases 6, 7, 8 and each of 11's; 4a, 4b and the session "
+        f"serve included): {json.dumps(launches)}")
 
     if "9" in phases:
         require(phases >= set("2345678"),

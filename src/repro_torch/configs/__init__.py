@@ -1,6 +1,8 @@
 # repro_torch.configs — the port's own copy of the model configurations it
-# runs (values copied from repro/configs; nothing of repro is imported).
+# runs (values copied from the JAX package's configs; nothing of the JAX
+# package is imported).
 #
 # base.py        ModelConfig, ShapeConfig, MeshConfig, RunConfig
-# qwen2_5_3b.py  CONFIG (published widths) and SMOKE (test widths)
-# registry.py    --arch id -> config; unported ids raise naming their item
+# <arch>.py      CONFIG (published widths) and SMOKE (test widths) of each
+#                architecture that fits one card
+# registry.py    --arch id -> config; the two that do not fit raise

@@ -83,6 +83,7 @@ class ModelConfig:
     embed_scale: bool = False        # gemma: embeds scaled by sqrt(d_model)
     logit_softcap: float = 0.0
     is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0        # 0 -> n_layers
     input_mode: str = "tokens"       # tokens | embeds
     norm_eps: float = 1e-6
     source: str = ""
@@ -151,7 +152,9 @@ class RunConfig:
                                      # axis; one card has none to use
     grad_compression: str = "none"   # "none" | "int8" | "topk" (as in JAX,
                                      # no step reads it)
-    sp_residual: bool = False        # sequence-parallel residual stream
+    sp_residual: bool = False        # sequence-parallel residual stream:
+                                     # in JAX a sharding constraint only,
+                                     # the identity on one card
     local_shortcut: bool = True      # MoE dispatch: self-addressed rows
                                      # skip the channel
     mla_absorb: bool = False         # MLA decode scores in latent space

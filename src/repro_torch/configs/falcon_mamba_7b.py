@@ -1,9 +1,9 @@
 """falcon-mamba-7b [ssm] — 64L d_model=4096 (attention-free) d_ff=0
 vocab=65024, ssm_state=16, d_conv 4, expand 2 (d_inner 8192, dt_rank
 256) — a pure Mamba-1 stack: every layer is a selective-SSM mixer, with
-no attention and no FFN (values copied from repro/configs).  Like the
-JAX config it has no RMS norms on B, C and dt, which the published model
-has."""
+no attention and no FFN (values copied from the JAX package's configs).
+Like the JAX config it has no RMS norms on B, C and dt, which the
+published model has."""
 from .base import MambaConfig, ModelConfig
 
 CONFIG = ModelConfig(

@@ -1,5 +1,6 @@
 """qwen2.5-3b [dense] — 36L d_model=2048 16H (GQA kv=2) d_ff=11008
-vocab=151936 — GQA, QKV bias (values copied from repro/configs)."""
+vocab=151936 — GQA, QKV bias (values copied from the JAX package's
+configs)."""
 from .base import ModelConfig
 
 CONFIG = ModelConfig(

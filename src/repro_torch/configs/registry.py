@@ -1,35 +1,37 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig (full or smoke).
 
-The port carries the architectures whose model path it runs; every other
-id of the JAX registry raises ``NotImplementedError`` naming the ROADMAP
-item that brings it."""
+The port carries every architecture of the JAX registry that fits one
+card; the two that do not (jamba-v0.1-52b, arctic-480b) raise
+``NotImplementedError`` saying so."""
 from __future__ import annotations
 
 from typing import Dict, List
 
-from . import deepseek_v2_lite_16b, falcon_mamba_7b, qwen2_5_3b
+from . import (deepseek_v2_lite_16b, falcon_mamba_7b, gemma_7b,
+               qwen1_5_32b, qwen2_5_3b, qwen2_vl_2b, qwen3_4b,
+               seamless_m4t_large_v2)
 from .base import ModelConfig
 
-_MODULES = {"qwen2.5-3b": qwen2_5_3b,
+_MODULES = {"qwen2-vl-2b": qwen2_vl_2b,
             "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
+            "qwen2.5-3b": qwen2_5_3b,
+            "qwen1.5-32b": qwen1_5_32b,
+            "qwen3-4b": qwen3_4b,
+            "gemma-7b": gemma_7b,
+            "seamless-m4t-large-v2": seamless_m4t_large_v2,
             "falcon-mamba-7b": falcon_mamba_7b}
 ARCHS: Dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}
 SMOKE_ARCHS: Dict[str, ModelConfig] = {k: m.SMOKE
                                        for k, m in _MODULES.items()}
 
-# the JAX registry's other architectures and what they wait for
+# the JAX registry's other architectures: more than one card
 UNPORTED = {
-    "qwen2-vl-2b": "M-RoPE and embedding inputs (ROADMAP queue A 13)",
     "jamba-v0.1-52b": "more than one card: its 104 GB of bf16 weights do "
                       "not fit one H100's 80 GB (its Mamba, attention and "
                       "MoE layers are ported, ROADMAP queue A 13(c))",
     "arctic-480b": "more than one card: its 480 B parameters do not fit one "
                    "H100's 80 GB (its MoE layers are ported, ROADMAP queue "
                    "A 13(b))",
-    "qwen1.5-32b": "its configuration (ROADMAP queue A 13)",
-    "qwen3-4b": "its configuration (ROADMAP queue A 13)",
-    "gemma-7b": "GeGLU, tied and scaled embeddings (ROADMAP queue A 13)",
-    "seamless-m4t-large-v2": "the encoder-decoder model (ROADMAP queue A 13)",
 }
 
 

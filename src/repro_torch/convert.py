@@ -10,10 +10,13 @@ both stores from the same table and compare them row by row.
 Model weights keep the JAX tree's keys and layouts — the dense prefix
 layers a list, MLA and MoE leaves (experts ``(n_groups, E, D, F)``, the
 shared experts' MLP) as JAX holds them — so they carry across as a plain
-tree map (``model_params_from_jax``); the decode KV cache (or MLA latent
-cache) is stacked by trustee in the port and laid end to end along the
-sequence in JAX (``kv_cache_to_global``); a Mamba layer's (conv, ssm)
-state has JAX's layout in both (``mamba_cache_to_numpy``).
+tree map (``model_params_from_jax``; the encoder-decoder model's tree,
+``embed`` / ``encoder`` / ``decoder`` / ``enc_norm`` / ``final_norm``,
+too); the decode KV cache (or MLA latent cache, or the encoder-decoder
+model's self and cross caches) is stacked by trustee in the port and laid
+end to end along the sequence in JAX (``kv_cache_to_global``); a Mamba
+layer's (conv, ssm) state has JAX's layout in both
+(``mamba_cache_to_numpy``).
 """
 from __future__ import annotations
 
@@ -128,16 +131,19 @@ def model_params_to_numpy(params: Dict) -> Dict:
     return t.numpy().copy()
 
 
-def kv_cache_to_global(cache: Dict) -> Dict[str, np.ndarray]:
+def kv_cache_to_global(cache: Dict) -> Dict:
     """The port's stacked decode cache -> numpy in the JAX layout, the
     trustees' shards laid end to end along the sequence: GQA leaves
     ``k`` / ``v`` ``(..., T, B, Hkv, S/T, Dh)`` -> ``(..., B, Hkv, S,
     Dh)``, MLA leaves ``latent`` / ``k_rope`` ``(..., T, B, S/T, r)`` ->
-    ``(..., B, S, r)``."""
+    ``(..., B, S, r)``; an encoder-decoder cache's ``self`` {k, v} and
+    its ``cross_k`` / ``cross_v`` (stacked as ``k`` / ``v`` are) alike,
+    nested as JAX nests them."""
     def glob(leaf, lead_dims):
         x = leaf.detach().cpu().float().movedim(-lead_dims, -3)
         return x.reshape(x.shape[:-3] + (-1, x.shape[-1])).numpy().copy()
-    return {k: glob(v, 4 if k in ("latent", "k_rope") else 5)
+    return {k: kv_cache_to_global(v) if isinstance(v, dict)
+            else glob(v, 4 if k in ("latent", "k_rope") else 5)
             for k, v in cache.items()}
 
 

@@ -23,7 +23,7 @@
 // 107 TFLOP/s, loads and products in series), and beside the products the
 // softmax's exponentials (one per score, 16 a clock an SM) and its
 // dependent max and sum chains cost as much as the products themselves.
-// D 64, 128 and 192 take the warp-specialised kernel:
+// D 64, 128, 192 and 256 take the warp-specialised kernel:
 //   * one block per (128-row query tile, batch, query head), the heaviest
 //     query tiles (the causal diagonal's far end) issued first and the
 //     query heads of one KV group on neighbouring blocks, so one read of a
@@ -50,12 +50,26 @@
 //     diagonal;
 //   * registers: at D 192 the 64 x 192 f32 output accumulator alone is 96
 //     a thread, so K/V tiles there are 64 keys (BK 64), 128 elsewhere; no
-//     product is serialised and nothing spills at 168 registers a thread.
+//     product is serialised and nothing spills at 168 registers a thread;
+//   * at D 256 (gemma-7b) the accumulator is 64 x 256 f32, 128 registers a
+//     thread, beside the 32 of a 64-key S tile and the 16 of its bf16 P:
+//     more than the 168 a thread that 384 threads get, so ptxas spills
+//     (S's accumulators around the QK^T wgmma) and serialises the wgmma;
+//     m64n256k16 is wgmma's widest N.  The warpgroup index is shuffled
+//     from lane 0 there, so that ptxas sees the branch warp-uniform: with
+//     nvcc 12.9 that halves the spill (472 to 232 bytes of stores).
+//     FlashAttention-3's register split (setmaxnreg.dec to 40 in the
+//     producer, .inc to 232 in the consumers) was tried and left out:
+//     ptxas still allocated the consumers' code within 168 (216 bytes of
+//     stores).  Right and 2.2x SDPA on an H100; one consumer warpgroup a
+//     block (255 registers) or two passes over D's halves are the ways
+//     past it.
 //     Issuing tile j's QK^T beside tile j - 1's PV (more registers, a third
 //     stage) and turns between the two warpgroups on named barriers were
 //     both tried and were not faster on an H100.
 // Shared memory: Q 128 x D, and 2 stages of K and V BK x D: 160 KB at D
-// 128, 144 KB at D 192, 80 KB at D 64 (opted in past 48 KB).  TMA needs
+// 128, 144 KB at D 192, 192 KB at D 256, 80 KB at D 64 (opted in past 48
+// KB).  TMA needs
 // 16-byte strides and a 16-byte aligned base: the wrapper copies a tensor
 // that has neither.  D 32, which no main path uses, keeps the simple
 // mma.sync kernel at the end of this file (a choice by shape, stated in
@@ -250,7 +264,69 @@ __device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// ---- the TMA + wgmma kernel (D 64, 128, 192) -------------------------------
+// d (64 x 256 f32) += A (64 x 16 bf16 in registers, the accumulator
+// layout) x B (16 x 256, MN-major, shared: imm-trans-b = 1)
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- the TMA + wgmma kernel (D 64, 128, 192, 256) --------------------------
 
 constexpr int BQ = 128;      // query rows per block: two warpgroups of 64
 constexpr int WG = 128;      // threads of a warpgroup
@@ -258,7 +334,7 @@ constexpr int THREADS = 3 * WG;   // producer + 2 consumers
 
 template <int D>
 struct Tile {
-  static constexpr int BK = D == 192 ? 64 : 128;   // keys per KV tile
+  static constexpr int BK = D >= 192 ? 64 : 128;   // keys per KV tile
   static constexpr int STAGES = 2;
   static constexpr int CB = D / 64;                // 64-column boxes a row
   static constexpr int Q_BYTES = BQ * D * 2;
@@ -454,7 +530,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncthreads();
 
-  if (threadIdx.x < WG) {
+  // the warpgroup; at D 256 shuffled from lane 0 so that ptxas sees it
+  // uniform over the warp (with nvcc 12.9 it halves D 256's spill)
+  const int wgi = D == 256 ? __shfl_sync(FULL, (int)(threadIdx.x / WG), 0)
+                           : (int)(threadIdx.x / WG);
+  if (wgi == 0) {
     // the producer warpgroup: one thread issues every load
     if (threadIdx.x == 0) {
       mbar_expect_tx(qbar, T::Q_BYTES);
@@ -478,7 +558,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   } else {
     // the consumers: rows q0 + 64 wg .. + 63, KV tile by KV tile: S = Q
     // K^T, the softmax, O += P V
-    const int wg = threadIdx.x / WG - 1;
+    const int wg = wgi - 1;
     const int tid = threadIdx.x % WG, warp = tid >> 5, lane = tid & 31;
     const int row0 = q0 + 64 * wg;
     const int r0 = row0 + 16 * warp + (lane >> 2), r1 = r0 + 8;
@@ -773,12 +853,44 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// registers, local (spill) bytes a thread and dynamic shared memory of the
+// kernel that takes head dim D, as built
+template <int D>
+int wgmma_info(int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t e =
+      cudaFuncGetAttributes(&attr, flash_attention_kernel<D>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = Tile<D>::SMEM;
+  return 0;
+}
+
 }  // namespace
+
+// out[0..2] = registers, local bytes and dynamic shared memory of the
+// kernel that takes head dim D (the mma.sync kernel's at D 32)
+extern "C" int flash_attention_info(int D, int* out) {
+  if (D == 64) return wgmma_info<64>(out);
+  if (D == 128) return wgmma_info<128>(out);
+  if (D == 192) return wgmma_info<192>(out);
+  if (D == 256) return wgmma_info<256>(out);
+  if (D != 32) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t e =
+      cudaFuncGetAttributes(&attr, flash_attention_mma_kernel<32>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = mma_smem_bytes(32);
+  return 0;
+}
 
 // Strides are in elements (the last dimension is contiguous); the wrapper
 // checks that every stride is a multiple of 8 and every pointer 16-byte
-// aligned (TMA's 16-byte strides), that D is 32, 64, 128 or 192, Skv > 0,
-// and that the grid fits.  Returns the cudaError_t of the launch:
+// aligned (TMA's 16-byte strides), that D is 32, 64, 128, 192 or 256,
+// Skv > 0, and that the grid fits.  Returns the cudaError_t of the launch:
 // cudaErrorNotSupported when the driver has no cuTensorMapEncodeTiled,
 // cudaErrorInvalidValue when it refuses a map or D is not taken.
 extern "C" int flash_attention_launch(
@@ -797,6 +909,7 @@ extern "C" int flash_attention_launch(
   if (D == 64) FA_WGMMA(64);
   if (D == 128) FA_WGMMA(128);
   if (D == 192) FA_WGMMA(192);
+  if (D == 256) FA_WGMMA(256);
 #undef FA_WGMMA
   if (D != 32) return (int)cudaErrorInvalidValue;
   const dim3 grid((Sq + M_BQ - 1) / M_BQ, B * Hq), block(M_THREADS);

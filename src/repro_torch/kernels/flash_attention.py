@@ -7,9 +7,11 @@ of a (batch, query head), loop over KV tiles up to the causal diagonal
 with the online softmax in registers, and run both products on the
 tensor cores; ``ref.flash_attention`` is their plain version.  Which
 kernel a launch takes is a choice by head dimension (``kernel_for``):
-D 64, 128 and 192 — every main path's — the warp-specialised one (TMA
-loads into an mbarrier ring, ``wgmma`` for both products, 128-row query
-tiles); D 32 the simple ``mma.sync`` one (64-row query tiles).  On CPU
+D 64, 128, 192 and 256 — every main path's — the warp-specialised one
+(TMA loads into an mbarrier ring, ``wgmma`` for both products, 128-row
+query tiles; at D 256, gemma-7b's, its 64 x 256 f32 accumulator leaves
+ptxas short of registers, and it spills: ``kernel_info``); D 32 the
+simple ``mma.sync`` one (64-row query tiles).  On CPU
 tensors the wrapper runs the plain version; on CUDA tensors it launches
 a kernel or raises.  The kernels take bf16 only: f32 or f16 on the card
 raises ``TypeError``.  A ragged tail of Sq or Skv is masked in the kernel
@@ -27,15 +29,16 @@ from . import _build, ref
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _SIG = {"flash_attention_launch": (_P,) * 4 + (_I,) * 6 + (_L,) * 12
-        + (_F, _I, _I, _P)}
-HEAD_DIMS = (32, 64, 128, 192)
-WGMMA_HEAD_DIMS = (64, 128, 192)
+        + (_F, _I, _I, _P),
+        "flash_attention_info": (_I, _P)}
+HEAD_DIMS = (32, 64, 128, 192, 256)
+WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 
 
 def kernel_for(d: int) -> str:
     """The kernel that takes head dimension ``d``: "wgmma" (TMA + wgmma,
-    warp-specialised) for D 64, 128 and 192, "mma.sync" for D 32.  The
-    C launcher makes the same choice."""
+    warp-specialised) for D 64, 128, 192 and 256, "mma.sync" for D 32.
+    The C launcher makes the same choice."""
     if d in WGMMA_HEAD_DIMS:
         return "wgmma"
     if d in HEAD_DIMS:
@@ -46,6 +49,18 @@ def kernel_for(d: int) -> str:
 def query_tile(d: int) -> int:
     """Query rows a block of ``kernel_for(d)`` takes."""
     return 128 if kernel_for(d) == "wgmma" else 64
+
+
+def kernel_info(d: int) -> dict:
+    """The CUDA kernel that takes head dimension ``d``, as built:
+    registers a thread, local (spill) bytes a thread and dynamic shared
+    memory a block."""
+    kernel_for(d)
+    lib = _build.library("flash_attention.cu", _SIG)
+    out = (ctypes.c_int * 3)()
+    _build.check(lib.flash_attention_info(d, out), "flash_attention_info")
+    return dict(kernel=kernel_for(d), registers=out[0], local_bytes=out[1],
+                smem=out[2])
 
 
 def tolerance(v: torch.Tensor):

@@ -11,6 +11,8 @@ cache entrusted to T trustees along the sequence, or a Mamba model's
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch falcon-mamba-7b --batch 8 --prompt-len 128 --gen 128 \\
         [--smoke --device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen2-vl-2b --batch 4 --prompt-len 32 --gen 1 [--smoke]
 
 The prompt is teacher-forced through decode steps, then greedy decode
 follows; every step's (k, v) write — for MLA the latent and k_rope rows
@@ -28,6 +30,17 @@ whole, so ``--mesh-model`` does not change its tokens.  Weights are
 random, drawn on the device from a seeded generator; the prompts come
 from ``np.random.default_rng(0)`` as in JAX, so both packages see the
 same tokens.  Runs on ``cuda`` unless given ``--device cpu``.
+
+An embeds-input model (qwen2-vl-2b, the vision frontend a stub) is
+prompted with bf16 embeddings drawn as JAX draws them, ``rng.normal(
+size=(prompt_len, batch, d_model)) * 0.02``; JAX's loop then feeds the
+generated token's id where the decode step takes a (B, D) embedding, so
+it defines the prompt and the one token generated from its last
+position and nothing after: ``--gen > 1`` raises
+``NotImplementedError`` (the port invents no text-embedding path).  The
+encoder-decoder model (seamless-m4t-large-v2) decodes text: a token
+prompt, against a cross-attention cache that, as in JAX, stays zeros
+(nothing runs the encoder in the serve).
 
 The store-level bookkeeping of the paper's §7 lives on a (1, mesh_model)
 ``StackedMesh`` on the serve's device: a ledger of generated tokens per
@@ -160,6 +173,14 @@ def _serve(args, stats: Optional[dict]) -> np.ndarray:
         meshctx.set_delegation_mode("shared", 0)
 
     cfg = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
+    embeds = cfg.input_mode == "embeds" and not M.is_encdec(cfg)
+    if embeds and args.gen > 1:
+        raise NotImplementedError(
+            f"--gen {args.gen} for {cfg.name}, an embeds-input model: JAX's "
+            f"serve loop feeds a generated token's id where the decode step "
+            f"takes a (B, D) embedding, so it defines only the first "
+            f"generated token (--gen 1), and the port invents no "
+            f"text-embedding path (ROADMAP, reference side)")
     t = args.mesh_model
     max_len = args.prompt_len + args.gen
     max_len = ((max_len + t - 1) // t) * t      # a whole shard per trustee
@@ -179,6 +200,8 @@ def _serve(args, stats: Optional[dict]) -> np.ndarray:
     cache_kind = ("the Mamba (conv, ssm) state, whole"
                   if set(cfg.block_pattern) == {"mamba"}
                   else f"{t} trustee shards")
+    if M.is_encdec(cfg):
+        cache_kind += " (self) and a zero cross cache"
     print(f"[serve] {cfg.name}: {n_params/1e6:.2f}M params "
           f"({M.active_param_count(cfg, n_params)/1e6:.2f}M active a token), "
           f"cache len {max_len}, batch {args.batch}, {cache_kind} on "
@@ -187,9 +210,15 @@ def _serve(args, stats: Optional[dict]) -> np.ndarray:
     # "prefill" by teacher-forcing the prompt through decode steps (one
     # code path, as in JAX)
     rng = np.random.default_rng(0)
-    prompt_ids = rng.integers(0, cfg.vocab_size,
-                              size=(args.prompt_len, args.batch))
-    prompt = torch.as_tensor(prompt_ids, dtype=torch.int32, device=dev)
+    if embeds:
+        # JAX's bf16 prompt of embeddings, (prompt_len, batch, d_model)
+        prompt = torch.as_tensor(
+            rng.normal(size=(args.prompt_len, args.batch, cfg.d_model))
+            * 0.02).to(device=dev, dtype=torch.bfloat16)
+    else:
+        prompt_ids = rng.integers(0, cfg.vocab_size,
+                                  size=(args.prompt_len, args.batch))
+        prompt = torch.as_tensor(prompt_ids, dtype=torch.int32, device=dev)
     book = _Bookkeeping(args, dev) if (
         args.session or args.delegation_mode == "dedicated"
         or args.drain_rounds > 1) else None

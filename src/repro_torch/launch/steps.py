@@ -9,6 +9,12 @@ eagerly, so there is no jit, and the port's one card needs no shardings.
     plan = build_cell(cfg, ShapeConfig("d", max_len, 8, "decode"), run)
     next_tok, cache = plan.step_fn(params, cache, tokens, pos)
 
+``model.input_specs`` names a cell's batch: an embeds-input model's
+prefill and train batches carry ``embeds`` (and M-RoPE's
+``positions``), an encoder-decoder model's ``src_embeds`` and
+``tokens``, and its prefill returns the encoder memory (B, S_src, D) in
+place of logits.
+
 The train step differentiates ``forward_loss`` through the plain
 versions, as JAX trains with ``use_pallas=False``: no kernel has a
 backward, and a train cell with ``run.use_pallas`` is refused.
@@ -37,9 +43,11 @@ class CellPlan(NamedTuple):
 @torch.no_grad()
 def prefill_step(params, batch, cfg: ModelConfig, run=None) -> torch.Tensor:
     """Last-token logits (B, V), f32, of a prompt batch
-    ``{"tokens": (B, S)}`` through ``transformer.prefill`` (attention
-    through the flash kernel and Mamba layers through the selective-scan
-    kernel under ``run.use_pallas``)."""
+    ``{"tokens": (B, S)}`` (an embeds-input model's ``{"embeds", ...}``)
+    through ``model.prefill``, or an encoder-decoder model's encoder
+    memory of ``{"src_embeds": (B, S, D), ...}`` (attention through the
+    flash kernel and Mamba layers through the selective-scan kernel under
+    ``run.use_pallas``)."""
     return M.prefill(params, batch, cfg, run)
 
 

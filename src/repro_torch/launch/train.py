@@ -14,7 +14,11 @@ T`` is the number of trustee shards stacked on the card: a MoE model's
 experts and the cross-entropy's vocab shards.  ``--remat`` sets
 ``RunConfig.remat`` (JAX's trainer fixes it at "none", the default here).
 Runs on ``cuda`` unless given ``--device cpu``.  ``--mesh-data > 1``
-raises ``NotImplementedError`` naming its ROADMAP item.
+raises ``NotImplementedError`` naming its ROADMAP item.  An embeds-input
+or encoder-decoder model trains on the pipeline's stub-frontend batches
+(``TokenPipeline.model_batch_at``), their embeddings moved to the card in
+``run.activation_dtype``, the dtype JAX's ``input_specs`` declares for
+them.
 """
 from __future__ import annotations
 
@@ -103,10 +107,14 @@ def main(argv=None, stats: Optional[dict] = None):
                          cfg, shape)
     step_s, step_metrics = [], []
 
+    adt = dtype_of(run.activation_dtype)
+
     def step_fn(state, step):
         params, opt_state = state
         batch = {k: torch.as_tensor(v, device=dev) for k, v in
                  pipe.model_batch_at(step).items()}
+        batch = {k: v.to(adt) if v.is_floating_point() else v
+                 for k, v in batch.items()}
         params, opt_state, metrics = plan.step_fn(params, opt_state, batch)
         return (params, opt_state), {k: float(v) for k, v in
                                      metrics.items()}

@@ -18,7 +18,8 @@ the new (k, v) row into the shard that owns its position, every shard
 answers the query with partial softmax stats (o, m, l) over its own
 positions, and ``merge_attention_stats`` combines them — the JAX
 ``shard_map`` island, written as one computation batched over the shard
-dimension.
+dimension (``trustee_attention``, which the encoder-decoder model's
+cross-attention decode shares).
 
 MLA (DeepSeek's multi-head latent attention) keeps the JAX layout too:
 ``w_q`` (D, H*(nope+rope)), ``w_dkv`` (D, r), ``latent_norm``, ``w_kr``
@@ -30,7 +31,9 @@ the latent cache ``latent`` (T, B, max_len / T, r) and ``k_rope``
 expanding K and V from the latent (or, with ``run.mla_absorb``, scoring
 in latent space) on every trustee's own positions.
 
-M-RoPE raises ``NotImplementedError`` (ROADMAP queue A 13).
+With ``cfg.mrope_sections`` (qwen2-vl) the prefill and training attention
+rotate q and k by M-RoPE over the (3, B, S) position streams; decode
+rotates by plain RoPE on the token's position, as JAX's does.
 """
 from __future__ import annotations
 
@@ -43,16 +46,10 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ATTN_MLA, ModelConfig
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from .layers import _normal, apply_rope, init_rmsnorm, rmsnorm
+from .layers import _normal_stacked, apply_rope, init_rmsnorm, rmsnorm
 
 BLOCKWISE_THRESHOLD = 2048
 NEG_INF = -1e30
-
-
-def _unported(cfg: ModelConfig) -> None:
-    if cfg.mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP queue A 13)")
 
 
 def padded_heads(cfg: ModelConfig, model_axis: int = 1) -> Tuple[int, int]:
@@ -84,8 +81,7 @@ def init_attention(cfg: ModelConfig, dtype=torch.float32, device=None,
     """Random GQA attention weights: from ``gen`` (drawn on its device),
     else from a CPU generator seeded with ``seed`` — not JAX's numbers;
     tests carry JAX weights through ``convert``.  ``lead`` prefixes a
-    stacked layer dimension."""
-    _unported(cfg)
+    stacked layer dimension (``layers._normal_stacked``)."""
     if gen is None:
         gen = torch.Generator().manual_seed(seed)
     if cfg.attn_kind == ATTN_MLA:
@@ -96,13 +92,10 @@ def init_attention(cfg: ModelConfig, dtype=torch.float32, device=None,
     s = 1.0 / d ** 0.5
 
     def proj(hout, live):
-        w = torch.randn(lead + (d, hout * dh), generator=gen,
-                        device=gen.device) * s
+        w = _normal_stacked(gen, lead, (d, hout * dh), s, dtype, device)
         if live < hout:                # zero the padding heads
-            w = w.reshape(lead + (d, hout, dh))
-            w[..., live:, :] = 0.0
-            w = w.reshape(lead + (d, hout * dh))
-        return w.to(dtype).to(device)
+            w.view(lead + (d, hout, dh))[..., live:, :] = 0.0
+        return w
 
     p = {"w_q": proj(hqp, cfg.n_heads),
          "w_k": proj(hkvp, cfg.n_kv_heads),
@@ -129,7 +122,7 @@ def _init_mla(cfg: ModelConfig, dtype, device, gen: torch.Generator,
     s, sr = 1.0 / math.sqrt(d), 1.0 / math.sqrt(r)
 
     def w(shape, scale):
-        return _normal(gen, lead + shape, scale, dtype, device)
+        return _normal_stacked(gen, lead, shape, scale, dtype, device)
     return {"w_q": w((d, h * (dn + dr)), s),
             "w_dkv": w((d, r), s),
             "latent_norm": init_rmsnorm(r, device=device, lead=lead),
@@ -147,9 +140,10 @@ def _heads(params, cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 def _project_qkv(params, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig):
-    """x (B, S, D), positions (B, S) -> rotated q (B, S, Hq, Dh), rotated
-    k and v (B, S, Hkv, Dh)."""
+                 cfg: ModelConfig, mrope: Tuple[int, ...] = ()):
+    """x (B, S, D), positions (B, S) (or (3, B, S) with ``mrope``
+    sections) -> rotated q (B, S, Hq, Dh), rotated k and v (B, S, Hkv,
+    Dh)."""
     hqp, hkvp, dh = _heads(params, cfg)
     b, s, _ = x.shape
     q = torch.matmul(x, params["w_q"])
@@ -163,8 +157,8 @@ def _project_qkv(params, x: torch.Tensor, positions: torch.Tensor,
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    return (apply_rope(q, positions, cfg.rope_theta, mrope),
+            apply_rope(k, positions, cfg.rope_theta, mrope), v)
 
 
 # ---------------------------------------------------------------------------
@@ -239,12 +233,12 @@ def _core_attention(q, k, v, run, causal: bool = True, q_offset: int = 0):
 
 def attention(params, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, run=None) -> torch.Tensor:
-    """x (B, S, D); positions (B, S) -> (B, S, D)."""
-    _unported(cfg)
+    """x (B, S, D); positions (B, S), or (3, B, S) for M-RoPE -> (B, S,
+    D)."""
     if cfg.attn_kind == ATTN_MLA:
         return mla_attention(params, x, positions, cfg, run)
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, positions, cfg)
+    q, k, v = _project_qkv(params, x, positions, cfg, cfg.mrope_sections)
     out = _core_attention(q, k, v, run).reshape(b * s, -1)
     return torch.matmul(out, params["w_o"]).reshape(b, s, cfg.d_model)
 
@@ -299,7 +293,6 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     the model axis, stacked.  MLA keeps ``latent`` (T, B, max_len / T, r)
     and ``k_rope`` (T, B, max_len / T, rope) instead.  ``lead`` prefixes
     a stacked layer dimension."""
-    _unported(cfg)
     if max_len % n_trustees:
         raise ValueError(f"max_len {max_len} does not split over "
                          f"{n_trustees} trustees")
@@ -345,10 +338,8 @@ def decode_attention(params, x: torch.Tensor, pos: torch.Tensor, cache,
     PLACE (JAX returns a new one): the delegated PUT writes the new row
     into its owner's shard only.  Every shard then answers the query over
     its own positions with (o, m, l), and the merge combines them."""
-    _unported(cfg)
     if cfg.attn_kind == ATTN_MLA:
         return _mla_decode(params, x, pos, cache, cfg, run)
-    hqp, hkvp, dh = _heads(params, cfg)
     b = x.shape[0]
     q, k, v = _project_qkv(params, x[:, None, :], pos[:, None], cfg)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]            # (B, H, Dh)
@@ -363,19 +354,31 @@ def decode_attention(params, x: torch.Tensor, pos: torch.Tensor, cache,
     # each trustee's partial attention over its positions
     kpos = my[:, None] * s_loc + torch.arange(s_loc, device=x.device)
     valid = kpos[:, None, :] <= pos[None, :, None]      # (T, B, S)
-    rep = hqp // hkvp
-    qg = q.float().reshape(b, hkvp, rep, dh)
+    out = trustee_attention(q, ck, cv, valid)
+    return torch.matmul(out.reshape(b, -1), params["w_o"]), cache
+
+
+def trustee_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                      valid=None) -> torch.Tensor:
+    """One query a sequence, q (B, Hq, Dh), against a stacked
+    sequence-sharded cache ck / cv (T, B, Hkv, S_loc, Dh): every trustee
+    answers over its positions (those ``valid`` (T, B, S_loc) keeps, or
+    all) with partial softmax stats (o, m, l) in f32, and
+    ``merge_attention_stats`` combines them -> (B, Hq, Dh) in q's dtype.
+    The JAX ``shard_map`` island, batched over the shard dimension."""
+    t, b, hkvp, _, dh = ck.shape
+    hqp = q.shape[1]
+    qg = q.float().reshape(b, hkvp, hqp // hkvp, dh)
     s = torch.einsum("bgrd,tbgsd->tbgrs", qg, ck.float()) / math.sqrt(dh)
-    s = torch.where(valid[:, :, None, None, :], s,
-                    torch.full_like(s, NEG_INF))
+    if valid is not None:
+        s = torch.where(valid[:, :, None, None, :], s,
+                        torch.full_like(s, NEG_INF))
     m = s.max(dim=-1).values
     p = torch.exp(s - m[..., None])
     o = torch.einsum("tbgrs,tbgsd->tbgrd", p, cv.float())
-    out = kref.merge_attention_stats(
+    return kref.merge_attention_stats(
         o.reshape(t, b, hqp, dh), m.reshape(t, b, hqp),
         p.sum(dim=-1).reshape(t, b, hqp))[0].to(q.dtype)
-    y = torch.matmul(out.reshape(b, hqp * dh), params["w_o"])
-    return y, cache
 
 
 def _mla_decode(params, x: torch.Tensor, pos: torch.Tensor, cache,

@@ -30,13 +30,33 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., S, H, D); positions: (..., S).  Rotates the two halves of
-    the last dimension (the JAX package's layout)."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S), or (3, ..., S) for M-RoPE.
+    Rotates the two halves of the last dimension (the JAX package's
+    layout).
+
+    M-RoPE (qwen2-vl): the D/2 frequencies are split into consecutive
+    sections, of ``mrope_sections`` sizes, that take their angle from the
+    (t, h, w) position streams respectively; with three equal streams it
+    is plain RoPE, bit for bit."""
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
-    angle = positions.float()[..., None] * freqs              # (..., S, D/2)
+    if mrope_sections:
+        if positions.dim() < 2 or positions.shape[0] != len(mrope_sections):
+            raise ValueError(f"M-RoPE takes {len(mrope_sections)} position "
+                             f"streams, got positions of shape "
+                             f"{tuple(positions.shape)}")
+        if sum(mrope_sections) != d // 2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not sum "
+                             f"to the {d // 2} frequencies of head dim {d}")
+        sec_id = torch.repeat_interleave(
+            torch.arange(len(mrope_sections), device=x.device),
+            torch.tensor(mrope_sections, device=x.device))    # (D/2,)
+        pos = positions.movedim(0, -1).float()                # (..., S, 3)
+        angle = pos[..., sec_id] * freqs                      # (..., S, D/2)
+    else:
+        angle = positions.float()[..., None] * freqs          # (..., S, D/2)
     cos = torch.cos(angle)[..., None, :]                      # (..., S, 1, D/2)
     sin = torch.sin(angle)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
@@ -63,7 +83,9 @@ def _normal_stacked(gen: torch.Generator, lead: tuple, shape, scale: float,
     """A ``lead + shape`` leaf of N(0, scale^2) values drawn one
     ``shape`` slice at a time into a preallocated ``dtype`` tensor, so the
     f32 draw never holds more than one slice (a stacked expert leaf of
-    deepseek-v2-lite-16b is 4.8 B values: 19.2 GB drawn whole in f32)."""
+    deepseek-v2-lite-16b is 4.8 B values: 19.2 GB drawn whole in f32;
+    qwen1.5-32b's stacked w_gate 35.9 GB).  Every stacked leaf is drawn
+    this way."""
     shape = tuple(shape)
     if not lead:
         return _normal(gen, shape, scale, dtype, device)
@@ -82,14 +104,14 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
              device=None, lead: tuple = ()) -> dict:
     """Random gate/up/down projections (from ``gen``: not JAX's numbers;
     tests carry JAX weights through ``convert``).  ``lead`` prefixes a
-    stacked layer dimension."""
+    stacked layer dimension (``_normal_stacked``)."""
     s_in, s_ff = 1.0 / d_model ** 0.5, 1.0 / d_ff ** 0.5
-    return {"w_gate": _normal(gen, lead + (d_model, d_ff), s_in, dtype,
-                              device),
-            "w_up": _normal(gen, lead + (d_model, d_ff), s_in, dtype,
-                            device),
-            "w_down": _normal(gen, lead + (d_ff, d_model), s_ff, dtype,
-                              device)}
+    return {"w_gate": _normal_stacked(gen, lead, (d_model, d_ff), s_in,
+                                      dtype, device),
+            "w_up": _normal_stacked(gen, lead, (d_model, d_ff), s_in, dtype,
+                                    device),
+            "w_down": _normal_stacked(gen, lead, (d_ff, d_model), s_ff,
+                                      dtype, device)}
 
 
 def mlp(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:

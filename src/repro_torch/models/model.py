@@ -1,43 +1,50 @@
 """Model facade (the torch counterpart of ``repro.models.model``): the
 uniform entry points ``launch/`` calls.  Decoder-only stacks go to
-``transformer``; the encoder-decoder model is not ported yet."""
+``transformer``, the encoder-decoder model to ``encdec``;
+``input_specs`` names every model input of a cell."""
 from __future__ import annotations
 
-from ..configs.base import ModelConfig
-from . import transformer
+from typing import Dict, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig, ShapeConfig
+from . import encdec, transformer
+from .layers import dtype_of
 
 
 def is_encdec(cfg: ModelConfig) -> bool:
     return cfg.is_encoder_decoder
 
 
-def _decoder_only(cfg: ModelConfig):
-    if is_encdec(cfg):
-        raise NotImplementedError("the encoder-decoder model is not ported "
-                                  "yet (ROADMAP queue A 13)")
-    return transformer
+def _mod(cfg: ModelConfig):
+    return encdec if is_encdec(cfg) else transformer
 
 
 def init_params(cfg: ModelConfig, run=None, device=None, gen=None):
-    return _decoder_only(cfg).init_params(cfg, run, device, gen)
+    return _mod(cfg).init_params(cfg, run, device, gen)
 
 
 def forward_loss(params, batch, cfg: ModelConfig, run=None):
-    return _decoder_only(cfg).forward_loss(params, batch, cfg, run)
+    return _mod(cfg).forward_loss(params, batch, cfg, run)
 
 
-def prefill(params, batch, cfg: ModelConfig, run=None):
-    return _decoder_only(cfg).prefill(params, batch, cfg, run)
+def prefill(params, batch, cfg: ModelConfig, run=None) -> torch.Tensor:
+    """Last-position logits (B, V) f32 of a decoder-only model; an
+    encoder-decoder model's encoder memory (B, S_src, D), as JAX's
+    ``prefill`` returns it."""
+    if is_encdec(cfg):
+        return encdec.encode(params, batch["src_embeds"], cfg, run)
+    return transformer.prefill(params, batch, cfg, run)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, run=None,
                device=None):
-    return _decoder_only(cfg).init_cache(cfg, batch, max_len, run, device)
+    return _mod(cfg).init_cache(cfg, batch, max_len, run, device)
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig, run=None):
-    return _decoder_only(cfg).decode_step(params, cache, tokens, pos, cfg,
-                                          run)
+    return _mod(cfg).decode_step(params, cache, tokens, pos, cfg, run)
 
 
 def count_params(params) -> int:
@@ -54,3 +61,38 @@ def active_param_count(cfg: ModelConfig, total: int) -> int:
     n_moe = sum(1 for i in range(cfg.n_layers)
                 if cfg.layer_ffn_kind(i) in ("moe", "moe+dense"))
     return total - per_expert * (m.num_experts - m.top_k) * n_moe
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, run=None
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Every model input of the cell, name -> (shape, dtype) (JAX's
+    ``input_specs``, with torch dtypes in place of ShapeDtypeStructs):
+    train and prefill cells take ``tokens`` (B, S), or for an
+    embeds-input model ``embeds`` (B, S, D) and, with M-RoPE,
+    ``positions`` (3, B, S), or for an encoder-decoder model
+    ``src_embeds`` (B, S, D) and ``tokens``; a train cell also
+    ``labels``.  A decode cell takes ``tokens`` (B,) int32 — (B, D)
+    embeddings for an embeds-input decoder-only model; an encoder-decoder
+    model decodes text tokens — and ``pos`` (B,)."""
+    b, s = shape.global_batch, shape.seq_len
+    adt = dtype_of(run.activation_dtype) if run is not None \
+        else torch.bfloat16
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        if is_encdec(cfg):
+            specs = {"src_embeds": ((b, s, cfg.d_model), adt),
+                     "tokens": ((b, s), i32)}
+        elif cfg.input_mode == "embeds":
+            specs = {"embeds": ((b, s, cfg.d_model), adt)}
+            if cfg.mrope_sections:
+                specs["positions"] = ((3, b, s), i32)
+        else:
+            specs = {"tokens": ((b, s), i32)}
+        if shape.kind == "train":
+            specs["labels"] = ((b, s), i32)
+        return specs
+    if cfg.input_mode == "embeds" and not is_encdec(cfg):
+        tok = ((b, cfg.d_model), adt)
+    else:
+        tok = ((b,), i32)
+    return {"tokens": tok, "pos": ((b,), i32)}

@@ -47,7 +47,7 @@ from ..configs.base import ModelConfig
 from ..core import channel as ch
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from .layers import _normal, _normal_stacked, init_mlp, mlp
+from .layers import _normal_stacked, init_mlp, mlp
 
 
 def _round8(x: int) -> int:
@@ -59,12 +59,13 @@ def init_moe(cfg: ModelConfig, dtype, device, gen: torch.Generator,
     """Random router (f32) and expert weights ``w_gate`` / ``w_up``
     (E, D, F), ``w_down`` (E, F, D), plus the shared experts' MLP, drawn
     from ``gen`` (not JAX's numbers; tests carry JAX weights through
-    ``convert``).  ``lead`` prefixes a stacked layer dimension; expert
-    leaves are drawn one layer at a time."""
+    ``convert``).  ``lead`` prefixes a stacked layer dimension; every
+    leaf is drawn one layer at a time."""
     m = cfg.moe
     e, d, f = m.num_experts, cfg.d_model, m.d_ff_expert
     s_in, s_ff = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
-    p = {"router": _normal(gen, lead + (d, e), s_in, torch.float32, device),
+    p = {"router": _normal_stacked(gen, lead, (d, e), s_in, torch.float32,
+                                   device),
          "w_gate": _normal_stacked(gen, lead, (e, d, f), s_in, dtype,
                                    device),
          "w_up": _normal_stacked(gen, lead, (e, d, f), s_in, dtype, device),

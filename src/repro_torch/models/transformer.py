@@ -27,8 +27,16 @@ inside it again), "dots" keeps only the matmul outputs
 (``torch.utils.checkpoint`` with a selective policy), "none" keeps
 everything.  The dense prefix layers are not rematerialised, as in JAX.
 
-Not ported yet, raising ``NotImplementedError`` with their ROADMAP item:
-the sequence-parallel residual and embedding inputs.
+Inputs are token ids, or for an ``input_mode == "embeds"`` model (the
+vlm's stub frontend) precomputed embeddings: ``batch["embeds"]`` (B, S,
+D) with optional ``batch["positions"]`` — (3, B, S) M-RoPE streams for
+qwen2-vl — and in decode a (B, D) embedding as ``tokens``.
+
+``run.sp_residual`` (JAX's sequence-parallel residual) is accepted and
+changes nothing: in JAX it is only a sharding constraint that keeps the
+residual stream sequence-sharded over the model axis between sublayers
+(``transformer.py:97-104``), which on one card, with the shards stacked,
+is the identity.
 """
 from __future__ import annotations
 
@@ -82,14 +90,11 @@ def layer_descs(cfg: ModelConfig) -> Tuple[List[LayerDesc], int, int]:
 
 def _check(cfg: ModelConfig, run=None
            ) -> Tuple[List[LayerDesc], int, int]:
-    """(descs, prefix_len, n_groups) of a stack the port runs; raises for
-    the rest."""
-    if cfg.input_mode == "embeds":
-        raise NotImplementedError("embedding inputs (vlm / audio) are not "
-                                  "ported yet (ROADMAP queue A 13)")
-    if run is not None and run.sp_residual:
-        raise NotImplementedError("the sequence-parallel residual stream "
-                                  "is not ported yet (ROADMAP queue A 13)")
+    """(descs, prefix_len, n_groups) of a decoder-only stack; raises for
+    a configuration it cannot run."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: "
+                         f"models.encdec runs it")
     if run is not None and run.remat not in REMAT:
         raise ValueError(f"unknown remat {run.remat!r} (want one of "
                          f"{REMAT})")
@@ -290,8 +295,13 @@ def _stack_forward(params, x, positions, cfg: ModelConfig, run):
 
 
 def _inputs_to_hidden(params, batch, cfg: ModelConfig):
+    """(x (B, S, D), positions (B, S) or the batch's own) of a batch of
+    token ids or, for an embeds-input model, of embeddings."""
     _check(cfg)
-    x = embed_lookup(params["embed"], batch["tokens"], cfg)
+    if cfg.input_mode == "embeds":
+        x = batch["embeds"]
+    else:
+        x = embed_lookup(params["embed"], batch["tokens"], cfg)
     b, s = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
@@ -300,10 +310,10 @@ def _inputs_to_hidden(params, batch, cfg: ModelConfig):
 
 
 def forward_loss(params, batch, cfg: ModelConfig, run=None):
-    """The training objective: batch {"tokens" (B, S), "labels" (B, S),
-    optional "mask" (B, S), "positions"} -> (loss, metrics), loss = the
-    mean nll + the MoE load-balance loss, metrics ``nll``, ``accuracy``
-    and the three ``moe_*`` (f32 scalars)."""
+    """The training objective: batch {"tokens" (B, S) or "embeds" (B, S,
+    D), "labels" (B, S), optional "mask" (B, S), "positions"} -> (loss,
+    metrics), loss = the mean nll + the MoE load-balance loss, metrics
+    ``nll``, ``accuracy`` and the three ``moe_*`` (f32 scalars)."""
     x, positions = _inputs_to_hidden(params, batch, cfg)
     x, aux = _stack_forward(params, x, positions, cfg, run)
     nll, acc = delegated_softmax_xent(
@@ -314,7 +324,8 @@ def forward_loss(params, batch, cfg: ModelConfig, run=None):
 
 
 def prefill(params, batch, cfg: ModelConfig, run=None) -> torch.Tensor:
-    """batch {"tokens": (B, S)} -> last-position logits (B, V), f32."""
+    """batch {"tokens": (B, S)} (or {"embeds": (B, S, D), "positions"})
+    -> last-position logits (B, V), f32."""
     x, positions = _inputs_to_hidden(params, batch, cfg)
     x, _aux = _stack_forward(params, x, positions, cfg, run)
     return lm_logits(x[:, -1, :], unembed_weight(params["embed"], cfg), cfg)
@@ -371,10 +382,14 @@ def _apply_layer_decode(p, cache_l, x, pos, cfg: ModelConfig,
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig, run=None):
-    """One decode step.  tokens (B,) int; pos (B,).  Returns (logits
-    (B, V) f32, cache) — the cache updated in place."""
+    """One decode step.  tokens (B,) int, or for an embeds-input model
+    (B, D) embeddings; pos (B,).  Returns (logits (B, V) f32, cache) —
+    the cache updated in place."""
     descs, prefix_len, n_groups = _check(cfg, run)
-    x = embed_lookup(params["embed"], tokens[:, None], cfg)[:, 0]
+    if cfg.input_mode == "embeds":
+        x = tokens
+    else:
+        x = embed_lookup(params["embed"], tokens[:, None], cfg)[:, 0]
     for i in range(prefix_len):
         x, _ = _apply_layer_decode(params["prefix"][i], cache["prefix"][i],
                                    x, pos, cfg, _prefix_desc(cfg, i), run)

@@ -1,17 +1,22 @@
 """Checks of the training path that ``chip_smoke.py`` and the tests
 share: gradients compared leaf by leaf, the experts a MoE dispatch fed,
-and the gradient-combine battery (``tests/_md_battery.py``'s
-``grad_channel_combiner_int8`` case) on T stacked data shards."""
+one AdamW step held to the change its gradient predicts
+(``first_adamw_step``, ``descent_check``), and the gradient-combine
+battery (``tests/_md_battery.py``'s ``grad_channel_combiner_int8`` case)
+on T stacked data shards."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List
 
 import numpy as np
 import torch
 
+from ..models import model as M
 from ..models import moe as moe_mod
-from ..optim import AdamWConfig, GradChannelCombiner
-from ..optim.optimizer import tree_leaves
+from ..models.layers import dtype_of
+from ..optim import AdamWConfig, GradChannelCombiner, adamw_update, init_adamw
+from ..optim.optimizer import _blocks, tree_leaves
 
 
 def rel_rms(got, want) -> float:
@@ -73,6 +78,67 @@ def expert_grads_follow_rows(grad_w: torch.Tensor,
     return {"experts_fed": int(fed.sum()),
             "fed_without_grad": int((fed & (g == 0)).sum()),
             "grad_without_rows": int((~fed & (g > 0)).sum())}
+
+
+# ``descent_check``: the step is sized so that its first-order change of
+# the loss is about -DESCENT_DROP, far above an f32 loss's rounding
+# (~1e-6 of ~12) and small enough that the second-order term, which
+# grows as the step squared, stays within DESCENT_RTOL of it
+DESCENT_DROP, DESCENT_RTOL = 1e-2, 0.1
+
+
+def constant_lr(run, lr: float) -> AdamWConfig:
+    """``run``'s AdamW (weight decay, clip) at a constant ``lr``: no
+    warmup, and the cosine is 1 - 5e-8 at step 1."""
+    from ..launch.steps import adamw_config
+    return dataclasses.replace(adamw_config(run), learning_rate=lr,
+                               warmup_steps=0)
+
+
+@torch.no_grad()
+def first_adamw_step(params, grads, batch, cfg, run, lr: float,
+                     restore: bool = False) -> Dict:
+    """One AdamW step from zero moments at the constant ``lr`` on
+    ``grads`` (``params`` updated in place, and put back after it with
+    ``restore``).  Each weight moves by about ``lr`` against its
+    gradient's sign.  Returns ``loss``, ``forward_loss`` on ``batch``
+    after the step, and ``first_order``, sum(g * (p_after - p_before))
+    in f64: the change of the loss that the gradient predicts for the
+    step."""
+    leaves = tree_leaves(params)
+    before = [p.detach().clone() for p in leaves]
+    adamw_update(constant_lr(run, lr),
+                 init_adamw(params, dtype_of(run.opt_dtype)), params, grads)
+    first = torch.zeros((), dtype=torch.float64, device=leaves[0].device)
+    for p, b, g in zip(leaves, before, tree_leaves(grads)):
+        for pb, bb, gb in _blocks(p.detach(), b, g):
+            first += torch.sum((pb.double() - bb.double()) * gb.double())
+    loss, _ = M.forward_loss(params, batch, cfg, run)
+    out = {"loss": float(loss), "first_order": float(first), "lr": lr}
+    if restore:
+        for p, b in zip(leaves, before):
+            p.detach().copy_(b)
+    return out
+
+
+def descent_check(params, batch, cfg, run, drop: float = DESCENT_DROP,
+                  rtol: float = DESCENT_RTOL) -> Dict:
+    """A step at a size where the loss must fall, on any draw of the
+    weights: the gradient g at ``params`` sets lr = drop / ||g||_1, so
+    the first AdamW step from zero moments changes the loss by about
+    -drop to first order; the loss after it must be lower, and its
+    change within ``rtol`` of ``first_adamw_step``'s ``first_order``
+    (a wrong sign, a wrong gradient or an update that is not the one
+    applied shows as a rise or a change the gradient does not
+    predict).  ``params`` are updated in place."""
+    from ..launch.steps import value_and_grad
+    loss0, _, grads = value_and_grad(params, batch, cfg, run)
+    l1 = sum(float(g.double().abs().sum()) for g in tree_leaves(grads))
+    r = first_adamw_step(params, grads, batch, cfg, run, drop / l1)
+    change = r["loss"] - float(loss0)
+    ok = change < 0 and abs(change - r["first_order"]) \
+        <= rtol * abs(r["first_order"])
+    return dict(r, loss0=float(loss0), change=change, grad_l1=l1, ok=ok)
 
 
 COMBINER = dict(shards=8, chunk=64, steps=60, lr=0.05, n=128, d=64, k=32)

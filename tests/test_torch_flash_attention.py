@@ -126,11 +126,12 @@ def test_blockwise_matches_jax_and_plain(q_offset):
 @pytest.mark.parametrize("d,kernel,rows", [(32, "mma.sync", 64),
                                            (64, "wgmma", 128),
                                            (128, "wgmma", 128),
-                                           (192, "wgmma", 128)])
+                                           (192, "wgmma", 128),
+                                           (256, "wgmma", 128)])
 def test_flash_dispatch_by_head_dim(d, kernel, rows):
-    """D 64, 128 and 192 (every main path's) take the TMA + wgmma kernel
-    with 128-row query tiles; only D 32 keeps the mma.sync kernel; a head
-    dim neither takes is refused."""
+    """D 64, 128, 192 and 256 (every main path's) take the TMA + wgmma
+    kernel with 128-row query tiles; only D 32 keeps the mma.sync kernel;
+    a head dim neither takes is refused."""
     from repro_torch.kernels import flash_attention as fa
     assert fa.kernel_for(d) == kernel
     assert fa.query_tile(d) == rows

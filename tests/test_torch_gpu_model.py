@@ -75,6 +75,12 @@ def test_flash_kernel_matches_plain(cuda, shape, kw):
     (dict(b=2, hq=4, hkv=4, sq=256, skv=256, d=192), {}),          # MHA
     (dict(b=2, hq=16, hkv=16, sq=384, skv=384, d=192, bshd=True), {}),
     (dict(b=2, hq=4, hkv=4, sq=256, skv=640, d=192), dict(causal=False)),
+    # D 256 (gemma-7b): its 64-key KV tiles
+    (dict(b=1, hq=4, hkv=4, sq=333, skv=333, d=256), {}),
+    (dict(b=2, hq=4, hkv=4, sq=1, skv=1, d=256), {}),
+    (dict(b=1, hq=8, hkv=8, sq=300, skv=377, d=256), dict(q_offset=77)),
+    (dict(b=1, hq=8, hkv=1, sq=256, skv=256, d=256), {}),          # MQA
+    (dict(b=2, hq=4, hkv=4, sq=200, skv=640, d=256), dict(causal=False)),
 ])
 def test_flash_kernel_matches_plain_at_the_tile_edges(cuda, shape, kw):
     q, k, v = _qkv(cuda, seed=7, **shape)
@@ -83,6 +89,23 @@ def test_flash_kernel_matches_plain_at_the_tile_edges(cuda, shape, kw):
     want = tops.flash_attention(q, k, v, impl="ref", **kw)
     ok, err = flash_within(got, want, v)
     assert ok, err
+
+
+def test_flash_d256_at_the_gemma_prefill(cuda):
+    """gemma-7b's prefill attention (16 heads of 256, B 4 x 2048, the
+    model's (B, S, H, D) layout) within the tolerance, and the kernel as
+    built: the wgmma kernel, 192 KB of shared memory and over, its
+    registers read."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(cuda, 4, 16, 16, 2048, 2048, 256, seed=11, bshd=True)
+    got = tops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ok, err = flash_within(got, tops.flash_attention(q, k, v, impl="ref"),
+                           v)
+    assert ok, err
+    info = fa.kernel_info(256)
+    assert info["kernel"] == "wgmma" and info["registers"] > 0, info
+    assert info["smem"] >= 192 * 1024, info
 
 
 def test_flash_offset_equals_rows_of_full_launch(cuda):

@@ -19,8 +19,10 @@ functions, at SMOKE width (2 layers, d_model 64, 4 query / 2 KV heads of
     queue C); two serve runs are identical;
   * prefill and decode agree at the last prompt position, through
     ``testing/model.py`` as ``chip_smoke.py`` checks it on the card;
-  * ``convert`` round trip; unported archs and serve flags raise
-    ``NotImplementedError`` naming their ROADMAP item; entry points
+  * ``convert`` round trip; the archs that do not fit one card and the
+    unported serve flags raise ``NotImplementedError`` naming their
+    ROADMAP item; every ported arch's config is JAX's; the formerly
+    unported model paths take a train step; entry points
     default to ``cuda`` and raise without a card.
 
 Tolerances: f32 logits and caches 2e-5 (rtol and atol — the same math
@@ -402,9 +404,7 @@ def test_serve_session_ledger_and_meter(extra, t):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("arctic-480b", r"13\(b\)"), ("qwen3-4b", "queue A 13"),
-    ("jamba-v0.1-52b", "one card"), ("qwen2-vl-2b", "M-RoPE"),
-    ("gemma-7b", "queue A 13")])
+    ("arctic-480b", r"13\(b\)"), ("jamba-v0.1-52b", "one card")])
 def test_unported_archs_raise(arch, item):
     from repro_torch.configs.registry import get_arch, get_smoke_arch
     for get in (get_arch, get_smoke_arch):
@@ -412,13 +412,20 @@ def test_unported_archs_raise(arch, item):
             get(arch)
 
 
-def test_port_config_matches_jax():
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", [
+    "qwen2.5-3b", "deepseek-v2-lite-16b", "falcon-mamba-7b", "qwen3-4b",
+    "gemma-7b", "qwen1.5-32b", "qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_port_config_matches_jax(arch, smoke):
+    """Every ported architecture's config, full and SMOKE, field by field
+    (each of the port's fields is JAX's; the MoE and Mamba sub-configs
+    compared as dicts)."""
     import dataclasses
     from repro.configs.registry import ARCHS, SMOKE_ARCHS
     from repro_torch.configs.registry import get_arch, get_smoke_arch
-    for jcfg, tcfg in ((ARCHS["qwen2.5-3b"], get_arch("qwen2.5-3b")),
-                       (SMOKE_ARCHS["qwen2.5-3b"],
-                        get_smoke_arch("qwen2.5-3b"))):
+    pairs = ((SMOKE_ARCHS[arch], get_smoke_arch(arch)) if smoke
+             else (ARCHS[arch], get_arch(arch)),)
+    for jcfg, tcfg in pairs:
         for f in dataclasses.fields(tcfg):
             a, b = getattr(tcfg, f.name), getattr(jcfg, f.name)
             if f.name in ("moe", "mamba"):   # each package's own classes
@@ -431,28 +438,40 @@ def test_port_config_matches_jax():
 
 
 def test_unported_model_paths_raise():
-    """Embedding inputs and the encoder-decoder still raise, naming their
-    item; a train cell (13(d), ported) builds and takes a step."""
+    """The model paths that raised before they were ported — embedding
+    inputs (with M-RoPE) and the encoder-decoder — build, and their train
+    cells take a step on a batch of ``model.input_specs``; a train cell of the
+    token model too."""
     import dataclasses
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_smoke_arch
     from repro_torch.launch.steps import build_cell
     from repro_torch.models import model as TM
     from repro_torch.optim import init_adamw
-    tcfg, run = _port_run(1)
-    for kw, item in ((dict(input_mode="embeds"), "embedding inputs"),
-                     (dict(is_encoder_decoder=True), "encoder-decoder")):
-        with pytest.raises(NotImplementedError, match=item):
-            TM.init_params(tcfg.with_overrides(**kw), run, device="cpu")
+    _, run = _port_run(1)
     shape = ShapeConfig("t", 8, 2, "train")
-    plan = build_cell(tcfg, shape, dataclasses.replace(run, shape=shape))
-    params = TM.init_params(tcfg, plan.run, device="cpu")
-    before = params["embed"]["embedding"].clone()
-    toks = torch.as_tensor(_tokens(tcfg.vocab_size)[:2, :9])
-    params, opt, metrics = plan.step_fn(
-        params, init_adamw(params),
-        {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
-    assert np.isfinite(float(metrics["loss"])) and int(opt.step) == 1
-    assert not torch.equal(before, params["embed"]["embedding"])
+    rng = np.random.default_rng(4)
+    for arch in ("qwen2.5-3b", "qwen2-vl-2b", "seamless-m4t-large-v2"):
+        tcfg = get_smoke_arch(arch)
+        plan = build_cell(tcfg, shape, dataclasses.replace(
+            run, model=tcfg, shape=shape))
+        params = TM.init_params(tcfg, plan.run, device="cpu")
+        before = params["final_norm"]["scale"].clone()
+        batch = {}
+        for name, (shp, dtype) in TM.input_specs(tcfg, shape,
+                                                 plan.run).items():
+            if name == "positions":
+                batch[name] = torch.arange(8, dtype=dtype).expand(shp)
+            elif dtype.is_floating_point:
+                batch[name] = torch.as_tensor(
+                    rng.normal(size=shp), dtype=dtype) * 0.02
+            else:
+                batch[name] = torch.as_tensor(
+                    rng.integers(0, tcfg.vocab_size, shp), dtype=dtype)
+        params, opt, metrics = plan.step_fn(params, init_adamw(params),
+                                            batch)
+        assert np.isfinite(float(metrics["loss"])) and int(opt.step) == 1
+        assert not torch.equal(before, params["final_norm"]["scale"])
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -181,6 +181,46 @@ def test_adamw_blocks_give_the_same_update(monkeypatch):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_descent_check_holds_on_any_draw(seed):
+    """``testing.train.descent_check`` (chip_smoke's phase-10 gate) on the
+    qwen2.5-3b SMOKE config in f32 from three weight seeds: a step sized
+    for a first-order change of -DESCENT_DROP lowers the loss by that
+    change within DESCENT_RTOL; the same step turned round (a negative
+    drop) raises it and fails the check; ``first_adamw_step`` with
+    ``restore`` puts the weights back."""
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_smoke_arch
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import model as TM
+    from repro_torch.optim.optimizer import tree_leaves
+    from repro_torch.testing.train import (DESCENT_DROP, descent_check,
+                                           first_adamw_step)
+    cfg = get_smoke_arch("qwen2.5-3b")
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 2, "train"),
+                    mesh=MeshConfig((1, 1), ("data", "model")),
+                    param_dtype="float32", activation_dtype="float32",
+                    remat="none", seed=seed)
+    batch = {k: torch.as_tensor(v) for k, v in TokenPipeline(
+        DataConfig(vocab_size=cfg.vocab_size), cfg, run.shape)
+        .batch_at(seed).items()}
+    params = TM.init_params(cfg, run, device="cpu")
+    before = [p.detach().clone() for p in tree_leaves(params)]
+    _, _, grads = value_and_grad(params, batch, cfg, run)
+    r = first_adamw_step(params, grads, batch, cfg, run, 1e-3, restore=True)
+    assert np.isfinite(r["loss"]) and r["first_order"] < 0
+    for p, b in zip(tree_leaves(params), before):
+        assert torch.equal(p, b)
+    up = descent_check(params, batch, cfg, run, drop=-DESCENT_DROP)
+    assert up["change"] > 0 and not up["ok"]
+    for p, b in zip(tree_leaves(params), before):
+        p.detach().copy_(b)
+    down = descent_check(params, batch, cfg, run)
+    assert down["ok"] and down["change"] < 0
+    assert abs(down["first_order"] + DESCENT_DROP) < 0.01 * DESCENT_DROP
+
+
 def test_int8_quantize_bit_for_bit():
     import jax.numpy as jnp
     from repro.optim import int8_dequantize as jdq, int8_quantize as jq
