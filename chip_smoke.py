@@ -129,17 +129,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      3.40 B random parameters drawn on the card): prefill_step at B 4 x
      2048 tokens through the flash kernel (a check run holding each of
      its 36 launches against the plain version, then timed runs), then
-     repro_torch.launch.serve (8 requests, 128 prompt tokens teacher-forced
-     then 128 generated, the KV cache's sequence split over 4 stacked
+     repro_torch.launch.serve (8 requests, 64 prompt tokens teacher-forced
+     then 64 generated, the KV cache's sequence split over 4 stacked
      trustees), then the same serve with --session --stream-depth 2
      --serve-impl pallas (each generated token's ledger and meter ADDs in
      one fused round through the CUDA serve kernels: tokens == the plain
-     serve's, the ledger 128 a request, the meter summing 8 x 128, every
+     serve's, the ledger 64 a request, the meter summing 8 x 64, every
      wave fused), the same session serve with --delegation-mode
      dedicated (the ledger and meter on the last 2 of 4 shards) and with
      --drain-rounds 3 (a one-row block drained over up to 3 rounds, inside
      the driver's step(sync=False)), each:
-     tokens == the plain serve's, ledger 128 a request, residual 0; then
+     tokens == the plain serve's, ledger 64 a request, residual 0; then
      the prefill's last-position logits on the serve's prompt against the
      serve's decode logits at that position;
   7. deepseek serve — the deepseek-v2-lite-16b MoE path at full width
@@ -231,6 +231,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and serve tokens/s and peak allocated GB (less what the phase found
      allocated at its start); then the flash kernel
      timed at each one's prefill shape as phase 9 times it;
+ 12. the data axis (run after phase 11, before phase 9) — (a) kv_subaxis:
+     a DelegatedKVStore over the "model" axis of the 2x4 stacked mesh (4
+     trustees, kv_paper's 1,000,000 x 4 f32 table in 2 replicas), 20
+     kv_paper rounds (4096 requests a data row, each row its own Zipf(1)
+     stream, 5% PUT) and one kv_mixed round (32,768 rows a data row):
+     the kernel path (every pack launch == plain) == the ref path == a
+     sequential oracle fed that data row's requests, every response and
+     each replica bit for bit, the read-back == replica 0; ops/s beside
+     a whole-mesh store's on the same rows (a reading); (b)
+     deepseek_dp_serve: deepseek-v2-lite-16b at full width and depth on
+     the (2, 4) mesh (each data row's tokens delegated to its own 4
+     expert trustees): a prefill_step check run at B 4 x 2048 (every
+     flash, pack and grouped-matmul launch against the plain version),
+     serve.main --mesh-data 2 --mesh-model 4 over 8 x (64 + 64), again
+     with --session (tokens equal run to run, the ledger 64 a request,
+     the meter's 8 keys summing to 8 x 64), the prefill's last-position
+     logits on the serve's prompt within the MoE bound of the decode's;
+     (c) deepseek_dp_train: its train cell at full width, 2 layers, f32,
+     B 4 x 256 on the (2, 4) mesh, value and grad on the card against the
+     port's CPU path (loss 1e-5, gradients 1e-4 relative RMS, the MoE's
+     drops equal), 3 steps of finite loss, then launch.train --mesh-data
+     2 --mesh-model 4 --n-layers 2 for 3 steps; no kernel launched;
  10. qwen train — (a) repro_torch.launch.train on qwen2.5-3b at full width
      and depth (bf16 weights, f32 AdamW moments, remat "full", the
      synthetic stream, B 4 x 1024, 8 steps; weights drawn on the card
@@ -272,7 +294,8 @@ forms it, exact.
 
 Launch counters are zeroed just before each main path (phases 3, 4,
 4a-4e, the timed run of 5, each timed prefill of 6, 7, 8 and 11, the
-session serves of 6, the serves of 7, 8 and 11, and phase 10's trainer)
+session serves of 6, the serves of 7, 8 and 11, each of 12 (a)-(c), and
+phase 10's trainer)
 and read just after; every kernel of a path must have launched there
 (phase 10's: none).  "[time]" lines give the wall time through each
 phase.  The line before the last is {"kernels": [...]};
@@ -3036,11 +3059,12 @@ def phase_paged(torch, dev, gpu, report, errs):
 # phase 6: the qwen2.5-3b serve path at full width
 # ---------------------------------------------------------------------------
 
-# prefill_step at B 4 x 2048 tokens; serve.main over 8 requests, 128
-# prompt tokens teacher-forced and 128 generated, the KV cache's sequence
-# split over 4 stacked trustees (36 x 2 x 8 x 2 x 256 x 128 bf16, 37.7 MB)
+# prefill_step at B 4 x 2048 tokens; serve.main over 8 requests, 64
+# prompt tokens teacher-forced and 64 generated (128 + 128 before phase 12
+# needed the time), the KV cache's sequence split over 4 stacked trustees
+# (36 x 2 x 8 x 2 x 128 x 128 bf16, 18.9 MB)
 QWEN_PREFILL = dict(batch=4, seq=2048)
-QWEN_SERVE = dict(batch=8, prompt_len=128, gen=128, mesh_model=4)
+QWEN_SERVE = dict(batch=8, prompt_len=64, gen=64, mesh_model=4)
 QWEN_TIMED_RUNS = 3
 QWEN_CHAOS = dict(wave=40, snap_every=8)   # the chaos session serve
 
@@ -3059,7 +3083,7 @@ def phase_qwen(torch, dev, gpu, report, errs):
     through the flash kernel — a check run holding every layer's kernel
     call against the plain version, then timed runs, each with the
     counters zeroed just before it and 36 flash launches read just after;
-    (b) serve.main, 8 x (128 + 128) tokens over 4 trustees; (c) the
+    (b) serve.main, 8 x (64 + 64) tokens over 4 trustees; (c) the
     prefill's last-position logits on the serve's prompt against the
     serve's decode logits at that position."""
     from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
@@ -5038,6 +5062,445 @@ def phase_zoo(torch, dev, gpu, report, errs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the data axis — a sub-axis trustee group, the deepseek MoE
+# delegating per data row, serve and train on the (2, 4) stacked mesh
+# ---------------------------------------------------------------------------
+
+# (a) kv_subaxis: kv_paper's table over the 4 "model" trustees of the 2x4
+# mesh, one replica a data row; kv_paper's 8192 requests a round (4096 a
+# data row, each row its own Zipf(1) stream, 5% PUT), then one kv_mixed
+# round (65,536 rows, 32,768 a data row)
+KVSUB_ROUNDS = 20
+# (b) deepseek-v2-lite-16b on the (2, 4) mesh at full width and depth
+DP_MESH = (2, 4)
+DP_PREFILL = dict(batch=4, seq=2048)
+DP_SERVE = dict(batch=8, prompt_len=64, gen=64)
+# (c) its trainer at full width, 2 layers, f32
+DP_TRAIN = dict(batch=4, seq=256, steps=3, n_layers=2)
+
+
+def dp_serve_argv():
+    q = DP_SERVE
+    return ["--arch", DS_ARCH, "--batch", str(q["batch"]), "--prompt-len",
+            str(q["prompt_len"]), "--gen", str(q["gen"]), "--mesh-data",
+            str(DP_MESH[0]), "--mesh-model", str(DP_MESH[1])]
+
+
+def kvsub_paper_round(rng, rows):
+    """One kv_paper round of one data row: ``rows`` Zipf(1) requests, 5%
+    PUT, as a GET batch and a PUT batch (inactive rows keyed -1)."""
+    from repro_torch.core.routing import sample_keys
+    keys = sample_keys(rng, N_KEYS, rows, "zipf").astype(np.int32)
+    is_put = rng.random(rows) < 0.05
+    vals = rng.integers(0, 8, (rows, VW)).astype(np.float32)
+    return [("get", np.where(is_put, -1, keys).astype(np.int32), vals, None),
+            ("put", np.where(is_put, keys, -1).astype(np.int32), vals, None)]
+
+
+def kvsub_mixed_round(rng, ref, rows):
+    """One kv_mixed round of one data row: ``rows`` rows split
+    GET/PUT/ADD/CAS 40/20/20/20, Zipf(1); CAS expects hit the row's table
+    half the time."""
+    from repro_torch.core.routing import sample_keys
+    out, left = [], rows
+    for i, (op, share) in enumerate(MIXED_SHARES):
+        n = left if i == len(MIXED_SHARES) - 1 else int(rows * share)
+        left -= n
+        keys = sample_keys(rng, N_KEYS, n, "zipf").astype(np.int32)
+        vals = rng.integers(0, 8, (n, VW)).astype(np.float32)
+        expect = np.where(rng.random(n)[:, None] < 0.5, ref.table[keys],
+                          rng.integers(0, 8, (n, VW))).astype(np.float32)
+        out.append((op, keys, vals, expect))
+    return out
+
+
+def phase_kv_subaxis(torch, dev, gpu, report):
+    """(a) A DelegatedKVStore over the "model" axis of the 2x4 stacked mesh
+    (4 trustees, the 1,000,000 x 4 f32 table in 2 replicas of 16 MB), the
+    local shortcut on, capacity the rows of a kv_mixed client shard: 20
+    kv_paper rounds and one kv_mixed round, each data row's batches its
+    own stream.  Gates: the kernel path (every pack launch held exactly
+    against its plain version) == the ref path == a sequential oracle fed
+    that data row's requests, every response and each replica bit for
+    bit; the read-back (dump) == replica 0.  ops/s of the kernel path
+    beside a whole-mesh store's (8 trustees, kv_paper's layout) on the
+    same rows (a reading)."""
+    from repro_torch.core import (DelegatedKVStore, SequentialKVReference,
+                                  StackedMesh, TrustSession)
+    from repro_torch.testing import dataaxis as da
+    from repro_torch.testing.model import PackCheck
+    rng = np.random.default_rng(2612)
+    init = rng.integers(0, 8, (N_KEYS, VW)).astype(np.float32)
+    n_rows, t = DP_MESH
+    rows = 8192 // n_rows
+    paper = [[kvsub_paper_round(rng, rows) for _ in range(n_rows)]
+             for _ in range(KVSUB_ROUNDS)]
+    refs = [SequentialKVReference(N_KEYS, VW) for _ in range(n_rows)]
+    for ref in refs:
+        ref.prefill(init)
+    mesh = StackedMesh(DP_MESH, device=dev)
+
+    def store(label, axis, impl, cap):
+        sess = TrustSession()
+        st = DelegatedKVStore(mesh, N_KEYS, VW, axis=axis, capacity=cap,
+                              pack_impl=impl, serve_impl=impl, session=sess,
+                              name=f"kv_subaxis_{label}")
+        st.prefill(init)
+        return st, sess
+    # the gated stores: a client shard's rows a pair (kv_mixed's, the
+    # larger), no overflow
+    stores = {impl: store(impl, "model", impl,
+                          max(MIXED_ROWS, 16384) // (n_rows * t))
+              for impl in ("kernel", "ref")}
+    require(stores["kernel"][0].trust.state()["table"].shape[0] == 8
+            and stores["kernel"][0].t == t,
+            "kv_subaxis: the table is not 4 trustees x 2 replicas")
+
+    def round_(label, batches, check=None):
+        st, sess = stores[label]
+        futs = da.submit(torch, dev, st, batches)
+        stats = sess.step()
+        check_stats(stats, st.trust.name)
+        require(stats[st.trust.name]["dropped"] == 0,
+                f"kv_subaxis {label}: rows overflowed")
+        return da.responses(futs, batches)
+
+    with PackCheck() as pchk:
+        for i, row_batches in enumerate(paper):
+            batches = da.fused_round(row_batches, t)
+            got = round_("kernel", batches)
+            plain = round_("ref", batches)
+            want = [r for ref, rb in zip(refs, row_batches)
+                    for r in da.row_oracle(ref, rb, True, t)]
+            for a, b, w in zip(got, plain, want):
+                require(da.same(a, b) and da.same(a, w),
+                        f"kv_subaxis paper round {i}: a response differs "
+                        f"(kernel / ref / the data row's oracle)")
+        row_batches = [kvsub_mixed_round(rng, ref, MIXED_ROWS // n_rows)
+                       for ref in refs]
+        batches = da.fused_round(row_batches, t)
+        got = round_("kernel", batches)
+        plain = round_("ref", batches)
+        want = [r for ref, rb in zip(refs, row_batches)
+                for r in da.row_oracle(ref, rb, True, t)]
+        for a, b, w in zip(got, plain, want):
+            require(da.same(a, b) and da.same(a, w),
+                    "kv_subaxis mixed round: a response differs (kernel / "
+                    "ref / the data row's oracle)")
+    pk = pchk.summary()
+    require(pk["pack_calls"] > 0 and pk["pack_calls_out_of_tolerance"] == 0,
+            f"kv_subaxis: pack launches against the plain version: {pk}")
+    for label in ("kernel", "ref"):
+        st = stores[label][0]
+        reps = da.replica_tables(st)
+        for r, (rep, ref) in enumerate(zip(reps, refs)):
+            require(np.array_equal(rep, ref.dump()), f"kv_subaxis {label}: "
+                    f"replica {r} differs from data row {r}'s oracle")
+        require(np.array_equal(st.dump(), reps[0]), f"kv_subaxis {label}: "
+                f"the read-back is not replica 0")
+        require(not np.array_equal(reps[0], reps[1]),
+                "kv_subaxis: the two replicas are equal (the rows' streams "
+                "did not reach their own replicas)")
+    say(f"[kv_subaxis] 4 trustees x 2 replicas of {N_KEYS} x {VW} f32: "
+        f"{KVSUB_ROUNDS} kv_paper rounds and a kv_mixed round of "
+        f"{MIXED_ROWS} rows, each data row its own stream: kernel == ref == "
+        f"each data row's oracle bit for bit (every response, each "
+        f"replica), dump == replica 0; {pk['pack_calls']} pack launches at "
+        f"{pk['pack_shapes']} == plain (exact)")
+
+    # the same kv_paper rows on a sub-axis store and on a whole-mesh one,
+    # capacity a kv_paper client shard's rows, as phase 3 (b) sizes it
+    cap = 2 * rows // t
+    stores = {"sub": store("sub", "model", "kernel", cap),
+              "whole": store("whole", ("data", "model"), "kernel", cap)}
+    for label in ("sub", "whole", "whole", "sub"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for row_batches in paper:
+            round_(label, da.fused_round(row_batches, t))
+        torch.cuda.synchronize()
+        report.setdefault(f"kv_subaxis_{label}_ops_s", []).append(
+            8192 * KVSUB_ROUNDS / (time.perf_counter() - t0))
+    sub, whole = (report[f"kv_subaxis_{k}_ops_s"] for k in ("sub",
+                                                           "whole"))
+    say(f"[kv_subaxis] {gpu} | kv_paper rows ({KVSUB_ROUNDS} rounds of "
+        f"8192, shortcut, capacity {cap}): 4 trustees x 2 replicas "
+        f"{', '.join(f'{x:.1f}' for x in sub)} ops/s; the whole mesh (8 "
+        f"trustees) {', '.join(f'{x:.1f}' for x in whole)} ops/s (a reading)")
+
+
+def phase_dp_serve(torch, dev, gpu, report, errs):
+    """(b) deepseek-v2-lite-16b at full width and depth on the (2, 4)
+    mesh, each data row's tokens delegated to its 4 trustees: a
+    prefill_step check run at B 4 x 2048 (2 sequences a data row; every
+    flash, pack and grouped-matmul launch held against the plain version),
+    serve.main --mesh-data 2 --mesh-model 4 over 8 x (64 + 64) (the pack
+    and grouped-matmul kernels launched), again with --session (the tokens
+    equal run to run, the ledger 64 a request, the meter's 8 keys summing
+    to 8 x 64), and the prefill's last-position logits on the serve's
+    prompt against the serve's decode logits there (the MoE bound).
+    Returns the launches of the check run and the serves."""
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    from repro_torch.testing.model import (DecodeLogits, FlashCheck,
+                                           GmmCheck, MoEStats, PackCheck,
+                                           logits_agreement)
+    cfg = get_arch(DS_ARCH)
+    n_moe = cfg.n_layers - 1
+    b, s = DP_PREFILL["batch"], DP_PREFILL["seq"]
+    smesh = make_local_mesh(*DP_MESH, device=dev)
+    run = RunConfig(model=cfg, shape=ShapeConfig("prefill", s, b, "prefill"),
+                    mesh=MeshConfig(DP_MESH, ("data", "model")),
+                    remat="none", use_pallas=True)
+    launches = {k: 0 for k in SOURCES}
+    params = M.init_params(cfg, run, dev)
+    plan = build_cell(cfg, run.shape, run, smesh)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    kops.reset_launch_counts()
+    with FlashCheck() as fchk, GmmCheck() as gchk, PackCheck() as pchk, \
+            MoEStats() as moe:
+        logits = plan.step_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    f, g, pk, m = fchk.summary(), gchk.summary(), pchk.summary(), \
+        moe.summary()
+    for k, want, checked in (("flash_attention", cfg.n_layers,
+                              f["flash_calls"]),
+                             ("grouped_matmul", 3 * n_moe, g["gmm_calls"]),
+                             ("delegation_pack", 2 * n_moe,
+                              pk["pack_calls"])):
+        require(counts[k] == want and checked == want,
+                f"deepseek_dp prefill check run: {counts[k]} {k} launches, "
+                f"{checked} checked, want {want}")
+    require(f["flash_calls_out_of_tolerance"] == 0
+            and g["gmm_calls_out_of_tolerance"] == 0
+            and pk["pack_calls_out_of_tolerance"] == 0,
+            f"deepseek_dp prefill: kernel calls beyond the tolerance: "
+            f"{f} {g} {pk}")
+    require(tuple(logits.shape) == (b, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            "deepseek_dp prefill: logits not finite")
+    errs["flash_attention"] = max(errs.get("flash_attention", 0.0),
+                                  f["flash_max_abs_err"])
+    errs["grouped_matmul"] = max(errs.get("grouped_matmul", 0.0),
+                                 g["gmm_max_abs_err"])
+    for k, v in counts.items():
+        launches[k] += v
+    say(f"[deepseek_dp check] prefill B {b} x {s} on the {DP_MESH} mesh "
+        f"({b // DP_MESH[0]} sequences a data row): {f['flash_calls']} "
+        f"flash (D 192), {g['gmm_calls']} grouped-matmul launches at "
+        f"{g['gmm_shapes']} and {pk['pack_calls']} packs at "
+        f"{pk['pack_shapes']}, every call == plain (max abs err flash "
+        f"{f['flash_max_abs_err']:.3g}, gmm {g['gmm_max_abs_err']:.3g}, "
+        f"pack exact); MoE dropped fraction mean "
+        f"{m['moe_dropped_frac_mean']:.6f}, max load {m['moe_max_load']:.0f}"
+        f" rows; launches {json.dumps(counts)}")
+    del params, logits, plan
+    torch.cuda.empty_cache()
+
+    q = DP_SERVE
+    pl, g_len, bs = q["prompt_len"], q["gen"], q["batch"]
+    stats = {}
+    kops.reset_launch_counts()
+    with DecodeLogits(pos=pl - 1) as rec, MoEStats() as dm:
+        out = serve.main(dp_serve_argv(), stats=stats)
+    counts = kops.launch_counts()
+    steps = stats["steps"]
+    require(counts["grouped_matmul"] == 3 * n_moe * steps
+            and counts["delegation_pack"] > 0,
+            f"deepseek_dp serve: launches {counts}, want "
+            f"{3 * n_moe * steps} grouped-matmul")
+    require(out.shape == (bs, g_len) and int(out.min()) >= 0
+            and int(out.max()) < cfg.vocab_size,
+            f"deepseek_dp serve tokens: {out.shape}")
+    for k, v in counts.items():
+        launches[k] += v
+    report["deepseek_dp_serve"] = stats
+    dms = dm.summary()
+    say(f"[deepseek_dp] {gpu} | serve --mesh-data {DP_MESH[0]} "
+        f"--mesh-model {DP_MESH[1]}, {bs} x ({pl} + {g_len}): {steps} steps "
+        f"in {stats['seconds']:.3f} s, {stats['ms_per_step']:.3f} ms/step, "
+        f"{stats['tokens_per_s']:.1f} tokens/s; MoE dropped fraction mean "
+        f"{dms['moe_dropped_frac_mean']:.6f}; launches {json.dumps(counts)}")
+    sstats = {}
+    kops.reset_launch_counts()
+    sout = serve.main(dp_serve_argv() + ["--session"], stats=sstats)
+    counts = kops.launch_counts()
+    require(np.array_equal(sout, out), "deepseek_dp: the --session serve's "
+            "tokens differ from the serve's (run to run)")
+    require(sstats["ledger"].tolist() == [g_len] * bs,
+            f"deepseek_dp session: ledger {sstats['ledger'].tolist()}")
+    require(sstats["meter"].shape == (DP_MESH[0] * DP_MESH[1],)
+            and int(sstats["meter"].sum()) == bs * g_len,
+            f"deepseek_dp session: meter {sstats['meter'].tolist()}")
+    for k, v in counts.items():
+        launches[k] += v
+    report["deepseek_dp_session_serve"] = sstats
+    say(f"[deepseek_dp] {gpu} | serve --session: tokens == the serve's, "
+        f"ledger {g_len} for each of {bs} requests, meter over "
+        f"{DP_MESH[0] * DP_MESH[1]} shards {sstats['meter'].tolist()}; "
+        f"{sstats['tokens_per_s']:.1f} tokens/s")
+
+    params = M.init_params(cfg, run, dev)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(pl, bs)).T
+    pplan = build_cell(cfg, ShapeConfig("prompt", pl, bs, "prefill"), run,
+                       smesh)
+    pre = pplan.step_fn(params, {"tokens": torch.as_tensor(prompt,
+                                                           device=dev)})
+    agree = logits_agreement(pre, rec.logits, torch.bfloat16, cfg)
+    require(agree["ok"], f"deepseek_dp prefill vs serve decode logits at "
+            f"position {pl - 1}: {agree}")
+    report["deepseek_dp_agreement"] = agree
+    say(f"[deepseek_dp check] prefill logits at position {pl - 1} on the "
+        f"{DP_MESH} mesh vs the serve's decode logits there: relative RMS "
+        f"{agree['rel_rms']:.4g} (<= {agree['rtol']}), argmax agrees on "
+        f"{agree['argmax_agree'] * 100:.1f}% of rows")
+    del params, pre
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dp_train(torch, dev, gpu, report):
+    """(c) deepseek-v2-lite-16b's train cell on the (2, 4) mesh at full
+    width and 2 layers in f32, B 4 x 256: value and grad on the card
+    against the port's CPU path (loss 1e-5 relative, each gradient leaf
+    1e-4 relative RMS, the MoE's drops equal), 3 steps of the cell with
+    finite losses, then launch.train --mesh-data 2 --mesh-model 4
+    --n-layers 2 for 3 steps (bf16, finite losses).  Returns the launches
+    (none expected)."""
+    import math
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_cell, value_and_grad
+    from repro_torch.models import model as M
+    from repro_torch.optim import init_adamw
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.testing.train import worst_leaf
+    q = DP_TRAIN
+    cfg = get_arch(DS_ARCH).with_overrides(n_layers=q["n_layers"])
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", q["seq"], q["batch"],
+                                                 "train"),
+                    mesh=MeshConfig(DP_MESH, ("data", "model")),
+                    param_dtype="float32", activation_dtype="float32",
+                    remat="none", zero_sharding=True)
+    kops.reset_launch_counts()
+    plan = build_cell(cfg, run.shape, run, make_local_mesh(*DP_MESH, dev))
+    params = M.init_params(cfg, run, dev)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size), cfg,
+                         run.shape)
+    host = pipe.batch_at(0)
+    tc = time.perf_counter()
+    loss_g, met_g, grads_g = value_and_grad(
+        params, {k: torch.as_tensor(v, device=dev) for k, v in host.items()},
+        cfg, run)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - tc
+    tc = time.perf_counter()
+    cpu_params = tree_map(lambda p: p.detach().cpu(), params)
+    loss_c, met_c, grads_c = value_and_grad(
+        cpu_params, {k: torch.as_tensor(v) for k, v in host.items()}, cfg,
+        run)
+    t_cpu = time.perf_counter() - tc
+    rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    worst, i = worst_leaf(grads_g, tree_leaves(grads_c))
+    drops = (float(met_g["moe_dropped_frac"]),
+             float(met_c["moe_dropped_frac"]))
+    line = (f"[deepseek_dp train] {gpu} | full width, {q['n_layers']} "
+            f"layers, f32, B {q['batch']} x {q['seq']} on the {DP_MESH} mesh:"
+            f" loss card {loss_g.item():.7f} CPU {loss_c.item():.7f} "
+            f"(relative {rel:.2e}), worst gradient leaf {worst:.2e} "
+            f"relative RMS (leaf {i}), MoE dropped fraction card / CPU "
+            f"{drops[0]:.6f} / {drops[1]:.6f}; value and grad {t_card:.1f} s"
+            f" on the card, {t_cpu:.1f} s on the CPU")
+    require(rel < TRAIN_LOSS_RTOL and worst < TRAIN_GRAD_RMS
+            and drops[0] == drops[1],
+            f"deepseek_dp train: the card disagrees with the CPU: {line}")
+    say(line)
+    del cpu_params, grads_c, grads_g
+    opt = init_adamw(params)
+    losses = []
+    for step in range(q["steps"]):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in pipe.batch_at(step).items()}
+        params, opt, m = plan.step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+    require(all(math.isfinite(x) for x in losses),
+            f"deepseek_dp train: losses {losses}")
+    del params, opt
+    torch.cuda.empty_cache()
+    stats = {}
+    hist = train.main(["--arch", DS_ARCH, "--mesh-data", str(DP_MESH[0]),
+                       "--mesh-model", str(DP_MESH[1]), "--n-layers",
+                       str(q["n_layers"]), "--steps", str(q["steps"]),
+                       "--batch", str(q["batch"]), "--seq", str(q["seq"]),
+                       "--log-every", "1"], stats=stats)
+    require(len(hist) == q["steps"]
+            and all(math.isfinite(l) for _, l in hist),
+            f"deepseek_dp launch.train: history {hist}")
+    counts = kops.launch_counts()
+    report["deepseek_dp_train"] = dict(
+        f32_losses=losses, bf16_losses=[l for _, l in hist],
+        step_s=stats["step_s"])
+    say(f"[deepseek_dp train] {gpu} | the cell's {q['steps']} f32 steps: "
+        f"losses {[round(x, 5) for x in losses]}; launch.train --mesh-data "
+        f"{DP_MESH[0]} --mesh-model {DP_MESH[1]} --n-layers {q['n_layers']}"
+        f" (bf16): losses {[round(l, 5) for _, l in hist]}, steps "
+        f"{[round(x * 1e3, 1) for x in stats['step_s']]} ms")
+    del stats
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_data_axis(torch, dev, gpu, report, errs):
+    """Phase 12, each path with the counters zeroed just before it and
+    read just after: (a) kv_subaxis, (b) deepseek_dp_serve, (c)
+    deepseek_dp_train.  Returns the launches of (a) and (b)."""
+    from repro_torch.core import meshctx
+    from repro_torch.kernels import ops as kops
+    launches = {k: 0 for k in SOURCES}
+    with meshctx.kept_context():
+        t0 = time.perf_counter()
+        kops.reset_launch_counts()
+        phase_kv_subaxis(torch, dev, gpu, report)
+        counts = kops.launch_counts()
+        say(f"[main path] kv_subaxis launches: {json.dumps(counts)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for k in KV_KERNELS:
+            require(counts[k] > 0, f"kernel {k} was not launched on the "
+                    f"kv_subaxis main path")
+        for k, v in counts.items():
+            launches[k] += v
+        t0 = time.perf_counter()
+        counts = phase_dp_serve(torch, dev, gpu, report, errs)
+        say(f"[main path] deepseek_dp_serve launches: {json.dumps(counts)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for k in ("delegation_pack", "grouped_matmul", "flash_attention"):
+            require(counts[k] > 0, f"kernel {k} was not launched on the "
+                    f"deepseek_dp_serve main path")
+        for k, v in counts.items():
+            launches[k] += v
+        t0 = time.perf_counter()
+        counts = phase_dp_train(torch, dev, gpu, report)
+        say(f"[main path] deepseek_dp_train launches: {json.dumps(counts)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        require(not any(counts.values()), "the data-axis training path "
+                "launched a kernel: no kernel has a backward")
+    return launches
+
+
 def main_shapes(n_dev):
     """The pack and serve kernels' shapes on the main paths' rounds:
     kv_paper (a fused GET + PUT batch a client) and kv_mixed."""
@@ -5098,7 +5561,7 @@ def kernel_info(torch, n_dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,11,9,10",
+                    default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,11,12,9,10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -5254,10 +5717,16 @@ def main(argv=None):
                 f"{report[arch + '_serve']['tokens_per_s']:.1f}; peak "
                 f"allocated {report[arch + '_peak_gb']:.2f} GB")
         say(f"[time] through phase 11: {time.perf_counter() - started:.1f} s")
+    if "12" in phases:
+        t0 = time.perf_counter()
+        for k, v in phase_data_axis(torch, dev, gpu, report, errs).items():
+            launches[k] += v
+        say(f"[time] phase 12: {time.perf_counter() - t0:.1f} s; through "
+            f"phase 12: {time.perf_counter() - started:.1f} s")
     per_round["launches"] = launches
-    say(f"[main path] kernel launches over phases 3-8 and 11 (one prefill "
-        f"call in phases 6, 7, 8 and each of 11's; 4a, 4b and the session "
-        f"serve included): {json.dumps(launches)}")
+    say(f"[main path] kernel launches over phases 3-8, 11 and 12 (one "
+        f"prefill call in phases 6, 7, 8 and each of 11's; 4a, 4b and the "
+        f"session serve included): {json.dumps(launches)}")
 
     if "9" in phases:
         require(phases >= set("2345678"),

@@ -124,14 +124,33 @@ class ShapeConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The JAX mesh the port stands for: on one card its ``model`` axis is
-    the number of stacked trustee shards of the decode KV cache."""
+    """The JAX mesh the port stands for, stacked on one card: its
+    ``model`` axis is the trustee axis (the decode KV cache's sequence
+    shards, the MoE's experts, the cross-entropy's vocab shards) and its
+    ``pod`` / ``data`` axes shard the batch (each data row runs its own
+    MoE round over the model-axis trustees)."""
     shape: Tuple[int, ...] = (1, 1)
     axes: Tuple[str, ...] = ("data", "model")
 
     @property
+    def trustee_axis(self) -> str:
+        return "model"
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+    @property
     def model_size(self) -> int:
         return self.shape[self.axes.index("model")]
+
+    @property
+    def data_size(self) -> int:
+        n = 1
+        for a, s in zip(self.axes, self.shape):
+            if a in ("pod", "data"):
+                n *= s
+        return n
 
 
 @dataclass(frozen=True)
@@ -149,7 +168,8 @@ class RunConfig:
     grad_accum: int = 1              # microbatches a step
     remat: str = "dots"              # training only: "none" | "dots" | "full"
     zero_sharding: bool = True       # JAX: optimizer state over the data
-                                     # axis; one card has none to use
+                                     # axis; a layout with no counterpart
+                                     # on one card (nothing reads it)
     grad_compression: str = "none"   # "none" | "int8" | "topk" (as in JAX,
                                      # no step reads it)
     sp_residual: bool = False        # sequence-parallel residual stream:

@@ -24,14 +24,17 @@ ARCHS: Dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}
 SMOKE_ARCHS: Dict[str, ModelConfig] = {k: m.SMOKE
                                        for k, m in _MODULES.items()}
 
-# the JAX registry's other architectures: more than one card
+# the JAX registry's other architectures, not registered yet: at full
+# width each fits one card only at reduced depth (JAX's trainer takes any
+# --n-layers; ROADMAP queue A 13)
 UNPORTED = {
-    "jamba-v0.1-52b": "more than one card: its 104 GB of bf16 weights do "
-                      "not fit one H100's 80 GB (its Mamba, attention and "
-                      "MoE layers are ported, ROADMAP queue A 13(c))",
-    "arctic-480b": "more than one card: its 480 B parameters do not fit one "
-                   "H100's 80 GB (its MoE layers are ported, ROADMAP queue "
-                   "A 13(b))",
+    "jamba-v0.1-52b": "registering: at full width about 12.8 B parameters "
+                      "an 8-layer group, so two of its four groups fit one "
+                      "card (its Mamba, attention and MoE layers are "
+                      "ported; ROADMAP queue A 13(c))",
+    "arctic-480b": "registering: at full width about 13.7 B parameters a "
+                   "layer, so 2 of its 35 layers fit one card (its MoE "
+                   "layers are ported; ROADMAP queue A 13(b))",
 }
 
 

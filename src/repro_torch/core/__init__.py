@@ -1,7 +1,8 @@
 # repro_torch.core — Trust<T> delegation over stacked shards on one device.
 #
 # meshctx.py   StackedMesh (the JAX mesh's shards as a leading tensor dim),
-#              default device, ambient mesh + TrustSession
+#              a trustee group's shard order (group_order), default
+#              device, ambient mesh + batch axes + TrustSession
 # routing.py   key -> trustee routers + workload generators
 # opspec.py    Field/OpSpec/TrustSchema, typed op handles, call-time checks
 # channel.py   pack/transmit/serve/respond/unpack over stacked shards
@@ -30,9 +31,10 @@ from .lockstore import (AtomicAddStore, FetchRMWStore, SequentialKVReference,
 from .pagetable import (DelegatedPageTable, SequentialPageTable,
                         initial_pagetable_state, make_pagetable_schema,
                         pagetable_reshard)
-from .meshctx import (StackedMesh, current_mesh, current_session,
-                      resolve_device, set_mesh, set_session, survivors_mesh,
-                      use_mesh, use_session)
+from .meshctx import (StackedMesh, batch_axes, current_mesh,
+                      current_session, group_coords, group_order,
+                      resolve_device, set_batch_axes, set_context, set_mesh,
+                      set_session, survivors_mesh, use_mesh, use_session)
 from .nested import launch_serve
 
 __all__ = [
@@ -49,7 +51,9 @@ __all__ = [
     "conflict_ranks", "pad_writes",
     "DelegatedPageTable", "SequentialPageTable", "initial_pagetable_state",
     "make_pagetable_schema", "pagetable_reshard",
-    "StackedMesh", "current_mesh", "current_session", "resolve_device",
-    "set_mesh", "set_session", "survivors_mesh", "use_mesh", "use_session",
+    "StackedMesh", "batch_axes", "current_mesh", "current_session",
+    "group_coords", "group_order", "resolve_device", "set_batch_axes",
+    "set_context", "set_mesh", "set_session", "survivors_mesh", "use_mesh",
+    "use_session",
     "launch_serve",
 ]

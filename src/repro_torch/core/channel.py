@@ -20,6 +20,17 @@ become shard slots past the ``n_clients`` client shards, rows that
 originate on a trustee shard are masked off, and the transpose stays over
 all D shards (client slots carry empty blocks).
 
+A trustee group over a sub-axis of the mesh (``"model"`` of a (2, 4)
+mesh: T = 4 trustees, R = 2 replicas) stacks its D = R * T shards
+replica-major (``meshctx.group_order``): shard ``r * T + t`` is client
+and trustee ``t`` of replica ``r``, and holds replica ``r``'s copy of
+trustee ``t``'s state.  Every transpose moves blocks within a replica
+(JAX's ``all_to_all`` over the group axis), the shortcut compares a
+row's destination with its shard's group index, and the drain's counts
+are per replica (JAX's ``psum`` over the group axis); the reported
+``rounds``, ``residual`` and ``rows_combined`` are replica 0's, the
+value a replicated output of JAX's ``shard_map`` reads.
+
 A multiplexed round (``engine.py``) gives each Trust its own ``capacity``
 lane inside every (client, trustee) block: ``dst`` then holds virtual
 bins ``trustee * n_lanes + lane``, and with ``wire_fmt="planes"`` every
@@ -139,7 +150,9 @@ class ChannelConfig:
     counterpart).  ``n_lanes`` is the slot lanes a destination slot holds
     (the multiplexed round's per-trust lanes), and ``elide_lanes`` the
     lanes whose trust writes no response field: their rows stay off the
-    response transpose ("planes" only)."""
+    response transpose ("planes" only).  ``n_replicas`` > 1 is a sub-axis
+    group's: the stacked shards are that many replicas of the group,
+    replica-major, and every transpose stays inside a replica."""
     axis: Any = "model"
     capacity: int = 0
     overflow: str = "drop"          # "drop" | "second_round"
@@ -156,6 +169,7 @@ class ChannelConfig:
     wire_fmt: str = "tree"          # "tree" | "planes"
     n_lanes: int = 1
     elide_lanes: Tuple[int, ...] = ()
+    n_replicas: int = 1             # a sub-axis group's replicas
 
     def n_slots(self, n_trustees: int) -> int:
         """Destination slots a shard in the block layout: one a trustee in
@@ -449,21 +463,26 @@ def pack(dst: torch.Tensor, payload: Pytree, n_trustees: int,
 # transmit / respond / unpack
 # ---------------------------------------------------------------------------
 
-def _transpose_blocks(leaf: torch.Tensor, c: int) -> torch.Tensor:
-    """(A, B*c, ...) -> (B, A*c, ...): block (a, b) of c rows moves from
-    shard a's slot b to shard b's slot a — the all_to_all."""
-    a = leaf.shape[0]
+def _transpose_blocks(leaf: torch.Tensor, c: int,
+                      reps: int = 1) -> torch.Tensor:
+    """(R*A, B*c, ...) -> (R*B, A*c, ...): within each of the ``reps`` = R
+    replicas, block (a, b) of c rows moves from shard a's slot b to shard
+    b's slot a — the all_to_all (over the group axis of a sub-axis
+    group; R = 1 for a group over the whole mesh, where A may differ
+    from B)."""
     trail = tuple(leaf.shape[2:])
+    a = leaf.shape[0] // reps
     b = leaf.shape[1] // c
-    return leaf.reshape((a, b, c) + trail).transpose(0, 1) \
-        .reshape((b, a * c) + trail)
+    return leaf.reshape((reps, a, b, c) + trail).transpose(1, 2) \
+        .reshape((reps * b, a * c) + trail)
 
 
-def _a2a(leaf: torch.Tensor, c: int, what: str) -> torch.Tensor:
+def _a2a(leaf: torch.Tensor, c: int, what: str,
+         reps: int = 1) -> torch.Tensor:
     """One counted block transpose (see ``collect_transposes``)."""
     for sink in _transpose_sinks:
         sink.append(what)
-    return _transpose_blocks(leaf, c)
+    return _transpose_blocks(leaf, c, reps)
 
 
 def _block_meta(cnt: torch.Tensor, c: int, lanes: int):
@@ -500,9 +519,10 @@ def _transmit_planes(packed: Packed, n_bins: int,
         valid = (torch.arange(c, device=counts.device)
                  < counts[..., None]).reshape(d, n_bins * c, 1)
         planes = _a2a(torch.cat([words, valid.to(torch.int32)], -1),
-                      lanes * c, "request")
+                      lanes * c, "request", cfg.n_replicas)
         # the client column is static: only the validity rides the wire
-        _, client = _block_meta(_transpose_blocks(counts, lanes), c, lanes)
+        _, client = _block_meta(
+            _transpose_blocks(counts, lanes, cfg.n_replicas), c, lanes)
         return _decode_words(planes[..., :-1], decs), planes[..., -1] != 0, \
             client
 
@@ -521,12 +541,13 @@ def transmit(packed: Packed, n_bins: int, cfg: ChannelConfig) -> Received:
     ``n_bins`` counts destination bins: trustees x ``cfg.n_lanes``."""
     if cfg.wire_fmt == "planes":
         return _transmit_planes(packed, n_bins, cfg)
-    lanes = cfg.n_lanes
+    lanes, reps = cfg.n_lanes, cfg.n_replicas
 
     def send_block(slots, counts, c):
-        rows = {k: _a2a(v, lanes * c, "request") for k, v in slots.items()}
-        valid, client = _block_meta(_a2a(counts, lanes, "request counts"), c,
-                                    lanes)
+        rows = {k: _a2a(v, lanes * c, "request", reps)
+                for k, v in slots.items()}
+        valid, client = _block_meta(
+            _a2a(counts, lanes, "request counts", reps), c, lanes)
         return rows, valid, client
 
     rows, valid, client = send_block(packed.slots, packed.counts,
@@ -547,7 +568,7 @@ def respond(responses: Pytree, n_bins: int, cfg: ChannelConfig) -> Pytree:
     rows of ``cfg.elide_lanes`` stay off the transpose and come back as
     zeros."""
     c1, c2 = cfg.capacity, cfg.second_capacity()
-    lanes = cfg.n_lanes
+    lanes, reps = cfg.n_lanes, cfg.n_replicas
     first = next(iter(responses.values()))
     t = first.shape[0]
     n1 = (first.shape[1] // (c1 + c2)) * c1
@@ -559,7 +580,8 @@ def respond(responses: Pytree, n_bins: int, cfg: ChannelConfig) -> Pytree:
         return out
 
     if cfg.wire_fmt != "planes":
-        return {k: blocks(v, lambda x, c: _a2a(x, lanes * c, "response"))
+        return {k: blocks(v, lambda x, c: _a2a(x, lanes * c, "response",
+                                                 reps))
                 for k, v in responses.items()}
     keep = [ln for ln in range(lanes) if ln not in cfg.elide_lanes]
     words, decs = _encode_words(responses, t, first.shape[1])
@@ -567,16 +589,17 @@ def respond(responses: Pytree, n_bins: int, cfg: ChannelConfig) -> Pytree:
 
     def back(block, c):
         if len(keep) == lanes:
-            return _a2a(block, lanes * c, "response")
-        d = block.shape[1] // (lanes * c)
-        full = torch.zeros((d, t, lanes, c, wp), dtype=words.dtype,
+            return _a2a(block, lanes * c, "response", reps)
+        d = block.shape[1] // (lanes * c)      # clients of a replica
+        n_out, t_rep = reps * d, t // reps     # client shards; trustees
+        full = torch.zeros((n_out, t_rep, lanes, c, wp), dtype=words.dtype,
                            device=words.device)
         if keep:
             sub = block.reshape(t, d, lanes, c, wp)[:, :, keep]
             moved = _a2a(sub.reshape(t, d * len(keep) * c, wp),
-                         len(keep) * c, f"response lanes {keep}")
-            full[:, :, keep] = moved.reshape(d, t, len(keep), c, wp)
-        return full.reshape(d, t * lanes * c, wp)
+                         len(keep) * c, f"response lanes {keep}", reps)
+            full[:, :, keep] = moved.reshape(n_out, t_rep, len(keep), c, wp)
+        return full.reshape(n_out, t_rep * lanes * c, wp)
 
     return _decode_words(blocks(words, back), decs)
 
@@ -700,14 +723,18 @@ def _to_device_slots(dst: torch.Tensor, cfg: ChannelConfig) -> torch.Tensor:
                                        cfg.n_clients * cfg.n_lanes)
 
 
-def _split_local(dst: torch.Tensor, payload: Pytree, n_lanes: int = 1):
+def _split_local(dst: torch.Tensor, payload: Pytree, n_lanes: int = 1,
+                 n_group: Optional[int] = None):
     """Local-trustee shortcut: requests addressed to their own shard skip
     the channel and are appended to that trustee's serve batch, after the
-    channel rows (shared mode: client shard d is trustee d).  With lanes
+    channel rows (shared mode: client shard d is trustee ``d % n_group``,
+    its group index; ``n_group`` defaults to every shard).  With lanes
     ``dst`` holds virtual bins: a row is local when its DEVICE slot
     (``dst // n_lanes``) is its own shard, whichever lane it rides."""
     d, r = dst.shape
     my_id = torch.arange(d, dtype=torch.int32, device=dst.device)[:, None]
+    if n_group is not None:
+        my_id = my_id % n_group
     local_mask = torch.div(dst, n_lanes, rounding_mode="floor") == my_id
     remote_dst = torch.where(local_mask, torch.full_like(dst, -1), dst)
     local_recv = Received(rows=payload, valid=local_mask,
@@ -904,7 +931,9 @@ def delegate(state: Pytree, dst: torch.Tensor, payload: Pytree,
     dst = _to_device_slots(dst, cfg)
     local_recv = local_mask = None
     if cfg.local_shortcut and cfg.mode != "dedicated":
-        dst, local_recv, local_mask = _split_local(dst, payload, cfg.n_lanes)
+        dst, local_recv, local_mask = _split_local(
+            dst, payload, cfg.n_lanes,
+            n_slots if cfg.n_replicas > 1 else None)
         if n_slots == 1:
             with collect_impl_events() as events:
                 new_state, local_resp = serve_fn(state, local_recv)
@@ -939,7 +968,9 @@ def delegate(state: Pytree, dst: torch.Tensor, payload: Pytree,
     rows_combined = req_bytes_saved = 0
     if cctx is not None:
         responses, dropped = combine.post(responses, dropped, cctx)
-        rows_combined = cctx.combined.sum(dtype=torch.int32)
+        # replica 0's count (JAX's psum over the group axis)
+        rows_combined = cctx.combined[:d // cfg.n_replicas].sum(
+            dtype=torch.int32)
         req_bytes_saved = rows_combined * _req_bytes_per_row(payload,
                                                              cfg.wire_fmt)
     info = ChannelInfo(group_sizes, dropped, n_bins * cfg.total_capacity(),
@@ -1000,11 +1031,19 @@ def delegate_drain(state: Pytree, dst: torch.Tensor, payload: Pytree,
     state, responses, info = delegate(state, dst, payload, serve_fn,
                                       n_trustees, cfg, combine=combine,
                                       combine_span=combine_span)
+    # each replica drains on its own (JAX's loop condition is a psum over
+    # the group axis): the counts are per replica, replica 0's reported
+    n_reps = cfg.n_replicas
+
+    def left(remaining):
+        return remaining.reshape(n_reps, -1).sum(-1, dtype=torch.int32)
+
     remaining = info.dropped
-    total = remaining.sum(dtype=torch.int32)
-    rounds = torch.ones((), dtype=torch.int32, device=dst.device)
+    total = left(remaining)
+    rounds = torch.ones((n_reps,), dtype=torch.int32, device=dst.device)
     if max_rounds == 1:
-        return state, responses, info._replace(rounds=rounds, residual=total)
+        return state, responses, info._replace(rounds=rounds[0],
+                                               residual=total[0])
     combined, saved = info.rows_combined, info.req_bytes_saved
     for _ in range(max_rounds - 1):
         rounds = rounds + (total > 0).to(torch.int32)
@@ -1018,11 +1057,11 @@ def delegate_drain(state: Pytree, dst: torch.Tensor, payload: Pytree,
         responses = {k: _where_rows(sent, resp_r[k], v)
                      for k, v in responses.items()}
         remaining = info_r.dropped
-        total = remaining.sum(dtype=torch.int32)
+        total = left(remaining)
         combined = combined + info_r.rows_combined
         saved = saved + info_r.req_bytes_saved
     return state, responses, info._replace(
-        dropped=remaining, rounds=rounds, residual=total,
+        dropped=remaining, rounds=rounds[0], residual=total[0],
         rows_combined=combined, req_bytes_saved=saved)
 
 

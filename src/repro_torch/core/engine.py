@@ -11,9 +11,11 @@ as the JAX programs do:
     is queued; payload fields a batch lacks are zero-filled);
   * pad the fused batch to a multiple of the client count and give each
     stacked client shard a CONTIGUOUS slice, exactly as JAX shards a batch
-    with ``P(axes)`` — this is what fixes the (client, slot) serve order
-    (dedicated mode packs every row onto the leading ``n_clients`` shards;
-    the trustee shards hold only inactive padding);
+    with ``P(mesh axes)`` — this is what fixes the (client, slot) serve
+    order (dedicated mode packs every row onto the leading ``n_clients``
+    shards; the trustee shards hold only inactive padding; a sub-axis
+    group's shards are then put in its replica-major order, and the
+    responses back in mesh order);
   * one ``channel.delegate`` round over all shards — with
     ``overflow="defer"`` a ``channel.delegate_drain`` — with the request
     combiner of the round's combinable ops when ``combine="ref"``,
@@ -59,6 +61,7 @@ import time
 import weakref
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import channel as ch
@@ -363,11 +366,13 @@ class DelegationEngine:
         dst, rows, r_dev = _shard_rows(
             torch.cat([b[1].to(dev, torch.int32) for b in batches], 0),
             rows, trust.group)
+        dst, rows, order = _group_rows(dst, rows, trust.group)
         span = rows.pop(_SPAN, None)
 
         before = self._clone_if_tearing([trust])
         new_state, resp, info = _round(trust._state, dst, rows, serve,
                                        trust.n_trustees, cfg, combiner, span)
+        resp = _mesh_order(resp, order)
         # a drop / tear fires here, before the state commits
         self._maybe_tear([trust], before)
         trust._state = new_state
@@ -705,15 +710,15 @@ _SPAN = "__span"          # the combine span column, never on the wire
 
 
 def _shard_rows(dst: torch.Tensor, rows: Dict[str, torch.Tensor], group):
-    """Pad a fused batch so each of the group's client shards (every shard
-    in shared mode, the leading ``n_clients`` in dedicated mode) gets an
-    equal CONTIGUOUS slice of ``ceil(R / n_clients)`` rows (the JAX batch
-    sharding; padding rows are inactive, dst = -1, and the trustee shards
-    of dedicated mode hold only padding) and stack it (D, R_dev, ...).
-    The combine span column pads with -1."""
+    """Pad a fused batch so each of the group's origin shards (every shard
+    of the mesh in shared mode, the leading ``n_clients`` in dedicated
+    mode) gets an equal CONTIGUOUS slice of ``ceil(R / n_origins)`` rows
+    (the JAX batch sharding; padding rows are inactive, dst = -1, and the
+    trustee shards of dedicated mode hold only padding) and stack it (D,
+    R_dev, ...).  The combine span column pads with -1."""
     d = group.mesh.size
     r_total = dst.shape[0]
-    r_dev = -(-r_total // group.n_clients)
+    r_dev = -(-r_total // group.n_origins)
     pad = d * r_dev - r_total
     dev = dst.device
     if pad:
@@ -726,6 +731,28 @@ def _shard_rows(dst: torch.Tensor, rows: Dict[str, torch.Tensor], group):
     return dst.reshape(d, r_dev), \
         {k: v.reshape((d, r_dev) + tuple(v.shape[1:]))
          for k, v in rows.items()}, r_dev
+
+
+def _group_rows(dst: torch.Tensor, rows: Dict[str, torch.Tensor], group):
+    """The stacked request rows (mesh order) in the group's replica-major
+    order (``TrusteeGroup.shard_order``).  Returns (dst, rows, order):
+    ``order`` is None when it is the mesh order, else what
+    ``_mesh_order`` undoes on the responses."""
+    order = group.shard_order()
+    if order is None:
+        return dst, rows, None
+    idx = torch.as_tensor(order, device=dst.device)
+    return dst[idx], {k: v[idx] for k, v in rows.items()}, order
+
+
+def _mesh_order(resp: Dict[str, torch.Tensor], order
+                ) -> Dict[str, torch.Tensor]:
+    """Responses stacked in a group's layout back in mesh order."""
+    if order is None:
+        return resp
+    inv = np.argsort(order)
+    return {k: v[torch.as_tensor(inv, device=v.device)]
+            for k, v in resp.items()}
 
 
 def _combine_plan(cfg: ch.ChannelConfig, decls):
@@ -892,12 +919,14 @@ def _mux_round(trusts, batches, cfg: ch.ChannelConfig):
             [span_of.get((None if merged_resp else x[0], x[1]), -1)
              for x in flat], sizes, dev)
     dst, rows, r_dev = _shard_rows(dst, rows, group)
+    dst, rows, order = _group_rows(dst, rows, group)
     tid_l = rows.pop("__tid").long()
     span = rows.pop(_SPAN, None)
 
     states = tuple(t._state for t in trusts)
     new_states, resp, info = _round(states, dst, rows, serve, n_trustees,
                                     cfg, combiner, span)
+    resp = _mesh_order(resp, order)
 
     # telemetry, all device tensors: per-trust rows left unserved, per-trust
     # max pair demand, and the merged demand the planner observes
@@ -909,7 +938,8 @@ def _mux_round(trusts, batches, cfg: ch.ChannelConfig):
     else:
         act = dst >= 0
         if cfg.local_shortcut:
-            act &= dst != torch.arange(d, device=dev)[:, None]
+            # a shard's own trustee is its group index
+            act &= dst != torch.arange(d, device=dev)[:, None] % n_trustees
         idx = torch.where(act, tid_l * n_trustees
                           + torch.clamp(dst, 0, n_trustees - 1),
                           n_trusts * n_trustees)

@@ -27,7 +27,7 @@ from . import routing
 from .channel import launch_or_defer, report_impl_event
 from .meshctx import StackedMesh
 from .opspec import Combine, Field, OpSpec, TrustSchema
-from .trust import TrusteeGroup, pad_client_region
+from .trust import TrusteeGroup
 from ..kernels import ops as kops
 from ..kernels.ref import (LANE_ADD, LANE_CAS, LANE_GET, LANE_PUT,
                            take_rows)
@@ -340,12 +340,15 @@ class DelegatedKVStore:
     """The store facade of the KV-store benchmarks (see
     ``repro.core.kvstore.DelegatedKVStore``), on a ``StackedMesh``.
 
-    ``mode="shared"`` entrusts the table to every shard; with
-    ``mode="dedicated"`` the last ``n_dedicated`` shards hold it and serve
-    the other (client) shards, whose region of the physical table stays
-    zero.  ``state`` optionally starts the store from a stacked LOGICAL
-    state dict, (T, rows, ...) (for example one carried across from the
-    JAX store by ``convert.py``); it is copied onto the mesh's device."""
+    ``mode="shared"`` entrusts the table to every shard of ``axis``
+    (default the whole mesh; a sub-axis such as ``"model"`` keeps one copy
+    of the table per replica, each served by its own replica's shards, as
+    JAX's does); with ``mode="dedicated"`` the last ``n_dedicated`` shards
+    hold it and serve the other (client) shards, whose region of the
+    physical table stays zero.  ``state`` optionally starts the store from
+    a stacked LOGICAL state dict, (T, rows, ...) (for example one carried
+    across from the JAX store by ``convert.py``); it is copied onto the
+    mesh's device."""
 
     def __init__(self, mesh: StackedMesh, n_keys: int, value_width: int = 4,
                  axis: Any = None, dtype=torch.float32,
@@ -460,9 +463,7 @@ class DelegatedKVStore:
             .transpose(1, 0, 2)
         table = torch.as_tensor(np.ascontiguousarray(stacked),
                                 device=self.trust.device).to(self.dtype)
-        if self.mode == "dedicated":
-            table = pad_client_region({"table": table},
-                                      self.group.n_clients)["table"]
+        table = self.group.physical_state({"table": table})["table"]
         self.trust.set_state({**self.trust.state(), "table": table})
 
     def dump(self) -> np.ndarray:

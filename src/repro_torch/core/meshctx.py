@@ -6,7 +6,10 @@ leading tensor dimension: a ``StackedMesh(shape=(2, 4))`` stands for the
 2x4 JAX mesh, and every per-shard array of the JAX program becomes one
 ``(8, ...)`` tensor.  The channel's collectives follow from that layout:
 ``all_to_all`` is a (src, dst) block transpose, ``psum`` a sum over the
-leading dimension, and ``axis_index`` an ``arange``.
+leading dimension, and ``axis_index`` an ``arange``.  A trustee group
+over a sub-axis (``"model"`` of a (2, 4) mesh) stacks its shards in
+``group_order``: the block transpose and the sums stay inside each
+replica (the shards that share the other axes' coordinates).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for the card where there is none raises instead of falling back.
@@ -112,6 +115,43 @@ def survivors_mesh(old_mesh: StackedMesh, failed_shards, survivors=None,
     return StackedMesh(dims, old_mesh.axis_names, device=old_mesh.device)
 
 
+def group_order(mesh: StackedMesh, axes) -> Tuple[np.ndarray, int, int]:
+    """The stacked shards of ``mesh`` in the layout of a trustee group over
+    ``axes``: ``(order, n_group, n_replicas)``, where slot ``j`` of the
+    layout is replica ``j // n_group``'s group member ``j % n_group`` and
+    ``order[j]`` its stacked shard.  The group axes move last (in the
+    order ``axes`` gives them: a group index is row-major over them, as
+    JAX's flat ``axis_index``), the other axes first in mesh order (a
+    replica index is row-major over them).  A ``"model"`` group of a
+    ``(data, model)`` mesh keeps the mesh order: shard ``i`` is member
+    ``i % M`` of replica ``i // M``; a ``"data"`` group takes member
+    ``i // M`` of replica ``i % M``."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    names = mesh.axis_names
+    unknown = [a for a in axes if a not in names]
+    if unknown or len(set(axes)) != len(axes):
+        raise ValueError(f"group axes {axes} are not distinct axes of "
+                         f"{names}")
+    grp = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in grp]
+    order = np.arange(mesh.size).reshape(mesh.dims).transpose(rest + grp) \
+        .reshape(-1)
+    n_group = 1
+    for i in grp:
+        n_group *= mesh.dims[i]
+    return order, n_group, mesh.size // n_group
+
+
+def group_coords(mesh: StackedMesh, axes) -> Tuple[np.ndarray, np.ndarray]:
+    """Each stacked shard's (group index, replica index) in a trustee
+    group over ``axes`` (see ``group_order``), two ``(mesh.size,)``
+    arrays."""
+    order, n_group, _ = group_order(mesh, axes)
+    slot = np.empty_like(order)
+    slot[order] = np.arange(order.size)
+    return slot % n_group, slot // n_group
+
+
 def current_mesh() -> StackedMesh:
     """The ambient mesh (a ``(1, 1)`` mesh on the default device when none
     was installed)."""
@@ -134,6 +174,48 @@ def use_mesh(mesh: StackedMesh):
         yield mesh
     finally:
         _state.mesh = prev
+
+
+def set_batch_axes(axes) -> None:
+    """Override which mesh axes shard the batch ("default": the mesh's
+    ``pod`` / ``data`` axes); a cell whose batch does not split over the
+    data size sets ``()``, and the batch is then replicated (each data row
+    runs the whole batch)."""
+    _state.batch_axes = axes
+
+
+def batch_axes():
+    return getattr(_state, "batch_axes", "default")
+
+
+def set_context(mesh: StackedMesh, axes="default") -> None:
+    """Install ``mesh`` and the batch axes together (JAX's ``set_context``,
+    which ``launch.steps.build_cell`` calls)."""
+    set_mesh(mesh)
+    set_batch_axes(axes)
+
+
+@contextlib.contextmanager
+def kept_context():
+    """Restore the ambient mesh and batch axes on exit (an entry point
+    installs its own through ``launch.steps.build_cell``)."""
+    prev = (getattr(_state, "mesh", None), batch_axes())
+    try:
+        yield
+    finally:
+        _state.mesh, _state.batch_axes = prev
+
+
+def axis_size(axis: str) -> int:
+    """The ambient mesh's size along ``axis`` (1 when it has no such
+    axis)."""
+    return int(current_mesh().shape.get(axis, 1))
+
+
+def data_axes() -> Tuple[str, ...]:
+    """The ambient mesh's batch axes present (``pod``, ``data``)."""
+    return tuple(a for a in current_mesh().axis_names
+                 if a in ("pod", "data"))
 
 
 def set_delegation_mode(mode: str = "shared", n_dedicated: int = 0) -> None:

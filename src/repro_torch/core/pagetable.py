@@ -387,7 +387,11 @@ class DelegatedPageTable:
     card through pinned memory without a host sync; responses stay on the
     device until ``globalize`` copies them to the host.  The page table
     serves through ``pagetable_serve`` (the kernel for CUDA state, its
-    plain version for CPU state) and packs with the Trust's default."""
+    plain version for CPU state) and packs with the Trust's default.
+    ``axis`` (default the whole mesh) may name a sub-axis, as JAX's does:
+    the table then has one replica per coordinate of the other axes, each
+    allocated by its own replica's requests, and ``dump`` / ``audit``
+    read replica 0."""
 
     def __init__(self, mesh: StackedMesh, n_pages: int, max_seqs: int = 64,
                  page_size: int = 16, max_pages: int = 8,

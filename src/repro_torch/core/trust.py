@@ -16,11 +16,18 @@ Execution lives in the session's ``DelegationEngine`` (engine.py), which
 fuses the pending batches of channel-compatible trusts into one round.
 The port carries both trustee modes over the whole mesh (shared: every
 shard serves; dedicated: the last ``n_dedicated`` shards serve the
-others), the defer drain (``overflow="defer"``, ``max_rounds``),
-request combining (``combine="ref"``) and failover
-(``install_trustee_state`` / ``rebind``, driven by
-``TrustSession.re_entrust``); sub-axis groups and the Pallas tile sizes
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+others), shared groups over a sub-axis (``"model"`` of a (2, 4) mesh:
+4 trustees, the state replicated over ``"data"``), the defer drain
+(``overflow="defer"``, ``max_rounds``), request combining
+(``combine="ref"``) and failover (``install_trustee_state`` /
+``rebind``, driven by ``TrustSession.re_entrust``).
+
+A sub-axis group keeps one copy of the state per replica, as JAX's
+``P(axis)`` layout does, stacked replica-major (``meshctx.group_order``):
+``(R * T, rows, ...)``.  Every round mutates each replica with its own
+replica's requests, so replicas can diverge (JAX leaves their coherence
+to the caller); ``trustee_state()``, ``dump``, checkpoints and snapshots
+read replica 0, the one JAX's read-back of the state shows.
 """
 from __future__ import annotations
 
@@ -42,10 +49,18 @@ def _axes_tuple(axis) -> Tuple[str, ...]:
     return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue A: "
-        f"{item})")
+def _check_blocks(name: str, blocks) -> None:
+    """``serve_blocks`` / ``pack_blocks``: None or "auto" take the
+    kernels' own launch plans; a fixed tile pair is refused."""
+    if blocks is None or blocks == "auto":
+        return
+    raise NotImplementedError(
+        f"{name}={blocks!r}: a fixed (rows, keys|slots) pair is a Pallas "
+        f"tile of the JAX kernels, which the CUDA kernels have no "
+        f"counterpart of — their launch shapes come from their own plans "
+        f"(delegation_pack.launch_plan, delegation_serve.gather_plan / "
+        f"segmented_add_plan, paged_attention.split_plan, "
+        f"selective_scan.scan_plan); pass None or 'auto'")
 
 
 @dataclass
@@ -58,7 +73,11 @@ class TrusteeGroup:
       trustees serving the leading ``n_clients`` client shards; entrusted
       state lives only on the trustee shards (the client shards hold a
       zero region) and requests originate only on client shards.  ``axis``
-      must cover the whole mesh."""
+      must cover the whole mesh.
+
+    A shared group over a sub-axis has ``n_replicas`` = mesh size / axis
+    size copies of its state (one per coordinate of the other axes), each
+    served by its own replica's shards."""
     mesh: StackedMesh
     axis: Any = "model"
     mode: str = "shared"
@@ -80,11 +99,6 @@ class TrusteeGroup:
         if unknown:
             raise ValueError(f"axis {unknown} not in mesh axes "
                              f"{self.mesh.axis_names}")
-        if self.mesh.size != self.axis_size:
-            raise _not_ported(
-                f"a trustee group over the sub-axis {self.axes} of a "
-                f"{self.mesh.dims} mesh (state replicated over the other "
-                f"axes)", "sub-axis trustee groups")
 
     @property
     def axes(self) -> Tuple[str, ...]:
@@ -105,10 +119,48 @@ class TrusteeGroup:
 
     @property
     def n_clients(self) -> int:
-        """Shards that originate requests (every shard in shared mode)."""
+        """Clients a trustee serves (the group's size in shared mode)."""
         if self.mode == "dedicated":
             return self.axis_size - self.n_dedicated
         return self.axis_size
+
+    @property
+    def n_origins(self) -> int:
+        """Stacked shards that originate requests: every shard of the
+        mesh in shared mode (each replica's own), the leading
+        ``n_clients`` in dedicated mode."""
+        if self.mode == "dedicated":
+            return self.n_clients
+        return self.mesh.size
+
+    @property
+    def n_replicas(self) -> int:
+        """Copies of the state: one per coordinate of the axes the group
+        does not span (1 for a group over the whole mesh, and in
+        dedicated mode, which spans it)."""
+        return self.mesh.size // self.axis_size
+
+    def shard_order(self) -> Optional[np.ndarray]:
+        """The stacked shards in the group's layout (replica-major,
+        ``meshctx.group_order``), or None when that is the mesh order."""
+        from .meshctx import group_order
+        order, _, _ = group_order(self.mesh, self.axes)
+        if np.array_equal(order, np.arange(order.size)):
+            return None
+        return order
+
+    def physical_state(self, stacked: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """The group's physical layout of a stacked logical state (T,
+        rows, ...): in dedicated mode behind a zero client region, on a
+        sub-axis one copy per replica, (R * T, rows, ...)."""
+        if self.mode == "dedicated":
+            return pad_client_region(stacked, self.n_clients)
+        r = self.n_replicas
+        if r == 1:
+            return stacked
+        return {k: v.repeat((r,) + (1,) * (v.dim() - 1))
+                for k, v in stacked.items()}
 
     def entrust(self, state: Dict[str, torch.Tensor],
                 ops: Optional[Sequence[DelegatedOp]] = None,
@@ -130,7 +182,10 @@ class TrusteeGroup:
         state is copied onto the mesh's device, so the caller's tensors
         are never updated in place.  In dedicated mode each leaf is placed
         behind a zero client region, ``(n_clients + T, rows, ...)``, and
-        the local shortcut is off (a client is never its own trustee).
+        the local shortcut is off (a client is never its own trustee); a
+        sub-axis group copies it into every replica, ``(R * T, rows,
+        ...)``.  ``serve_blocks`` / ``pack_blocks`` take None or "auto"
+        (the kernels' own launch plans); a fixed tile pair raises.
         ``overflow="defer"`` re-sends the rows past ``capacity`` in up to
         ``max_rounds - 1`` retry rounds; ``combine="ref"`` sends one wire
         row per (destination, op, key) segment of the ops that declare a
@@ -145,11 +200,10 @@ class TrusteeGroup:
             raise ValueError(f"unknown overflow policy {overflow!r}")
         if max_rounds < 1:
             raise ValueError(f"max_rounds must be >= 1, got {max_rounds}")
-        if serve_blocks is not None or pack_blocks is not None:
-            # the Pallas tile sizes, fixed or "auto"; the CUDA kernels pick
-            # their own launch shapes
-            raise _not_ported("serve_blocks / pack_blocks (fixed or 'auto')",
-                              "'auto' kernel blocks")
+        # "auto" (JAX: tiles from its roofline model) is the kernels' own
+        # launch plans, the port's only ones
+        _check_blocks("serve_blocks", serve_blocks)
+        _check_blocks("pack_blocks", pack_blocks)
         if pack_impl not in ("ref", "kernel"):
             raise ValueError(f"pack_impl must be 'ref' or 'kernel', got "
                              f"{pack_impl!r}")
@@ -180,8 +234,8 @@ class TrusteeGroup:
             placed[k] = v.to(self.mesh.device, copy=True,
                              memory_format=torch.contiguous_format)
         dedicated = self.mode == "dedicated"
+        placed = self.physical_state(placed)
         if dedicated:
-            placed = pad_client_region(placed, self.n_clients)
             local_shortcut = False
         cfg = ChannelConfig(
             axis=self.axis if len(self.axes) > 1 else self.axes[0],
@@ -191,7 +245,7 @@ class TrusteeGroup:
             serve_impl=serve_impl, mode=self.mode,
             n_clients=self.n_clients if dedicated else 0,
             max_rounds=max_rounds, strict_impl=strict_impl,
-            combine_impl=combine)
+            combine_impl=combine, n_replicas=self.n_replicas)
         return Trust(self, placed, tuple(ops), resp_like, cfg, name=name,
                      plan_capacity=plan_capacity, session=session,
                      schema=schema, schema_factory=schema_factory)
@@ -285,11 +339,16 @@ class Trust:
 
     def trustee_state(self) -> Pytree:
         """The logical (T, rows, ...) state, live as ``state()`` is: in
-        dedicated mode the client region is stripped off."""
-        if self.group.mode != "dedicated":
-            return self._state
-        c = self.group.n_clients
-        return {k: v[c:] for k, v in self._state.items()}
+        dedicated mode the client region is stripped off, on a sub-axis
+        replica 0 (the copy JAX's read-back shows)."""
+        g = self.group
+        if g.mode == "dedicated":
+            c = g.n_clients
+            return {k: v[c:] for k, v in self._state.items()}
+        if g.n_replicas > 1:
+            t = g.n_trustees
+            return {k: v[:t] for k, v in self._state.items()}
+        return self._state
 
     # -- resilience ----------------------------------------------------------
     def install_trustee_state(self, logical_state: Pytree) -> None:
@@ -297,7 +356,8 @@ class Trust:
         JAX owner-major layout, ``(T * rows, ...)`` (numpy or a tensor, as
         a snapshot or a ``reshard`` rule gives it), is stacked ``(T, rows,
         ...)`` on the group's device — in dedicated mode behind a zero
-        client region — and copied, never aliased."""
+        client region, on a sub-axis into every replica — and copied,
+        never aliased."""
         g = self.group
         t = g.n_trustees
         placed = {}
@@ -311,9 +371,7 @@ class Trust:
             placed[k] = x.reshape((t, -1) + tuple(x.shape[1:])).to(
                 g.mesh.device, copy=True,
                 memory_format=torch.contiguous_format)
-        if g.mode == "dedicated":
-            placed = pad_client_region(placed, g.n_clients)
-        self._state = placed
+        self._state = g.physical_state(placed)
 
     def rebind(self, group: TrusteeGroup,
                schema: Optional[TrustSchema] = None,
@@ -337,7 +395,8 @@ class Trust:
             axis=group.axis if len(group.axes) > 1 else group.axes[0],
             mode=group.mode,
             n_clients=group.n_clients if dedicated else 0,
-            local_shortcut=False if dedicated else self.cfg.local_shortcut)
+            local_shortcut=False if dedicated else self.cfg.local_shortcut,
+            n_replicas=group.n_replicas)
         self._mux_sig = None
         self._last_stats = None
         if logical_state is not None:
@@ -420,8 +479,8 @@ class Trust:
     def _auto_capacity(self, r_total: int) -> int:
         # mean load per (client, trustee) pair with 2x headroom, min 4 rows
         # every request originates on a client shard (dedicated mode: the
-        # leading n_clients; shared mode: every shard)
-        per_client = max(1, r_total // self.group.n_clients)
+        # leading n_clients; shared mode: every shard of the mesh)
+        per_client = max(1, r_total // self.group.n_origins)
         mean = max(1, per_client // self.n_trustees)
         return max(4, 2 * mean)
 

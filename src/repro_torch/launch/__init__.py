@@ -5,6 +5,8 @@
 # paged_serve.py   PagedDecodeDriver / DecodeRequest (continuous-batching
 #                  decode over the delegated page table)
 # paged_decode.py  run_decode — the paged-decode entry point
+# mesh.py          make_local_mesh / make_production_mesh / mesh_config —
+#                  JAX's meshes as StackedMeshes
 # steps.py         train_step / prefill_step / serve_step and build_cell
 #                  (the model path); value_and_grad of forward_loss
 # serve.py         main — the model serve entry point (teacher-forced

@@ -13,20 +13,29 @@ cache entrusted to T trustees along the sequence, or a Mamba model's
         [--smoke --device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen2-vl-2b --batch 4 --prompt-len 32 --gen 1 [--smoke]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-lite-16b --batch 8 --prompt-len 64 --gen 64 \\
+        --mesh-data 2 --mesh-model 4 [--smoke --device cpu]
 
 The prompt is teacher-forced through decode steps, then greedy decode
 follows; every step's (k, v) write — for MLA the latent and k_rope rows
 — is a delegated PUT to the owning trustee's shard and the query's
 partial answers are merged (see ``models.attention.decode_attention``).
 ``--mesh-model T`` is the number of trustee shards stacked on the card;
-the cache length is padded to a multiple of T.  A MoE model's routed
-experts are entrusted to the same T trustees (T must divide the expert
-count, else ``ValueError``), each token's rows delegated over the channel
-(``models.moe``).  A Mamba layer's cache is its (conv, ssm) state, updated
-in place by the plain one-step recurrence (JAX's Mamba decode runs no
-kernel, so a pure-SSM serve launches none); JAX shards the state's
-channels over the model axis with no channel round, and the port keeps it
-whole, so ``--mesh-model`` does not change its tokens.  Weights are
+the cache length is padded to a multiple of T.  ``--mesh-data N`` adds
+JAX's data axis: the model runs on the (N, T) mesh, the batch split over
+the N data rows when N divides it (``launch.steps.build_cell``), each
+row's sequences delegating to its own T trustees; the attention and
+every other layer compute a sequence on its own, so only a MoE model's
+tokens can change with N (each data row sizes its own capacities).  A
+MoE model's routed experts are entrusted to the same T trustees (T must
+divide the expert count, else ``ValueError``), each token's rows
+delegated over the channel (``models.moe``).  A Mamba layer's cache is
+its (conv, ssm) state, updated in place by the plain one-step recurrence
+(JAX's Mamba decode runs no kernel, so a pure-SSM serve launches none);
+JAX shards the state's channels over the model axis with no channel
+round, and the port keeps it whole, so ``--mesh-model`` does not change
+its tokens.  Weights are
 random, drawn on the device from a seeded generator; the prompts come
 from ``np.random.default_rng(0)`` as in JAX, so both packages see the
 same tokens.  Runs on ``cuda`` unless given ``--device cpu``.
@@ -42,19 +51,21 @@ encoder-decoder model (seamless-m4t-large-v2) decodes text: a token
 prompt, against a cross-attention cache that, as in JAX, stays zeros
 (nothing runs the encoder in the serve).
 
-The store-level bookkeeping of the paper's §7 lives on a (1, mesh_model)
-``StackedMesh`` on the serve's device: a ledger of generated tokens per
-request (a ``DelegatedKVStore``), one ADD a generated token.  It runs
+The store-level bookkeeping of the paper's §7 lives on the whole
+(mesh_data, mesh_model) ``StackedMesh`` on the serve's device, as in
+JAX: a ledger of generated tokens per request (a ``DelegatedKVStore``),
+one ADD a generated token.  It runs
 with ``--session``, ``--delegation-mode dedicated`` or ``--drain-rounds >
 1``.  ``--session`` adds a traffic meter per device bucket whose ADDs
 ride ONE multiplexed ``session.step()`` with the ledger's; with
 ``--stream-depth N`` a ``StreamingDriver`` keeps up to N of those rounds
 in flight behind the decode loop, under an ``AdmissionControl``.
 ``--delegation-mode dedicated`` puts the ledger and meter on the last
-``--n-dedicated`` shards (default half), serving the others; the model's
-own channels (the KV cache, the experts) stay shared.  ``--drain-rounds
-N`` gives them a one-row primary block with the defer drain of up to N
-rounds, and prints the ledger's drain stats.  ``--serve-impl`` picks the
+``--n-dedicated`` shards of the mesh (default half of all of them),
+serving the others; the model's own channels (the KV cache, the
+experts) stay shared.  ``--drain-rounds N`` gives them a one-row primary
+block with the defer drain of up to N rounds, and prints the ledger's
+drain stats.  ``--serve-impl`` picks the
 stores' serve: "pallas" the CUDA serve kernels, "ref" their plain
 versions, "masked" the per-op reference.  ``--chaos WAVE`` (with
 ``--session``) tears the ledger and meter's session round at engine wave
@@ -63,10 +74,6 @@ and recovers: the last snapshot (one every ``--chaos-snap-every`` waves,
 at quiesce points) is restored, the waves since it are replayed inside
 ``session.replaying()`` and the torn wave is retried; the run fails with
 ``SystemExit`` unless the ledger then counts ``--gen`` tokens a request.
-
-``--mesh-data > 1`` raises ``NotImplementedError`` naming its ROADMAP
-item (A 13: a data axis spans cards, and one card has nothing to stack it
-on).
 """
 from __future__ import annotations
 
@@ -85,7 +92,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
-    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data rows of the mesh: the batch split over "
+                         "them, stacked on the card")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="trustee shards of the KV cache's sequence axis, "
                          "stacked on the card")
@@ -107,17 +116,6 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(args) -> None:
-    unported = (
-        (args.mesh_data > 1,
-         "--mesh-data > 1: a data axis spans cards, and one card has "
-         "nothing to stack it on (ROADMAP queue A 13)"),
-    )
-    for cond, msg in unported:
-        if cond:
-            raise NotImplementedError(msg)
-
-
 def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     """Run the serve loop; returns the generated tokens (batch, gen): the
     greedy token after each position from the last prompt position on, as
@@ -128,7 +126,8 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     without ``--drain-rounds``); with ``--session`` also the meter, the
     last wave's ``last_step_info``, the fused waves'
     ``last_step_info["fused"]`` (one entry a round) and ``recovery``
-    (``last_stats()["recovery"]``, None without a recovery)."""
+    (``last_stats()["recovery"]``, None without a recovery); in dedicated
+    mode ``partition``, the (client, trustee) shard slots of the mesh."""
     ap = _parser()
     args = ap.parse_args(argv)
     if args.stream_depth > 0 and not args.session:
@@ -136,15 +135,19 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     if args.chaos is not None and not args.session:
         ap.error("--chaos requires --session (it tears a session engine "
                  "round)")
-    _refuse_unported(args)
-    if args.delegation_mode == "dedicated" and args.mesh_model < 2:
+    if args.mesh_data < 1 or args.mesh_model < 1:
+        ap.error("--mesh-data and --mesh-model must be >= 1")
+    if args.delegation_mode == "dedicated" \
+            and args.mesh_data * args.mesh_model < 2:
         ap.error("--delegation-mode dedicated needs a mesh with >= 2 "
-                 "shards (reserve trustee shards with --mesh-model)")
+                 "shards (reserve trustee shards with --mesh-data / "
+                 "--mesh-model)")
 
     from ..core import meshctx
     prev_mode = meshctx.delegation_mode()
     try:
-        return _serve(args, stats)
+        with meshctx.kept_context():
+            return _serve(args, stats)
     finally:
         meshctx.set_delegation_mode(*prev_mode)
 
@@ -157,13 +160,17 @@ def _serve(args, stats: Optional[dict]) -> np.ndarray:
     from ..core.routing import (default_n_dedicated,
                                 partition_clients_trustees)
     from ..models import model as M
+    from .mesh import make_local_mesh
     from .steps import build_cell
 
+    dev = resolve_device(args.device)
+    mesh = make_local_mesh(args.mesh_data, args.mesh_model, device=dev)
     if args.delegation_mode == "dedicated":
-        n_ded = args.n_dedicated or default_n_dedicated(args.mesh_model)
-        clients, trustees = partition_clients_trustees(args.mesh_model,
-                                                       n_ded)
+        n_ded = args.n_dedicated or default_n_dedicated(mesh.size)
+        clients, trustees = partition_clients_trustees(mesh.size, n_ded)
         meshctx.set_delegation_mode("dedicated", n_ded)
+        if stats is not None:
+            stats["partition"] = (clients, trustees)
         print(f"[serve] delegation mode: dedicated — client shards "
               f"{clients.tolist()}, trustee shards {trustees.tolist()} "
               f"(the store-level delegation — the ledger below and any "
@@ -192,14 +199,18 @@ def _serve(args, stats: Optional[dict]) -> np.ndarray:
     run = RunConfig(model=cfg, shape=shape,
                     mesh=MeshConfig((args.mesh_data, t), ("data", "model")),
                     remat="none", use_pallas=True)
-    dev = resolve_device(args.device)
-    plan = build_cell(cfg, shape, run)
+    plan = build_cell(cfg, shape, run, mesh)
     params = M.init_params(cfg, run, dev)
     cache = M.init_cache(cfg, args.batch, max_len, run, dev)
     n_params = M.count_params(params)
     cache_kind = ("the Mamba (conv, ssm) state, whole"
                   if set(cfg.block_pattern) == {"mamba"}
                   else f"{t} trustee shards")
+    if args.mesh_data > 1:
+        cache_kind += (f", {args.mesh_data} data rows"
+                       if args.batch % args.mesh_data == 0 else
+                       f", the batch replicated over {args.mesh_data} "
+                       f"data rows")
     if M.is_encdec(cfg):
         cache_kind += " (self) and a zero cross cache"
     print(f"[serve] {cfg.name}: {n_params/1e6:.2f}M params "
@@ -219,7 +230,7 @@ def _serve(args, stats: Optional[dict]) -> np.ndarray:
         prompt_ids = rng.integers(0, cfg.vocab_size,
                                   size=(args.prompt_len, args.batch))
         prompt = torch.as_tensor(prompt_ids, dtype=torch.int32, device=dev)
-    book = _Bookkeeping(args, dev) if (
+    book = _Bookkeeping(args, mesh) if (
         args.session or args.delegation_mode == "dedicated"
         or args.drain_rounds > 1) else None
     steps = args.prompt_len + args.gen - 1
@@ -260,11 +271,11 @@ class _Bookkeeping:
     session-wide delegation mode; ``--drain-rounds N`` gives them a
     one-row primary block drained over up to N rounds."""
 
-    def __init__(self, args, dev):
-        from ..core import DelegatedKVStore, StackedMesh, TrustSession
+    def __init__(self, args, mesh):
+        from ..core import DelegatedKVStore, TrustSession
         from ..core.meshctx import delegation_mode
         from .streaming import AdmissionControl, StreamingDriver
-        mesh = StackedMesh((1, args.mesh_model), device=dev)
+        dev = mesh.device
         self.mode, n_ded = delegation_mode()
         self.drain_rounds = args.drain_rounds
         self.session = TrustSession()

@@ -18,6 +18,15 @@ place of logits.
 The train step differentiates ``forward_loss`` through the plain
 versions, as JAX trains with ``use_pallas=False``: no kernel has a
 backward, and a train cell with ``run.use_pallas`` is refused.
+
+``build_cell`` takes JAX's batch-axes rule (``batch_axes_of``): the
+mesh's data axes when the global batch splits over the data size, else
+``()`` (the batch replicated); it installs them, with ``mesh`` when
+given (``meshctx.set_context``), and every step re-installs them, as
+JAX's steps do.  The MoE reads them (``models.layers.dp_axes``): each
+data row delegates its own sequences.  JAX's other data-axis layouts
+(``zero_sharding``'s optimizer state over ``data``, the batch specs)
+have no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from ..configs.base import ModelConfig, RunConfig, ShapeConfig
+from ..core import meshctx
 from ..models import model as M
 from ..models.layers import dtype_of
 from ..optim import AdamWConfig, adamw_update
@@ -118,14 +128,43 @@ def train_step(params, opt_state, batch, cfg: ModelConfig, run: RunConfig,
     return params, opt_state, {**metrics, **om, "loss": loss}
 
 
+def batch_axes_of(run: RunConfig, shape: ShapeConfig):
+    """JAX's rule: the mesh's data axes shard the batch when the global
+    batch splits over the data size; otherwise ``()``."""
+    if shape.global_batch % run.mesh.data_size == 0:
+        return run.mesh.data_axes
+    return ()
+
+
+def _in_context(fn, axes, mesh):
+    """``fn`` with the cell's batch axes (and ``mesh``) installed first."""
+    @functools.wraps(fn)
+    def step(*args, **kw):
+        if mesh is not None:
+            meshctx.set_context(mesh, axes)
+        else:
+            meshctx.set_batch_axes(axes)
+        return fn(*args, **kw)
+    return step
+
+
 def build_cell(cfg: ModelConfig, shape: ShapeConfig,
-               run: RunConfig = None) -> CellPlan:
+               run: RunConfig = None, mesh=None) -> CellPlan:
     """The step of one (arch x shape) cell, with ``cfg`` and ``run``
     bound: ``train_step(params, opt_state, batch)``,
     ``prefill_step(params, batch)`` or ``serve_step(params, cache,
-    tokens, pos)``."""
+    tokens, pos)``.  ``mesh`` (a ``StackedMesh`` of ``run.mesh``'s shape)
+    is installed as the ambient mesh with the batch axes."""
     if run is None:
         run = RunConfig(model=cfg, shape=shape)
+    if mesh is not None and tuple(mesh.dims) != tuple(run.mesh.shape):
+        raise ValueError(f"mesh {mesh.dims} is not run.mesh "
+                         f"{run.mesh.shape}")
+    axes = batch_axes_of(run, shape)
+    if mesh is not None:
+        meshctx.set_context(mesh, axes)
+    else:
+        meshctx.set_batch_axes(axes)
     if shape.kind == "train":
         if run.use_pallas:
             raise ValueError(
@@ -134,12 +173,14 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig,
         if shape.global_batch % max(1, run.grad_accum):
             raise ValueError(f"batch {shape.global_batch} does not split "
                              f"into {run.grad_accum} microbatches")
-        return CellPlan(cfg, shape, run, functools.partial(
-            train_step, cfg=cfg, run=run, acfg=adamw_config(run)))
+        return CellPlan(cfg, shape, run, _in_context(functools.partial(
+            train_step, cfg=cfg, run=run, acfg=adamw_config(run)), axes,
+            mesh))
     if shape.kind == "prefill":
         fn = prefill_step
     elif shape.kind == "decode":
         fn = serve_step
     else:
         raise ValueError(f"unknown cell kind {shape.kind!r}")
-    return CellPlan(cfg, shape, run, functools.partial(fn, cfg=cfg, run=run))
+    return CellPlan(cfg, shape, run, _in_context(
+        functools.partial(fn, cfg=cfg, run=run), axes, mesh))

@@ -11,10 +11,14 @@ deterministic token pipeline, and with ``--ckpt-dir`` the fault-tolerant
 ``TrainLoop`` (a checkpoint every ``--ckpt-every`` steps, resume on
 restart, ``--inject-failure-at`` a simulated failure).  ``--mesh-model
 T`` is the number of trustee shards stacked on the card: a MoE model's
-experts and the cross-entropy's vocab shards.  ``--remat`` sets
-``RunConfig.remat`` (JAX's trainer fixes it at "none", the default here).
-Runs on ``cuda`` unless given ``--device cpu``.  ``--mesh-data > 1``
-raises ``NotImplementedError`` naming its ROADMAP item.  An embeds-input
+experts and the cross-entropy's vocab shards.  ``--mesh-data N`` adds
+JAX's data axis: the cell runs on the (N, T) mesh, the batch split over
+the N data rows when N divides it (each row's sequences delegating to
+its own T expert trustees, their capacities sized per row), with
+``zero_sharding=N > 1`` carried as JAX carries it (a layout with no
+counterpart on one card).  ``--remat`` sets ``RunConfig.remat`` (JAX's
+trainer fixes it at "none", the default here).  Runs on ``cuda`` unless
+given ``--device cpu``.  An embeds-input
 or encoder-decoder model trains on the pipeline's stub-frontend batches
 (``TokenPipeline.model_batch_at``), their embeddings moved to the card in
 ``run.activation_dtype``, the dtype JAX's ``input_specs`` declares for
@@ -43,7 +47,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data", default="synthetic")
     ap.add_argument("--data-path", default=None)
-    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="data rows of the mesh: the batch split over "
+                         "them, stacked on the card")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="trustee shards stacked on the card: the MoE's "
                          "experts and the cross-entropy's vocab")
@@ -67,11 +73,12 @@ def main(argv=None, stats: Optional[dict] = None):
     final ``state`` (params, opt_state), the ``plan`` and the
     ``pipeline``."""
     args = _parser().parse_args(argv)
-    if args.mesh_data > 1:
-        raise NotImplementedError(
-            "--mesh-data > 1: a data axis spans cards, and one card has "
-            "nothing to stack it on (ROADMAP queue A 13)")
+    from ..core import meshctx
+    with meshctx.kept_context():
+        return _train(args, stats)
 
+
+def _train(args, stats: Optional[dict]):
     from ..configs.base import MeshConfig, RunConfig, ShapeConfig
     from ..configs.registry import get_arch, get_smoke_arch
     from ..core.meshctx import resolve_device
@@ -80,6 +87,7 @@ def main(argv=None, stats: Optional[dict] = None):
     from ..models.layers import dtype_of
     from ..optim import init_adamw
     from ..runtime import FailureInjector, TrainLoop, TrainLoopConfig
+    from .mesh import make_local_mesh
     from .steps import build_cell
 
     dev = resolve_device(args.device)
@@ -93,7 +101,8 @@ def main(argv=None, stats: Optional[dict] = None):
     run = RunConfig(model=cfg, shape=shape, mesh=mcfg,
                     learning_rate=args.lr, remat=args.remat,
                     zero_sharding=args.mesh_data > 1)
-    plan = build_cell(cfg, shape, run)
+    plan = build_cell(cfg, shape, run,
+                      make_local_mesh(args.mesh_data, args.mesh_model, dev))
     params = M.init_params(cfg, run, dev)
     opt_state = init_adamw(params, dtype_of(run.opt_dtype))
     n_params = M.count_params(params)

@@ -3,13 +3,48 @@ and logits (the torch counterparts of ``repro.models.layers``).
 Parameters are plain dicts of tensors in the JAX layout; norms, RoPE and
 the MLP's gate activation compute in f32 and return the input's dtype;
 logits are f32.  ``delegated_softmax_xent`` is the training loss over T
-vocab shards stacked on the device."""
+vocab shards stacked on the device.
+
+``dp_axes`` names the mesh axes that shard the batch (JAX's rule); the
+layers here, the cross-entropy and the logits included, compute each
+sequence on its own, so the data axis is the identity for them, and
+only the MoE (``models.moe``) reads it: each data row delegates its own
+sequences."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..core import meshctx
+
+DP = ("pod", "data")   # the batch axes (the subset present in the mesh)
+
+
+def dp_axes(run=None) -> Tuple[str, ...]:
+    """The axes that shard the batch: the ambient override
+    (``meshctx.set_batch_axes``, which ``launch.steps.build_cell``
+    installs), else the ``pod`` / ``data`` axes of ``run.mesh`` (of the
+    ambient mesh without a ``run``)."""
+    override = meshctx.batch_axes()
+    if override != "default":
+        return tuple(override)
+    names = run.mesh.axes if run is not None else \
+        meshctx.current_mesh().axis_names
+    return tuple(a for a in DP if a in names)
+
+
+def dp_size(run=None) -> int:
+    """The data-parallel factor: ``run.mesh``'s size over ``dp_axes``
+    (1 without a ``run``)."""
+    if run is None:
+        return 1
+    n = 1
+    for a in dp_axes(run):
+        if a in run.mesh.axes:
+            n *= int(run.mesh.shape[run.mesh.axes.index(a)])
+    return n
 
 
 def init_rmsnorm(dim: int, dtype=torch.float32, device=None,

@@ -1,7 +1,14 @@
 """Model facade (the torch counterpart of ``repro.models.model``): the
 uniform entry points ``launch/`` calls.  Decoder-only stacks go to
 ``transformer``, the encoder-decoder model to ``encdec``;
-``input_specs`` names every model input of a cell."""
+``input_specs`` names every model input of a cell.
+
+The data axis (``layers.dp_axes``): JAX shards the batch of every input,
+cache and decode island over it (``batch_specs_sharding``,
+``cache_specs``); each of those computes a sequence on its own, so on one
+card, where the whole batch is one tensor, it is the identity and has no
+layout.  Only the MoE's delegation changes with it (``moe.moe_block``:
+each data row delegates its own sequences)."""
 from __future__ import annotations
 
 from typing import Dict, Tuple

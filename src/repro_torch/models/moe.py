@@ -32,6 +32,18 @@ JAX's, to the row, so the same rows are dropped.  With ``overflow=
 "defer"`` the round is ONE ``delegate``, as in JAX: the rows past the
 capacity are deferred, get no second block, and count as dropped.
 
+The data axis (``layers.dp_size``: ``run.mesh``'s size over the batch
+axes, ``launch.steps.build_cell``'s rule): each of the n_dp data rows
+takes its own ``b_loc = B / n_dp`` sequences and delegates them to the T
+model-axis trustees, so the round runs over n_dp * T stacked client
+shards, replica-major (the channel transposes within each data row),
+and every capacity comes from ``b_loc``: a (2, 4) run drops other rows
+than a (1, 4) run of the same batch.  The trustees of every data row
+hold the same experts; their received slots meet in one grouped matmul
+per projection, each expert's slots of the n_dp rows side by side.  With
+the batch axes ``()`` (a batch that does not split over the data size)
+the batch is replicated and every data row computes the (1, T) round.
+
 Routing is f32: softmax, top-k (ties to the lower expert index, as
 ``lax.top_k``: a stable descending sort), renormalisation, and the
 switch-style load-balance loss.
@@ -47,7 +59,7 @@ from ..configs.base import ModelConfig
 from ..core import channel as ch
 from ..kernels import ops as kops
 from ..kernels import ref as kref
-from .layers import _normal_stacked, init_mlp, mlp
+from .layers import _normal_stacked, dp_size, init_mlp, mlp
 
 
 def _round8(x: int) -> int:
@@ -95,16 +107,19 @@ def _expert_ffn(x_e, weights, act: str, use_kernel: bool, counts):
 
 
 def _expert_serve(weights, e_local: int, cap2: int, act: str,
-                  use_kernel: bool):
-    """Trustee side, every trustee at once: pack the received rows by
-    local expert into ``cap2`` slots each (a second-level slot pack; rows
-    past it answer zeros) and run the expert FFN over the T * e_local
-    experts' slots, the pack's per-expert counts telling the grouped
-    matmul which slots are filled (they stay on the device)."""
+                  use_kernel: bool, n_dp: int = 1):
+    """Trustee side, every trustee of every data row at once: pack the
+    received rows by local expert into ``cap2`` slots each (a
+    second-level slot pack; rows past it answer zeros) and run the expert
+    FFN over the E = T * e_local experts, each expert's slots of the
+    ``n_dp`` data rows side by side (E, n_dp * cap2, D), the pack's
+    per-expert counts telling the grouped matmul which slots are filled
+    (they stay on the device)."""
 
     def serve(state, received: ch.Received):
-        h = received.rows["h"]                           # (T, N, D)
-        t, n, d = h.shape
+        h = received.rows["h"]                           # (n_dp * T, N, D)
+        n_sh, n, d = h.shape
+        e = (n_sh // n_dp) * e_local
         el = torch.where(received.valid, received.rows["el"],
                          torch.full_like(received.rows["el"], -1))
         if use_kernel:
@@ -116,10 +131,17 @@ def _expert_serve(weights, e_local: int, cap2: int, act: str,
         else:
             slots, counts, req_slot = kref.delegation_pack(el, h, e_local,
                                                            cap2)
-        x_e = slots.reshape(t * e_local, cap2, d)
-        y_e = _expert_ffn(x_e, weights, act, use_kernel,
-                          counts.reshape(t * e_local))
-        flat = y_e.reshape(t, e_local * cap2, d)
+        x_e = slots.reshape(n_dp, e, cap2, d).transpose(0, 1) \
+            .reshape(e, n_dp * cap2, d)
+        # an expert's filled rows end in its last data row's filled slots
+        base = torch.arange(n_dp, dtype=counts.dtype,
+                            device=counts.device)[:, None] * cap2
+        counts = counts.reshape(n_dp, e)
+        counts = torch.where(counts > 0, base + counts,
+                             torch.zeros_like(counts)).amax(0)
+        y_e = _expert_ffn(x_e, weights, act, use_kernel, counts)
+        flat = y_e.reshape(e, n_dp, cap2, d).transpose(0, 1) \
+            .reshape(n_sh, e_local * cap2, d)
         y = kref.take_rows(flat, torch.clamp(req_slot, min=0))
         y = torch.where((req_slot >= 0)[..., None], y, torch.zeros_like(y))
         return state, {"y": y}
@@ -140,6 +162,13 @@ def moe_block(params, x: torch.Tensor, cfg: ModelConfig, run=None
         raise ValueError(f"unknown MoE overflow {m.overflow!r}")
     e_local = e // t
     b, s, d = x.shape
+    n_dp = dp_size(run)
+    if b % n_dp:
+        raise ValueError(
+            f"batch {b} does not split over the {n_dp} data rows; give "
+            f"the batch axes () (meshctx.set_batch_axes) to replicate it")
+    b_loc = b // n_dp
+    n_sh = n_dp * t                  # client shards, replica-major
 
     # ---- routing (f32) ----------------------------------------------------
     probs = torch.softmax(torch.matmul(x.float(), params["router"].float()),
@@ -151,7 +180,8 @@ def moe_block(params, x: torch.Tensor, cfg: ModelConfig, run=None
     aux_loss = e * torch.sum(f_e * probs.mean((0, 1))) * m.aux_loss_weight
 
     seq_mode = (s % t == 0) and s >= t
-    r_local = b * (s // t) * k if seq_mode else max(1, -(-b * s * k // t))
+    r_local = b_loc * (s // t) * k if seq_mode \
+        else max(1, -(-b_loc * s * k // t))
     cap = _round8(math.ceil(m.capacity_factor * max(1, r_local) / t))
     over_cap = _round8(math.ceil(m.overflow_factor * max(1, r_local) / t)) \
         if m.overflow == "second_round" else 0
@@ -160,18 +190,19 @@ def moe_block(params, x: torch.Tensor, cfg: ModelConfig, run=None
         axis="model", capacity=cap, overflow=m.overflow,
         overflow_capacity=over_cap,
         local_shortcut=bool(run is None or run.local_shortcut),
-        pack_impl="kernel" if use_kernel else "ref")
+        pack_impl="kernel" if use_kernel else "ref", n_replicas=n_dp)
     cap2 = _round8(math.ceil(4.0 * max(1, r_local) / e_local))
     weights = {n: params[n] for n in ("w_gate", "w_up", "w_down")}
-    serve = _expert_serve(weights, e_local, cap2, cfg.act, use_kernel)
+    serve = _expert_serve(weights, e_local, cap2, cfg.act, use_kernel, n_dp)
     w_tok = top_w.to(x.dtype)
 
     def dispatch(x_l, w_l, e_l, pmask=None):
-        """Every client's round at once: x_l (T, R_tok, D), w_l / e_l
-        (T, R_tok, K), pmask (T, R_tok) the tokens each client owns."""
+        """Every client's round at once: x_l (n_dp * T, R_tok, D), w_l /
+        e_l (n_dp * T, R_tok, K), pmask (n_dp * T, R_tok) the tokens each
+        client owns."""
         r_tok = x_l.shape[1]
-        h_rows = torch.repeat_interleave(x_l, k, dim=1)   # (T, R_tok*K, D)
-        e_flat = e_l.reshape(t, r_tok * k)
+        h_rows = torch.repeat_interleave(x_l, k, dim=1)  # (.., R_tok*K, D)
+        e_flat = e_l.reshape(n_sh, r_tok * k)
         dst = torch.div(e_flat, e_local, rounding_mode="floor").to(
             torch.int32)
         el = (e_flat % e_local).to(torch.int32)
@@ -180,32 +211,40 @@ def moe_block(params, x: torch.Tensor, cfg: ModelConfig, run=None
             dst = torch.where(pm, dst, torch.full_like(dst, -1))
         _, resp, info = ch.delegate(None, dst, {"h": h_rows, "el": el},
                                     serve, t, cfg_ch)
-        y_rows = resp["y"].reshape(t, r_tok, k, d)
+        y_rows = resp["y"].reshape(n_sh, r_tok, k, d)
         y_tok = (y_rows * w_l[..., None].to(y_rows.dtype)).sum(2)
-        dropped = info.dropped.reshape(t, r_tok, k).any(-1)
+        dropped = info.dropped.reshape(n_sh, r_tok, k).any(-1)
         return y_tok, info.group_sizes, dropped
 
     if seq_mode:
-        def shard(a):          # (B, S, ...) -> (T, B * S/T, ...)
-            a = a.reshape((b, t, s // t) + tuple(a.shape[2:]))
-            return a.transpose(0, 1).reshape((t, b * (s // t))
-                                             + tuple(a.shape[3:]))
+        sl = s // t
+
+        def shard(a):  # (B, S, ...) -> (n_dp * T, b_loc * S/T, ...)
+            trail = tuple(a.shape[2:])
+            a = a.reshape((n_dp, b_loc, t, sl) + trail)
+            return a.transpose(1, 2).reshape((n_sh, b_loc * sl) + trail)
 
         def unshard(a):        # the inverse
-            a = a.reshape((t, b, s // t) + tuple(a.shape[2:]))
-            return a.transpose(0, 1).reshape((b, s) + tuple(a.shape[3:]))
+            trail = tuple(a.shape[2:])
+            a = a.reshape((n_dp, t, b_loc, sl) + trail)
+            return a.transpose(1, 2).reshape((b, s) + trail)
         y, gs, dropped = dispatch(shard(x), shard(w_tok), shard(top_e))
         y, dropped = unshard(y), unshard(dropped)
     else:
-        def every(a):          # (B, S, ...) -> (T, B * S, ...), shared
-            return a.reshape((1, b * s) + tuple(a.shape[2:])).expand(
-                (t, b * s) + tuple(a.shape[2:]))
-        pmask = (torch.arange(b * s, device=x.device)[None, :] % t
-                 == torch.arange(t, device=x.device)[:, None])
+        n_tok = b_loc * s
+
+        def every(a):  # (B, S, ...) -> (n_dp * T, b_loc * S, ...): each
+            # data row's tokens, seen by its T clients
+            trail = tuple(a.shape[2:])
+            return a.reshape((n_dp, 1, n_tok) + trail).expand(
+                (n_dp, t, n_tok) + trail).reshape((n_sh, n_tok) + trail)
+        my = torch.arange(n_sh, device=x.device)[:, None] % t
+        pmask = torch.arange(n_tok, device=x.device)[None, :] % t == my
         y, gs, dropped = dispatch(every(x), every(w_tok), every(top_e),
                                   pmask)
-        y = torch.where(pmask[..., None], y, torch.zeros_like(y)).sum(0)
-        dropped = (dropped & pmask).any(0)
+        y = torch.where(pmask[..., None], y, torch.zeros_like(y)) \
+            .reshape(n_dp, t, n_tok, d).sum(1)
+        dropped = (dropped & pmask).reshape(n_dp, t, n_tok).any(1)
         y, dropped = y.reshape(b, s, d), dropped.reshape(b, s)
 
     if m.num_shared > 0:

@@ -13,3 +13,5 @@
 #               the page table's chaos run, against their oracles
 # train.py      gradients leaf by leaf, the experts a MoE call fed, the
 #               gradient-combine battery and its replay
+# dataaxis.py   a sub-axis KV store's rounds, each data row its own
+#               stream, held to a sequential oracle per data row

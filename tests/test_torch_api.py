@@ -100,23 +100,43 @@ def test_knobs_carried_now_run(kw, stat):
         assert stats[stat] > (1 if stat == "rounds" else 0), stats
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(serve_blocks="auto"), "'auto' kernel blocks"),
-    (dict(pack_blocks="auto"), "'auto' kernel blocks"),
-    (dict(serve_blocks=(128, 128)), "'auto' kernel blocks"),
-    (dict(pack_blocks=(256, 512)), "'auto' kernel blocks"),
-])
-def test_knobs_not_carried_raise_naming_roadmap(kw, item):
-    with use_session():
-        with pytest.raises(NotImplementedError, match=item):
-            _store(**kw)
+@pytest.mark.parametrize("kw,refusal", [
+    (dict(serve_blocks="auto"), None),
+    (dict(pack_blocks="auto"), None),
+    (dict(serve_blocks=(128, 128)), "Pallas tile"),
+    (dict(pack_blocks=(256, 512)), "Pallas tile"),
+], ids=["kw0-'auto' kernel blocks", "kw1-'auto' kernel blocks",
+        "kw2-'auto' kernel blocks", "kw3-'auto' kernel blocks"])
+def test_knobs_not_carried_raise_naming_roadmap(kw, refusal):
+    """``"auto"`` blocks are the kernels' own launch plans: a store built
+    with them serves a round exactly as the default store does.  A fixed
+    Pallas tile pair has no counterpart and raises, saying why."""
+    if refusal is not None:
+        with use_session():
+            with pytest.raises(NotImplementedError, match=refusal):
+                _store(**kw)
+        return
+    rng = np.random.default_rng(9)
+    init = rng.integers(0, 8, (37, 2)).astype(np.float32)
+    keys = torch.as_tensor(rng.integers(0, 37, 40), dtype=torch.int32)
+    vals = torch.as_tensor(rng.integers(0, 8, (40, 2)).astype(np.float32))
+    out = []
+    for extra in (kw, {}):
+        with use_session():
+            st = _store(capacity=8, **extra)
+            st.prefill(init)
+            old = st.add(keys, vals)
+            out.append((old.numpy(), st.get(keys).numpy(), st.dump()))
+    for a, b in zip(*out):
+        assert np.array_equal(a, b)
 
 
 def test_async_step_sub_axis_and_fused_round_raise():
     """``step(sync=False)`` on an idle session; a sub-axis trustee group
-    raises naming its ROADMAP item; two channel-compatible trusts pending
-    fuse into ONE round that answers as the two solo rounds do; a trust
-    pending alone flushes solo."""
+    is JAX's (4 trustees of the "model" axis, the state in 2 replicas);
+    two channel-compatible trusts pending fuse into ONE round that
+    answers as the two solo rounds do; a trust pending alone flushes
+    solo."""
     rng = np.random.default_rng(4)
     init = rng.integers(0, 8, (37, 2)).astype(np.float32)
     keys = [torch.as_tensor(rng.integers(0, 37, 24)) for _ in range(2)]
@@ -126,8 +146,8 @@ def test_async_step_sub_axis_and_fused_round_raise():
     for fused in (True, False):
         with use_session() as sess:
             assert sess.step(sync=False) is None and sess.quiesced()
-            with pytest.raises(NotImplementedError, match="sub-axis"):
-                TrusteeGroup(StackedMesh((2, 4), device="cpu"), "model")
+            g = TrusteeGroup(StackedMesh((2, 4), device="cpu"), "model")
+            assert (g.n_trustees, g.n_replicas, g.n_origins) == (4, 2, 8)
             # the shortcut's local rows and the auto capacity depend on
             # the row layout, which fusing changes: both off here
             a, b = (_store(name=n, capacity=24, local_shortcut=False)
@@ -273,8 +293,8 @@ def test_kv_reshard_matches_jax_and_local_trustees():
     with use_mesh(StackedMesh((1, 8), device="cpu")):
         assert local_trustees().n_trustees == 8
     with use_mesh(StackedMesh((2, 4), device="cpu")):
-        with pytest.raises(NotImplementedError, match="sub-axis"):
-            local_trustees()
+        g = local_trustees()           # JAX's default: the "model" group
+        assert (g.axes, g.n_trustees, g.n_replicas) == (("model",), 4, 2)
         assert local_trustees(("data", "model")).n_trustees == 8
 
 

@@ -347,9 +347,18 @@ def test_serve_dedicated_and_drain_flags_run(extra):
     (["--mesh-data", "2"], "queue A 13"),
 ])
 def test_unported_serve_flags_raise(extra, item):
+    """``--mesh-data 2`` (once refused as ``item``) runs: the qwen model
+    computes each sequence on its own, so the (2, T) mesh's tokens are
+    the (1, T) mesh's, and the session ledger and meter span all 2 * T
+    shards of the mesh (the meter one key a shard)."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match=item):
-        serve.main(SERVE_ARGV + extra)
+    stats = {}
+    gen = serve.main(SERVE_ARGV + extra + ["--session"], stats=stats)
+    np.testing.assert_array_equal(gen, serve.main(SERVE_ARGV))
+    b, g = SERVE["batch"], SERVE["gen"]
+    assert stats["ledger"].tolist() == [g] * b
+    assert stats["meter"].shape == (2 * SERVE["mesh_model"],)
+    assert int(stats["meter"].sum()) == b * g
 
 
 @pytest.mark.parametrize("extra,replayed", [

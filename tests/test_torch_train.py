@@ -492,14 +492,21 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad():
 
 
 def test_train_cell_refuses_the_kernels_and_unported_flags():
+    """A train cell refuses the kernels; ``--mesh-data 2`` (once refused)
+    trains: a dense model computes each sequence on its own, so its
+    losses on the (2, 1) mesh are the (1, 1) mesh's."""
     from repro_torch.launch import train
     from repro_torch.launch.steps import build_cell
     cfg, run = _port_run("qwen2.5-3b", 1, use_pallas=True)
     with pytest.raises(ValueError, match="no kernel has a backward"):
         build_cell(cfg, run.shape, run)
-    with pytest.raises(NotImplementedError, match="queue A 13"):
-        train.main(["--arch", "qwen2.5-3b", "--smoke", "--mesh-data", "2",
-                    "--device", "cpu"])
+    argv = ["--arch", "qwen2.5-3b", "--smoke", "--steps", "2", "--batch",
+            "4", "--seq", "16", "--device", "cpu"]
+    got = train.main(argv + ["--mesh-data", "2"])
+    want = train.main(argv)
+    assert [s for s, _ in got] == [0, 1]
+    np.testing.assert_allclose([l for _, l in got], [l for _, l in want],
+                               rtol=1e-5)
 
 
 def test_trainer_defaults_to_cuda(monkeypatch):
