@@ -161,8 +161,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the serve's prompt against the serve's decode logits there, the MoE
      dropped fractions of both beside them; then one decode step with
      mla_absorb on against off from the same cache, in bf16 and in f32
-     (weights drawn in f32 from the same seed; at full depth where they
-     fit, else 4 layers with bf16 at that depth beside it);
+     (weights drawn in f32 from the same seed, at 4 layers, with bf16 at
+     that depth beside it);
   8. falcon serve — the falcon-mamba-7b path at full width and depth (64
      Mamba-1 layers, d_model 4096, d_inner 8192, dt_rank 256, N 16, vocab
      65024, bf16; 7.27 B random parameters drawn on the card, after phase
@@ -253,6 +253,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      port's CPU path (loss 1e-5, gradients 1e-4 relative RMS, the MoE's
      drops equal), 3 steps of finite loss, then launch.train --mesh-data
      2 --mesh-model 4 --n-layers 2 for 3 steps; no kernel launched;
+ 13. jamba-v0.1-52b and arctic-480b at full width, at the depth one card
+     holds (run after phase 12, before phase 9, each model's weights freed
+     before the next is drawn): jamba 16 of its 32 layers (two 8-layer
+     groups of Mamba and attention layers, MoE of 16 experts top-2 on
+     every second layer; 26.05 B parameters), arctic 2 of its 35 (56 / 8
+     heads, 128 experts top-2 beside a dense MLP; 27.68 B), bf16, random
+     weights drawn on the card a layer at a time: serve.main at the
+     published depth refused before any allocation; prefill_step at B 4
+     x 2048 over 4 trustees (a check run holding every flash, grouped-
+     matmul and pack launch, and jamba's 14 scans, against the plain
+     version, then 2 timed runs); flash and the grouped matmul timed at
+     the new shapes as phase 9 times them; serve.main(cfg=...) over 4 x
+     (32 + 32), twice (the tokens equal); the prefill's last-position
+     logits on the serve's prompt held to the plain path's in bf16 (the
+     model's bf16 bound, 10%), and against the decode's there, in bf16
+     as a reading (with the plain prefill's, and the expert rows the
+     trustees dropped) and in f32 at 8 / 1 layers held to 1e-4;
+     tokens/s and peak allocated GB;
  10. qwen train — (a) repro_torch.launch.train on qwen2.5-3b at full width
      and depth (bf16 weights, f32 AdamW moments, remat "full", the
      synthetic stream, B 4 x 1024, 8 steps; weights drawn on the card
@@ -293,9 +311,9 @@ the three serve kernels on one lane's sub-buffer as the strided serve
 forms it, exact.
 
 Launch counters are zeroed just before each main path (phases 3, 4,
-4a-4e, the timed run of 5, each timed prefill of 6, 7, 8 and 11, the
-session serves of 6, the serves of 7, 8 and 11, each of 12 (a)-(c), and
-phase 10's trainer)
+4a-4e, the timed run of 5, each timed prefill of 6, 7, 8, 11 and 13, the
+session serves of 6, the serves of 7, 8, 11 and 13, each of 12 (a)-(c),
+and phase 10's trainer)
 and read just after; every kernel of a path must have launched there
 (phase 10's: none).  "[time]" lines give the wall time through each
 phase.  The line before the last is {"kernels": [...]};
@@ -303,6 +321,7 @@ the last is the device line.
 """
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -3310,6 +3329,9 @@ DS_PREFILL = dict(batch=4, seq=2048, mesh_model=4)
 DS_SERVE = dict(batch=8, prompt_len=64, gen=64, mesh_model=4)
 DS_TIMED_RUNS = 2
 DS_ABSORB_STEPS = 16
+# the f32 absorbed-vs-expanded reading's depth: 4 layers (it ran at full
+# depth, 62.6 GB of f32 weights, where they fit; cut for phase 13's time)
+DS_ABSORB_F32_LAYERS = 4
 
 
 def ds_serve_argv():
@@ -3565,9 +3587,8 @@ def phase_deepseek(torch, dev, gpu, report, errs):
 
     # one decode step with mla_absorb on against off, from the same cache:
     # in bf16 at full depth, then in f32 (weights drawn in f32 from the
-    # same seed) at full depth where they fit on the card, else at 4
-    # layers (the dense layer and 3 MoE layers) with bf16 at that depth
-    # beside it
+    # same seed) at DS_ABSORB_F32_LAYERS layers (the dense layer and 3 MoE
+    # layers) with bf16 at that depth beside it
     del pre
     ab = absorb_agreement(torch, dev, M, cfg, run, params, prompt)
     say(f"[deepseek check] decode step at position {DS_ABSORB_STEPS} with "
@@ -3578,9 +3599,7 @@ def phase_deepseek(torch, dev, gpu, report, errs):
     require(ab["ok"], f"mla_absorb on vs off: {ab}")
     del params
     torch.cuda.empty_cache()
-    free = torch.cuda.mem_get_info()[0]
-    fcfg = cfg if 4 * n_params * 1.1 < free else \
-        cfg.with_overrides(n_layers=4)
+    fcfg = cfg.with_overrides(n_layers=DS_ABSORB_F32_LAYERS)
     # the plain path: the grouped-matmul kernel takes bf16 only
     frun = dataclasses.replace(run, model=fcfg, param_dtype="float32",
                                activation_dtype="float32", use_pallas=False)
@@ -3588,20 +3607,18 @@ def phase_deepseek(torch, dev, gpu, report, errs):
     ab32 = absorb_agreement(torch, dev, M, fcfg, frun, params, prompt)
     del params
     torch.cuda.empty_cache()
-    ab16 = ab
-    if fcfg is not cfg:
-        crun = dataclasses.replace(run, model=fcfg)
-        params = M.init_params(fcfg, crun, dev)
-        ab16 = absorb_agreement(torch, dev, M, fcfg, crun, params, prompt)
-        del params
-        torch.cuda.empty_cache()
+    crun = dataclasses.replace(run, model=fcfg)
+    params = M.init_params(fcfg, crun, dev)
+    ab16 = absorb_agreement(torch, dev, M, fcfg, crun, params, prompt)
+    del params
+    torch.cuda.empty_cache()
     verdict = ("within 1e-4 in f32: the bf16 reading is bf16 rounding"
                if ab32["rel_rms"] <= 1e-4 else
                "beyond 1e-4 in f32: a fault of the absorbed form (ROADMAP "
                "queue C)")
     say(f"[deepseek check] mla_absorb on vs off at {fcfg.n_layers} layers "
-        f"({free / 2 ** 30:.1f} GiB free for {4 * n_params / 2 ** 30:.1f} "
-        f"GiB of f32 weights at full depth): f32 relative RMS "
+        f"(f32 weights at full depth would be "
+        f"{4 * n_params / 2 ** 30:.1f} GiB): f32 relative RMS "
         f"{ab32['rel_rms']:.4g}, max abs {ab32['max_abs']:.4g}, argmax "
         f"agrees on {ab32['argmax_agree'] * 100:.1f}% of rows; bf16 "
         f"relative RMS {ab16['rel_rms']:.4g}, argmax on "
@@ -5501,6 +5518,339 @@ def phase_data_axis(torch, dev, gpu, report, errs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: jamba-v0.1-52b and arctic-480b at full width, at the depth one
+# card holds
+# ---------------------------------------------------------------------------
+
+# (arch, the depth served): jamba two of its four 8-layer groups (26.05 B
+# parameters, 52.1 GB of bf16), arctic 2 of its 35 layers (27.68 B, 55.4
+# GB); every width as published
+HYBRID = (("jamba-v0.1-52b", 16), ("arctic-480b", 2))
+HY_PREFILL = dict(batch=4, seq=2048, mesh_model=4)
+HY_SERVE = dict(batch=4, prompt_len=32, gen=32, mesh_model=4)
+HY_TIMED_RUNS = 2
+# the f32 prefill-vs-decode check: the depth whose f32 weights one card
+# holds (jamba one 8-layer group, 53.3 GB; arctic one layer, 55.3 GB)
+HY_F32_LAYERS = {"jamba-v0.1-52b": 8, "arctic-480b": 1}
+HY_CHECK_LABELS = {"flash_attention": "flash", "grouped_matmul": "gmm",
+                   "delegation_pack": "pack", "selective_scan": "scan"}
+
+
+def hy_serve_argv():
+    q = HY_SERVE
+    return ["--batch", str(q["batch"]), "--prompt-len", str(q["prompt_len"]),
+            "--gen", str(q["gen"]), "--mesh-model", str(q["mesh_model"])]
+
+
+def hy_layers(cfg):
+    """(attention, Mamba, MoE) layers of ``cfg``'s stack."""
+    from repro_torch.models.transformer import layer_descs
+    descs, prefix, n_groups = layer_descs(cfg)
+    assert prefix == 0
+    return tuple(n_groups * sum(pred(d) for d in descs) for pred in (
+        lambda d: d.block == "attn", lambda d: d.block == "mamba",
+        lambda d: d.ffn in ("moe", "moe+dense")))
+
+
+def hy_refusal(torch, arch):
+    """serve.main at ``arch``'s published depth: it must raise the fit
+    check's ValueError before anything is allocated.  Returns the
+    message."""
+    from repro_torch.launch import serve
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        serve.main(["--arch", arch] + hy_serve_argv())
+    except ValueError as e:
+        msg = str(e)
+    else:
+        require(False, f"{arch} at its published depth was served: the fit "
+                f"check did not refuse it")
+    peak = torch.cuda.max_memory_allocated()
+    require("does not fit" in msg and peak <= before,
+            f"{arch} refusal: {msg!r}; {before} bytes allocated before the "
+            f"call, at most {peak} during it")
+    return msg
+
+
+def phase_hybrid_arch(torch, dev, gpu, report, errs, arch, n_layers):
+    """One architecture of phase 13 at ``n_layers`` layers, full width,
+    bf16, random weights drawn on the card (seed 0, the serve's own):
+    (a) serve.main at the published depth raises the fit check's refusal
+    before allocating; (b) prefill_step at B 4 x 2048 over 4 trustees —
+    a check run holding every flash, grouped-matmul and pack launch (and
+    jamba's selective scans) against its plain version, then timed runs,
+    counters zeroed just before each and read just after — and the
+    prefill's last-position logits on the serve's prompt, held to the
+    plain path's on the same weights within the model's bf16 bound; (c) the
+    weights freed, flash and the grouped matmul timed at the check run's
+    first inputs as phase 9 times them; (d) serve.main(cfg=...) over 4 x
+    (32 + 32), twice (the tokens equal), its decode logits at the last
+    prompt position against (b)'s prefill logits (and the plain path's)
+    in bf16 — a reading beside the 10% MoE bound, not a gate: at random weights a bf16
+    rounding flips a MoE layer's top-2 choice or Mamba's state carries
+    it (jamba), and the prompt prefill's trustees drop expert rows past
+    their ``cap2`` slots that the decode keeps (arctic), PERF.md §6 —
+    and (e) the same comparison in f32 at ``HY_F32_LAYERS`` (weights drawn
+    in f32 from the same seed, the prefill's plain path, a teacher-forced
+    decode), held to the f32 bound (1e-4): the two paths compute one
+    function.  Returns the launches of one prefill call and of the
+    serves."""
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    from repro_torch.testing.model import (ChunkedPlainGmm, DecodeLogits,
+                                           FlashCheck, GmmCheck, MoEStats,
+                                           PackCheck, ScanCheck,
+                                           TrusteeDrops, logits_agreement,
+                                           prefill_decode_rtol,
+                                           relative_agreement)
+    cfg = get_arch(arch).with_overrides(n_layers=n_layers)
+    n_attn, n_mamba, n_moe = hy_layers(cfg)
+    # the earlier phases' weights and inputs, some held by reference
+    # cycles until a collection, leave the card first
+    gc.collect()
+    want = {"flash_attention": n_attn, "selective_scan": n_mamba,
+            "grouped_matmul": 3 * n_moe, "delegation_pack": 2 * n_moe}
+    b, s = HY_PREFILL["batch"], HY_PREFILL["seq"]
+    pl, nb, g_len = HY_SERVE["prompt_len"], HY_SERVE["batch"], HY_SERVE["gen"]
+    launches = {k: 0 for k in SOURCES}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the published depth is refused before any weight is drawn
+    msg = hy_refusal(torch, arch)
+    say(f"[hybrid {arch}] serve.main --arch {arch} ({get_arch(arch).n_layers}"
+        f" layers) refused before allocating: {msg}")
+
+    # (b) the prefill
+    mesh = MeshConfig((1, HY_PREFILL["mesh_model"]), ("data", "model"))
+    run = RunConfig(model=cfg, shape=ShapeConfig("prefill", s, b, "prefill"),
+                    mesh=mesh, remat="none", use_pallas=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, run, dev)
+    torch.cuda.synchronize()
+    n_params = M.count_params(params)
+    say(f"[hybrid {arch}] {n_layers} of {get_arch(arch).n_layers} layers "
+        f"({n_attn} attention, {n_mamba} Mamba, {n_moe} MoE): "
+        f"{n_params / 1e9:.3f} B parameters "
+        f"({M.active_param_count(cfg, n_params) / 1e9:.3f} B active a "
+        f"token) drawn on the card in {time.perf_counter() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated)")
+    plan = build_cell(cfg, run.shape, run)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    kops.reset_launch_counts()
+    with FlashCheck() as fchk, GmmCheck() as gchk, PackCheck() as pchk, \
+            ScanCheck() as schk, MoEStats() as moe:
+        logits = plan.step_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    checks = {"flash_attention": fchk.summary(),
+              "grouped_matmul": gchk.summary(),
+              "delegation_pack": pchk.summary(),
+              "selective_scan": schk.summary()}
+    for k, n in want.items():
+        c = checks[k]
+        p = HY_CHECK_LABELS[k]
+        require(counts[k] == n and c[f"{p}_calls"] == n
+                and c[f"{p}_calls_out_of_tolerance"] == 0,
+                f"{arch} prefill check run: {counts[k]} {k} launches, "
+                f"{c[f'{p}_calls']} checked, "
+                f"{c[f'{p}_calls_out_of_tolerance']} beyond the tolerance; "
+                f"want {n}, all within")
+        if n:
+            errs[k] = max(errs.get(k, 0.0), c[f"{p}_max_abs_err"])
+    require(tuple(logits.shape) == (b, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            f"{arch} prefill logits: {tuple(logits.shape)}, finite "
+            f"{bool(torch.isfinite(logits).all())}")
+    for k, v in counts.items():
+        launches[k] += v
+    m = moe.summary()
+    f, g, pk, sc = (checks[k] for k in ("flash_attention", "grouped_matmul",
+                                        "delegation_pack", "selective_scan"))
+    say(f"[hybrid {arch} check] prefill B {b} x {s} over "
+        f"{HY_PREFILL['mesh_model']} trustees: {f['flash_calls']} flash at "
+        f"{f['flash_shapes']}, {g['gmm_calls']} grouped-matmul at "
+        f"{g['gmm_shapes']} ({g['gmm_filled_tiles']} of {g['gmm_tiles']} "
+        f"128-row tiles filled), {pk['pack_calls']} packs at "
+        f"{pk['pack_shapes']}"
+        + (f", {sc['scan_calls']} scans at {sc['scan_shapes']}"
+           if n_mamba else "")
+        + f": every call == plain (max abs err flash "
+        f"{f['flash_max_abs_err']:.3g}, gmm {g['gmm_max_abs_err']:.3g}"
+        + (f", scan {sc['scan_max_abs_err']:.3g}" if n_mamba else "")
+        + f", pack exact); logits ({b}, {cfg.vocab_size}), finite; MoE "
+        f"dropped fraction mean {m['moe_dropped_frac_mean']:.6f}, max "
+        f"{m['moe_dropped_frac_max']:.6f}, max load {m['moe_max_load']:.0f} "
+        f"rows; launches {json.dumps(counts)}")
+    # the first call of each timed kernel, its weights copied out of the
+    # stacked leaf so the leaf can be freed
+    fa_first = fchk.first
+    gmm_first = (gchk.first[0], gchk.first[1].clone(), gchk.first[2])
+    # the checks keep their first calls' arguments: views of the weights
+    del logits, fchk, gchk, pchk, schk, moe
+    secs = []
+    for _ in range(HY_TIMED_RUNS):
+        kops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = plan.step_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = kops.launch_counts()
+        require(all(counts[k] == n for k, n in want.items())
+                and bool(torch.isfinite(timed).all()),
+                f"{arch} prefill timed run: launches {counts}, want {want}")
+    say(f"[main path] {arch} prefill launches (each of {HY_TIMED_RUNS} "
+        f"timed runs): {json.dumps(counts)}")
+    med = sorted(secs)[len(secs) // 2]
+    report[f"{arch}_prefill"] = dict(seconds=secs, tokens_per_s=b * s / med)
+    del timed
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(pl, nb)).T, device=dev)
+    pshape = ShapeConfig("prompt", pl, nb, "prefill")
+    with TrusteeDrops() as pdrops:
+        pre = build_cell(cfg, pshape, run).step_fn(params,
+                                                   {"tokens": prompt})
+    # the kernel path held to the plain path end to end (the same
+    # weights and prompt): in bf16 the two round at other places, so a
+    # near-tie token may take another expert or a Mamba state carry the
+    # difference — the model's bf16 bound (``prefill_decode_rtol``); the
+    # plain grouped matmul a chunk of experts at a time (arctic's f32
+    # expert leaf, 17.8 GB, does not fit beside its weights)
+    with ChunkedPlainGmm():
+        plain = build_cell(cfg, pshape, dataclasses.replace(
+            run, use_pallas=False)).step_fn(params, {"tokens": prompt})
+    kvp = relative_agreement(pre, plain,
+                             prefill_decode_rtol(cfg, torch.bfloat16))
+    require(kvp["ok"] and bool(torch.isfinite(plain).all()),
+            f"{arch} bf16 prompt prefill, kernel path vs plain path: {kvp}")
+    say(f"[hybrid {arch} check] bf16 prefill logits at position {pl - 1} "
+        f"through the kernels == through the plain path: relative RMS "
+        f"{kvp['rel_rms']:.4g} <= {kvp['rtol']}, max abs "
+        f"{kvp['max_abs']:.4g}")
+    del params, plan
+    torch.cuda.empty_cache()
+
+    # (c) the kernels at the new shapes, nothing else on the card
+    phase_flash_times(torch, dev, gpu, fa_first, n_attn,
+                      label=f"{arch} prefill")
+    phase_gmm_times(torch, dev, gpu, gmm_first, 3 * n_moe,
+                    f"{arch} prefill")
+    del fa_first, gmm_first
+    torch.cuda.empty_cache()
+
+    # (d) the serve, its own weights drawn inside it
+    stats = {}
+    kops.reset_launch_counts()
+    with DecodeLogits(pos=pl - 1) as rec, TrusteeDrops() as sdrops:
+        out = serve.main(hy_serve_argv(), stats=stats, cfg=cfg)
+    counts = kops.launch_counts()
+    steps = stats["steps"]
+    require(counts["grouped_matmul"] == 3 * n_moe * steps
+            and counts["delegation_pack"] > 0,
+            f"{arch} serve: launches {counts}, want "
+            f"{3 * n_moe * steps} grouped-matmul and packs")
+    require(out.shape == (nb, g_len) and int(out.min()) >= 0
+            and int(out.max()) < cfg.vocab_size,
+            f"{arch} serve tokens: shape {out.shape}, range "
+            f"{out.min()}..{out.max()}")
+    require(rec.logits is not None
+            and bool(torch.isfinite(rec.logits).all()),
+            f"{arch} serve: no finite decode logits at position {pl - 1}")
+    for k, v in counts.items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    kops.reset_launch_counts()
+    again = serve.main(hy_serve_argv(), cfg=cfg)
+    for k, v in kops.launch_counts().items():
+        launches[k] += v
+    require(np.array_equal(out, again), f"{arch} serve: two runs' tokens "
+            f"differ")
+    report[f"{arch}_serve"] = stats
+    say(f"[hybrid {arch}] {gpu} | serve {nb} x ({pl} + {g_len}) over "
+        f"{HY_SERVE['mesh_model']} trustees: {steps} steps in "
+        f"{stats['seconds']:.3f} s, {stats['ms_per_step']:.3f} ms/step, "
+        f"{stats['tokens_per_s']:.1f} tokens/s; tokens equal run to run; "
+        f"launches {json.dumps(counts)}")
+    agree = logits_agreement(pre, rec.logits, torch.bfloat16, cfg)
+    pagree = logits_agreement(plain, rec.logits, torch.bfloat16, cfg)
+    (pd, pn), (sd, sn) = pdrops.total(), sdrops.total()
+    say(f"[hybrid {arch}] bf16 prefill logits at position {pl - 1} vs the "
+        f"serve's decode logits there (a reading): relative RMS "
+        f"{agree['rel_rms']:.4g} ({'within' if agree['ok'] else 'beyond'} "
+        f"the {agree['rtol']} MoE bound; the plain path's prefill "
+        f"{pagree['rel_rms']:.4g}), max abs {agree['max_abs']:.4g}, "
+        f"argmax agrees on {agree['argmax_agree'] * 100:.1f}% of rows; the "
+        f"trustees' packs by expert dropped {pd} of {pn} expert rows in "
+        f"the prompt prefill and {sd} of {sn} in the serve's "
+        f"{steps} decode steps")
+    del pre, plain
+    torch.cuda.empty_cache()
+
+    # (e) the same comparison in f32, at the depth whose f32 weights fit
+    fcfg = cfg.with_overrides(n_layers=HY_F32_LAYERS[arch])
+    frun = RunConfig(model=fcfg, shape=ShapeConfig("prompt", pl, nb,
+                                                   "prefill"),
+                     mesh=mesh, remat="none", param_dtype="float32",
+                     activation_dtype="float32")
+    fparams = M.init_params(fcfg, frun, dev)
+    pre32 = build_cell(fcfg, frun.shape, frun).step_fn(fparams,
+                                                       {"tokens": prompt})
+    dec32 = fm_decode_logits(torch, M, fcfg, fparams, frun, prompt, dev)
+    agree32 = logits_agreement(pre32, dec32, torch.float32, fcfg)
+    require(agree32["ok"], f"{arch} at {fcfg.n_layers} layers in f32: "
+            f"prefill vs teacher-forced decode logits at position "
+            f"{pl - 1}: {agree32}")
+    report[f"{arch}_agreement"] = dict(bf16=agree, bf16_plain=pagree,
+                                       kernel_vs_plain=kvp, f32=agree32,
+                                       f32_layers=fcfg.n_layers,
+                                       prefill_trustee_drops=(pd, pn))
+    say(f"[hybrid {arch} check] in f32 at {fcfg.n_layers} "
+        f"layer{'s' * (fcfg.n_layers > 1)} (weights "
+        f"drawn in f32 from the same seed, "
+        f"{M.count_params(fparams) / 1e9:.3f} B parameters; the prefill's "
+        f"plain path): prefill logits at position {pl - 1} == the "
+        f"teacher-forced decode's: relative RMS {agree32['rel_rms']:.4g} "
+        f"<= {agree32['rtol']}, argmax agrees on "
+        f"{agree32['argmax_agree'] * 100:.1f}% of rows")
+    del fparams, pre32, dec32
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    report[f"{arch}_peak_gb"] = peak
+    say(f"[hybrid {arch}] {gpu} | prefill B {b} x {s}: "
+        + ", ".join(f"{x * 1e3:.3f}" for x in secs)
+        + f" ms; median {b * s / med:.1f} tokens/s; serve "
+        f"{stats['tokens_per_s']:.1f} tokens/s; peak allocated {peak:.2f} "
+        f"GB above the {base / 1e9:.2f} GB allocated at the start "
+        f"({n_params / 1e9:.3f} B parameters)")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_hybrid(torch, dev, gpu, report, errs):
+    """Phase 13: each of ``HYBRID`` in turn (``phase_hybrid_arch``), each
+    model's weights freed before the next is drawn.  Returns the
+    launches of its main paths."""
+    launches = {k: 0 for k in SOURCES}
+    for arch, n_layers in HYBRID:
+        t0 = time.perf_counter()
+        for k, v in phase_hybrid_arch(torch, dev, gpu, report, errs, arch,
+                                      n_layers).items():
+            launches[k] += v
+        say(f"[time] phase 13 {arch}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main_shapes(n_dev):
     """The pack and serve kernels' shapes on the main paths' rounds:
     kv_paper (a fused GET + PUT batch a client) and kv_mixed."""
@@ -5561,7 +5911,8 @@ def kernel_info(torch, n_dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,11,12,9,10",
+                    default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,11,12,13,9,"
+                            "10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -5723,8 +6074,26 @@ def main(argv=None):
             launches[k] += v
         say(f"[time] phase 12: {time.perf_counter() - t0:.1f} s; through "
             f"phase 12: {time.perf_counter() - started:.1f} s")
+    if "13" in phases:
+        t0 = time.perf_counter()
+        counts = phase_hybrid(torch, dev, gpu, report, errs)
+        say(f"[main path] phase 13 launches (the check run's prefill and "
+            f"the two serves of each architecture): {json.dumps(counts)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for k in ("delegation_pack", "grouped_matmul", "flash_attention",
+                  "selective_scan"):
+            require(counts[k] > 0, f"kernel {k} was not launched on the "
+                    f"phase 13 main paths")
+        for k, v in counts.items():
+            launches[k] += v
+        for arch, _ in HYBRID:
+            say(f"[tokens/s] {gpu} | {arch}: prefill "
+                f"{report[arch + '_prefill']['tokens_per_s']:.1f}, serve "
+                f"{report[arch + '_serve']['tokens_per_s']:.1f}; peak "
+                f"allocated {report[arch + '_peak_gb']:.2f} GB")
+        say(f"[time] through phase 13: {time.perf_counter() - started:.1f} s")
     per_round["launches"] = launches
-    say(f"[main path] kernel launches over phases 3-8, 11 and 12 (one "
+    say(f"[main path] kernel launches over phases 3-8 and 11-13 (one "
         f"prefill call in phases 6, 7, 8 and each of 11's; 4a, 4b and the "
         f"session serve included): {json.dumps(launches)}")
 

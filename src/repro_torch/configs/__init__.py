@@ -3,6 +3,6 @@
 # package is imported).
 #
 # base.py        ModelConfig, ShapeConfig, MeshConfig, RunConfig
-# <arch>.py      CONFIG (published widths) and SMOKE (test widths) of each
-#                architecture that fits one card
-# registry.py    --arch id -> config; the two that do not fit raise
+# <arch>.py      CONFIG (published widths and depth) and SMOKE (test
+#                widths) of each architecture of the JAX registry
+# registry.py    --arch id -> config

@@ -96,6 +96,19 @@ class ModelConfig:
             return 0
         return self.d_model // self.n_heads
 
+    @property
+    def is_attention_free(self) -> bool:
+        """Every layer a Mamba mixer (falcon-mamba-7b)."""
+        return bool(self.block_pattern) and all(
+            b == BLOCK_MAMBA for b in self.block_pattern)
+
+    @property
+    def has_subquadratic_context(self) -> bool:
+        """Any Mamba layers (a block pattern): the architecture can serve
+        a 500k-token decode on linear state (SSM / hybrid), as JAX's
+        property says."""
+        return bool(self.block_pattern)
+
     def block_kind(self, layer: int) -> str:
         if not self.block_pattern:
             return BLOCK_ATTN
@@ -183,3 +196,7 @@ class RunConfig:
                                      # always loops
     xent_chunk: int = 512            # seq chunk of the delegated xent
     seed: int = 0
+
+
+def pad_to_multiple(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m

@@ -138,13 +138,20 @@ def kv_cache_to_global(cache: Dict) -> Dict:
     Dh)``, MLA leaves ``latent`` / ``k_rope`` ``(..., T, B, S/T, r)`` ->
     ``(..., B, S, r)``; an encoder-decoder cache's ``self`` {k, v} and
     its ``cross_k`` / ``cross_v`` (stacked as ``k`` / ``v`` are) alike,
-    nested as JAX nests them."""
+    nested as JAX nests them.  A hybrid stack's Mamba layers keep their
+    ``conv`` / ``ssm`` state whole, in JAX's layout already
+    (``mamba_cache_to_numpy``)."""
     def glob(leaf, lead_dims):
         x = leaf.detach().cpu().float().movedim(-lead_dims, -3)
         return x.reshape(x.shape[:-3] + (-1, x.shape[-1])).numpy().copy()
-    return {k: kv_cache_to_global(v) if isinstance(v, dict)
-            else glob(v, 4 if k in ("latent", "k_rope") else 5)
-            for k, v in cache.items()}
+
+    def leaf(k, v):
+        if isinstance(v, dict):
+            return kv_cache_to_global(v)
+        if k in ("conv", "ssm"):
+            return mamba_cache_to_numpy({k: v})[k]
+        return glob(v, 4 if k in ("latent", "k_rope") else 5)
+    return {k: leaf(k, v) for k, v in cache.items()}
 
 
 def mamba_cache_to_numpy(cache: Dict) -> Dict[str, np.ndarray]:

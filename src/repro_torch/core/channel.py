@@ -870,17 +870,23 @@ class RequestCombiner:
 
     def post(self, responses: Pytree, dropped: torch.Tensor,
              ctx: CombineCtx):
-        """Fan each representative's response back over its segment, add
-        the sum archetype's prefixes, and spread the representative's
-        dropped bit over the segment.  Returns (responses', dropped')."""
+        """Spread the representative's dropped bit over its segment, then
+        ``fan_out``.  Returns (responses', dropped')."""
+        dropped2 = torch.gather(dropped, -1, ctx.rep_row.long())
+        return self.fan_out(responses, dropped2, ctx), dropped2
+
+    def fan_out(self, responses: Pytree, dropped: torch.Tensor,
+                ctx: CombineCtx) -> Pytree:
+        """Fan each representative's response back over its segment and
+        add the sum archetype's prefixes to the served rows; ``dropped``
+        is already spread over the segments (``post``'s second result)."""
         rep = ctx.rep_row.long()
-        dropped2 = torch.gather(dropped, -1, rep)
         out = {k: take_rows(v, rep) for k, v in responses.items()}
-        served = ~dropped2
+        served = ~dropped
         for field, pref in ctx.prefixes:
             out[field] = out[field] + _where_rows(served, pref,
                                                   torch.zeros_like(pref))
-        return out, dropped2
+        return out
 
 
 def as_combine_decl(c) -> Tuple[str, str, str, str]:
@@ -911,20 +917,55 @@ def _req_bytes_per_row(rows: Pytree, wire_fmt: str) -> int:
     return total
 
 
-def delegate(state: Pytree, dst: torch.Tensor, payload: Pytree,
-             serve_fn: ServeFn, n_trustees: int, cfg: ChannelConfig,
-             combine: Optional[RequestCombiner] = None,
-             combine_span: Optional[torch.Tensor] = None):
-    """Synchronous delegation: pack -> transmit -> serve -> respond ->
-    unpack over every shard at once.  ``dst`` (D, R) holds trustee ids —
-    virtual bins ``trustee * n_lanes + lane`` when ``cfg.n_lanes > 1``, so
-    each lane keeps its solo pack, capacity and FIFO semantics inside the
-    shared block.  In dedicated mode they become shard slots past the
-    clients, rows on trustee shards are masked off and there is no
-    shortcut.  ``combine`` / ``combine_span`` (with ``cfg.combine_impl !=
-    "off"``) run the combine pass between the shortcut split and the pack,
-    so ``group_sizes`` is the post-combine demand.  Returns (new_state,
-    responses (D, R, ...), ChannelInfo); ``group_sizes`` is per bin."""
+class DelegationFuture(NamedTuple):
+    """``delegate_async``'s deferred half (the JAX channel's
+    ``apply_then``, the paper's §4.2): the serve has run and the tables
+    are written; ``wait()`` moves the responses back, unpacks them into
+    request order, merges the shortcut's rows and undoes the combine
+    pass, returning what ``delegate`` returns for the same call.  In JAX
+    the gap gives XLA's scheduler room to overlap the response collective
+    with the client's work; on one card the ops are issued when
+    ``wait()`` is called.  ``resp_rows`` is None when every row took the
+    shortcut (one trustee slot): ``wait()`` returns ``local_resp``.
+    ``dropped`` is ``ChannelInfo.dropped``: with a combine pass, each
+    row's segment's bit, which ``fan_out`` reads."""
+    resp_rows: Optional[Pytree]
+    request_slot: Optional[torch.Tensor]
+    n_bins: int
+    cfg: ChannelConfig
+    local_resp: Optional[Pytree] = None
+    local_mask: Optional[torch.Tensor] = None
+    combiner: Optional[RequestCombiner] = None
+    combine_ctx: Optional[CombineCtx] = None
+    dropped: Optional[torch.Tensor] = None
+
+    def wait(self) -> Pytree:
+        if self.resp_rows is None:
+            return self.local_resp
+        out = _respond_unpack(self.resp_rows, self.request_slot,
+                              self.n_bins, self.cfg, self.local_resp,
+                              self.local_mask)
+        if self.combine_ctx is not None:
+            out = self.combiner.fan_out(out, self.dropped, self.combine_ctx)
+        return out
+
+
+def delegate_async(state: Pytree, dst: torch.Tensor, payload: Pytree,
+                   serve_fn: ServeFn, n_trustees: int, cfg: ChannelConfig,
+                   combine: Optional[RequestCombiner] = None,
+                   combine_span: Optional[torch.Tensor] = None):
+    """pack -> transmit -> serve over every shard at once, the response
+    half deferred: returns (new_state, DelegationFuture, ChannelInfo)
+    right after the serve (JAX's ``delegate_async``).  ``dst`` (D, R)
+    holds trustee ids — virtual bins ``trustee * n_lanes + lane`` when
+    ``cfg.n_lanes > 1``, so each lane keeps its solo pack, capacity and
+    FIFO semantics inside the shared block.  In dedicated mode they
+    become shard slots past the clients, rows on trustee shards are
+    masked off and there is no shortcut.  ``combine`` / ``combine_span``
+    (with ``cfg.combine_impl != "off"``) run the combine pass between the
+    shortcut split and the pack, so ``group_sizes`` is the post-combine
+    demand and ``dropped`` each row's segment's.  ``group_sizes`` is per
+    bin."""
     d, r = dst.shape
     n_slots = cfg.n_slots(n_trustees)
     n_bins = n_slots * cfg.n_lanes
@@ -942,7 +983,8 @@ def delegate(state: Pytree, dst: torch.Tensor, payload: Pytree,
                             device=dst.device),
                 torch.zeros((d, r), dtype=torch.bool, device=dst.device), 0,
                 impl_fallback=len(events))
-            return new_state, local_resp, info
+            return new_state, DelegationFuture(None, None, n_bins, cfg,
+                                               local_resp), info
 
     cctx = None
     if combine is not None and combine_span is not None \
@@ -962,22 +1004,39 @@ def delegate(state: Pytree, dst: torch.Tensor, payload: Pytree,
     if local_recv is not None:
         local_resp = {k: v[:, n_chan:] for k, v in resp_rows.items()}
         resp_rows = {k: v[:, :n_chan] for k, v in resp_rows.items()}
-    responses = _respond_unpack(resp_rows, packed.request_slot, n_bins,
-                                cfg, local_resp, local_mask)
     dropped = packed.dropped
     rows_combined = req_bytes_saved = 0
     if cctx is not None:
-        responses, dropped = combine.post(responses, dropped, cctx)
+        # a segment's rows share its representative's fate
+        dropped = torch.gather(dropped, -1, cctx.rep_row.long())
         # replica 0's count (JAX's psum over the group axis)
         rows_combined = cctx.combined[:d // cfg.n_replicas].sum(
             dtype=torch.int32)
         req_bytes_saved = rows_combined * _req_bytes_per_row(payload,
                                                              cfg.wire_fmt)
+    fut = DelegationFuture(resp_rows, packed.request_slot, n_bins, cfg,
+                           local_resp, local_mask,
+                           combiner=combine if cctx is not None else None,
+                           combine_ctx=cctx, dropped=dropped)
     info = ChannelInfo(group_sizes, dropped, n_bins * cfg.total_capacity(),
                        impl_fallback=len(events),
                        rows_combined=rows_combined,
                        req_bytes_saved=req_bytes_saved)
-    return new_state, responses, info
+    return new_state, fut, info
+
+
+def delegate(state: Pytree, dst: torch.Tensor, payload: Pytree,
+             serve_fn: ServeFn, n_trustees: int, cfg: ChannelConfig,
+             combine: Optional[RequestCombiner] = None,
+             combine_span: Optional[torch.Tensor] = None):
+    """Synchronous delegation: pack -> transmit -> serve -> respond ->
+    unpack over every shard at once (``delegate_async``, then its
+    future's ``wait()``).  Returns (new_state, responses (D, R, ...),
+    ChannelInfo)."""
+    new_state, fut, info = delegate_async(state, dst, payload, serve_fn,
+                                          n_trustees, cfg, combine=combine,
+                                          combine_span=combine_span)
+    return new_state, fut.wait(), info
 
 
 def _check_retry_serve(state: Pytree, payload: Pytree, serve_fn: ServeFn,

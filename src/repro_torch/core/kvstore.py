@@ -336,6 +336,13 @@ def make_kv_schema(n_trustees: int, value_width: int,
         reshard=kv_reshard)
 
 
+def make_kv_ops(n_trustees: int, value_width: int,
+                dtype=torch.float32):
+    """The compiled op table of ``make_kv_schema`` (one ``DelegatedOp``
+    an OpSpec; the JAX package's back-compat name)."""
+    return make_kv_schema(n_trustees, value_width, dtype).delegated_ops()
+
+
 class DelegatedKVStore:
     """The store facade of the KV-store benchmarks (see
     ``repro.core.kvstore.DelegatedKVStore``), on a ``StackedMesh``.

@@ -218,6 +218,14 @@ def data_axes() -> Tuple[str, ...]:
                  if a in ("pod", "data"))
 
 
+def constrain(x, *spec):
+    """JAX's ``with_sharding_constraint`` against the current mesh: a
+    layout hint with no value of its own, so on stacked shards, where
+    every shard lives in one tensor, the identity (as ``sp_residual``
+    is)."""
+    return x
+
+
 def set_delegation_mode(mode: str = "shared", n_dedicated: int = 0) -> None:
     """Session-wide default trustee mode (the paper's shared and dedicated
     runtimes), read by ``trust.local_trustees``; the serve driver sets it

@@ -78,6 +78,7 @@ at quiesce points) is restored, the waves since it are replayed inside
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
@@ -87,7 +88,9 @@ import torch
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default=None,
+                    help="architecture id (required unless an in-process "
+                         "caller passes cfg=)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -116,10 +119,19 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
+def main(argv=None, stats: Optional[dict] = None, *,
+         cfg=None) -> np.ndarray:
     """Run the serve loop; returns the generated tokens (batch, gen): the
     greedy token after each position from the last prompt position on, as
-    JAX's loop collects them.  ``stats``, when given, receives
+    JAX's loop collects them.  ``cfg``, a ``ModelConfig``, takes the
+    place of ``--arch``'s (and ``--smoke``'s): an in-process caller
+    serves a registered architecture at a reduced depth with it,
+    ``cfg=get_arch(name).with_overrides(n_layers=...)``, as JAX's
+    trainer takes ``--n-layers``.  Before any weight is drawn on the
+    card, the weights' and the cache's bytes (from their shapes) are held
+    against its free memory: a depth the card cannot hold raises
+    ``ValueError`` naming the bytes and the largest depth that fits.
+    ``stats``, when given, receives
     the loop's steps, seconds, ms per step and tokens/s; with a ledger
     (``--session``, ``--delegation-mode dedicated`` or ``--drain-rounds >
     1``) the ledger, its ``client_region()`` and its drain stats (None
@@ -130,6 +142,10 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     mode ``partition``, the (client, trustee) shard slots of the mesh."""
     ap = _parser()
     args = ap.parse_args(argv)
+    if cfg is None and args.arch is None:
+        ap.error("--arch is required")
+    if cfg is not None and (args.arch is not None or args.smoke):
+        ap.error("cfg= takes the place of --arch and --smoke")
     if args.stream_depth > 0 and not args.session:
         ap.error("--stream-depth requires --session")
     if args.chaos is not None and not args.session:
@@ -147,12 +163,65 @@ def main(argv=None, stats: Optional[dict] = None) -> np.ndarray:
     prev_mode = meshctx.delegation_mode()
     try:
         with meshctx.kept_context():
-            return _serve(args, stats)
+            return _serve(args, stats, cfg)
     finally:
         meshctx.set_delegation_mode(*prev_mode)
 
 
-def _serve(args, stats: Optional[dict]) -> np.ndarray:
+def _free_bytes(dev: torch.device) -> Optional[int]:
+    """The card's free memory (``torch.cuda.mem_get_info``); None off the
+    card, where nothing is refused."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(dev)[0]
+
+
+def check_fits(cfg, run, batch: int, max_len: int,
+               dev: torch.device) -> None:
+    """Refuse, before anything is allocated, a depth whose weights and
+    decode cache (bytes from their shapes: ``model.param_nbytes``,
+    ``cache_nbytes``) exceed the card's free memory: ``ValueError``
+    naming the bytes and the largest depth that fits, in whole groups of
+    the architecture's repeating pattern (``transformer.layer_descs``)."""
+    from ..models import model as M
+    from ..models.transformer import layer_descs
+    free = _free_bytes(dev)
+    if free is None:
+        return
+
+    def need(c):
+        r = dataclasses.replace(run, model=c)
+        return M.param_nbytes(c, r) + M.cache_nbytes(c, batch, max_len, r)
+    total = need(cfg)
+    if total <= free:
+        return
+    if M.is_encdec(cfg):
+        prefix, group, n_groups = 0, 1, cfg.n_layers
+    else:
+        descs, prefix, n_groups = layer_descs(cfg)
+        group = len(descs)
+    fit = None
+    for k in range(n_groups - 1, 0, -1):
+        c = cfg.with_overrides(n_layers=prefix + k * group)
+        if need(c) <= free:
+            fit = (c.n_layers, k, need(c))
+            break
+    if fit is None:
+        hint = "not even one layer fits"
+    else:
+        depth = f"{fit[0]} layer{'s' if fit[0] > 1 else ''}" + (
+            f" ({fit[1]} of {n_groups} groups)" if group > 1 else "")
+        hint = (f"the largest depth that fits is {depth}, {fit[2] / 1e9:.2f} "
+                f"GB: serve it in process with serve.main(..., cfg=get_arch"
+                f"({cfg.name!r}).with_overrides(n_layers={fit[0]}))")
+    raise ValueError(
+        f"{cfg.name} at {cfg.n_layers} layers does not fit the card: its "
+        f"weights and decode cache take {total / 1e9:.2f} GB "
+        f"({M.param_nbytes(cfg, run) / 1e9:.2f} GB of weights) and "
+        f"{free / 1e9:.2f} GB are free; {hint}")
+
+
+def _serve(args, stats: Optional[dict], cfg=None) -> np.ndarray:
     from ..configs.base import MeshConfig, RunConfig, ShapeConfig
     from ..configs.registry import get_arch, get_smoke_arch
     from ..core import meshctx
@@ -179,7 +248,9 @@ def _serve(args, stats: Optional[dict]) -> np.ndarray:
     else:
         meshctx.set_delegation_mode("shared", 0)
 
-    cfg = get_smoke_arch(args.arch) if args.smoke else get_arch(args.arch)
+    if cfg is None:
+        cfg = get_smoke_arch(args.arch) if args.smoke \
+            else get_arch(args.arch)
     embeds = cfg.input_mode == "embeds" and not M.is_encdec(cfg)
     if embeds and args.gen > 1:
         raise NotImplementedError(
@@ -199,13 +270,18 @@ def _serve(args, stats: Optional[dict]) -> np.ndarray:
     run = RunConfig(model=cfg, shape=shape,
                     mesh=MeshConfig((args.mesh_data, t), ("data", "model")),
                     remat="none", use_pallas=True)
+    check_fits(cfg, run, args.batch, max_len, dev)
     plan = build_cell(cfg, shape, run, mesh)
     params = M.init_params(cfg, run, dev)
     cache = M.init_cache(cfg, args.batch, max_len, run, dev)
     n_params = M.count_params(params)
-    cache_kind = ("the Mamba (conv, ssm) state, whole"
-                  if set(cfg.block_pattern) == {"mamba"}
-                  else f"{t} trustee shards")
+    if cfg.is_attention_free:
+        cache_kind = "the Mamba (conv, ssm) state, whole"
+    elif cfg.block_pattern:
+        cache_kind = (f"the attention layers' KV over {t} trustee shards "
+                      f"beside the Mamba layers' (conv, ssm) state, whole")
+    else:
+        cache_kind = f"{t} trustee shards"
     if args.mesh_data > 1:
         cache_kind += (f", {args.mesh_data} data rows"
                        if args.batch % args.mesh_data == 0 else

@@ -38,7 +38,8 @@ from ..core.meshctx import resolve_device
 from . import attention as attn_mod
 from .layers import (apply_rope, delegated_softmax_xent, dtype_of,
                      embed_lookup, init_embed, init_mlp, init_rmsnorm,
-                     lm_logits, mlp, rmsnorm, unembed_weight)
+                     lm_logits, mlp, param_generator, rmsnorm,
+                     unembed_weight)
 from .transformer import REMAT, _index, _remat, _unstack
 
 
@@ -66,8 +67,7 @@ def init_params(cfg: ModelConfig, run=None, device=None,
     model_axis = run.mesh.model_size if run is not None else 1
     dev = resolve_device(device)
     if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(
-            run.seed if run is not None else 0)
+        gen = param_generator(dev, run.seed if run is not None else 0)
     d = cfg.d_model
 
     def attn(lead):

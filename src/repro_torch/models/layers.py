@@ -105,10 +105,25 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
+def _is_meta(device) -> bool:
+    return device is not None and torch.device(device).type == "meta"
+
+
+def param_generator(device: torch.device, seed: int) -> torch.Generator:
+    """The seeded generator a model's weights are drawn from on
+    ``device``; on the meta device (shapes only: nothing is drawn) a CPU
+    generator that nothing reads."""
+    return torch.Generator(device="cpu" if _is_meta(device) else device) \
+        .manual_seed(seed)
+
+
 def _normal(gen: torch.Generator, shape, scale: float, dtype,
             device) -> torch.Tensor:
     """N(0, scale^2) drawn in f32 from ``gen`` on the generator's device,
-    cast to ``dtype`` on ``device``."""
+    cast to ``dtype`` on ``device``; on the meta device an empty leaf of
+    the shape, nothing drawn."""
+    if _is_meta(device):
+        return torch.empty(shape, dtype=dtype, device=device)
     return (torch.randn(shape, generator=gen, device=gen.device)
             .mul_(scale).to(dtype=dtype, device=device))
 
@@ -122,8 +137,8 @@ def _normal_stacked(gen: torch.Generator, lead: tuple, shape, scale: float,
     qwen1.5-32b's stacked w_gate 35.9 GB).  Every stacked leaf is drawn
     this way."""
     shape = tuple(shape)
-    if not lead:
-        return _normal(gen, shape, scale, dtype, device)
+    if not lead or _is_meta(device):
+        return _normal(gen, tuple(lead) + shape, scale, dtype, device)
     out = torch.empty(tuple(lead) + shape, dtype=dtype, device=device)
     flat = out.view((-1,) + shape)
     for i in range(flat.shape[0]):

@@ -93,11 +93,16 @@ def mamba_block(params, x_in: torch.Tensor, cfg: ModelConfig, run=None
     xz = torch.matmul(x_in, params["w_in"])
     x, z = torch.chunk(xz, 2, dim=-1)                    # (B, S, DI)
 
-    # causal depthwise conv over time: d_conv shifted products summed in
-    # the activation dtype, as JAX sums them
-    xp = F.pad(x, (0, 0, d_conv - 1, 0))
-    conv = sum(xp[:, i:i + s] * params["conv_w"][i]
-               for i in range(d_conv)) + params["conv_b"]
+    # causal depthwise conv over time, one op that sums the d_conv
+    # products in f32 and rounds once, as the decode step's einsum does
+    # (JAX's prefill sums them in the activation dtype, rounding after
+    # each add: in bf16 its prefill and decode are two functions, a
+    # settled divergence, ROADMAP); the bias added after the rounding, as
+    # in the decode
+    w = params["conv_w"].t().unsqueeze(1)                # (DI, 1, d_conv)
+    conv = F.conv1d(x.transpose(1, 2), w, padding=d_conv - 1,
+                    groups=w.shape[0])[..., :s]
+    conv = conv.transpose(1, 2).contiguous() + params["conv_b"]
     x = F.silu(conv.float()).to(x.dtype)
 
     dt, a, bb, cc = _ssm_params(params, x, cfg)

@@ -58,6 +58,26 @@ def count_params(params) -> int:
     return transformer.count_params(params)
 
 
+def param_nbytes(cfg: ModelConfig, run=None) -> int:
+    """Bytes of ``cfg``'s parameters under ``run`` (its dtypes, its
+    padded heads and vocabulary), from the shapes alone: the tree is
+    built on the meta device, nothing allocated or drawn (JAX's
+    ``jax.eval_shape`` of ``init_params``)."""
+    return _nbytes(init_params(cfg, run, "meta"))
+
+
+def cache_nbytes(cfg: ModelConfig, batch: int, max_len: int,
+                 run=None) -> int:
+    """Bytes of the decode cache ``init_cache`` would allocate, from the
+    shapes alone (the meta device)."""
+    return _nbytes(init_cache(cfg, batch, max_len, run, "meta"))
+
+
+def _nbytes(tree) -> int:
+    return int(sum(leaf.numel() * leaf.element_size()
+                   for leaf in transformer._leaves(tree)))
+
+
 def active_param_count(cfg: ModelConfig, total: int) -> int:
     """Parameters a token passes through (``model.active_param_count``):
     the total less the routed experts a token is not sent to."""

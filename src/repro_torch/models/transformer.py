@@ -56,7 +56,7 @@ from . import mamba as mamba_mod
 from . import moe as moe_mod
 from .layers import (delegated_softmax_xent, dtype_of, embed_lookup,
                      init_embed, init_mlp, init_rmsnorm, lm_logits, mlp,
-                     rmsnorm, unembed_weight)
+                     param_generator, rmsnorm, unembed_weight)
 
 REMAT = ("none", "dots", "full")
 
@@ -178,8 +178,7 @@ def init_params(cfg: ModelConfig, run=None, device=None,
     model_axis = run.mesh.model_size if run is not None else 1
     dev = resolve_device(device)
     if gen is None:
-        gen = torch.Generator(device=dev).manual_seed(
-            run.seed if run is not None else 0)
+        gen = param_generator(dev, run.seed if run is not None else 0)
     params: Dict[str, Any] = {"embed": init_embed(gen, cfg, dtype, dev,
                                                   model_axis)}
     if prefix_len:

@@ -6,7 +6,8 @@
     ``ScanCheck`` for the selective-scan kernel and ``PackCheck`` for the
     pack kernels (exactly);
   * ``MoEStats`` keeps each MoE layer's dropped fraction and max load
-    while the model runs unchanged;
+    while the model runs unchanged; ``TrusteeDrops`` counts the expert
+    rows the trustees' pack by expert drops past its slots;
   * ``DecodeLogits`` keeps the decode step's logits at one position while
     the serve loop runs unchanged; ``FinalHidden`` keeps an
     encoder-decoder model's final decoder hidden state while
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops as kops
+from ..kernels import ref as kref
 from ..kernels.flash_attention import tolerance as flash_tolerance
 from ..kernels.grouped_matmul import tolerance as gmm_tolerance
 from ..kernels.selective_scan import tolerance as scan_tolerance
@@ -42,18 +44,20 @@ PREFILL_DECODE_RTOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # router probabilities lie within the two paths' bf16 rounding of each
 # other can take another expert in one of them, and the prefill (seq
 # mode) and decode (mask-partition mode) have other capacities, so other
-# rows may drop; each such token moves by a whole expert's output
+# rows may drop — at the channel, or at the trustees' pack by expert
+# past its cap2 slots (``TrusteeDrops``); each such token moves by a
+# whole expert's output
 MOE_PREFILL_DECODE_RTOL = 1e-1
-# the same for a model with Mamba layers in bf16: the prefill sums the
-# conv's products in bf16 and the decode in f32, and both round dt to
-# bf16 before the scan, so a rounding that differs moves a channel's
-# decay and input for every step its state keeps them, through 64 such
-# layers (in f32 the two agree to 2.5e-5).  On an NVIDIA H100 80GB HBM3
-# at 700 W (chip_smoke.py phase 8: falcon-mamba-7b at full width, random
-# weights, 8 prompts of 128 tokens, position 127) four weight and prompt
-# seeds read 7.184%, 7.528%, 7.600% and 7.569%: the bound is the largest
-# with about a third of headroom (2.4 points, six times the readings'
-# spread of 0.42)
+# the same for a model with Mamba layers in bf16: both paths round dt to
+# bf16 before the scan, so a rounding that differs (their GEMMs and scans
+# sum in other orders) moves a channel's decay and input for every step
+# its state keeps them, through 64 such layers (in f32 the two agree to
+# 2.5e-5).  On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 8:
+# falcon-mamba-7b at full width, random weights, 8 prompts of 128
+# tokens, position 127) four weight and prompt seeds read 7.184%,
+# 7.528%, 7.600% and 7.569% while the prefill summed the conv's products
+# in bf16 and the decode in f32: the bound is the largest with about a
+# third of headroom (2.4 points, six times the readings' spread of 0.42)
 SSM_PREFILL_DECODE_RTOL = 1e-1
 # seamless-m4t-large-v2 on the card in bf16, the flash kernel's path
 # (use_pallas) against the plain path on the same weights and inputs:
@@ -174,16 +178,59 @@ def gmm_within(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor,
             float(err.max()) if err.numel() else 0.0)
 
 
+def gmm_chunks(x, w, plain_bytes: int):
+    """Slices of ``x`` / ``w``'s experts, each chunk's weights at most
+    ``plain_bytes`` in f32 (one expert at least)."""
+    step = max(1, plain_bytes // (4 * w[0].numel()))
+    return [slice(i, i + step) for i in range(0, x.shape[0], step)]
+
+
+class ChunkedPlainGmm:
+    """Inside the context the plain grouped matmul (``ref.grouped_matmul``,
+    which the model's plain path calls) runs a chunk of experts at a
+    time, as ``GmmCheck`` runs it: the same function (the experts are
+    independent), each chunk's weights at most ``GmmCheck.plain_bytes``
+    in f32, so that a plain path whose expert leaf does not fit the card
+    in f32 beside its weights (arctic-480b's) runs."""
+
+    def __enter__(self):
+        self._fn = kref.grouped_matmul
+        kref.grouped_matmul = self._call
+        return self
+
+    def __exit__(self, *exc):
+        kref.grouped_matmul = self._fn
+
+    def _call(self, x, w, counts=None):
+        return torch.cat([
+            self._fn(x[c], w[c], None if counts is None else counts[c])
+            for c in gmm_chunks(x, w, GmmCheck.plain_bytes)])
+
+
 class GmmCheck(_KernelCheck):
     """``_KernelCheck`` of ``grouped_matmul``; ``first`` is (x, w,
     counts).  ``tiles`` and ``filled_tiles`` count the checked calls'
     128-row tiles and those that hold a filled row (every tile where a
-    call has no counts)."""
+    call has no counts).  The plain version and the tolerance run a chunk
+    of experts at a time (the same functions: the experts are
+    independent, the tolerance elementwise), each chunk's weights at most
+    ``plain_bytes`` in f32: both take ``w.float()``, and arctic-480b's
+    (128, 7168, 4864) expert leaf is 17.8 GB of f32 beside 55.4 GB of
+    weights."""
     name, label = "grouped_matmul", "gmm"
+    plain_bytes = 1 << 30
 
     def __init__(self):
         super().__init__()
         self.tiles = self.filled_tiles = 0
+
+    def _chunks(self, x, w):
+        return gmm_chunks(x, w, self.plain_bytes)
+
+    def _plain(self, x, w, counts=None, **kw):
+        return torch.cat([
+            self._fn(x[c], w[c], None if counts is None else counts[c],
+                     impl="ref", **kw) for c in self._chunks(x, w)])
 
     @staticmethod
     def _args(x, w, counts=None):
@@ -195,7 +242,11 @@ class GmmCheck(_KernelCheck):
         self.tiles += e * -(-c // 128)
         self.filled_tiles += e * -(-c // 128) if counts is None else \
             int(((counts.long() + 127) // 128).sum())
-        return gmm_within(out, want, x, w)
+        ok, err = True, 0.0
+        for k in self._chunks(x, w):
+            part_ok, part_err = gmm_within(out[k], want[k], x[k], w[k])
+            ok, err = ok and part_ok, max(err, part_err)
+        return ok, err
 
     def summary(self):
         return dict(super().summary(), gmm_tiles=self.tiles,
@@ -283,6 +334,34 @@ class MoEStats:
                 "moe_dropped_frac_mean": sum(self.dropped) / max(n, 1),
                 "moe_dropped_frac_max": max(self.dropped, default=0.0),
                 "moe_max_load": max(self.max_load, default=0.0)}
+
+
+class TrusteeDrops:
+    """Inside the context, the expert rows each MoE trustee's pack by
+    expert drops past its ``cap2`` slots (rows past them answer zeros;
+    the model's ``moe_dropped_frac`` counts the channel's drops only, as
+    JAX's does) are counted on the kernel path: ``calls`` holds (dropped,
+    rows) a pack.  The pack by expert is the one with no second block
+    (``capacity2`` 0); the model runs unchanged."""
+
+    def __enter__(self):
+        self.calls = []
+        self._pack = kops.delegation_pack
+        kops.delegation_pack = self._call
+        return self
+
+    def __exit__(self, *exc):
+        kops.delegation_pack = self._pack
+
+    def _call(self, dst, words, n_trustees, capacity, capacity2=0, **kw):
+        out = self._pack(dst, words, n_trustees, capacity, capacity2, **kw)
+        if capacity2 == 0:
+            self.calls.append((int(((out[4] < 0) & (dst >= 0)).sum()),
+                               int((dst >= 0).sum())))
+        return out
+
+    def total(self):
+        return (sum(d for d, _ in self.calls), sum(n for _, n in self.calls))
 
 
 class DecodeLogits:

@@ -558,19 +558,17 @@ TB, TS, TSTEPS = 4, 32, 3
 
 
 def _arctic_cfgs(moe_kw):
-    """JAX's arctic SMOKE config at one layer (8 experts, top-2) with
-    ``moe_kw``, and the port's ModelConfig built from its fields (the port
-    does not register arctic)."""
+    """JAX's arctic SMOKE config and the port's, each at one layer (8
+    experts, top-2) with ``moe_kw``."""
     import dataclasses
     from repro.configs.registry import SMOKE_ARCHS
-    from repro_torch.configs import base as tbase
-    jcfg = SMOKE_ARCHS["arctic-480b"].with_overrides(n_layers=1)
-    jcfg = jcfg.with_overrides(moe=dataclasses.replace(jcfg.moe, **moe_kw))
-    kw = {f.name: getattr(jcfg, f.name)
-          for f in dataclasses.fields(tbase.ModelConfig)}
-    kw["moe"] = tbase.MoEConfig(**dataclasses.asdict(jcfg.moe))
-    kw["mamba"] = tbase.MambaConfig(**dataclasses.asdict(jcfg.mamba))
-    return jcfg, tbase.ModelConfig(**kw)
+    from repro_torch.configs.registry import get_smoke_arch
+    out = []
+    for cfg in (SMOKE_ARCHS["arctic-480b"], get_smoke_arch("arctic-480b")):
+        cfg = cfg.with_overrides(n_layers=1)
+        out.append(cfg.with_overrides(
+            moe=dataclasses.replace(cfg.moe, **moe_kw)))
+    return tuple(out)
 
 
 def _run(base, cfg, shape, mesh, **kw):

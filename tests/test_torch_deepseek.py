@@ -422,13 +422,44 @@ def test_port_config_matches_jax():
         assert TM.active_param_count(tcfg, n) == active_param_count(jcfg, n)
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("jamba-v0.1-52b", "one card"), ("arctic-480b", "one card")])
-def test_other_moe_and_mamba_archs_still_raise(arch, item):
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "arctic-480b"])
+def test_jamba_and_arctic_are_registered(arch):
+    """The other two MoE architectures are registered, full and SMOKE, as
+    JAX's configs: every field, the layer groups (jamba: 8-layer groups of
+    Mamba and attention, MoE at odd positions; arctic: one MoE + dense
+    layer), the active parameters of a total, and the padded heads at 4
+    and 16 trustees (arctic's 56 to 64 at 16, as JAX pads them for its
+    mesh)."""
+    import types
+    from repro.configs.registry import ARCHS, SMOKE_ARCHS
+    from repro.core import meshctx as jmeshctx
+    from repro.models import attention as JA
+    from repro.models.model import active_param_count
+    from repro.models.transformer import layer_descs
     from repro_torch.configs.registry import get_arch, get_smoke_arch
-    for get in (get_arch, get_smoke_arch):
-        with pytest.raises(NotImplementedError, match=item):
-            get(arch)
+    from repro_torch.models import attention as TA
+    from repro_torch.models import model as TM
+    from repro_torch.models.transformer import layer_descs as t_descs
+    for jcfg, tcfg in ((ARCHS[arch], get_arch(arch)),
+                       (SMOKE_ARCHS[arch], get_smoke_arch(arch))):
+        for f in dataclasses.fields(tcfg):
+            a, b = getattr(tcfg, f.name), getattr(jcfg, f.name)
+            if f.name in ("moe", "mamba"):
+                a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+            assert a == b, f.name
+        assert [tuple(d) for d in t_descs(tcfg)[0]] == \
+            [tuple(d) for d in layer_descs(jcfg)[0]]
+        assert t_descs(tcfg)[1:] == layer_descs(jcfg)[1:]
+        n = 51_570_315_264
+        assert TM.active_param_count(tcfg, n) == active_param_count(jcfg, n)
+        prev = jmeshctx.current_mesh()
+        try:
+            for t in (4, 16):
+                jmeshctx.set_mesh(types.SimpleNamespace(shape={"model": t}))
+                assert TA.padded_heads(tcfg, t) == JA.padded_heads(jcfg)
+        finally:
+            jmeshctx.set_mesh(prev)
+    assert TA.padded_heads(get_arch("arctic-480b"), 16) == (64, 8)
 
 
 def test_deepseek_is_served_and_trustees_must_divide_the_experts():

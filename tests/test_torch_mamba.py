@@ -499,17 +499,10 @@ def test_convert_keeps_jax_f32_leaves():
 # ---------------------------------------------------------------------------
 
 def _hybrid_configs():
-    """JAX's jamba SMOKE config and the port's ModelConfig built from its
-    fields (the port does not register jamba: its full size exceeds one
-    card)."""
+    """JAX's jamba SMOKE config and the port's."""
     from repro.configs.registry import SMOKE_ARCHS
-    from repro_torch.configs import base as tbase
-    jcfg = SMOKE_ARCHS["jamba-v0.1-52b"]
-    kw = {f.name: getattr(jcfg, f.name)
-          for f in dataclasses.fields(tbase.ModelConfig)}
-    kw["moe"] = tbase.MoEConfig(**dataclasses.asdict(jcfg.moe))
-    kw["mamba"] = tbase.MambaConfig(**dataclasses.asdict(jcfg.mamba))
-    return jcfg, tbase.ModelConfig(**kw)
+    from repro_torch.configs.registry import get_smoke_arch
+    return SMOKE_ARCHS["jamba-v0.1-52b"], get_smoke_arch("jamba-v0.1-52b")
 
 
 def test_hybrid_stack_matches_jax():

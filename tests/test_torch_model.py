@@ -19,9 +19,10 @@ functions, at SMOKE width (2 layers, d_model 64, 4 query / 2 KV heads of
     queue C); two serve runs are identical;
   * prefill and decode agree at the last prompt position, through
     ``testing/model.py`` as ``chip_smoke.py`` checks it on the card;
-  * ``convert`` round trip; the archs that do not fit one card and the
-    unported serve flags raise ``NotImplementedError`` naming their
-    ROADMAP item; every ported arch's config is JAX's; the formerly
+  * ``convert`` round trip; the serve refuses a depth the card cannot
+    hold (jamba, arctic at their published depths) before drawing a
+    weight, and the unported serve flags raise ``NotImplementedError``
+    naming their ROADMAP item; every arch's config is JAX's; the formerly
     unported model paths take a train step; entry points
     default to ``cuda`` and raise without a card.
 
@@ -412,19 +413,51 @@ def test_serve_session_ledger_and_meter(extra, t):
                                   "solo": []}
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("arctic-480b", r"13\(b\)"), ("jamba-v0.1-52b", "one card")])
-def test_unported_archs_raise(arch, item):
-    from repro_torch.configs.registry import get_arch, get_smoke_arch
-    for get in (get_arch, get_smoke_arch):
-        with pytest.raises(NotImplementedError, match=item):
-            get(arch)
+@pytest.mark.parametrize("arch,fits", [
+    ("arctic-480b", "2 layers"), ("jamba-v0.1-52b", r"16 layers \(2 of 4 "
+                                                    r"groups\)")])
+def test_full_depth_is_refused_before_any_weight(arch, fits, monkeypatch):
+    """serve.main at the published depth on a card with 60 GB free (the
+    free figure faked: the fit check reads ``serve._free_bytes``) raises
+    ``ValueError`` naming the bytes of the weights and cache and the
+    largest depth that fits, before a weight or the cache is drawn; that
+    depth passes the check."""
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as TM
+    free = 60 * 10 ** 9
+    monkeypatch.setattr(serve, "_free_bytes", lambda dev: free)
+
+    def shapes_only(fn, i):
+        """``fn`` for the check's shapes (the meta device) only."""
+        def guarded(*a, **kw):
+            dev = kw.get("device", a[i] if len(a) > i else None)
+            assert str(dev) == "meta", "a weight or the cache was allocated"
+            return fn(*a, **kw)
+        return guarded
+    monkeypatch.setattr(TM, "init_params", shapes_only(TM.init_params, 2))
+    monkeypatch.setattr(TM, "init_cache", shapes_only(TM.init_cache, 4))
+    cfg = get_arch(arch)
+    run = RunConfig(model=cfg, shape=ShapeConfig("cli", 64, 4, "decode"),
+                    mesh=MeshConfig((1, 4), ("data", "model")))
+    need = TM.param_nbytes(cfg, run) + TM.cache_nbytes(cfg, 4, 64, run)
+    argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32", "--gen",
+            "32", "--mesh-model", "4", "--device", "cpu"]
+    with pytest.raises(ValueError, match=f"{need / 1e9:.2f} GB .* "
+                       f"{free / 1e9:.2f} GB are free; the largest depth "
+                       f"that fits is {fits}"):
+        serve.main(argv)
+    n = int(fits.split()[0])
+    serve.check_fits(cfg.with_overrides(n_layers=n), run, 4, 64,
+                     torch.device("cpu"))
 
 
 @pytest.mark.parametrize("smoke", [False, True])
 @pytest.mark.parametrize("arch", [
     "qwen2.5-3b", "deepseek-v2-lite-16b", "falcon-mamba-7b", "qwen3-4b",
-    "gemma-7b", "qwen1.5-32b", "qwen2-vl-2b", "seamless-m4t-large-v2"])
+    "gemma-7b", "qwen1.5-32b", "qwen2-vl-2b", "seamless-m4t-large-v2",
+    "jamba-v0.1-52b", "arctic-480b"])
 def test_port_config_matches_jax(arch, smoke):
     """Every ported architecture's config, full and SMOKE, field by field
     (each of the port's fields is JAX's; the MoE and Mamba sub-configs

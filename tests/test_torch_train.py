@@ -358,18 +358,13 @@ def test_nested_remat_over_a_hybrid_group():
     inside the group, so a layer runs three times (the forward, the
     group's recompute, its own recompute) where "none" runs it once; the
     gradients of "none", "dots" and "full" agree."""
-    from repro.configs.registry import SMOKE_ARCHS
     from repro_torch.configs import base as tbase
+    from repro_torch.configs.registry import get_smoke_arch
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models import model as TM
     from repro_torch.models import transformer
     from repro_torch.testing.train import worst_leaf
-    jcfg = SMOKE_ARCHS["jamba-v0.1-52b"]
-    kw = {f.name: getattr(jcfg, f.name)
-          for f in dataclasses.fields(tbase.ModelConfig)}
-    kw["moe"] = tbase.MoEConfig(**dataclasses.asdict(jcfg.moe))
-    kw["mamba"] = tbase.MambaConfig(**dataclasses.asdict(jcfg.mamba))
-    cfg = tbase.ModelConfig(**kw)
+    cfg = get_smoke_arch("jamba-v0.1-52b")
     descs, _, n_groups = transformer.layer_descs(cfg)
     assert len(descs) == 8
     batch = {k: torch.as_tensor(v) for k, v in _batch(cfg.vocab_size).items()}
