@@ -22,7 +22,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      counts, capacity 1, int32 words above 2^24, a hot destination whose
      FIFO run crosses the pack kernels' 2048-row chunks (rows of 2,049
      words, C and C + C2 inside a chunk and on a chunk's edge), exact on
-     integer-exact payloads; the gather's three lanes with ``out`` and
+     integer-exact payloads, and a pack whose words in and slots out
+     both lie past 2^31 words (2,200,000 rows of 1,000 words); the
+     gather's three lanes with ``out`` and
      ``flag`` filled with a sentinel that every other row keeps, lane rows
      keyed -1 and K reading the clamped line, and the edges of its plan
      (N one past and one short of the plan's rows a block, a lane with no
@@ -271,6 +273,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      as a reading (with the plain prefill's, and the expert rows the
      trustees dropped) and in f32 at 8 / 1 layers held to 1e-4;
      tokens/s and peak allocated GB;
+ 14. the examples and the dry run (run after phase 13, before phase 9) —
+     (a) repro_torch.examples' quickstart, serve_kv and delegated_moe on
+     8 stacked shards on the card: quickstart's printed values equal the
+     JAX package's example's and the CPU run's (engine stats included);
+     serve_kv's service round on the delegated store and the rw-lock
+     store over one 100,000 x 4 table, 2 rounds of 4096 zipf requests
+     (5% writes): every GET == SequentialKVReference and both tables ==
+     the oracle's; delegated_moe's run_routing (8 experts, 32 tokens, 6
+     waves, seed 3): assignments, counts and tally == the CPU run's, the
+     counts == the routed tokens' tally; their KV kernels (quickstart:
+     all four; serve_kv: pack, gather, scatter_last; delegated_moe: the
+     pack) must launch; (b) train_lm, 10m preset, 20 steps, losses and
+     grad norms finite, no kernel launched; (c) launch.dryrun of
+     qwen1.5-32b x decode_32k (the (16, 16) mesh, B 128 x 32,768, on the
+     meta device): memory allocated on the card and every launch counter
+     unchanged across it; (d) the dry-run cells of the shapes phases 6,
+     7, 8 and 10 time; after phase 10 their terms beside those phases'
+     medians, mfu = model FLOPs / 989 TFLOP/s / the measured step
+     (readings);
  10. qwen train — (a) repro_torch.launch.train on qwen2.5-3b at full width
      and depth (bf16 weights, f32 AdamW moments, remat "full", the
      synthetic stream, B 4 x 1024, 8 steps; weights drawn on the card
@@ -313,7 +334,7 @@ forms it, exact.
 Launch counters are zeroed just before each main path (phases 3, 4,
 4a-4e, the timed run of 5, each timed prefill of 6, 7, 8, 11 and 13, the
 session serves of 6, the serves of 7, 8, 11 and 13, each of 12 (a)-(c),
-and phase 10's trainer)
+each example of 14 and its dry run, and phase 10's trainer)
 and read just after; every kernel of a path must have launched there
 (phase 10's: none).  "[time]" lines give the wall time through each
 phase.  The line before the last is {"kernels": [...]};
@@ -333,8 +354,12 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
-BF16_FLOPS = 989e12             # H100 SXM bf16 dense tensor-core peak
+# the kernels' bounds and the card's peaks: one implementation, the
+# package's (plain Python; fails outside a checkout)
+from repro_torch.launch import rooflines  # noqa: E402
+
+HBM_BYTES_PER_S = rooflines.HBM_BW      # H100 SXM HBM3 (data sheet)
+BF16_FLOPS = rooflines.PEAK_FLOPS       # bf16 dense tensor-core peak
 N_KEYS, VW, MESH = 1_000_000, 4, (2, 4)
 SOURCES = {
     "delegation_pack": ("src/repro_torch/csrc/delegation_pack.cu",
@@ -523,6 +548,20 @@ def phase_kernels(torch, dev, shapes):
             errs["delegation_pack"] = max(errs["delegation_pack"],
                                           max_err(got, want))
         say(f"[kernels] delegation_pack [{label}] == plain (exact)")
+    # words read and slots written past 2^31 words (the dry run's
+    # prefill_32k MoE packs are of that size)
+    from repro_torch.testing.serve import WIDE_PACK, wide_pack_check
+    t0 = time.perf_counter()
+    wide = wide_pack_check(dev)
+    torch.cuda.empty_cache()
+    require(all(wide[k] for k in ("slots", "slots2", "counts", "counts2",
+                                  "request_slot", "totals"))
+            and min(wide["words"], wide["slot_words"]) >= 2 ** 31,
+            f"delegation_pack past 2^31 words: {wide}")
+    say(f"[kernels] delegation_pack [past 2^31 words: {WIDE_PACK['r']} rows "
+        f"of {WIDE_PACK['w']} words, {wide['words']} words in, "
+        f"{wide['slot_words']} slot words out] == plain (exact, "
+        f"{time.perf_counter() - t0:.1f} s)")
 
     s_paper, s_mixed = shapes["serve_paper"], shapes["serve_mixed"]
     serve_cases = [
@@ -2172,43 +2211,38 @@ def sm_clock_under(torch, fn, calls):
     return out
 
 
-def pack_bytes(torch, args):
-    """dst in and the words of the rows the pack places (each
-    destination's first C + C2 rows: an inactive or dropped row's words
-    need not be read); both slot blocks, request_slot and the counts,
-    counts2 and totals out — all 32-bit."""
+def pack_work(torch, args):
+    """``rooflines.pack_work`` at these inputs: the rows the pack places
+    are each destination's first C + C2 (an inactive or dropped row's
+    words need not be read)."""
     dst, words, t, c, c2 = args
     d, r, w = words.shape
     per = torch.zeros((d, t + 1), dtype=torch.int64, device=dst.device)
     per.scatter_add_(1, torch.where(dst >= 0, dst, t).long(),
                      torch.ones_like(dst, dtype=torch.int64))
     placed = int(per[:, :t].clamp(max=c + c2).sum())
-    return 4 * (dst.numel() + placed * w + d * t * (c + c2) * w
-                + dst.numel() + 3 * d * t)
+    return rooflines.pack_work(d, r, w, t, c, c2, placed)
 
 
-def serve_bytes(torch, name, case, which=0):
+def serve_work(torch, name, case, which=0):
+    """``rooflines``' bound of a serve kernel at this case's data: the
+    gather lane's rows (CAS: with expect and flag), scatter_last's PUT
+    segments, segmented_add's ADD rows and segments."""
     t, n = case["keys"].shape
     w = case["table"].shape[-1]
     lane = case["lane"]
-    idx = 4 * t * n
     if name == "gather":
-        # lane ``which``: keys, lane, a line in and a row out a lane row;
-        # CAS also an expect row in and a flag out
-        rows = int((lane == which).sum())
-        cas = 4 * rows * w + 4 * rows if which == 3 else 0
-        return 2 * idx + 2 * 4 * rows * w + cas
+        return rooflines.gather_work(t, n, w, int((lane == which).sum()),
+                                     cas=which == 3)
     order, sid = case["order"], case["sid"]
     lane_s = torch.gather(lane, 1, order.long())
     pos = torch.arange(n, device=lane.device)
-    if name == "scatter_last":   # order, seg_end, flag; a row in, a line out
-        heads = int(((sid == pos) & (lane_s == 1)).sum())
-        return 3 * idx + 2 * 4 * heads * w + 4 * heads
-    adds = int((lane_s == 2).sum())
-    segs = int(((sid == pos) & (lane_s == 2)).sum())
-    # order, sid, seg_end, lane; deltas in; responses in and out; a table
-    # line in and out per segment
-    return 4 * idx + 3 * 4 * adds * w + 2 * 4 * segs * w
+    if name == "scatter_last":
+        return rooflines.scatter_last_work(
+            t, n, w, int(((sid == pos) & (lane_s == 1)).sum()))
+    return rooflines.segmented_add_work(
+        t, n, w, int((lane_s == 2).sum()),
+        int(((sid == pos) & (lane_s == 2)).sum()))
 
 
 def busy_share(torch, run_round, rounds, top=0):
@@ -2299,8 +2333,8 @@ def gather_times(torch, dev, gpu, label, case, per_round, measured):
         ev, host, ahead = ahead_ms(torch, lambda: call("kernel"))
         if ms == 0:                 # the profiler kept no kernel record
             ms = ev
-        nbytes = serve_bytes(torch, "gather", case, which)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        work = serve_work(torch, "gather", case, which)
+        nbytes, bound = work.nbytes, work.ms
         plain = yardstick(torch, lambda: call("ref"), iters=5)
         if cas:
             lib_txt = ("library n/a (no one PyTorch call reads the lines "
@@ -2343,7 +2377,7 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
     from repro_torch.kernels import ops as kops
     measured = {}
 
-    def emit(name, label, fn_kernel, fn_plain, fn_lib, nbytes, lib_bytes=0,
+    def emit(name, label, fn_kernel, fn_plain, fn_lib, work, lib_bytes=0,
              floor=None):
         ms, lo, hi, seen = device_readings(
             torch, fn_kernel, KERNEL_NAMES[name],
@@ -2351,7 +2385,7 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
         ev, host, ahead = ahead_ms(torch, fn_kernel)
         if ms == 0:                 # the profiler kept no kernel record
             ms = ev
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        nbytes, bound = work.nbytes, work.ms
         plain = yardstick(torch, fn_plain, iters=5)
         lib = yardstick(torch, fn_lib) if fn_lib is not None else None
         lib_txt = "library n/a" if lib is None else reading(
@@ -2376,7 +2410,7 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
         emit("delegation_pack", label,
              lambda: kops.delegation_pack(*args),
              lambda: kops.delegation_pack(*args, impl="ref"), None,
-             pack_bytes(torch, args))
+             pack_work(torch, args))
 
     for label, key in (("kv_paper", "serve_paper"),
                        ("kv_mixed", "serve_mixed")):
@@ -2430,7 +2464,7 @@ def phase_times(torch, dev, shapes, errs, per_round, gpu):
                       ("segmented_add", "lane", case["lane"]))}
         for name, call in calls.items():
             emit(name, label, lambda: call("kernel"), lambda: call("ref"),
-                 library[name], serve_bytes(torch, name, case),
+                 library[name], serve_work(torch, name, case),
                  lib_bytes[name], floors.get(name))
 
     rows = []
@@ -3682,19 +3716,10 @@ def phase_qwen_busy(torch, dev, gpu, run):
 
 
 def fa_work(q, k, q_offset, causal):
-    """(flops, bytes) flash attention must do on these inputs: 4 * D flops
-    per (query head, kept query-key pair) — QK^T and PV — and q, k, v read
-    once and out written once."""
+    """``rooflines.flash_work`` at these inputs' shapes."""
     b, hq, sq, d = q.shape
-    skv = k.shape[2]
-    if causal:
-        seen = np.clip(q_offset + np.arange(sq) + 1, 0, skv)
-        pairs = int(seen.sum())
-    else:
-        pairs = sq * skv
-    flops = 4 * b * hq * d * pairs
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return flops, nbytes
+    return rooflines.flash_work(b, hq, k.shape[1], sq, k.shape[2], d,
+                                q_offset, causal, q.element_size())
 
 
 def phase_flash_times(torch, dev, gpu, inputs, launches,
@@ -3717,10 +3742,10 @@ def phase_flash_times(torch, dev, gpu, inputs, launches,
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = yardstick(torch, lambda: sdpa(q, k, v, is_causal=causal,
                                         scale=scale, enable_gqa=True))
-    flops, nbytes = fa_work(q, k, q_offset or 0, causal)
+    work = fa_work(q, k, q_offset or 0, causal)
+    flops, nbytes, bound = work.ops, work.nbytes, work.ms
     t_ops = flops / BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound = max(t_ops, t_bytes)
     b, hq, sq, d = q.shape
     say(f"[times] {gpu} | flash_attention @ {label} (B {b}, Hq {hq}, "
         f"Hkv {k.shape[1]}, S {sq}, D {d}, "
@@ -3741,21 +3766,19 @@ def phase_flash_times(torch, dev, gpu, inputs, launches,
 
 
 def gmm_work(x, w, counts=None):
-    """(flops, bytes) the grouped matmul must do on these inputs: the
-    filled slots' products (rows of x that are not all zero: an empty slot
-    answers zeros and needs no product), their rows and the weights of
-    the experts that have one read once, and the whole (E, C, F) output
-    written once, as the contract writes it; and the same counting every
-    slot, as torch.bmm computes it.  Also the filled rows, the experts
-    with one, and (with ``counts``) the filled 128-row tiles."""
+    """``rooflines.gmm_work`` at these inputs: over the filled slots (rows
+    of x that are not all zero: an empty slot answers zeros and needs no
+    product) and the experts that have one, and over every slot, as
+    torch.bmm computes it.  Also the filled rows, the experts with one,
+    and (with ``counts``) the filled 128-row tiles."""
     e, c, d = x.shape
     f = w.shape[2]
     filled = x.ne(0).any(-1)                      # (E, C)
     rows = int(filled.sum())
     experts = int(filled.any(-1).sum())
-    need = (2 * rows * d * f,
-            2 * (rows * d + experts * d * f + e * c * f))
-    dense = (2 * e * c * d * f, 2 * (e * c * d + e * d * f + e * c * f))
+    item = x.element_size()
+    need = rooflines.gmm_work(e, c, d, f, rows, experts, item)
+    dense = rooflines.gmm_work(e, c, d, f, item=item)
     tiles = (int(((counts.long() + 127) // 128).sum()) if counts is not None
              else e * -(-c // 128))
     return need, dense, rows, experts, tiles
@@ -3780,16 +3803,16 @@ def phase_gmm_times(torch, dev, gpu, args, launches, label):
     plain = yardstick(torch, lambda: kops.grouped_matmul(
         x, w, counts, impl="ref"), iters=5)
     lib = yardstick(torch, lambda: torch.bmm(x, w))
-    (flops, nbytes), (dflops, dbytes), rows, experts, tiles = gmm_work(
-        x, w, counts)
+    need, every, rows, experts, tiles = gmm_work(x, w, counts)
+    flops, nbytes, bound, by = need.ops, need.nbytes, need.ms, need.bound_by
     t_ops = flops / BF16_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound = max(t_ops, t_bytes)
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    dense = max(dflops / BF16_FLOPS, dbytes / HBM_BYTES_PER_S) * 1e3
+    dflops, dbytes, dense = every.ops, every.nbytes, every.ms
     # the plain version multiplies every slot in f32, off the tensor cores
-    plain_bound = max(dflops / F32_FLOPS, dbytes / HBM_BYTES_PER_S) * 1e3
     e, c, d = x.shape
+    plain_bound = rooflines.gmm_work(e, c, d, w.shape[2],
+                                     item=x.element_size(),
+                                     peak=F32_FLOPS).ms
     say(f"[times] {gpu} | grouped_matmul @ {label} (E {e}, C {c}, D {d}, F "
         f"{w.shape[2]}; {rows} of {e * c} slots filled, {experts} experts "
         f"with one, {tiles} of {e * -(-c // 128)} 128-row tiles filled): "
@@ -3827,8 +3850,8 @@ def phase_ds_pack_times(torch, gpu, packs, counts):
             ms = ev
         plain = yardstick(torch, lambda: kops.delegation_pack(
             *args, impl="ref"), iters=3)
-        nbytes = pack_bytes(torch, args)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        work = pack_work(torch, args)
+        nbytes, bound = work.nbytes, work.ms
         d, r, w = args[1].shape
         say(f"[times] {gpu} | delegation_pack @ deepseek prefill, {label} "
             f"({d} shards x {r} rows of {w} words to {args[2]} "
@@ -3867,9 +3890,9 @@ def phase_deepseek_busy(torch, dev, gpu, params, run):
 
 # the falcon-mamba-7b prefill's scan: B 4 x 2048 tokens, d_inner 8192, N 16
 SCAN_PREFILL = dict(b=4, s=2048, di=8192, n=16)
-SFU_EXP_PER_CLOCK = 16          # ex2 results a clock per SM (MUFU)
-SM_COUNT = 132                  # H100 SXM
-F32_FLOPS = 67e12               # H100 SXM f32, outside the tensor cores
+SFU_EXP_PER_CLOCK = rooflines.SFU_EXP_PER_CLOCK   # MUFU ex2 a clock per SM
+SM_COUNT = rooflines.SM_COUNT                     # H100 SXM
+F32_FLOPS = rooflines.F32_FLOPS                   # f32, off the tensor cores
 F32_LANES_PER_CLOCK = 128       # f32 instructions (FFMA, FMUL) a clock per SM
 # the scan's f32 instructions per (b, t, channel, state) besides its exp:
 # dt * a, (dt x) * B, the update's FFMA and C's FFMA
@@ -4258,20 +4281,12 @@ def phase_falcon(torch, dev, gpu, report, errs, busy=False):
     return prefill_counts, scan_inputs
 
 
-def scan_work(x, a):
-    """(exponentials, f32 flops, bytes) the scan must do on these inputs:
-    one exp(dt * a) and 6 flops per (b, t, channel, state) — dt * a,
-    dt x * B, the update's multiply-add and C's multiply-add — and 3 per
-    (b, t, channel) — dt * x and D * x added; x, dt, a, b, c, d (and h0)
-    read once, y and h_final written once."""
+def scan_work(x, a, mhz):
+    """``rooflines.scan_work`` at these inputs' shapes, the exponentials
+    at ``mhz``."""
     bsz, s, di = x.shape
-    n = a.shape[1]
-    exps = bsz * s * di * n
-    flops = 6 * exps + 3 * bsz * s * di
-    item = x.element_size()
-    nbytes = (3 * bsz * s * di * item + 4 * (di * n + 2 * bsz * s * n + di)
-              + 4 * bsz * di * n)
-    return exps, flops, nbytes
+    return rooflines.scan_work(bsz, s, di, a.shape[1], x.element_size(),
+                               clock_mhz=mhz)
 
 
 def phase_scan_times(torch, dev, gpu, inputs, launches):
@@ -4294,13 +4309,12 @@ def phase_scan_times(torch, dev, gpu, inputs, launches):
     plain = yardstick(torch, lambda: kops.selective_scan(*inputs,
                                                          impl="ref"),
                       iters=2)
-    exps, flops, nbytes = scan_work(inputs[0], inputs[2])
+    work = scan_work(inputs[0], inputs[2], mhz)
+    exps, flops, nbytes, bound = work.exps, work.ops, work.nbytes, work.ms
     t_exp = exps / (SFU_EXP_PER_CLOCK * SM_COUNT * mhz * 1e6) * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound = max(t_exp, t_ops, t_bytes)
-    by = {t_exp: "exponentials", t_ops: "f32 flops",
-          t_bytes: "bytes"}[bound]
+    by = {"operations": "f32 flops"}.get(work.bound_by, work.bound_by)
     # the SFU-only bound above leaves the f32 pipes part idle: a share f
     # of the exponentials computed as polynomials there balances the two
     # units where (1 - f) / SFU = (SCAN_F32_INSTR + POLY_EXP_INSTR f) / F32
@@ -4348,27 +4362,25 @@ def phase_scan_times(torch, dev, gpu, inputs, launches):
             "bytes" if by == "bytes" else "operations")
 
 
-def pt_bytes(op, state, args):
-    """What one op pass needs: the state read once and written once, every
-    row's valid byte, the valid rows' seq (and arg, for alloc and append)
-    and their responses (MP pages, page, n, flag).  The rows that are not
-    valid cost their valid byte only."""
+def pt_work(op, state, args):
+    """``rooflines.pagetable_work`` of one op pass at these inputs: the
+    valid rows are this pass's."""
     from repro_torch.kernels.ref import PT_OPS
     seq, arg, valid = args[:3]
-    n = int(valid.sum())
-    mp = state["chains"].shape[-1]
-    st = sum(v.numel() for v in state.values())
-    reads_arg = op in (PT_OPS["alloc"], PT_OPS["append"])
-    return 2 * 4 * st + valid.numel() + 4 * n * (1 + reads_arg) \
-        + 4 * n * (mp + 3)
+    return rooflines.pagetable_work(
+        op in (PT_OPS["alloc"], PT_OPS["append"]),
+        sum(v.numel() for v in state.values()), valid.numel(),
+        int(valid.sum()), state["chains"].shape[-1])
 
 
-def pa_bytes(q, k, lengths):
-    """Live K and V pages of every (sequence, KV head) once, q and out."""
-    _, hkv, ps, d = k.shape
+def pa_work(q, k, lengths):
+    """``rooflines.paged_attention_work`` at these inputs: the live pages
+    of every sequence."""
+    b, hq, d = q.shape
+    _, hkv, ps, _ = k.shape
     live = int(((lengths.long() + ps - 1) // ps).sum())
-    return 2 * live * hkv * ps * d * k.element_size() \
-        + 2 * q.numel() * q.element_size()
+    return rooflines.paged_attention_work(b, hq, hkv, ps, d, live,
+                                          k.element_size())
 
 
 def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
@@ -4394,8 +4406,8 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
     ms, lo, hi, seen = device_readings(
         torch, lambda: (restore(), kops.pagetable_serve(op, work, *args)),
         KERNEL_NAMES["pagetable_serve"])
-    nbytes = pt_bytes(op, before, args)
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    need = pt_work(op, before, args)
+    nbytes, bound = need.nbytes, need.ms
     # the latency floor beside the byte bound: a kernel that does nothing,
     # launched on the same grid, block and shared memory
     from repro_torch.kernels import pagetable_serve as kpt
@@ -4471,8 +4483,8 @@ def phase_paged_times(torch, dev, gpu, rec, waves, counts, inputs):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib = yardstick(torch, lambda: sdpa(q4, kd, vd, attn_mask=mask,
                                         enable_gqa=True))
-    nbytes = pa_bytes(q, k, lengths)
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    need = pa_work(q, k, lengths)
+    nbytes, bound = need.nbytes, need.ms
     # SDPA's own work: the gathered K / V (every sequence padded to the
     # longest), q, the mask and the output
     lib_bytes = (kd.numel() + vd.numel() + 2 * q.numel()) * q.element_size() \
@@ -5851,6 +5863,287 @@ def phase_hybrid(torch, dev, gpu, report, errs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the examples, the dry run on the meta device, mfu readings
+# ---------------------------------------------------------------------------
+
+# serve_kv's check: the example's table and zipf traffic (5% writes)
+EX_SERVE_KV = dict(n_keys=100_000, requests=4096, rounds=2, write_pct=5)
+# delegated_moe's check: the JAX package's tests/test_delegated_moe.py case
+EX_MOE = dict(n_experts=8, n_tokens=32, n_waves=6, seed=3)
+EX_TRAIN_STEPS = 20
+# what quickstart prints, as the JAX package's example prints it
+EX_QUICKSTART = dict(counter=19.0, then_value=19.0, get=[3, 5],
+                     fetch_adds=[3, 4, 5], fused_get=[6, 5],
+                     fused_counters=[1, 1, 1, 1], dedicated_get=[3, 5])
+# the dry run held to allocate nothing and launch nothing on the card
+DRY_CELL = ("qwen1.5-32b", "decode_32k")
+# the cells phases 6, 7, 8 and 10 time, each with its phase's mesh and
+# run: (report key, arch, kind, seq, batch, (data, model), run overrides)
+MFU_CELLS = (
+    ("qwen_prefill", "qwen2.5-3b", "prefill", QWEN_PREFILL["seq"],
+     QWEN_PREFILL["batch"], (1, QWEN_SERVE["mesh_model"]), {}),
+    ("deepseek_prefill", "deepseek-v2-lite-16b", "prefill", DS_PREFILL["seq"],
+     DS_PREFILL["batch"], (1, DS_PREFILL["mesh_model"]), {}),
+    ("falcon_prefill", "falcon-mamba-7b", "prefill", FM_PREFILL["seq"],
+     FM_PREFILL["batch"], (1, 1), {}),
+    ("qwen_train", "qwen2.5-3b", "train", TRAIN["seq"], TRAIN["batch"],
+     (1, 1), {"grad_accum": 1, "remat": TRAIN["remat"]}),
+)
+
+
+def ex_quickstart(torch, dev):
+    """quickstart on the card and on the CPU (the plain paths): every
+    printed value equals the JAX package's and the CPU run's, and the
+    engine stats equal the CPU run's."""
+    import numpy as np
+    from repro_torch.core import use_session
+    from repro_torch.examples import quickstart
+    runs = {}
+    for where in (dev, "cpu"):
+        with use_session():
+            runs[str(where)] = quickstart.run(where)
+    card, cpu = runs[str(dev)], runs["cpu"]
+    for k, v in EX_QUICKSTART.items():
+        require(np.array_equal(np.asarray(card[k], np.float32),
+                               np.asarray(v, np.float32))
+                and np.array_equal(np.asarray(card[k]), np.asarray(cpu[k])),
+                f"quickstart {k}: card {card[k]}, CPU {cpu[k]}, want {v}")
+    require(card["stats"] == cpu["stats"], f"quickstart engine stats: card "
+            f"{card['stats']}, CPU {cpu['stats']}")
+    require(card["schema_error"] == cpu["schema_error"],
+            "quickstart: the SchemaError differs")
+    return card
+
+
+def ex_serve_kv(torch, dev, gpu):
+    """serve_kv's service round on both backends over one table and the
+    same traffic: the GET responses of the rows that read, bit for bit
+    with each other and with SequentialKVReference; both tables after
+    the rounds == the oracle's.  Host ms a round (readings)."""
+    import numpy as np
+    from repro_torch.core import (DelegatedKVStore, FetchRMWStore,
+                                  SequentialKVReference, StackedMesh,
+                                  use_session)
+    from repro_torch.core.routing import sample_keys
+    from repro_torch.examples import serve_kv
+    p = EX_SERVE_KV
+    w = serve_kv.W
+    rng = np.random.default_rng(0)
+    table = rng.normal(size=(p["n_keys"], w)).astype(np.float32)
+    rounds = [(sample_keys(rng, p["n_keys"], p["requests"], "zipf"),
+               rng.random(p["requests"]) < p["write_pct"] / 100)
+              for _ in range(p["rounds"])]
+    mesh = StackedMesh((1, serve_kv.N_SHARDS), device=dev)
+    got, ms, tables = {}, {}, {}
+    with use_session():
+        stores = {"trust": DelegatedKVStore(mesh, p["n_keys"], w),
+                  "rw-lock": FetchRMWStore(mesh, p["n_keys"], w,
+                                           rw_lock=True)}
+        for backend, st in stores.items():
+            st.prefill(table)
+            got[backend], ms[backend] = [], []
+            for keys, wr in rounds:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = serve_kv.service_round(st, keys, wr, backend)
+                torch.cuda.synchronize()
+                ms[backend].append((time.perf_counter() - t0) * 1e3)
+                got[backend].append(out.cpu().numpy())
+            tables[backend] = st.dump()
+    ref = SequentialKVReference(p["n_keys"], w)
+    ref.prefill(table)
+    for i, (keys, wr) in enumerate(rounds):
+        want = ref.get(keys)
+        ref.put(keys[wr], np.ones((int(wr.sum()), w), np.float32))
+        for backend in got:
+            require(np.array_equal(got[backend][i][~wr], want[~wr]),
+                    f"serve_kv {backend} round {i}: GET responses differ "
+                    f"from the oracle")
+    for backend, t in tables.items():
+        require(np.array_equal(t, ref.dump()),
+                f"serve_kv {backend}: the table differs from the oracle's")
+    say(f"[example] {gpu} | serve_kv ({p['n_keys']} keys, "
+        f"{p['requests']} requests a round, zipf, {p['write_pct']}% "
+        f"writes): " + "; ".join(
+            f"{b} " + ", ".join(f"{x:.3f}" for x in v) + " ms a round"
+            for b, v in ms.items()) + " (host wall, first round cold); "
+        "every GET == the oracle, both tables == the oracle's")
+
+
+def ex_moe(torch, dev):
+    """delegated_moe's routing on the card and on the CPU: assignments,
+    delegated counts, host tally and live counts bit for bit, the
+    delegated counts == the tally of the routed tokens."""
+    import numpy as np
+    from repro_torch.core import StackedMesh, use_session
+    from repro_torch.examples import delegated_moe as dm
+    runs = {}
+    for where in (dev, "cpu"):
+        with use_session():
+            res = dm.run_routing(StackedMesh((1, dm.N_SHARDS),
+                                             device=where), **EX_MOE)
+            res["live"] = res["counters"].get(
+                np.arange(EX_MOE["n_experts"], dtype=np.int32))
+        runs[str(where)] = res
+    card, cpu = runs[str(dev)], runs["cpu"]
+    for k in ("assignments", "delegated", "host_tally", "live"):
+        require(np.array_equal(card[k], cpu[k]),
+                f"delegated_moe {k}: card {card[k]}, CPU {cpu[k]}")
+    tally = np.bincount(card["assignments"], minlength=EX_MOE["n_experts"])
+    require(np.array_equal(card["delegated"], tally)
+            and int(tally.sum()) == EX_MOE["n_tokens"] * EX_MOE["n_waves"],
+            f"delegated_moe: delegated {card['delegated']} != tally {tally}")
+    return card
+
+
+def dry_cell(arch, shape_name, art, shape=None, mesh=None, over=None,
+             probes=True):
+    """One dry-run cell (``launch.dryrun.run_cell``) into ``art``."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch import dryrun
+    r = dryrun.run_cell(
+        arch, shape_name, "single", shape=shape, art_dir=art, force=True,
+        verbose=False, run_overrides=over, skip_extrapolation=not probes,
+        mesh_config=None if mesh is None
+        else MeshConfig(mesh, ("data", "model")))
+    require(r["status"] == "ok", f"dry run {arch} x {shape_name}: "
+            f"{r.get('error')}\n{r.get('trace', '')}")
+    # nothing on the card (a CPU scalar an op wraps is not the card's)
+    require("cuda" not in r["devices"], f"dry run {arch} x {shape_name} "
+            f"saw tensors on {r['devices']}: {r['off_meta']}")
+    if r["off_meta"]:
+        say(f"[dryrun] {arch} x {shape_name}: ops that saw a tensor off the "
+            f"meta device: {r['off_meta']}")
+    return r
+
+
+def dry_terms(r):
+    t = r["roofline"]
+    return (f"compute {t['compute_s'] * 1e3:.3f} ms, memory "
+            f"{t['memory_s'] * 1e3:.3f} ms, transposes "
+            f"{t['collective_s'] * 1e3:.3f} ms ({t['bottleneck']}), useful "
+            f"{t['useful_ratio']:.3f}, arguments "
+            f"{r['memory']['argument_size_in_bytes'] / 1e9:.2f} GB + peak "
+            f"{r['memory']['temp_size_in_bytes'] / 1e9:.2f} GB, fits "
+            f"{r['fits_hbm']}, counted in {r['count_s']} s")
+
+
+def phase_examples(torch, dev, gpu, report):
+    """(a) quickstart, serve_kv and delegated_moe on the card, each path's
+    counters zeroed just before it and read just after (quickstart's and
+    serve_kv's KV kernels and delegated_moe's pack must launch), each
+    held as its test holds it (JAX's printed values, the oracle, the CPU
+    run); (b) train_lm, 20 steps, losses finite, no kernel; (c) the dry
+    run of DRY_CELL at its production shape: memory allocated on the
+    card and every launch counter unchanged across it; (d) the dry-run
+    cells of the shapes phases 6, 7, 8 and 10 time (their mfu is read
+    after phase 10).  Returns the launches of (a) and (b)."""
+    import math
+    import tempfile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels import ops as kops
+    launches = {k: 0 for k in SOURCES}
+
+    def path(label, fn, must):
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        say(f"[main path] {label} launches: {json.dumps(counts)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for k in must:
+            require(counts[k] > 0, f"kernel {k} was not launched on the "
+                    f"{label} path")
+        for k, v in counts.items():
+            launches[k] += v
+        return out, counts
+
+    qs, _ = path("example quickstart (card, then CPU)",
+                 lambda: ex_quickstart(torch, dev), KV_KERNELS)
+    say(f"[example] quickstart: counter {qs['counter']}, then-callback "
+        f"{qs['then_value']}, GET {qs['get']}, fetch-and-adds "
+        f"{qs['fetch_adds']}, fused {qs['fused_get']} / "
+        f"{qs['fused_counters']}, dedicated {qs['dedicated_get']} (== JAX's "
+        f"and the CPU run's)")
+    path("example serve_kv", lambda: ex_serve_kv(torch, dev, gpu),
+         ("delegation_pack", "gather", "scatter_last"))
+    moe, _ = path("example delegated_moe (card, then CPU)",
+                  lambda: ex_moe(torch, dev), ("delegation_pack",))
+    say(f"[example] delegated_moe: counts {moe['delegated'].tolist()} == the "
+        f"host tally == the CPU run's; imbalance "
+        f"{moe['imbalance_unbiased']:.3f} -> {moe['imbalance_biased']:.3f}")
+    ck = tempfile.mkdtemp()
+    stats = {}
+    hist, counts = path("example train_lm", lambda: train_lm.main(
+        ["--steps", str(EX_TRAIN_STEPS), "--ckpt-dir", ck, "--device",
+         dev.type], stats=stats), ())
+    require(not any(counts.values()), "train_lm launched a kernel")
+    require(len(hist) == EX_TRAIN_STEPS and all(
+        math.isfinite(l) for _, l in hist) and all(
+        math.isfinite(m["grad_norm"]) for m in stats["metrics"]),
+        f"train_lm: losses {hist}")
+    say(f"[example] {gpu} | train_lm 10m preset ({stats['n_params'] / 1e6:.2f}"
+        f" M params), {EX_TRAIN_STEPS} steps: loss {hist[0][1]:.4f} -> "
+        f"{hist[-1][1]:.4f}, median step "
+        f"{sorted(stats['step_s'])[EX_TRAIN_STEPS // 2] * 1e3:.1f} ms")
+
+    # (c) the dry run on the card's machine: nothing allocated, nothing
+    # launched
+    # (the earlier phases' garbage collected first: the dry run's own
+    # collections would free it and move the reading)
+    art = tempfile.mkdtemp()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = dry_cell(*DRY_CELL, art)
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    counts = kops.launch_counts()
+    require(peak == mem0 and mem1 <= mem0, f"the dry run allocated on the "
+            f"card: {mem0} bytes before, peak {peak}, {mem1} after")
+    require(not any(counts.values()), f"the dry run launched kernels: "
+            f"{counts}")
+    say(f"[dryrun] {DRY_CELL[0]} x {DRY_CELL[1]} (B 128, 32,768 positions, "
+        f"the (16, 16) mesh stacked on the meta device), "
+        f"{time.perf_counter() - t0:.1f} s: {dry_terms(r)}; card memory "
+        f"allocated {mem0} -> {mem1} bytes (peak {peak}), launches "
+        f"{json.dumps(counts)}")
+    # (d) the timed phases' cells
+    report["mfu_cells"] = {}
+    for key, arch, kind, s, b, mesh, over in MFU_CELLS:
+        report["mfu_cells"][key] = dry_cell(
+            arch, f"{kind}_{b}x{s}", art, ShapeConfig(key, s, b, kind), mesh,
+            over, probes=False)
+    return launches
+
+
+def mfu_readings(gpu, report):
+    """The dry-run terms of the cells phases 6, 7, 8 and 10 time, beside
+    those phases' measured medians from this run: mfu = model FLOPs /
+    989 TFLOP/s / the measured step (readings, no gate)."""
+    for key, arch, kind, s, b, mesh, _ in MFU_CELLS:
+        r = report["mfu_cells"].get(key)
+        if r is None or key not in report:
+            continue
+        measured = b * s / report[key]["tokens_per_s"]
+        mf = rooflines.model_flops(kind, r["n_active_params"], b * s)
+        t = r["roofline"]
+        bound = max(t["compute_s"], t["memory_s"], t["collective_s"])
+        say(f"[mfu] {gpu} | {key} ({arch}, {kind} B {b} x {s}, mesh "
+            f"{mesh}): measured {measured * 1e3:.3f} ms (this run's "
+            f"median), model FLOPs {mf:.4e} ({r['n_active_params']} active "
+            f"params), mfu {mf / rooflines.PEAK_FLOPS / measured * 100:.2f}%;"
+            f" dry run: {dry_terms(r)}; measured / the dry run's binding "
+            f"term {measured / bound:.2f}")
+
+
 def main_shapes(n_dev):
     """The pack and serve kernels' shapes on the main paths' rounds:
     kv_paper (a fused GET + PUT batch a client) and kv_mixed."""
@@ -5911,8 +6204,8 @@ def kernel_info(torch, n_dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,11,12,13,9,"
-                            "10",
+                    default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,11,12,13,14,"
+                            "9,10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -6092,8 +6385,15 @@ def main(argv=None):
                 f"{report[arch + '_serve']['tokens_per_s']:.1f}; peak "
                 f"allocated {report[arch + '_peak_gb']:.2f} GB")
         say(f"[time] through phase 13: {time.perf_counter() - started:.1f} s")
+    if "14" in phases:
+        t0 = time.perf_counter()
+        counts = phase_examples(torch, dev, gpu, report)
+        for k, v in counts.items():
+            launches[k] += v
+        say(f"[time] phase 14: {time.perf_counter() - t0:.1f} s; through "
+            f"phase 14: {time.perf_counter() - started:.1f} s")
     per_round["launches"] = launches
-    say(f"[main path] kernel launches over phases 3-8 and 11-13 (one "
+    say(f"[main path] kernel launches over phases 3-8 and 11-14 (one "
         f"prefill call in phases 6, 7, 8 and each of 11's; 4a, 4b and the "
         f"session serve included): {json.dumps(launches)}")
 
@@ -6148,6 +6448,8 @@ def main(argv=None):
             f"{report['qwen_train']['tokens_per_s']:.1f}")
         say(f"[time] through phase 10: "
             f"{time.perf_counter() - started:.1f} s")
+    if "14" in phases:
+        mfu_readings(gpu, report)
     if "9" in phases:
         say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {

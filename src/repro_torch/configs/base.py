@@ -5,7 +5,8 @@ both packages.
 
 ``ModelConfig`` describes one architecture (``MoEConfig`` its routed
 experts, ``MambaConfig`` its selective-SSM mixers), ``ShapeConfig`` one
-(seq_len, global_batch, kind) input cell, ``MeshConfig`` the (data, model)
+(seq_len, global_batch, kind) input cell (``SHAPES`` the four production
+cells), ``MeshConfig`` the (data, model)
 mesh whose shards the port stacks on one device, and ``RunConfig`` couples
 them with the precision, training and kernel settings the model paths
 read.
@@ -133,6 +134,22 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str                        # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# the production cells of every architecture (JAX's four input shapes),
+# the cells ``launch.dryrun`` sizes
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
 
 
 @dataclass(frozen=True)

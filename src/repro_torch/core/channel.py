@@ -88,6 +88,20 @@ def collect_impl_events():
 # ---------------------------------------------------------------------------
 
 _transpose_sinks: List[List[str]] = []
+_transpose_byte_sinks: List[List[Tuple[str, int]]] = []
+
+
+@contextlib.contextmanager
+def collect_transpose_bytes():
+    """Collect (what, bytes) for each block transpose made while the body
+    runs: the bytes of the stacked tensor moved (read once, written once
+    by the copy) — the dry run's collective term."""
+    events: List[Tuple[str, int]] = []
+    _transpose_byte_sinks.append(events)
+    try:
+        yield events
+    finally:
+        _transpose_byte_sinks.remove(events)
 
 
 @contextlib.contextmanager
@@ -482,6 +496,8 @@ def _a2a(leaf: torch.Tensor, c: int, what: str,
     """One counted block transpose (see ``collect_transposes``)."""
     for sink in _transpose_sinks:
         sink.append(what)
+    for sink in _transpose_byte_sinks:
+        sink.append((what, leaf.numel() * leaf.element_size()))
     return _transpose_blocks(leaf, c, reps)
 
 

@@ -15,7 +15,10 @@ chunk's rows FIFO and place every slot row (its source row or zeros).
 nothing back from the card.
 
 On CPU tensors the wrapper runs the plain version (``ref.pack_stacked``);
-on CUDA tensors it launches the kernels or raises.
+on CUDA tensors it launches the kernels or raises; on meta tensors (a dry
+run) it checks the call as for the card, adds its work with every slot
+counted filled (``launch.rooflines.pack_work``) to the active tally and
+returns empty meta outputs.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
+from ..launch import rooflines
 from . import _build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -125,7 +129,7 @@ def delegation_pack(dst: torch.Tensor, words: torch.Tensor, n_trustees: int,
                          f"capacity2 >= 0, got {capacity}, {capacity2}")
     if dst.device.type == "cpu":
         return ref.pack_stacked(dst, words, n_trustees, capacity, capacity2)
-    if dst.device.type != "cuda":
+    if dst.device.type not in ("cuda", "meta"):
         raise ValueError(f"delegation_pack: unsupported device {dst.device}")
     d, r = dst.shape
     w = words.shape[-1]
@@ -138,8 +142,11 @@ def delegation_pack(dst: torch.Tensor, words: torch.Tensor, n_trustees: int,
     if d > 65535:
         raise ValueError(f"delegation_pack: {d} client shards exceed the "
                          f"grid's 65535")
-    if max(d * t * (c + c2), d * r) * max(w, 1) >= 2 ** 31:
-        raise ValueError("delegation_pack: buffers exceed 2^31 words")
+    # the kernels number a shard's rows and slots in int32 and address
+    # words with 64-bit offsets
+    if max(r, t * (c + c2)) >= 2 ** 31:
+        raise ValueError("delegation_pack: a shard's rows or slots exceed "
+                         "2^31")
     kw = dict(dtype=torch.int32, device=dst.device)
     slots = torch.empty((d, t * c, w), **kw)
     slots2 = torch.empty((d, t * c2, w), **kw)
@@ -147,6 +154,12 @@ def delegation_pack(dst: torch.Tensor, words: torch.Tensor, n_trustees: int,
     counts2 = torch.empty((d, t), **kw)
     request_slot = torch.empty((d, r), **kw)
     totals = torch.empty((d, t), **kw)
+    if dst.device.type == "meta":
+        # a dry run: which rows are placed is data, so every slot is
+        # counted filled
+        rooflines.record("delegation_pack", rooflines.pack_work(
+            d, r, w, t, c, c2))
+        return slots, slots2, counts, counts2, request_slot, totals
     if d == 0:
         return slots, slots2, counts, counts2, request_slot, totals
     sms = torch.cuda.get_device_properties(dst.device).multi_processor_count

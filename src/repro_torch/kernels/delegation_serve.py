@@ -18,7 +18,9 @@ keeps the phase order by issuing the kernels in order on one stream
 
 Every kernel serves all T stacked shards in one launch.  On CPU tensors a
 wrapper runs its plain version from ``ref``; on CUDA tensors it launches
-its kernel or raises.  Each wrapper's ``check_*`` holds everything that
+its kernel or raises; on meta tensors (a dry run) it checks the call as
+for the card and adds its work, every row counted in the lane
+(``launch.rooflines``), to the active tally, and writes nothing.  Each wrapper's ``check_*`` holds everything that
 can raise before its launch (argument checks, loading the library), so
 the serve runs all the checks of a round before its first write.  Each
 wrapper's ``launches`` counts its kernel launches, one a call on the card
@@ -36,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from ..launch import rooflines
 from . import _build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -69,7 +72,7 @@ def _check(fn, name, x, dtype, shape, device):
 
 
 def _dims(fn, table, keys):
-    if table.device.type not in ("cpu", "cuda"):
+    if table.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{fn}: unsupported device {table.device}")
     if table.dim() != 3 or keys.dim() != 2:
         raise ValueError(f"{fn}: table must be (T, K, W) and keys (T, N)")
@@ -147,6 +150,11 @@ def gather(table: torch.Tensor, keys: torch.Tensor, lane: torch.Tensor,
     check_gather(table, keys, lane, which, out, expect, flag)
     if table.device.type == "cpu":
         return ref.gather(table, keys, lane, which, out, expect, flag)
+    if table.device.type == "meta":     # a dry run: every row in the lane
+        t, k, w = table.shape
+        rooflines.record("gather", rooflines.gather_work(
+            t, keys.shape[1], w, cas=expect is not None))
+        return None
     t, k, w = table.shape
     n = keys.shape[1]
     if t * n == 0:
@@ -228,6 +236,11 @@ def scatter_last(table: torch.Tensor, keys: torch.Tensor,
     check_scatter_last(table, keys, order, seg_end, flag, value)
     if table.device.type == "cpu":
         return ref.scatter_last(table, keys, order, seg_end, flag, value)
+    if table.device.type == "meta":     # a dry run: every row commits
+        t, k, w = table.shape
+        rooflines.record("scatter_last", rooflines.scatter_last_work(
+            t, keys.shape[1], w))
+        return None
     t, k, w = table.shape
     n = keys.shape[1]
     if t * n * w == 0:
@@ -279,6 +292,11 @@ def segmented_add(table: torch.Tensor, keys: torch.Tensor, lane: torch.Tensor,
     if table.device.type == "cpu":
         return ref.segmented_add(table, keys, lane, order, sid, seg_end,
                                  value, resp)
+    if table.device.type == "meta":     # a dry run: every row an ADD row
+        t, k, w = table.shape
+        rooflines.record("segmented_add", rooflines.segmented_add_work(
+            t, keys.shape[1], w))
+        return None
     t, k, w = table.shape
     n = keys.shape[1]
     if t * n * w == 0:

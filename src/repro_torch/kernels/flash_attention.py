@@ -13,7 +13,10 @@ query tiles; at D 256, gemma-7b's, its 64 x 256 f32 accumulator leaves
 ptxas short of registers, and it spills: ``kernel_info``); D 32 the
 simple ``mma.sync`` one (64-row query tiles).  On CPU
 tensors the wrapper runs the plain version; on CUDA tensors it launches
-a kernel or raises.  The kernels take bf16 only: f32 or f16 on the card
+a kernel or raises; on meta tensors (a dry run, ``launch.dryrun``) it
+checks the call as for the card, adds its work
+(``launch.rooflines.flash_work``) to the active tally and returns an
+empty meta output.  The kernels take bf16 only: f32 or f16 on the card
 raises ``TypeError``.  A ragged tail of Sq or Skv is masked in the kernel
 (the Pallas wrapper refuses one).
 """
@@ -24,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from ..launch import rooflines
 from . import _build, ref
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
@@ -103,7 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, scale=scale,
                                    q_offset=off)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         _fail(f"unsupported device {dev}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         _fail("q must be (B, Hq, Sq, D) and k, v (B, Hkv, Skv, D)")
@@ -129,6 +133,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _fail(f"B * Hq = {b * hq} x {sq} queries exceed the grid")
     if max(sq, skv) + off >= 2 ** 31:
         _fail("positions exceed int32")
+    if dev.type == "meta":              # a dry run: shapes and work only
+        rooflines.record("flash_attention", rooflines.flash_work(
+            b, hq, hkv, sq, skv, d, off, causal, q.element_size()))
+        return torch.empty(q.shape, dtype=q.dtype, device=dev)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)           # q's layout, so a transpose is free
     if out.stride(-1) != 1 or any(s % 8 for s in out.stride()[:-1]):

@@ -8,7 +8,11 @@ f32).  Given ``counts`` (each expert's filled rows, on the card), a tile
 that starts at or past ``counts[e]`` is stored as zeros with no product;
 the counts are never read back to the host.  ``ref.grouped_matmul`` is
 its plain version.  On CPU tensors the wrapper runs the plain version; on
-CUDA tensors it launches the kernel or raises.  The kernel takes bf16
+CUDA tensors it launches the kernel or raises; on meta tensors (a dry
+run) it checks the call as for the card, adds its work over every slot
+(the filled rows are data; ``launch.rooflines.gmm_work``, as
+``torch.bmm`` computes it) to the active tally and returns an empty meta
+output.  The kernel takes bf16
 only: f32 or f16 on the card raises ``TypeError``.  A ragged C, D or F is
 masked in the kernel (the Pallas wrapper pads them); D or F not a
 multiple of 8 takes its ``mma.sync`` kernel, which TMA cannot feed.
@@ -20,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..launch import rooflines
 from . import _build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -59,7 +64,7 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     dev = x.device
     if dev.type == "cpu":
         return ref.grouped_matmul(x, w, counts)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         _fail(f"unsupported device {dev}")
     if x.dim() != 3 or w.dim() != 3:
         _fail("x must be (E, C, D) and w (E, D, F)")
@@ -85,6 +90,11 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
         _fail(f"E = {e}, C = {c} or F = {f} exceeds the grid")
     if max(e * c * d, e * d * f, e * c * f) >= 2 ** 40:
         _fail("operands too large")
+    if dev.type == "meta":
+        # a dry run: the filled rows are data, so every slot is counted
+        rooflines.record("grouped_matmul", rooflines.gmm_work(
+            e, c, d, f, item=x.element_size()))
+        return torch.empty((e, c, f), dtype=x.dtype, device=dev)
     x, w = x.contiguous(), w.contiguous()
     if d == 0:
         return torch.zeros((e, c, f), dtype=x.dtype, device=dev)

@@ -11,7 +11,10 @@ a group) and the online softmax in f32, and the last split of a group to
 finish merges the group's partials in split order;
 ``ref.paged_attention`` is its plain version.  On CPU
 tensors the wrapper runs the plain version; on CUDA tensors it launches
-the kernel or raises.
+the kernel or raises; on meta tensors (a dry run) it checks the call's
+shapes and dtypes, adds its work with every page of the table counted
+live (``launch.rooflines.paged_attention_work``) to the active tally and
+returns an empty meta output.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from ..launch import rooflines
 from . import _build, ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -69,7 +73,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if dev.type == "cpu":
         return ref.paged_attention(q, k_pages, v_pages, page_table, lengths,
                                    scale)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         _fail(f"unsupported device {dev}")
     if q.dim() != 3 or k_pages.dim() != 4:
         _fail("q must be (B, Hq, D) and the pools (P, Hkv, PS, D)")
@@ -101,6 +105,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if p < 1 or ps < 1 or mp < 1:
         _fail("needs a non-empty pool, pages and page table")
     item = q.element_size()
+    if dev.type == "meta":
+        # a dry run: the lengths are data, so every page of the table is
+        # counted live; the kernel's plan reads pointers and is not made
+        rooflines.record("paged_attention", rooflines.paged_attention_work(
+            b, hq, hkv, ps, d, b * mp, item))
+        return torch.empty(q.shape, dtype=q.dtype, device=dev)
     pps, ns = split_plan(mp)
     page_bytes = ps * d * item
     rep = hq // hkv

@@ -10,7 +10,10 @@ and the block writes back only what the rows changed;
 ``ref.pagetable_serve`` is its plain version.
 
 On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises.  Either way the state tensors are updated
+launches the kernel or raises; on meta tensors (a dry run) it checks the
+call as for the card, adds its work with every row counted valid
+(``launch.rooflines.pagetable_work``) to the active tally and returns
+empty meta responses.  Either way the state tensors are updated
 IN PLACE and the responses are fresh tensors.  The kernel writes the
 responses of valid rows only and leaves the rest unwritten (the plain
 version zeroes them): the masked pass that calls it keeps valid rows
@@ -22,6 +25,7 @@ import ctypes
 
 import torch
 
+from ..launch import rooflines
 from . import _build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -113,7 +117,7 @@ def pagetable_serve(op: int, used: torch.Tensor, chains: torch.Tensor,
         return ref.pagetable_serve(op, used, chains, chain_len, last_used,
                                    clock, evictions, seq, arg, valid,
                                    n_trustees, page_size)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"pagetable_serve: unsupported device {dev}")
     t, n = seq.shape
     pl = used.shape[1]
@@ -136,6 +140,13 @@ def pagetable_serve(op: int, used: torch.Tensor, chains: torch.Tensor,
     page = torch.empty((t, n), **kw)
     n_out = torch.empty((t, n), **kw)
     flag = torch.empty((t, n), **kw)
+    if dev.type == "meta":
+        # a dry run: validity is data, so every row is counted valid
+        state = (used, chains, chain_len, last_used, clock, evictions)
+        rooflines.record("pagetable_serve", rooflines.pagetable_work(
+            op in (ref.PT_OPS["alloc"], ref.PT_OPS["append"]),
+            sum(x.numel() for x in state), t * n, None, mp))
+        return pages, page, n_out, flag
     if t == 0 or n == 0:
         return pages, page, n_out, flag
     lib = _build.library("pagetable_serve.cu", _SIG)

@@ -6,7 +6,10 @@ over a few lanes of a warp (``scan_plan``), keeps them in f32 registers,
 walks time in chunks double-buffered in shared memory, and sums y over
 the channel's lanes with shuffles; ``ref.selective_scan`` is its plain
 version.  On CPU tensors the wrapper runs the plain version; on CUDA
-tensors it launches the kernel or raises.  x and dt are bf16 or f32 (the
+tensors it launches the kernel or raises; on meta tensors (a dry run) it
+checks the call as for the card, adds its work
+(``launch.rooflines.scan_work``) to the active tally and returns empty
+meta outputs.  x and dt are bf16 or f32 (the
 same), y comes back in x's dtype, every other operand is f32.  A ragged
 S or DI is masked in the kernel (the Pallas wrapper asserts S % 64 == 0
 and DI % 256 == 0).
@@ -18,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..launch import rooflines
 from . import _build, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -123,7 +127,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dev = x.device
     if dev.type == "cpu":
         return ref.selective_scan(x, dt, a, b, c, d, h0)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         _fail(f"unsupported device {dev}")
     if x.dim() != 3 or a.dim() != 2:
         _fail("x must be (B, S, DI) and a (DI, N)")
@@ -150,6 +154,11 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   f"{list(shape)}")
     if bsz > 65535:
         _fail(f"B = {bsz} exceeds the grid")
+    if dev.type == "meta":              # a dry run: shapes and work only
+        rooflines.record("selective_scan", rooflines.scan_work(
+            bsz, s, di, n, x.element_size()))
+        return (torch.empty((bsz, s, di), dtype=x.dtype, device=dev),
+                torch.empty((bsz, di, n), dtype=torch.float32, device=dev))
     x, dt, a, b, c, d = (t.contiguous() for t in (x, dt, a, b, c, d))
     h0 = None if h0 is None else h0.contiguous()
     y = torch.empty_like(x)

@@ -13,3 +13,7 @@
 #                  prompt, greedy decode over the trustee-sharded KV cache)
 # train.py         main — the training entry point (the train cell, the
 #                  token pipeline, the fault-tolerant TrainLoop)
+# rooflines.py     the H100's peaks, the whole-step roofline terms and
+#                  report, one bound function a kernel (``*_work``)
+# dryrun.py        run_cell / main — every (arch x shape x mesh) cell built
+#                  and counted on the meta device (nothing allocated)

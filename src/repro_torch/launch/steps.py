@@ -76,9 +76,16 @@ def adamw_config(run: RunConfig) -> AdamWConfig:
 
 
 def _micro(batch: Dict[str, torch.Tensor], accum: int, i: int):
-    """Microbatch ``i`` of ``accum`` along the batch dimension."""
-    mb = next(iter(batch.values())).shape[0] // accum
-    return {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+    """Microbatch ``i`` of ``accum`` along the batch dimension; M-RoPE
+    positions (3, B, S) carry the batch on their second (JAX's
+    ``split_micro``)."""
+    def part(k, v):
+        if k == "positions" and v.dim() == 3:
+            mb = v.shape[1] // accum
+            return v[:, i * mb:(i + 1) * mb]
+        mb = v.shape[0] // accum
+        return v[i * mb:(i + 1) * mb]
+    return {k: part(k, v) for k, v in batch.items()}
 
 
 def value_and_grad(params, batch, cfg: ModelConfig, run: RunConfig):

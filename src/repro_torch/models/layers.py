@@ -85,9 +85,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         if sum(mrope_sections) != d // 2:
             raise ValueError(f"M-RoPE sections {mrope_sections} do not sum "
                              f"to the {d // 2} frequencies of head dim {d}")
-        sec_id = torch.repeat_interleave(
-            torch.arange(len(mrope_sections), device=x.device),
-            torch.tensor(mrope_sections, device=x.device))    # (D/2,)
+        # the section of each frequency: the section edges it has passed
+        # (no size from data, so it builds on the meta device too)
+        freq = torch.arange(d // 2, device=x.device)
+        sec_id = torch.zeros_like(freq)                       # (D/2,)
+        edge = 0
+        for n in mrope_sections[:-1]:
+            edge += n
+            sec_id = sec_id + (freq >= edge).long()
         pos = positions.movedim(0, -1).float()                # (..., S, 3)
         angle = pos[..., sec_id] * freqs                      # (..., S, D/2)
     else:

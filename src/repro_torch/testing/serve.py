@@ -251,3 +251,36 @@ def zero_region_serve_case(device, d, n_clients, c, k, w, seed,
                 expect=T(expect), base=T(base), order=g.order.contiguous(),
                 sid=g.seg_start.contiguous(),
                 seg_end=g.seg_end.contiguous())
+
+
+# a pack past 2^31 words: 2,200,000 rows of 1,000 words to 8 destinations
+# (8.8 GB of words in, 9.0 GB of slots out), the size of the MoE channel
+# packs of the dry run's prefill_32k cells
+WIDE_PACK = dict(r=2_200_000, t=8, c=280_000, c2=16, w=1000)
+
+
+def wide_pack_check(dev, seed: int = 31) -> dict:
+    """The pack kernel against its plain version where both the words read
+    and the slots written lie past 2^31 words (the kernels address words
+    with 64-bit offsets), drawn on ``dev``: 10% of the rows inactive, the
+    rest uniform over the destinations.  Returns what each output matched
+    (all six must) and the sizes; the buffers are freed before it
+    returns."""
+    from ..kernels import ops
+    p = WIDE_PACK
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dst = torch.randint(0, p["t"], (1, p["r"]), generator=g, device=dev,
+                        dtype=torch.int32)
+    off = torch.rand((1, p["r"]), generator=g, device=dev) < 0.1
+    dst = torch.where(off, torch.full_like(dst, -1), dst)
+    words = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, p["r"], p["w"]),
+                          generator=g, device=dev, dtype=torch.int32)
+    args = (dst, words, p["t"], p["c"], p["c2"])
+    got = ops.delegation_pack(*args, impl="kernel")
+    want = ops.delegation_pack(*args, impl="ref")
+    names = ("slots", "slots2", "counts", "counts2", "request_slot",
+             "totals")
+    out = {n: bool(torch.equal(a, b)) for n, a, b in zip(names, got, want)}
+    out.update(words=words.numel(), slot_words=got[0].numel()
+               + got[1].numel())
+    return out

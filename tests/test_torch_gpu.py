@@ -85,6 +85,16 @@ def test_pack_kernel_matches_plain_where_the_chunks_meet(
         assert torch.equal(g, w_), what
 
 
+def test_pack_kernel_past_2_31_words(cuda):
+    """Words read and slots written past 2^31 words: exact in all six
+    outputs (``testing.serve.wide_pack_check``)."""
+    from repro_torch.testing.serve import wide_pack_check
+    got = wide_pack_check(cuda)
+    assert got["words"] >= 2 ** 31 and got["slot_words"] >= 2 ** 31
+    assert all(got[k] for k in ("slots", "slots2", "counts", "counts2",
+                                "request_slot", "totals")), got
+
+
 def _serve_case(dev, seed, t=8, n=5000, k=700, integer=True, hot=0.6,
                 w=VW, mix=None, inactive=0.1):
     rng = np.random.default_rng(seed)
