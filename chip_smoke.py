@@ -292,6 +292,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      7, 8 and 10 time; after phase 10 their terms beside those phases'
      medians, mfu = model FLOPs / 989 TFLOP/s / the measured step
      (readings);
+ 15. the compiled step (run after phase 14, before phase 9) — every serve's
+     decode step and every KV and paged round of the phases above runs as
+     a captured CUDA graph (repro_torch.core.compiled; only a kernel
+     check's run, which compares on the host, is eager); here each path
+     runs twice on the same weights and traffic, under
+     compiled.disable() and captured: qwen2.5-3b and deepseek-v2-lite-16b
+     serve.main at full width and depth, 8 x (32 + 32) over 4 trustees
+     (deepseek's MoE channel round and the grouped matmul inside the
+     captured decode), 20 kv_paper rounds, 8 kv_mux fused steps, 8
+     kv_drain steps at capacity 512 with "defer", and a kv_failover run of
+     8 waves (snapshots at 0 and 4, shard 3 killed at 6, re-entrusted
+     onto 7 from the snapshot, 2 waves replayed).  Gates: the tokens and
+     the last step's logits, every answer, table and stat bit for bit,
+     the launch counts equal both ways, and after the re-entrust no
+     compiled round left on the old addresses.  Readings: ms a step or
+     ops/s, the host's issue time a step (no synchronize), the busy share
+     of 10 steps, each program's capture ms and pool bytes, the _cache
+     entries at the end;
  10. qwen train — (a) repro_torch.launch.train on qwen2.5-3b at full width
      and depth (bf16 weights, f32 AdamW moments, remat "full", the
      synthetic stream, B 4 x 1024, 8 steps; weights drawn on the card
@@ -334,9 +352,11 @@ forms it, exact.
 Launch counters are zeroed just before each main path (phases 3, 4,
 4a-4e, the timed run of 5, each timed prefill of 6, 7, 8, 11 and 13, the
 session serves of 6, the serves of 7, 8, 11 and 13, each of 12 (a)-(c),
-each example of 14 and its dry run, and phase 10's trainer)
-and read just after; every kernel of a path must have launched there
-(phase 10's: none).  "[time]" lines give the wall time through each
+each example of 14 and its dry run, each run of 15, and phase 10's
+trainer) and read just after; every kernel of a path must have launched
+there (phase 10's: none).  A captured program adds its capture's
+launches on every replay, so the counts read the same eager or
+captured.  "[time]" lines give the wall time through each
 phase.  The line before the last is {"kernels": [...]};
 the last is the device line.
 """
@@ -2955,6 +2975,11 @@ class KernelRecorder:
         self._pt, self._pa = kops.pagetable_serve, kops.paged_attention
 
     def __enter__(self):
+        # the comparisons read the host: the rounds run eagerly
+        from repro_torch.core import compiled
+        compiled.forbid_host_read("KernelRecorder")
+        self._eager = compiled.disable()
+        self._eager.__enter__()
         self.kops.pagetable_serve = self.pagetable_serve
         self.kops.paged_attention = self.paged_attention
         return self
@@ -2962,6 +2987,7 @@ class KernelRecorder:
     def __exit__(self, *exc):
         self.kops.pagetable_serve = self._pt
         self.kops.paged_attention = self._pa
+        self._eager.__exit__(*exc)
 
     def pagetable_serve(self, op, state, seq, arg, valid, t, ps, **kw):
         import torch
@@ -6124,6 +6150,349 @@ def phase_examples(torch, dev, gpu, report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the compiled step — every path twice, eager and captured
+# ---------------------------------------------------------------------------
+
+# the paths: the serves at full width and depth over 4 trustees, and the
+# KV rounds at kv_paper's, kv_mux's, kv_drain's and kv_failover's sizes
+CP_SERVE = dict(batch=8, prompt_len=32, gen=32, mesh_model=4)
+CP_ARCHS = ("qwen2.5-3b", "deepseek-v2-lite-16b")
+CP_PAPER_ROUNDS = 20
+CP_MUX_STEPS = 8
+CP_DRAIN_STEPS = 8
+CP_FO = dict(waves=8, snap_every=4, kill=(6, 3))
+CP_BUSY_STEPS = 10
+
+
+def cp_serve_argv(arch):
+    q = CP_SERVE
+    return ["--arch", arch, "--batch", str(q["batch"]), "--prompt-len",
+            str(q["prompt_len"]), "--gen", str(q["gen"]), "--mesh-model",
+            str(q["mesh_model"])]
+
+
+def cp_both(torch, run):
+    """``run(eager)`` under ``compiled.disable()`` and captured (the
+    default), the launch counters zeroed before each and the captures
+    listed: {"eager" | "captured": (out, counts, captures)}."""
+    from repro_torch.core import compiled
+    from repro_torch.kernels import ops as kops
+    got = {}
+    for mode in ("eager", "captured"):
+        compiled.reset_captures()
+        kops.reset_launch_counts()
+        if mode == "eager":
+            with compiled.disable():
+                out = run(True)
+        else:
+            out = run(False)
+        torch.cuda.synchronize()
+        got[mode] = (out, kops.launch_counts(), compiled.captures())
+    return got
+
+
+def cp_gates(label, got, same):
+    (a, ca, _), (b, cb, caps) = got["eager"], got["captured"]
+    require(same(a, b), f"compiled {label}: the captured path differs from "
+            f"the eager path")
+    require(ca == cb, f"compiled {label}: launch counts eager {ca}, "
+            f"captured {cb}")
+    require(caps, f"compiled {label}: nothing was captured")
+    return ca, caps
+
+
+def caps_text(caps):
+    by = {}
+    for c in caps:
+        by.setdefault(c["site"], []).append(c)
+    return "; ".join(
+        f"{site}: {len(cs)} program(s), capture "
+        + ", ".join(f"{c['capture_ms']:.1f}" for c in cs) + " ms, pool "
+        + ", ".join(f"{c['pool_bytes'] / 2 ** 20:.1f}" for c in cs) + " MiB"
+        for site, cs in by.items())
+
+
+def cp_serve(torch, dev, gpu, arch, report):
+    """serve.main twice on the same weights (seed 0) and prompt: the
+    tokens and the last step's logits bit for bit, the launch counts; ms a
+    step and the host's issue time a step both ways; then the busy share
+    of CP_BUSY_STEPS decode steps of the serve's shape both ways."""
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import compiled
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    from repro_torch.testing.model import DecodeLogits
+    q = CP_SERVE
+    last = q["prompt_len"] + q["gen"] - 2
+
+    def run(_eager):
+        stats = {}
+        with DecodeLogits(pos=last) as rec:
+            out = serve.main(cp_serve_argv(arch), stats=stats)
+        torch.cuda.synchronize()
+        logits = rec.logits
+        torch.cuda.empty_cache()
+        return out, logits, stats
+    got = cp_both(torch, run)
+
+    def same(a, b):
+        return np.array_equal(a[0], b[0]) and a[1] is not None \
+            and b[1] is not None and torch.equal(a[1], b[1])
+    counts, caps = cp_gates(f"{arch} serve", got, same)
+    se, sc = got["eager"][0][2], got["captured"][0][2]
+    # the busy share of the decode steps, the serve's weights drawn again
+    cfg = get_arch(arch)
+    t = q["mesh_model"]
+    max_len = -(-(q["prompt_len"] + q["gen"]) // t) * t
+    shape = ShapeConfig("cp", max_len, q["batch"], "decode")
+    run_cfg = RunConfig(model=cfg, shape=shape,
+                        mesh=MeshConfig((1, t), ("data", "model")),
+                        remat="none", use_pallas=True)
+    plan = build_cell(cfg, shape, run_cfg)
+    params = M.init_params(cfg, run_cfg, dev)
+    busy = {}
+    for mode in ("eager", "captured"):
+        cache = M.init_cache(cfg, q["batch"], max_len, run_cfg, dev)
+        tok = torch.zeros((q["batch"],), dtype=torch.int32, device=dev)
+        pos = [torch.full((q["batch"],), q["prompt_len"] + i,
+                          dtype=torch.int32, device=dev)
+               for i in range(CP_BUSY_STEPS)]
+
+        def steps():
+            nonlocal tok
+            for p in pos:
+                tok, _ = plan.step_fn(params, cache, tok, p)
+        if mode == "eager":
+            with compiled.disable():
+                busy[mode] = busy_share(torch, steps, 1)
+        else:
+            busy[mode] = busy_share(torch, steps, 1)
+        del cache
+    del params, plan
+    torch.cuda.empty_cache()
+    report[f"compiled_{arch}"] = dict(
+        ms_per_step={"eager": se["ms_per_step"],
+                     "captured": sc["ms_per_step"]},
+        issue_ms_per_step={"eager": se["issue_ms_per_step"],
+                           "captured": sc["issue_ms_per_step"]},
+        busy={m: list(b) for m, b in busy.items()}, captures=caps)
+    say(f"[compiled {arch}] {gpu} | serve {q['batch']} x ({q['prompt_len']}"
+        f" + {q['gen']}) over {t} trustees, eager and captured on the same "
+        f"weights: tokens and the last step's logits equal bit for bit, "
+        f"launches equal ({json.dumps({k: v for k, v in counts.items() if v})}"
+        f"); ms a step eager {se['ms_per_step']:.3f}, captured "
+        f"{sc['ms_per_step']:.3f}; host issue a step (median, no "
+        f"synchronize) eager {se['issue_ms_per_step']:.3f} ms, captured "
+        f"{sc['issue_ms_per_step']:.3f} ms; busy over {CP_BUSY_STEPS} steps "
+        f"eager {busy_text(busy['eager'])}, captured "
+        f"{busy_text(busy['captured'])}; {caps_text(caps)}")
+    return counts
+
+
+def cp_rounds(torch, dev, gpu, label, make, trace, report, busy_batch):
+    """A KV path twice: ``make(sess)`` builds its stores (each with its own
+    session), every round submits each store's batches of ``trace`` and
+    issues ``session.step(sync=False)`` (its host time is the issue time),
+    then reads the stats.  Gates: every answer, stat and table bit for
+    bit, the launch counts.  Readings: ops/s, issue ms a round, the busy
+    share of 10 more rounds of ``busy_batch``, captures, cache entries."""
+    from repro_torch.core import TrustSession
+
+    def run(_eager):
+        sess = TrustSession()
+        stores = make(sess)
+        futs, stats, issue, rounds = [], [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batches in trace:
+            t2 = time.perf_counter()
+            futs.append([submit_batches(torch, dev, st, b)
+                         for st, b in zip(stores, batches)])
+            t1 = time.perf_counter()
+            sess.step(sync=False)
+            issue.append(time.perf_counter() - t1)
+            stats.append(sess.last_stats())
+            rounds.append(time.perf_counter() - t2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        answers = [[results(f, b) for f, b in zip(fs, batches)]
+                   for fs, batches in zip(futs, trace)]
+        tables = [st.dump() for st in stores]
+
+        def one_round():
+            for st, b in zip(stores, busy_batch):
+                submit_batches(torch, dev, st, b)
+            sess.step(sync=False)
+        busy = busy_share(torch, one_round, 10)
+        return dict(answers=answers, stats=stats, tables=tables, wall=wall,
+                    issue=issue, rounds=rounds, busy=busy,
+                    entries=len(sess._cache))
+    got = cp_both(torch, run)
+
+    def same(a, b):
+        return (all(same_answers(x, y) for ra, rb in zip(a["answers"],
+                                                          b["answers"])
+                    for sa, sb in zip(ra, rb) for x, y in zip(sa, sb))
+                and a["stats"] == b["stats"]
+                and all(np.array_equal(x, y)
+                        for x, y in zip(a["tables"], b["tables"])))
+    counts, caps = cp_gates(label, got, same)
+    e, c = got["eager"][0], got["captured"][0]
+    ops = sum(int((b[1] >= 0).sum()) for batches in trace
+              for bs in batches for b in bs)
+
+    def median_ms(r, key):
+        later = sorted(r[key][1:]) or r[key]
+        return 1e3 * later[len(later) // 2]
+
+    def issue_ms(r):
+        return median_ms(r, "issue")
+    report[f"compiled_{label}"] = dict(
+        ops_s={"eager": ops / e["wall"], "captured": ops / c["wall"]},
+        round_ms={"eager": median_ms(e, "rounds"),
+                  "captured": median_ms(c, "rounds")},
+        issue_ms={"eager": issue_ms(e), "captured": issue_ms(c)},
+        busy={"eager": list(e["busy"]), "captured": list(c["busy"])},
+        captures=caps, entries=c["entries"])
+    say(f"[compiled {label}] {gpu} | {len(trace)} rounds, {ops} ops, eager "
+        f"and captured: every answer, stat and table equal bit for bit, "
+        f"launches equal ({json.dumps({k: v for k, v in counts.items() if v})}"
+        f"); eager {ops / e['wall']:.1f} ops/s, captured "
+        f"{ops / c['wall']:.1f} ops/s (stats read each round; the first "
+        f"round's capture included); a round after the first (median, "
+        f"submit to stats) eager {median_ms(e, 'rounds'):.3f} ms, captured "
+        f"{median_ms(c, 'rounds'):.3f} ms; host issue a "
+        f"round (median of session.step(sync=False)) eager "
+        f"{issue_ms(e):.3f} ms, captured {issue_ms(c):.3f} ms; busy over 10 "
+        f"rounds eager {busy_text(e['busy'])}, captured "
+        f"{busy_text(c['busy'])}; {caps_text(caps)}; {c['entries']} "
+        f"_cache entries at the end")
+    return counts
+
+
+def cp_failover(torch, dev, gpu, report):
+    """kv_failover's store (shared, shortcut off, capacity 2,058), 8 waves
+    of 8,232 rows: a snapshot at wave 0 and 4, shard 3 killed at wave 6,
+    restore and re-entrust onto 7 shards, waves 4-5 replayed.  Gates: the
+    acked history, the table and the stats bit for bit, the launches; and
+    the captured run evicts every compiled round at the re-entrust and
+    replays none on the old addresses (every entry left is keyed by the
+    state's own addresses)."""
+    import shutil
+    import tempfile
+    from repro_torch.core import TrustSession, compiled
+    from repro_torch.testing import failover as fo
+    init, waves = fo.mixed_waves(29, N_KEYS, VW, FO_ROWS, CP_FO["waves"])
+
+    def run(_eager):
+        ckdir = tempfile.mkdtemp(prefix="cp_failover_")
+        try:
+            sess = TrustSession()
+            st = fo_store(dev, "kernel", init, sess)
+            left = []
+            real = sess.re_entrust
+
+            def re_entrust(*a, **kw):
+                real(*a, **kw)
+                left.append(len(sess._cache))
+            sess.re_entrust = re_entrust
+            t0 = time.perf_counter()
+            out = fo.run_kv_chaos(
+                st, sess, waves, ckdir, dev,
+                schedule={CP_FO["kill"][0]: ("kill", CP_FO["kill"][1])},
+                snap_every=CP_FO["snap_every"],
+                sync=lambda: device_sync(torch, dev))
+            wall = time.perf_counter() - t0
+            stale = [k for k in sess._cache
+                     if k[-2] != compiled.addresses(st.trust._state)]
+            stats = sess.last_stats()
+            rec = stats.pop("recovery")
+            # the recovery's host milliseconds are a reading, not a result
+            stats["recovery"] = {k: v for k, v in rec.items()
+                                 if k != "recovery_ms"}
+            return dict(acked=out["acked"], failures=out["failures"],
+                        table=st.dump(), stats=stats,
+                        left=left, stale=len(stale), wall=wall,
+                        entries=len(sess._cache),
+                        replay_equal=out["replay_equal"])
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+    got = cp_both(torch, run)
+
+    def same(a, b):
+        return (sorted(a["acked"]) == sorted(b["acked"])
+                and all(fo.same_acks(a["acked"][w][0], b["acked"][w][0])
+                        and a["acked"][w][1] == b["acked"][w][1]
+                        for w in a["acked"])
+                and np.array_equal(a["table"], b["table"])
+                and a["stats"] == b["stats"]
+                and a["failures"] == b["failures"])
+    counts, caps = cp_gates("kv_failover", got, same)
+    c = got["captured"][0]
+    require(c["failures"] and c["left"] == [0] and c["stale"] == 0
+            and c["replay_equal"],
+            f"compiled kv_failover: failures {c['failures']}, entries left "
+            f"at the re-entrust {c['left']}, {c['stale']} entries on old "
+            f"addresses, replays equal {c['replay_equal']}")
+    e = got["eager"][0]
+    report["compiled_kv_failover"] = dict(
+        seconds={"eager": e["wall"], "captured": c["wall"]},
+        captures=caps, entries=c["entries"])
+    say(f"[compiled kv_failover] {gpu} | {CP_FO['waves']} waves x {FO_ROWS} "
+        f"rows, snapshots at waves 0 and {CP_FO['snap_every']}, shard "
+        f"{CP_FO['kill'][1]} killed at wave {CP_FO['kill'][0]}, re-entrusted "
+        f"onto 7 and waves {CP_FO['snap_every']}-{CP_FO['kill'][0] - 1} "
+        f"replayed: acks, table and stats equal eager and captured bit for "
+        f"bit, launches equal; the re-entrust left {c['left'][0]} compiled "
+        f"rounds, none keyed on an old address at the end "
+        f"({c['entries']} entries); wall eager {e['wall']:.3f} s, captured "
+        f"{c['wall']:.3f} s (a synchronize each wave, the checkpoints "
+        f"included); {caps_text(caps)}")
+    return counts
+
+
+def phase_compiled(torch, dev, gpu, report):
+    """Phase 15: each path eager (``compiled.disable()``) and captured on
+    the same weights and traffic.  Returns the launches of both ways."""
+    total = {k: 0 for k in SOURCES}
+    t0 = [time.perf_counter()]
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += 2 * v
+        say(f"[time] phase 15 path: {time.perf_counter() - t0[0]:.1f} s")
+        t0[0] = time.perf_counter()
+    for arch in CP_ARCHS:
+        add(cp_serve(torch, dev, gpu, arch, report))
+    rng = np.random.default_rng(1515)
+    init = rng.integers(0, 8, (N_KEYS, VW)).astype(np.float32)
+    paper = [[paper_batches(*rd)] for rd in
+             paper_trace(rng, rounds=CP_PAPER_ROUNDS)]
+    cap = 2 * len(paper[0][0][0][1]) // (MESH[0] * MESH[1])
+    add(cp_rounds(torch, dev, gpu, "kv_paper",
+                  lambda sess: [make_store(dev, "kernel", "kernel", cap,
+                                           init, sess, "cp_paper")],
+                  paper, report, paper[0]))
+    (ikv, io), mux = mux_traces("strided", rounds=CP_MUX_STEPS)
+    add(cp_rounds(torch, dev, gpu, "kv_mux",
+                  lambda sess: list(mux_pair(dev, "strided", "kernel", sess,
+                                             (ikv, io))),
+                  mux, report, mux[0]))
+    drain = [[b] for b in mixed_trace(rng, init, rounds=CP_DRAIN_STEPS,
+                                      r=MIXED_ROWS)]
+    add(cp_rounds(torch, dev, gpu, "kv_drain",
+                  lambda sess: [make_store(
+                      dev, "kernel", "kernel", DRAIN_CAPACITY, init, sess,
+                      "cp_drain", max_rounds=DRAIN_ROUNDS,
+                      overflow="defer", local_shortcut=False)],
+                  drain, report, drain[0]))
+    add(cp_failover(torch, dev, gpu, report))
+    return total
+
+
 def mfu_readings(gpu, report):
     """The dry-run terms of the cells phases 6, 7, 8 and 10 time, beside
     those phases' measured medians from this run: mfu = model FLOPs /
@@ -6205,7 +6574,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,4a,4b,4c,4d,4e,4f,5,6,7,8,11,12,13,14,"
-                            "9,10",
+                            "15,9,10",
                     help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -6392,8 +6761,21 @@ def main(argv=None):
             launches[k] += v
         say(f"[time] phase 14: {time.perf_counter() - t0:.1f} s; through "
             f"phase 14: {time.perf_counter() - started:.1f} s")
+    if "15" in phases:
+        t0 = time.perf_counter()
+        counts = phase_compiled(torch, dev, gpu, report)
+        say(f"[main path] phase 15 launches (every path eager and "
+            f"captured): {json.dumps(counts)}")
+        for k in ("delegation_pack", "gather", "scatter_last",
+                  "segmented_add", "grouped_matmul"):
+            require(counts[k] > 0, f"kernel {k} was not launched on the "
+                    f"phase 15 paths")
+        for k, v in counts.items():
+            launches[k] += v
+        say(f"[time] phase 15: {time.perf_counter() - t0:.1f} s; through "
+            f"phase 15: {time.perf_counter() - started:.1f} s")
     per_round["launches"] = launches
-    say(f"[main path] kernel launches over phases 3-8 and 11-14 (one "
+    say(f"[main path] kernel launches over phases 3-8 and 11-15 (one "
         f"prefill call in phases 6, 7, 8 and each of 11's; 4a, 4b and the "
         f"session serve included): {json.dumps(launches)}")
 

@@ -47,7 +47,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import routing
+from . import compiled, routing
 from ..kernels import ops as kops
 from ..kernels.delegation_serve import row_block
 from ..kernels.ref import take_rows
@@ -61,7 +61,14 @@ Pytree = Any
 # the engine surfaces them as ``last_stats()[...]["impl_fallback"]``.
 # ---------------------------------------------------------------------------
 
-_impl_event_sinks: List[List[str]] = []
+# each side channel's sinks are registered with ``compiled``: a captured
+# round's reports are recorded at its capture and made again on each replay
+_impl_event_sinks: List[List[str]] = compiled.side_channel([])
+
+
+def _drop(sinks: List[list], sink: list) -> None:
+    """Remove ``sink`` itself (not an equal list) from ``sinks``."""
+    sinks[:] = [s for s in sinks if s is not sink]
 
 
 def report_impl_event(event: str) -> None:
@@ -78,7 +85,7 @@ def collect_impl_events():
     try:
         yield events
     finally:
-        _impl_event_sinks.remove(events)
+        _drop(_impl_event_sinks, events)
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +94,9 @@ def collect_impl_events():
 # reported here, so a caller can count a round's transposes.
 # ---------------------------------------------------------------------------
 
-_transpose_sinks: List[List[str]] = []
-_transpose_byte_sinks: List[List[Tuple[str, int]]] = []
+_transpose_sinks: List[List[str]] = compiled.side_channel([])
+_transpose_byte_sinks: List[List[Tuple[str, int]]] = \
+    compiled.side_channel([])
 
 
 @contextlib.contextmanager
@@ -101,7 +109,7 @@ def collect_transpose_bytes():
     try:
         yield events
     finally:
-        _transpose_byte_sinks.remove(events)
+        _drop(_transpose_byte_sinks, events)
 
 
 @contextlib.contextmanager
@@ -115,7 +123,7 @@ def collect_transposes():
     try:
         yield events
     finally:
-        _transpose_sinks.remove(events)
+        _drop(_transpose_sinks, events)
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +144,7 @@ def deferred_launches():
     try:
         yield calls
     finally:
-        _launch_sinks.remove(calls)
+        _drop(_launch_sinks, calls)
 
 
 def launch_or_defer(fn: Callable[[], None]) -> None:
@@ -611,10 +619,15 @@ def respond(responses: Pytree, n_bins: int, cfg: ChannelConfig) -> Pytree:
         full = torch.zeros((n_out, t_rep, lanes, c, wp), dtype=words.dtype,
                            device=words.device)
         if keep:
-            sub = block.reshape(t, d, lanes, c, wp)[:, :, keep]
+            # the kept lanes by slices: an index list would be copied from
+            # the host, which a captured round cannot do
+            lanes5 = block.reshape(t, d, lanes, c, wp)
+            sub = torch.cat([lanes5[:, :, ln:ln + 1] for ln in keep], 2)
             moved = _a2a(sub.reshape(t, d * len(keep) * c, wp),
-                         len(keep) * c, f"response lanes {keep}", reps)
-            full[:, :, keep] = moved.reshape(n_out, t_rep, len(keep), c, wp)
+                         len(keep) * c, f"response lanes {keep}", reps) \
+                .reshape(n_out, t_rep, len(keep), c, wp)
+            for j, ln in enumerate(keep):
+                full[:, :, ln] = moved[:, :, j]
         return full.reshape(n_out, t_rep * lanes * c, wp)
 
     return _decode_words(blocks(words, back), decs)
@@ -825,6 +838,18 @@ class RequestCombiner:
             if sp.kind == "sum" and sp.sum_lane is None:
                 raise ValueError("a 'sum' span needs its sum_lane")
         self.spans = tuple(spans)
+        self._kinds = {}
+
+    def kinds(self, dev) -> torch.Tensor:
+        """Each span's kind id, int32 on ``dev``: copied from the host
+        once a device (the engine asks for it when it builds a round, so
+        a captured round copies nothing from the host)."""
+        key = str(dev)
+        if key not in self._kinds:
+            self._kinds[key] = torch.tensor(
+                [_COMBINE_KINDS.index(sp.kind) for sp in self.spans],
+                dtype=torch.int32, device=dev)
+        return self._kinds[key]
 
     def pre(self, dst: torch.Tensor, rows: Pytree, span_col: torch.Tensor):
         """(dst (D, R), rows, span_col (D, R)) -> (dst', rows', CombineCtx).
@@ -847,9 +872,7 @@ class RequestCombiner:
         seg_start_row = torch.gather(g.seg_start, -1, g.inv.long())
         is_first = g.inv == seg_start_row
         is_last = g.inv == g.seg_end_row - 1
-        kinds = torch.tensor([_COMBINE_KINDS.index(sp.kind)
-                              for sp in self.spans], dtype=torch.int32,
-                             device=dev)
+        kinds = self.kinds(dev)
         keep_last = kinds[torch.clamp(span_col, 0, s - 1).long()] == _C_LAST
         is_rep = torch.where(comb, torch.where(keep_last, is_last, is_first),
                              True)

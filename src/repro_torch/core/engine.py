@@ -4,8 +4,7 @@ The torch counterpart of ``repro.core.engine``.  Trusts register here at
 ``entrust`` time (weakly); ``submit`` marks a trust dirty and ``step()``
 flushes every dirty trust: channel-compatible trusts (equal
 ``Trust.fuse_signature``) fuse into ONE multiplexed round, the rest flush
-solo.  A round runs eagerly — PyTorch has no ``jit`` boundary to cache —
-as the JAX programs do:
+solo.  A round does what the JAX programs do:
 
   * concatenate the queued batches (an "op" column when more than one op
     is queued; payload fields a batch lacks are zero-filled);
@@ -39,15 +38,31 @@ device value; it records a ``torch.cuda.Event`` per wave on PyTorch's
 current stream (``wave_events``), so a dispatch-ahead driver can wait for
 that wave alone, not for the waves issued after it.
 
+The compiled-program cache (JAX's ``_cache``): each round is a captured
+program (``core.compiled``: a CUDA graph on the card, replayed; the
+stand-in on the CPU) covering the whole round, from the queued batches
+through ``channel.delegate`` / ``delegate_drain`` to the per-batch
+responses and the round's stats, which come back as fresh tensors.  It
+is keyed as JAX keys it — ``("solo", (token,), batch signature,
+capacity, overflow capacity, fuse signature)`` or ``("mux", tokens,
+signatures, ...)`` — plus the state leaves' addresses and the device;
+the state is written in place, and keeps its addresses.  Entries go as
+JAX's go: a dead trust's in ``_prune``, a rebound trust's in
+``re_entrust``; and, in the port only, whenever a trust's state is
+rebound other than by a round (``Trust.set_state``,
+``install_trustee_state``), so no replay reads a stale address.  Under
+``compiled.disable()`` a round runs eagerly and nothing is cached.
+
 Failover (DESIGN.md §14): every non-empty step takes a wave id
 (``wave_counter``); an installed ``EngineFailureInjector`` kills a shard
 before the round is dispatched, or drops / tears it after, before any
 state commits or any future is fulfilled.  The port's serves write their
 tables in place, so a round that an injector will tear (its entry is
-peeked, not fired) runs on the live state after the engine has cloned it,
-and the clone is copied back when the round tears: a tear leaves every
-table bit-identical, as JAX's functional round does.  Without such an
-entry the round is today's code, with no clone and no host read.
+peeked, not fired) runs on the live state after the engine has cloned it
+(outside the captured round), and the clone is copied back when the
+round tears: a tear leaves every table bit-identical, as JAX's
+functional round does.  Without such an entry there is no clone and no
+host read.
 ``checkpoint`` snapshots every trust's logical (owner-major) state at a
 quiesce point, ``restore`` puts it back, ``re_entrust`` moves every trust
 onto the survivors of a killed shard (``meshctx.survivors_mesh``).
@@ -65,6 +80,7 @@ import numpy as np
 import torch
 
 from . import channel as ch
+from . import compiled
 
 
 def check_payload_fields(named_batches) -> Dict[str, Tuple[str, Tuple]]:
@@ -160,6 +176,7 @@ class DelegationEngine:
         self._trusts: Dict[int, Any] = {}
         self._next_token = 0
         self._dirty: List[int] = []
+        self._cache: Dict[Any, _Compiled] = {}
         self.planner = planner if planner is not None else CapacityPlanner()
         self.rounds_dispatched = 0
         self._last_step_stats: Dict[str, Dict[str, Any]] = {}
@@ -190,6 +207,7 @@ class DelegationEngine:
             del self._trusts[tok]
         if dead:
             gone = set(dead)
+            self._evict(gone)
             self._dirty = [tok for tok in self._dirty if tok not in gone]
             self._stats_owner = {n: tok for n, tok in
                                  self._stats_owner.items()
@@ -203,6 +221,13 @@ class DelegationEngine:
                     live_sigs.add(("solo", t.token))
                     live_sigs.add(("mux", self._mux_signature(t)))
             self.planner.prune(live_sigs)
+
+    def _evict(self, tokens) -> None:
+        """Drop every compiled round whose member set holds one of
+        ``tokens``."""
+        toks = set(tokens)
+        self._cache = {k: v for k, v in self._cache.items()
+                       if not toks & set(k[1])}
 
     def notify(self, trust) -> None:
         if trust.token not in self._dirty:
@@ -322,6 +347,12 @@ class DelegationEngine:
         return None
 
     # -- the solo round -----------------------------------------------------
+    def _compiled(self, key, build, site) -> "_Compiled":
+        entry = self._cache.get(key)
+        if entry is None:
+            entry = self._cache[key] = _Compiled(*build(), site)
+        return entry
+
     def run_solo(self, trust, batches, capacity=None):
         """Run ``batches`` ([(op_id, dst, payload)]) of one trust as ONE
         channel round; its demand feeds the planner, which sizes the round
@@ -338,61 +369,36 @@ class DelegationEngine:
             cfg = dataclasses.replace(
                 cfg, capacity=cap,
                 overflow_capacity=trust.cfg.overflow_capacity or over)
-        ops = trust.ops
         op_ids = [b[0] for b in batches]
-        check_payload_fields(
-            [(ops[oid].name, p) for (oid, _d, p) in batches])
-        active = tuple(sorted(set(op_ids)))
-        cfg = dataclasses.replace(
-            cfg, elide_resp=_elidable_fields(ops, active, trust.resp_like))
-        serve = ch.serve_optable(ops, active_ids=active,
-                                 serve_impl=cfg.serve_impl, cfg=cfg)
-        # request combining: one span a combinable active op
-        combiner, span_of = _combine_plan(
-            cfg, [(None, oid, ops[oid].combine, None) for oid in active])
-        dev = trust.device
-        rows: Dict[str, torch.Tensor] = {}
-        if len(set(op_ids)) > 1:
-            rows["op"] = torch.cat(
-                [torch.full((n,), oid, dtype=torch.int16, device=dev)
-                 for oid, n in zip(op_ids, sizes)], 0)
-        payloads = [b[2] for b in batches]
-        rows.update(_concat_lanes([{k: k for k in p} for p in payloads],
-                                  payloads, sizes, dev))
-        if combiner is not None:
-            rows[_SPAN] = _span_column([span_of.get((None, oid), -1)
-                                        for oid in op_ids], sizes, dev)
-        d = trust.group.mesh.size
-        dst, rows, r_dev = _shard_rows(
-            torch.cat([b[1].to(dev, torch.int32) for b in batches], 0),
-            rows, trust.group)
-        dst, rows, order = _group_rows(dst, rows, trust.group)
-        span = rows.pop(_SPAN, None)
-
+        inputs = _round_inputs(batches, trust.device)
+        build = lambda: _build_solo(trust, batches, cfg)       # noqa: E731
+        if compiled.enabled():
+            key = ("solo", (trust.token,),
+                   trust.batch_signature(op_ids, sizes,
+                                         [b[2] for b in batches]),
+                   cfg.capacity, cfg.overflow_capacity, cfg.fuse_sig(),
+                   compiled.addresses(trust._state), str(trust.device))
+            entry = self._compiled(key, build, f"solo round of {trust.name}")
+        else:
+            entry = _Compiled(*build(), None)
         before = self._clone_if_tearing([trust])
-        new_state, resp, info = _round(trust._state, dst, rows, serve,
-                                       trust.n_trustees, cfg, combiner, span)
-        resp = _mesh_order(resp, order)
+        new_state, (resps, tel) = entry(trust._state, inputs)
         # a drop / tear fires here, before the state commits
         self._maybe_tear([trust], before)
         trust._state = new_state
-        self.planner.observe(sig, info.group_sizes.max())
+        self.planner.observe(sig, tel["demand_max"])
         self.rounds_dispatched += 1
         if self._replaying:
             self.recovery["replayed_rounds"] += 1
-        n_slots = cfg.n_slots(trust.n_trustees)
-        saved = 0 if (n_slots == 1 and cfg.local_shortcut) \
-            else ch.resp_elision_bytes(trust.resp_like, cfg,
-                                       n_slots * cfg.total_capacity())
-        trust._last_stats = (info.rounds, info.residual)
+        trust._last_stats = (tel["rounds"], tel["residual"])
         self._last_step_stats[self._stats_key(trust)] = {
-            "rounds": info.rounds, "residual": info.residual,
-            "demand_max": info.group_sizes.max(),
-            "dropped": info.dropped.sum(),
-            "resp_bytes_saved": saved, "rows_combined": info.rows_combined,
-            "req_bytes_saved": info.req_bytes_saved,
-            "impl_fallback": info.impl_fallback}
-        return _split_spans(resp, d * r_dev, [sizes])[0]
+            "rounds": tel["rounds"], "residual": tel["residual"],
+            "demand_max": tel["demand_max"], "dropped": tel["dropped"],
+            "resp_bytes_saved": entry.saved,
+            "rows_combined": tel["rows_combined"],
+            "req_bytes_saved": tel["req_bytes_saved"],
+            "impl_fallback": tel["impl_fallback"]}
+        return resps
 
     # -- the multiplexed round ----------------------------------------------
     def _mux_cfg(self, trusts, r_totals) -> ch.ChannelConfig:
@@ -429,12 +435,31 @@ class DelegationEngine:
         try:
             batches = [[(o, d, p) for (o, d, p, _f) in pend]
                        for _t, pend in entries]
-            cfg = self._mux_cfg(
-                trusts, [sum(int(b[1].shape[0]) for b in tb)
-                         for tb in batches])
+            sizes = [[int(b[1].shape[0]) for b in tb] for tb in batches]
+            cfg = self._mux_cfg(trusts, [sum(sz) for sz in sizes])
+            inputs = [_round_inputs(tb, trusts[0].device) for tb in batches]
+            build = lambda: _build_mux(trusts, batches, cfg)   # noqa: E731
+            if compiled.enabled():
+                key = ("mux", tuple(t.token for t in trusts),
+                       tuple(t.batch_signature([b[0] for b in tb], sz,
+                                               [b[2] for b in tb])
+                             for t, tb, sz in zip(trusts, batches, sizes)),
+                       cfg.capacity, cfg.overflow_capacity, cfg.fuse_sig(),
+                       compiled.addresses(tuple(t._state for t in trusts)),
+                       str(trusts[0].device))
+                entry = self._compiled(
+                    key, build,
+                    f"fused round of {[t.name for t in trusts]}")
+            else:
+                entry = _Compiled(*build(), None)
             before = self._clone_if_tearing(trusts)
-            new_states, resps, tel = _mux_round(trusts, batches, cfg)
+            new_states, (resps, tel) = entry(
+                tuple(t._state for t in trusts), inputs)
             self._maybe_tear(trusts, before)
+        except compiled.CaptureError:
+            # the round ran (eagerly, before its capture failed): its
+            # batches are not put back
+            raise
         except Exception:
             for t, pend in entries:
                 t._pending = pend + t._pending
@@ -452,7 +477,7 @@ class DelegationEngine:
                 "rounds": tel["rounds"], "residual": tel["residual"][i],
                 "demand_max": tel["demand"][i],
                 "dropped": tel["residual"][i],
-                "resp_bytes_saved": tel["saved"],
+                "resp_bytes_saved": entry.saved,
                 "rows_combined": tel["combined"],
                 "req_bytes_saved": tel["req_saved"],
                 "impl_fallback": tel["impl_fallback"]}
@@ -622,10 +647,10 @@ class DelegationEngine:
         live state (an administrative re-shard).  A dedicated group keeps
         ``n_dedicated`` clamped to ``[1, axis_size - 1]``.  Each schema is
         rebuilt for the new trustee count through its factory, every
-        trust rebound (its fuse signature and stats reset: the port has
-        no compiled program to evict) and the planner pruned to the live
-        signatures.  Pending submissions are dropped; the caller replays
-        inside ``replaying()``."""
+        trust rebound (its fuse signature and stats reset), every
+        compiled round of a rebound trust evicted, and the planner
+        pruned to the live signatures.  Pending submissions are dropped;
+        the caller replays inside ``replaying()``."""
         from .meshctx import survivors_mesh
         from .trust import TrusteeGroup
         t0 = time.perf_counter()
@@ -671,6 +696,9 @@ class DelegationEngine:
             t._pending = []
             self.unnotify(t)
             t.rebind(new_group, schema=schema, logical_state=host)
+        # every compiled round whose member set touches a rebound trust
+        # carries the old group and fuse signature: evict them
+        self._evict(t.token for t in trusts)
         live_sigs = set()
         for t in self.trusts():
             live_sigs.add(("solo", t.token))
@@ -733,26 +761,33 @@ def _shard_rows(dst: torch.Tensor, rows: Dict[str, torch.Tensor], group):
          for k, v in rows.items()}, r_dev
 
 
-def _group_rows(dst: torch.Tensor, rows: Dict[str, torch.Tensor], group):
-    """The stacked request rows (mesh order) in the group's replica-major
-    order (``TrusteeGroup.shard_order``).  Returns (dst, rows, order):
-    ``order`` is None when it is the mesh order, else what
-    ``_mesh_order`` undoes on the responses."""
+def _group_perm(group, dev):
+    """The group's replica-major shard order (``TrusteeGroup.
+    shard_order``) and its inverse as index tensors on ``dev``, or None
+    when it is the mesh order.  Built once, with a round's entry: a
+    captured round copies nothing from the host."""
     order = group.shard_order()
     if order is None:
-        return dst, rows, None
-    idx = torch.as_tensor(order, device=dst.device)
-    return dst[idx], {k: v[idx] for k, v in rows.items()}, order
+        return None
+    return (torch.as_tensor(order, device=dev),
+            torch.as_tensor(np.argsort(order), device=dev))
 
 
-def _mesh_order(resp: Dict[str, torch.Tensor], order
+def _group_rows(dst: torch.Tensor, rows: Dict[str, torch.Tensor], perm):
+    """The stacked request rows (mesh order) in the group's order
+    (``_group_perm``)."""
+    if perm is None:
+        return dst, rows
+    idx = perm[0]
+    return dst[idx], {k: v[idx] for k, v in rows.items()}
+
+
+def _mesh_order(resp: Dict[str, torch.Tensor], perm
                 ) -> Dict[str, torch.Tensor]:
     """Responses stacked in a group's layout back in mesh order."""
-    if order is None:
+    if perm is None:
         return resp
-    inv = np.argsort(order)
-    return {k: v[torch.as_tensor(inv, device=v.device)]
-            for k, v in resp.items()}
+    return {k: v[perm[1]] for k, v in resp.items()}
 
 
 def _combine_plan(cfg: ch.ChannelConfig, decls):
@@ -782,6 +817,104 @@ def _span_column(spans, sizes, dev) -> torch.Tensor:
     """Each batch's combine span (-1: never combined), row by row."""
     return torch.cat([torch.full((n,), sp, dtype=torch.int32, device=dev)
                       for sp, n in zip(spans, sizes)], 0)
+
+
+def _payload_sig(payload) -> Tuple:
+    """The (shape, dtype) of each payload leaf: a schema-less trust's
+    batch-signature part (JAX's ``_payload_sig``)."""
+    return tuple((k, tuple(v.shape), str(v.dtype))
+                 for k, v in payload.items())
+
+
+def _round_inputs(batches, dev):
+    """A round's fresh inputs: each batch's (dst int32, payload) on the
+    round's device (what a captured round copies into its buffers)."""
+    return [(b[1].to(dev, torch.int32), {k: v.to(dev) for k, v in
+                                          b[2].items()})
+            for b in batches]
+
+
+class _Compiled:
+    """One entry of the compiled-program cache: a round built by
+    ``_build_solo`` / ``_build_mux`` (``fn`` and the response bytes the
+    round saves) and its captured programs, one an input signature (as a
+    jitted function traces once an input aval).  ``site`` None runs the
+    round eagerly (``compiled.disable()``)."""
+
+    def __init__(self, fn, saved, site):
+        self.fn, self.saved, self.site = fn, saved, site
+        self.programs: Dict[Any, compiled.Program] = {}
+
+    def __call__(self, state, inputs):
+        if self.site is None:
+            return self.fn(state, None, inputs)
+        sig = compiled.signature(inputs)
+        prog = self.programs.get(sig)
+        if prog is None:
+            prog = self.programs[sig] = compiled.Program(self.fn, self.site)
+        return prog(state, None, inputs)
+
+
+def _build_solo(trust, batches, cfg: ch.ChannelConfig):
+    """A solo round (JAX's ``_build_solo``): what the host plans once —
+    the serve table, the combine plan, the shard order — and ``fn(state,
+    None, inputs)`` doing the round's device work on ``inputs``
+    (``_round_inputs``).  ``fn`` returns (new state, (per-batch
+    responses, stats)); the stats are device tensors or ints.  Returns
+    (fn, response bytes saved)."""
+    sizes = [int(b[1].shape[0]) for b in batches]
+    ops = trust.ops
+    op_ids = [b[0] for b in batches]
+    check_payload_fields(
+        [(ops[oid].name, p) for (oid, _d, p) in batches])
+    active = tuple(sorted(set(op_ids)))
+    cfg = dataclasses.replace(
+        cfg, elide_resp=_elidable_fields(ops, active, trust.resp_like))
+    serve = ch.serve_optable(ops, active_ids=active,
+                             serve_impl=cfg.serve_impl, cfg=cfg)
+    # request combining: one span a combinable active op
+    combiner, span_of = _combine_plan(
+        cfg, [(None, oid, ops[oid].combine, None) for oid in active])
+    dev = trust.device
+    group = trust.group
+    d = group.mesh.size
+    n_trustees = trust.n_trustees
+    perm = _group_perm(group, dev)
+    if combiner is not None:
+        combiner.kinds(dev)
+    multi_op = len(set(op_ids)) > 1
+    spans = [span_of.get((None, oid), -1) for oid in op_ids]
+    n_slots = cfg.n_slots(n_trustees)
+    saved = 0 if (n_slots == 1 and cfg.local_shortcut) \
+        else ch.resp_elision_bytes(trust.resp_like, cfg,
+                                   n_slots * cfg.total_capacity())
+
+    def fn(state, _fixed, inputs):
+        rows: Dict[str, torch.Tensor] = {}
+        if multi_op:
+            rows["op"] = torch.cat(
+                [torch.full((n,), oid, dtype=torch.int16, device=dev)
+                 for oid, n in zip(op_ids, sizes)], 0)
+        payloads = [p for _d, p in inputs]
+        rows.update(_concat_lanes([{k: k for k in p} for p in payloads],
+                                  payloads, sizes, dev))
+        if combiner is not None:
+            rows[_SPAN] = _span_column(spans, sizes, dev)
+        dst, rows, r_dev = _shard_rows(
+            torch.cat([x for x, _p in inputs], 0), rows, group)
+        dst, rows = _group_rows(dst, rows, perm)
+        span = rows.pop(_SPAN, None)
+        new_state, resp, info = _round(state, dst, rows, serve, n_trustees,
+                                       cfg, combiner, span)
+        resp = _mesh_order(resp, perm)
+        tel = {"rounds": info.rounds, "residual": info.residual,
+               "demand_max": info.group_sizes.max(),
+               "dropped": info.dropped.sum(),
+               "rows_combined": info.rows_combined,
+               "req_bytes_saved": info.req_bytes_saved,
+               "impl_fallback": info.impl_fallback}
+        return new_state, (_split_spans(resp, d * r_dev, [sizes])[0], tel)
+    return fn, saved
 
 
 def _round(state, dst, rows, serve, n_trustees, cfg, combiner, span):
@@ -815,13 +948,15 @@ def _resp_sig(trust):
                  for k, v in sorted(like.items()))
 
 
-def _mux_round(trusts, batches, cfg: ch.ChannelConfig):
-    """ONE multiplexed round for several trusts' queued batches (the JAX
-    ``_build_mux`` program, run eagerly).  Rows concatenate in (trust,
-    batch) order with "trust" and "op" id lanes; payload fields whose
-    dtype and trailing shape agree across trusts share a wire lane, the
-    others get per-trust lanes ``field@tid``.  Returns (new states,
-    per-trust per-batch responses, telemetry)."""
+def _build_mux(trusts, batches, cfg: ch.ChannelConfig):
+    """ONE multiplexed round for several trusts' queued batches (JAX's
+    ``_build_mux``).  Rows concatenate in (trust, batch) order with
+    "trust" and "op" id lanes; payload fields whose dtype and trailing
+    shape agree across trusts share a wire lane, the others get
+    per-trust lanes ``field@tid``.  The host plans once; ``fn(states,
+    None, inputs)`` (``inputs``: each trust's ``_round_inputs``) returns
+    (new states, (per-trust per-batch responses, telemetry)).  Returns
+    (fn, response bytes saved)."""
     group = trusts[0].group
     n_trusts = len(trusts)
     n_trustees = group.n_trustees
@@ -893,78 +1028,88 @@ def _mux_round(trusts, batches, cfg: ch.ChannelConfig):
     # only when the serve reads it (masked layout, or a shortcut tail)
     need_op = any(len(active) > 1 for _ops, active in tables)
     need_trust = (not strided) or cfg.local_shortcut
-    flat = [(tid, oid, dst, p) for tid, tb in enumerate(batches)
-            for (oid, dst, p) in tb]
-    sizes = [int(x[2].shape[0]) for x in flat]
-    dst = torch.cat([x[2].to(dev, torch.int32) for x in flat], 0)
-    tid_col = torch.cat([torch.full((n,), x[0], dtype=torch.int16,
-                                    device=dev)
-                         for x, n in zip(flat, sizes)], 0)
-    rows: Dict[str, torch.Tensor] = {}
-    if need_op:
-        rows["op"] = torch.cat([torch.full((n,), x[1], dtype=torch.int16,
-                                           device=dev)
-                                for x, n in zip(flat, sizes)], 0)
-    if need_trust:
-        rows["trust"] = tid_col
-    rows.update(_concat_lanes([lane_of[x[0]] for x in flat],
-                              [x[3] for x in flat], sizes, dev))
-    if strided:
-        # virtual bins: lane tid of trustee t is bin t * n_trusts + tid
-        dst = torch.where(dst >= 0, dst * n_trusts + tid_col.to(torch.int32),
-                          -1)
-    rows["__tid"] = tid_col
+    flat = [(tid, oid) for tid, tb in enumerate(batches)
+            for (oid, _dst, _p) in tb]
+    sizes = [int(b[1].shape[0]) for tb in batches for b in tb]
+    spans = [span_of.get((None if merged_resp else tid, oid), -1)
+             for tid, oid in flat]
+    perm = _group_perm(group, dev)
     if combiner is not None:
-        rows[_SPAN] = _span_column(
-            [span_of.get((None if merged_resp else x[0], x[1]), -1)
-             for x in flat], sizes, dev)
-    dst, rows, r_dev = _shard_rows(dst, rows, group)
-    dst, rows, order = _group_rows(dst, rows, group)
-    tid_l = rows.pop("__tid").long()
-    span = rows.pop(_SPAN, None)
-
-    states = tuple(t._state for t in trusts)
-    new_states, resp, info = _round(states, dst, rows, serve, n_trustees,
-                                    cfg, combiner, span)
-    resp = _mesh_order(resp, order)
-
-    # telemetry, all device tensors: per-trust rows left unserved, per-trust
-    # max pair demand, and the merged demand the planner observes
-    res_pt = torch.zeros(n_trusts + 1, dtype=torch.int64, device=dev) \
-        .index_add_(0, torch.where(info.dropped, tid_l, n_trusts).reshape(-1),
-                    torch.ones(d * r_dev, dtype=torch.int64, device=dev))
-    if strided:
-        demand_pt = info.group_sizes.reshape(d, -1, n_trusts).amax(dim=(0, 1))
-    else:
-        act = dst >= 0
-        if cfg.local_shortcut:
-            # a shard's own trustee is its group index
-            act &= dst != torch.arange(d, device=dev)[:, None] % n_trustees
-        idx = torch.where(act, tid_l * n_trustees
-                          + torch.clamp(dst, 0, n_trustees - 1),
-                          n_trusts * n_trustees)
-        pair = torch.zeros((d, n_trusts * n_trustees + 1), dtype=torch.int64,
-                           device=dev).scatter_add_(1, idx,
-                                                    torch.ones_like(idx))
-        demand_pt = pair[:, :-1].reshape(d, n_trusts, n_trustees) \
-            .amax(dim=(0, 2))
+        combiner.kinds(dev)
     n_rows = t_send * cfg.n_lanes * cfg.total_capacity()
     saved = 0 if (t_send == 1 and cfg.local_shortcut) \
         else ch.resp_elision_bytes(trusts[0].resp_like, cfg, n_rows)
-    srcs = None
-    if not merged_resp:
-        srcs = [{k.rsplit("@", 1)[0]: v for k, v in resp.items()
-                 if k.rsplit("@", 1)[1] == str(tid)}
-                for tid in range(n_trusts)]
-    out = _split_spans(resp, d * r_dev,
-                       [[int(b[1].shape[0]) for b in tb] for tb in batches],
-                       srcs)
-    tel = {"residual": res_pt[:-1], "demand": demand_pt,
-           "demand_merged": info.group_sizes.max(), "saved": saved,
-           "impl_fallback": info.impl_fallback, "rounds": info.rounds,
-           "combined": info.rows_combined,
-           "req_saved": info.req_bytes_saved}
-    return new_states, out, tel
+    trust_sizes = [[int(b[1].shape[0]) for b in tb] for tb in batches]
+
+    def fn(states, _fixed, inputs):
+        pays = [p for tin in inputs for _d, p in tin]
+        dst = torch.cat([x for tin in inputs for x, _p in tin], 0)
+        tid_col = torch.cat([torch.full((n,), tid, dtype=torch.int16,
+                                        device=dev)
+                             for (tid, _o), n in zip(flat, sizes)], 0)
+        rows: Dict[str, torch.Tensor] = {}
+        if need_op:
+            rows["op"] = torch.cat([torch.full((n,), oid, dtype=torch.int16,
+                                               device=dev)
+                                    for (_t, oid), n in zip(flat, sizes)], 0)
+        if need_trust:
+            rows["trust"] = tid_col
+        rows.update(_concat_lanes([lane_of[tid] for tid, _o in flat], pays,
+                                  sizes, dev))
+        if strided:
+            # virtual bins: lane tid of trustee t is bin t * n_trusts + tid
+            dst = torch.where(dst >= 0,
+                              dst * n_trusts + tid_col.to(torch.int32), -1)
+        rows["__tid"] = tid_col
+        if combiner is not None:
+            rows[_SPAN] = _span_column(spans, sizes, dev)
+        dst, rows, r_dev = _shard_rows(dst, rows, group)
+        dst, rows = _group_rows(dst, rows, perm)
+        tid_l = rows.pop("__tid").long()
+        span = rows.pop(_SPAN, None)
+
+        new_states, resp, info = _round(states, dst, rows, serve,
+                                        n_trustees, cfg, combiner, span)
+        resp = _mesh_order(resp, perm)
+
+        # telemetry, all device tensors: per-trust rows left unserved,
+        # per-trust max pair demand, and the merged demand the planner
+        # observes
+        res_pt = torch.zeros(n_trusts + 1, dtype=torch.int64, device=dev) \
+            .index_add_(0, torch.where(info.dropped, tid_l,
+                                       n_trusts).reshape(-1),
+                        torch.ones(d * r_dev, dtype=torch.int64, device=dev))
+        if strided:
+            demand_pt = info.group_sizes.reshape(d, -1, n_trusts) \
+                .amax(dim=(0, 1))
+        else:
+            act = dst >= 0
+            if cfg.local_shortcut:
+                # a shard's own trustee is its group index
+                act &= dst != torch.arange(d, device=dev)[:, None] \
+                    % n_trustees
+            idx = torch.where(act, tid_l * n_trustees
+                              + torch.clamp(dst, 0, n_trustees - 1),
+                              n_trusts * n_trustees)
+            pair = torch.zeros((d, n_trusts * n_trustees + 1),
+                               dtype=torch.int64, device=dev) \
+                .scatter_add_(1, idx, torch.ones_like(idx))
+            demand_pt = pair[:, :-1].reshape(d, n_trusts, n_trustees) \
+                .amax(dim=(0, 2))
+        srcs = None
+        if not merged_resp:
+            srcs = [{k.rsplit("@", 1)[0]: v for k, v in resp.items()
+                     if k.rsplit("@", 1)[1] == str(tid)}
+                    for tid in range(n_trusts)]
+        out = _split_spans(resp, d * r_dev, trust_sizes, srcs)
+        tel = {"residual": list(res_pt[:-1].unbind(0)),
+               "demand": list(demand_pt.unbind(0)),
+               "demand_merged": info.group_sizes.max(),
+               "impl_fallback": info.impl_fallback, "rounds": info.rounds,
+               "combined": info.rows_combined,
+               "req_saved": info.req_bytes_saved}
+        return new_states, (out, tel)
+    return fn, saved
 
 
 # ``TrustSession`` is the user-facing name, ``DelegationEngine`` the

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .channel import ChannelConfig, DelegatedOp
+from .compiled import CaptureError
 from .meshctx import StackedMesh
 from .opspec import OpNamespace, TrustSchema
 
@@ -297,6 +298,7 @@ class Trust:
                  schema: Optional[TrustSchema] = None,
                  schema_factory: Optional[Callable] = None):
         self.group = group
+        # a new trust's token has no compiled round yet: nothing to evict
         self._state = state
         self.ops = ops
         self.op_index = {o.name: i for i, o in enumerate(ops)}
@@ -336,6 +338,9 @@ class Trust:
 
     def set_state(self, state: Pytree) -> None:
         self._state = state
+        # the session's compiled rounds of this trust hold the old
+        # state's addresses
+        self.session._evict((self.token,))
 
     def trustee_state(self) -> Pytree:
         """The logical (T, rows, ...) state, live as ``state()`` is: in
@@ -372,6 +377,7 @@ class Trust:
                 g.mesh.device, copy=True,
                 memory_format=torch.contiguous_format)
         self._state = g.physical_state(placed)
+        self.session._evict((self.token,))
 
     def rebind(self, group: TrusteeGroup,
                schema: Optional[TrustSchema] = None,
@@ -403,6 +409,17 @@ class Trust:
             self.install_trustee_state(logical_state)
         for cb in self._on_rebuild:
             cb(self)
+
+    def batch_signature(self, op_ids, sizes, payloads) -> Tuple:
+        """The compiled-round cache key's part for a set of queued batches
+        (JAX's): a schema'd trust keys on its schema's identity (the
+        schema pins every payload field), a schema-less one on each
+        payload leaf's shape and dtype."""
+        if self.schema is not None:
+            return (self.schema, tuple(op_ids), tuple(sizes))
+        from .engine import _payload_sig
+        return (tuple(op_ids), tuple(sizes),
+                tuple(_payload_sig(p) for p in payloads))
 
     def last_drain_stats(self) -> Dict[str, int]:
         """Rounds used and the residual (rows still unserved, > 0 only when
@@ -466,6 +483,10 @@ class Trust:
         try:
             resps = self.session.run_solo(
                 self, [(o, d, p) for (o, d, p, _) in pending], capacity)
+        except CaptureError:
+            # the round ran (eagerly, before its capture failed): its
+            # batches are not put back
+            raise
         except Exception:
             # keep the queued batches so the caller can drop the offending
             # submit and flush again

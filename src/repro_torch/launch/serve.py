@@ -38,7 +38,12 @@ round, and the port keeps it whole, so ``--mesh-model`` does not change
 its tokens.  Weights are
 random, drawn on the device from a seeded generator; the prompts come
 from ``np.random.default_rng(0)`` as in JAX, so both packages see the
-same tokens.  Runs on ``cuda`` unless given ``--device cpu``.
+same tokens.  Runs on ``cuda`` unless given ``--device cpu``.  The
+decode step is ``build_cell``'s captured program (a CUDA graph replayed
+each step, the positions and tokens copied into its buffers, each next
+token a fresh tensor; ``core.compiled.disable()`` runs it eagerly);
+``stats["issue_ms_per_step"]`` is the host's time to return from a step
+(the median after the first), with no synchronize.
 
 An embeds-input model (qwen2-vl-2b, the vision frontend a stub) is
 prompted with bf16 embeddings drawn as JAX draws them, ``rng.normal(
@@ -313,11 +318,13 @@ def _serve(args, stats: Optional[dict], cfg=None) -> np.ndarray:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    prev, outputs = None, []
+    prev, outputs, issue = None, [], []
     for i in range(steps):
         tok = prompt[i] if i < args.prompt_len else prev
         pos = torch.full((args.batch,), i, dtype=torch.int32, device=dev)
+        t1 = time.perf_counter()
         prev, cache = plan.step_fn(params, cache, tok, pos)
+        issue.append(time.perf_counter() - t1)
         if i >= args.prompt_len - 1:
             outputs.append(prev)
             if book is not None:
@@ -333,9 +340,13 @@ def _serve(args, stats: Optional[dict], cfg=None) -> np.ndarray:
     print(f"[serve] generated {gen.shape} tokens; sample: {gen[0][:10]}",
           flush=True)
     if stats is not None:
+        # the host's time to return from a decode step (no synchronize):
+        # the median over the steps after the first (which captures)
+        later = sorted(issue[1:]) or issue
         stats.update(steps=steps, seconds=dt, ms_per_step=1e3 * dt / steps,
                      tokens_per_s=args.batch * steps / dt,
-                     params=M.count_params(params))
+                     params=M.count_params(params),
+                     issue_ms_per_step=1e3 * later[len(later) // 2])
     return gen
 
 

@@ -1,6 +1,11 @@
 """Step functions of the model path: the train, prefill and decode cells
-of ``repro.launch.steps.build_cell``, as plain functions — PyTorch runs
-eagerly, so there is no jit, and the port's one card needs no shardings.
+of ``repro.launch.steps.build_cell`` (the port's one card needs no
+shardings).  JAX jits each step; here the decode step is a captured
+program (``core.compiled``: a CUDA graph on the card, replayed; the
+stand-in on the CPU) keyed by the tokens' and positions' shapes and
+dtypes and the addresses of the weights and the cache, which it writes
+in place as JAX's donated cache.  The prefill and train steps run
+eagerly.  ``compiled.disable()`` runs the decode step eagerly too.
 
     plan = build_cell(cfg, ShapeConfig("t", 1024, 4, "train"), run)
     params, opt_state, metrics = plan.step_fn(params, opt_state, batch)
@@ -36,7 +41,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from ..configs.base import ModelConfig, RunConfig, ShapeConfig
-from ..core import meshctx
+from ..core import compiled, meshctx
 from ..models import model as M
 from ..models.layers import dtype_of
 from ..optim import AdamWConfig, adamw_update
@@ -143,6 +148,39 @@ def batch_axes_of(run: RunConfig, shape: ShapeConfig):
     return ()
 
 
+def _decode_body(fn, cache, params, inputs):
+    """A decode step as a captured program's function: (state, out)."""
+    tokens, pos = inputs
+    next_tok, cache = fn(params, cache, tokens, pos)
+    return cache, next_tok
+
+
+class CompiledStep:
+    """``serve_step`` with ``cfg`` and ``run`` bound, as captured programs:
+    one ``compiled.Program`` a (tokens and positions shape and dtype,
+    weights' and cache's addresses, device) key, in ``programs``.  The
+    cache is held (written in place); the next token comes back fresh
+    each call.  Under ``compiled.disable()`` the step runs eagerly."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.programs: Dict[Any, compiled.Program] = {}
+
+    def __call__(self, params, cache, tokens, pos):
+        if not compiled.enabled():
+            return self.fn(params, cache, tokens, pos)
+        key = (compiled.signature((tokens, pos)), compiled.addresses(params),
+               compiled.addresses(cache), str(tokens.device))
+        prog = self.programs.get(key)
+        if prog is None:
+            # the program holds the step, not this object: no cycle
+            # keeps a graph and its pool alive past the plan
+            prog = self.programs[key] = compiled.Program(
+                functools.partial(_decode_body, self.fn), "serve_step")
+        cache, next_tok = prog(cache, params, (tokens, pos))
+        return next_tok, cache
+
+
 def _in_context(fn, axes, mesh):
     """``fn`` with the cell's batch axes (and ``mesh``) installed first."""
     @functools.wraps(fn)
@@ -184,10 +222,9 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig,
             train_step, cfg=cfg, run=run, acfg=adamw_config(run)), axes,
             mesh))
     if shape.kind == "prefill":
-        fn = prefill_step
+        fn = functools.partial(prefill_step, cfg=cfg, run=run)
     elif shape.kind == "decode":
-        fn = serve_step
+        fn = CompiledStep(functools.partial(serve_step, cfg=cfg, run=run))
     else:
         raise ValueError(f"unknown cell kind {shape.kind!r}")
-    return CellPlan(cfg, shape, run, _in_context(
-        functools.partial(fn, cfg=cfg, run=run), axes, mesh))
+    return CellPlan(cfg, shape, run, _in_context(fn, axes, mesh))

@@ -9,7 +9,12 @@
     while the model runs unchanged; ``TrusteeDrops`` counts the expert
     rows the trustees' pack by expert drops past its slots;
   * ``DecodeLogits`` keeps the decode step's logits at one position while
-    the serve loop runs unchanged; ``FinalHidden`` keeps an
+    the serve loop runs unchanged.  These three keep what they count in
+    device tensors and read nothing on the host while the model runs,
+    so the decode step they wrap is captured and replayed
+    (``core.compiled``) with them; the kernel checks compare on the host
+    and run their step under ``compiled.disable()`` (entered inside a
+    captured call, they raise); ``FinalHidden`` keeps an
     encoder-decoder model's final decoder hidden state while
     ``forward_loss`` runs unchanged;
   * ``logits_agreement`` holds the prefill's last-position logits against
@@ -21,8 +26,11 @@
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from ..core import compiled
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from ..kernels.flash_attention import tolerance as flash_tolerance
@@ -104,20 +112,34 @@ class _KernelCheck:
     ``calls``, ``max_err`` and ``bad`` (calls beyond the tolerance)
     accumulate, ``first`` keeps the first call's arguments and ``shapes``
     the distinct argument shapes.  The caller's code runs unchanged; only
-    the module attribute is wrapped."""
+    the module attribute is wrapped.  The comparison reads the host, so
+    the body runs under ``compiled.disable()`` (the captured steps run
+    eagerly), and entering the context inside a captured call raises —
+    unless the check compares on the device (``on_device``, with
+    ``_within_device``): then its calls, errors and bad calls are device
+    counts, and a captured step keeps checking every call in its
+    replays."""
     name = label = ""
+    on_device = False
 
     def __init__(self):
         self.calls, self.bad, self.max_err = 0, 0, 0.0
         self.first, self.shapes = None, []
+        self._acc = None
 
     def __enter__(self):
+        if not self.on_device:
+            compiled.forbid_host_read(type(self).__name__)
+        self._eager = compiled.disable() if not self.on_device \
+            else contextlib.nullcontext()
+        self._eager.__enter__()
         self._fn = getattr(kops, self.name)
         setattr(kops, self.name, self._call)
         return self
 
     def __exit__(self, *exc):
         setattr(kops, self.name, self._fn)
+        self._eager.__exit__(*exc)
 
     def _plain(self, *args, **kw):
         return self._fn(*args, impl="ref", **kw)
@@ -132,6 +154,16 @@ class _KernelCheck:
                           if isinstance(a, torch.Tensor))
             if shape not in self.shapes:
                 self.shapes.append(shape)
+            if self.on_device:
+                bad, err = self._within_device(
+                    out, self._plain(*args, **kw), call)
+                if self._acc is None:
+                    self._acc = torch.zeros(3, dtype=torch.float64,
+                                            device=bad.device)
+                self._acc[0].add_(1.0)
+                self._acc[1].add_(bad)
+                self._acc[2].copy_(torch.maximum(self._acc[2], err))
+                return out
             ok, err = self._within(out, self._plain(*args, **kw), call)
             self.calls += 1
             self.bad += int(not ok)
@@ -139,6 +171,10 @@ class _KernelCheck:
         return out
 
     def summary(self):
+        if self._acc is not None:
+            calls, bad, err = self._acc.tolist()
+            self.calls, self.bad = int(calls), int(bad)
+            self.max_err = err
         p = self.label
         return {f"{p}_calls": self.calls, f"{p}_max_abs_err": self.max_err,
                 f"{p}_calls_out_of_tolerance": self.bad,
@@ -266,8 +302,27 @@ def pack_within(got, want):
 
 class PackCheck(_KernelCheck):
     """``_KernelCheck`` of ``delegation_pack`` (all six outputs, exact);
-    ``first`` is (dst, words, n_trustees, capacity, capacity2)."""
+    ``first`` is (dst, words, n_trustees, capacity, capacity2).  It
+    compares on the device, so the rounds it wraps stay captured."""
     name, label = "delegation_pack", "pack"
+    on_device = True
+
+    @staticmethod
+    def _within_device(out, want, call):
+        """(1 if any output differs else 0, max abs err), f64 device
+        scalars: ``pack_within`` without a host read."""
+        dev = out[0].device
+        bad = torch.zeros((), dtype=torch.float64, device=dev)
+        err = torch.zeros((), dtype=torch.float64, device=dev)
+        for a, b in zip(out, want):
+            if a.shape != b.shape:
+                bad = bad + 1.0
+                err = err + float("inf")
+            elif a.numel():
+                diff = (a.double() - b.double()).abs().max()
+                bad = torch.maximum(bad, (a != b).any().double())
+                err = torch.maximum(err, diff)
+        return torch.clamp(bad, max=1.0), err
 
     @staticmethod
     def _args(dst, words, n_trustees, capacity, capacity2=0):
@@ -306,15 +361,26 @@ class ScanCheck(_KernelCheck):
         return scan_within(out, want, call)
 
 
-class MoEStats:
-    """Inside the context, every ``moe.moe_block`` call's aux metrics are
-    kept: ``dropped`` (each call's dropped fraction of tokens) and
-    ``max_load``; the model runs unchanged."""
+class _DeviceTally:
+    """A device tensor of running counts that a wrapped model function
+    updates in place (no host read): the same updates run eagerly, in a
+    capture and in every replay."""
 
-    def __init__(self):
-        self.dropped, self.max_load = [], []
+    def _tally(self, like: torch.Tensor, n: int, dtype) -> torch.Tensor:
+        if self._acc is None:
+            self._acc = torch.zeros(n, dtype=dtype, device=like.device)
+        return self._acc
+
+
+class MoEStats(_DeviceTally):
+    """Inside the context, every ``moe.moe_block`` call's aux metrics are
+    kept on the device (the calls, the sum and max of the dropped
+    fractions of tokens, the max load); the model runs unchanged, and a
+    captured decode step keeps them in its replays.  ``summary()`` reads
+    them."""
 
     def __enter__(self):
+        self._acc = None
         self._block = moe_mod.moe_block
         moe_mod.moe_block = self._call
         return self
@@ -324,28 +390,35 @@ class MoEStats:
 
     def _call(self, params, x, cfg, run=None):
         y, aux = self._block(params, x, cfg, run)
-        self.dropped.append(float(aux["moe_dropped_frac"]))
-        self.max_load.append(float(aux["moe_max_load"]))
+        acc = self._tally(x, 4, torch.float64)
+        d = aux["moe_dropped_frac"].detach().double()
+        load = aux["moe_max_load"].detach().double()
+        acc[0].add_(1.0)
+        acc[1].add_(d)
+        acc[2].copy_(torch.maximum(acc[2], d))
+        acc[3].copy_(torch.maximum(acc[3], load))
         return y, aux
 
     def summary(self):
-        n = len(self.dropped)
+        n, total, worst, load = ([0.0] * 4 if self._acc is None
+                                 else self._acc.tolist())
+        n = int(n)
         return {"moe_calls": n,
-                "moe_dropped_frac_mean": sum(self.dropped) / max(n, 1),
-                "moe_dropped_frac_max": max(self.dropped, default=0.0),
-                "moe_max_load": max(self.max_load, default=0.0)}
+                "moe_dropped_frac_mean": total / max(n, 1),
+                "moe_dropped_frac_max": worst,
+                "moe_max_load": load}
 
 
-class TrusteeDrops:
+class TrusteeDrops(_DeviceTally):
     """Inside the context, the expert rows each MoE trustee's pack by
     expert drops past its ``cap2`` slots (rows past them answer zeros;
     the model's ``moe_dropped_frac`` counts the channel's drops only, as
-    JAX's does) are counted on the kernel path: ``calls`` holds (dropped,
-    rows) a pack.  The pack by expert is the one with no second block
-    (``capacity2`` 0); the model runs unchanged."""
+    JAX's does) are counted on the kernel path, on the device: the packs,
+    the rows dropped and the rows packed.  The pack by expert is the one
+    with no second block (``capacity2`` 0); the model runs unchanged."""
 
     def __enter__(self):
-        self.calls = []
+        self._acc = None
         self._pack = kops.delegation_pack
         kops.delegation_pack = self._call
         return self
@@ -356,22 +429,32 @@ class TrusteeDrops:
     def _call(self, dst, words, n_trustees, capacity, capacity2=0, **kw):
         out = self._pack(dst, words, n_trustees, capacity, capacity2, **kw)
         if capacity2 == 0:
-            self.calls.append((int(((out[4] < 0) & (dst >= 0)).sum()),
-                               int((dst >= 0).sum())))
+            acc = self._tally(dst, 3, torch.int64)
+            acc[0].add_(1)
+            acc[1].add_(((out[4] < 0) & (dst >= 0)).sum())
+            acc[2].add_((dst >= 0).sum())
         return out
 
     def total(self):
-        return (sum(d for d, _ in self.calls), sum(n for _, n in self.calls))
+        """(rows dropped, rows packed) over every pack by expert."""
+        if self._acc is None:
+            return 0, 0
+        _n, dropped, rows = self._acc.tolist()
+        return dropped, rows
 
 
 class DecodeLogits:
     """Inside the context, the logits of the decode step at position
     ``pos`` (every row of the batch at that position) are kept in
     ``logits``; the serve loop runs unchanged (``M.decode_step`` is
-    wrapped)."""
+    wrapped).  The step copies them into a device buffer when its
+    positions read ``pos`` (no host read), so a captured decode step
+    keeps them in its replays; ``logits`` is None when no step ran at
+    ``pos``."""
 
     def __init__(self, pos: int):
-        self.pos, self.logits = pos, None
+        self.pos = pos
+        self._buf = self._hit = None
 
     def __enter__(self):
         self._step = M.decode_step
@@ -383,9 +466,20 @@ class DecodeLogits:
 
     def _call(self, params, cache, tokens, pos, cfg, run=None):
         logits, cache = self._step(params, cache, tokens, pos, cfg, run)
-        if int(pos[0]) == self.pos:
-            self.logits = logits.clone()
+        if self._buf is None:
+            self._buf = torch.zeros_like(logits)
+            self._hit = torch.zeros((), dtype=torch.bool,
+                                    device=logits.device)
+        at = pos[0] == self.pos
+        self._buf.copy_(torch.where(at, logits, self._buf))
+        self._hit |= at
         return logits, cache
+
+    @property
+    def logits(self):
+        if self._buf is None or not bool(self._hit):
+            return None
+        return self._buf.clone()
 
 
 class FinalHidden:

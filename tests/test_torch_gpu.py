@@ -623,3 +623,141 @@ def test_smoke_forward_loss_on_card_matches_cpu(cuda, arch, t):
         r = expert_grads_follow_rows(
             grads_g["groups"]["pos0"]["moe"]["w_gate"], rec.counts)
         assert r["experts_fed"] > 0 and r["fed_without_grad"] == 0, r
+
+
+# ---------------------------------------------------------------------------
+# captured programs (core/compiled.py): the serve step and the rounds as
+# CUDA graphs, equal to the eager path
+# ---------------------------------------------------------------------------
+
+def _captured_and_eager(run):
+    """``run()`` captured (the default) and under ``compiled.disable()``,
+    each with the launch counters zeroed before it: ((out, counts) x 2)."""
+    from repro_torch.core import compiled
+    res = []
+    for eager in (False, True):
+        tops.reset_launch_counts()
+        if eager:
+            with compiled.disable():
+                out = run()
+        else:
+            out = run()
+        torch.cuda.synchronize()
+        res.append((out, tops.launch_counts()))
+    return res
+
+
+def test_captured_smoke_serve_equals_eager(cuda):
+    """The SMOKE qwen2.5-3b and deepseek-v2-lite-16b serves (the MoE's
+    channel round and the grouped matmul inside the decode step) on the
+    card: the captured decode steps' tokens and launch counts equal the
+    eager path's, and the step replayed."""
+    from repro_torch.core import compiled
+    from repro_torch.launch import serve
+    for arch in ("qwen2.5-3b", "deepseek-v2-lite-16b"):
+        argv = ["--arch", arch, "--smoke", "--batch", "4", "--prompt-len",
+                "8", "--gen", "8", "--mesh-model", "4"]
+        compiled.reset_captures()
+        (a, ca), (b, cb) = _captured_and_eager(lambda: serve.main(argv))
+        assert np.array_equal(a, b), arch
+        assert ca == cb, (arch, ca, cb)
+        caps = [c for c in compiled.captures() if c["site"] == "serve_step"]
+        assert len(caps) == 1 and caps[0]["pool_bytes"] > 0, caps
+
+
+def test_captured_kv_paper_round_equals_eager(cuda):
+    """kv_paper-sized rounds (1,000,000 x 4 f32 on a 2x4 stacked mesh,
+    8192 requests a round, 5% PUT, the shortcut on, second_round) through
+    session.step(): captured, every response, table and stat and the
+    launch counts equal the eager path's; one compiled round, replayed."""
+    n_keys, r, w = 1_000_000, 8192, 4
+    rng = np.random.default_rng(11)
+    init = rng.integers(0, 8, (n_keys, w)).astype(np.float32)
+    trace = [(rng.integers(0, n_keys, r).astype(np.int32),
+              rng.random(r) < 0.05,
+              rng.integers(0, 8, (r, w)).astype(np.float32))
+             for _ in range(4)]
+
+    def run():
+        with use_session() as sess:
+            st = DelegatedKVStore(StackedMesh((2, 4), device=cuda), n_keys,
+                                  w, capacity=r // 8,
+                                  overflow="second_round")
+            st.prefill(init)
+            outs = []
+            for keys, is_put, vals in trace:
+                T = lambda a: torch.as_tensor(a, device=cuda)
+                k = T(keys)
+                fut = st.trust.op.get.then(k, where=T(~is_put))
+                st.trust.op.put.then(k, T(vals), where=T(is_put))
+                outs.append((sess.step()[st.trust.name],
+                             fut.result()["value"].cpu().numpy()))
+            return outs, st.dump(), len(sess._cache)
+    (got, cg), (want, cw) = _captured_and_eager(run)
+    for (sg, vg), (sw, vw) in zip(got[0], want[0]):
+        assert sg == sw and np.array_equal(vg, vw)
+    assert np.array_equal(got[1], want[1])
+    assert got[2] == 1 and want[2] == 0
+    assert cg == cw and cg["delegation_pack"] > 0, (cg, cw)
+
+
+def test_host_read_inside_a_captured_step_raises(cuda):
+    """A host read inside a captured call fails the capture: the program
+    raises CaptureError naming its site and CUDA's error (after its eager
+    first call), and refuses every later call."""
+    from repro_torch.core import compiled
+
+    def fn(state, _fixed, x):
+        if float(x.sum()) > 0:                 # a host read
+            state["acc"].add_(x)
+        return state, state["acc"] * 2
+    state = {"acc": torch.zeros(16, device=cuda)}
+    prog = compiled.Program(fn, "host-read probe")
+    x = torch.ones(16, device=cuda)
+    with pytest.raises(compiled.CaptureError, match="host-read probe"):
+        prog(state, None, x)
+    assert torch.equal(state["acc"], torch.ones(16, device=cuda))
+    with pytest.raises(compiled.CaptureError):
+        prog(state, None, x)
+    # the device is usable after the failed capture
+    ok = compiled.Program(lambda s, _f, y: (s, y + 1), "after")
+    for i in range(3):
+        _s, out = ok({}, None, torch.full((4,), float(i), device=cuda))
+        assert torch.equal(out, torch.full((4,), i + 1.0, device=cuda))
+
+
+def test_captured_round_holds_every_kernel_launch(cuda, tmp_path):
+    """The ctypes-loaded kernels launch on PyTorch's current stream, so a
+    capture records them: the captured round's graph holds one kernel
+    node a launch its capture counted (four a pack call)."""
+    from repro_torch.core import compiled
+    n_keys, r = 1000, 512
+    rng = np.random.default_rng(5)
+    compiled.DEBUG_GRAPHS = True
+    try:
+        with use_session() as sess:
+            st = DelegatedKVStore(StackedMesh((2, 4), device=cuda), n_keys,
+                                  VW, capacity=r, local_shortcut=False)
+            T = lambda a: torch.as_tensor(a, device=cuda)
+            k = [T(rng.integers(0, n_keys, r).astype(np.int32))
+                 for _ in range(4)]
+            v = T(rng.integers(0, 8, (r, VW)).astype(np.float32))
+            st.get_then(k[0])
+            st.put_then(k[1], v)
+            st.add_then(k[2], v)
+            st.cas_then(k[3], v, v)
+            sess.step()
+            (entry,) = sess._cache.values()
+            (prog,) = entry.programs.values()
+            path = str(tmp_path / "round.dot")
+            prog.graph.debug_dump(path)
+    finally:
+        compiled.DEBUG_GRAPHS = False
+    dot = open(path).read()
+    deltas = prog.deltas[0]
+    for name, label, per in (("delegation_pack", "delegation_pack_", 4),
+                             ("gather", "gather_kernel", 1),
+                             ("scatter_last", "scatter_last_kernel", 1),
+                             ("segmented_add", "segmented_add_kernel", 1)):
+        assert deltas[name] > 0, name
+        assert dot.count(label) >= per * deltas[name], (name, deltas)
