@@ -303,13 +303,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      captured decode), 20 kv_paper rounds, 8 kv_mux fused steps, 8
      kv_drain steps at capacity 512 with "defer", and a kv_failover run of
      8 waves (snapshots at 0 and 4, shard 3 killed at 6, re-entrusted
-     onto 7 from the snapshot, 2 waves replayed).  Gates: the tokens and
-     the last step's logits, every answer, table and stat bit for bit,
-     the launch counts equal both ways, and after the re-entrust no
-     compiled round left on the old addresses.  Readings: ms a step or
-     ops/s, the host's issue time a step (no synchronize), the busy share
-     of 10 steps, each program's capture ms and pool bytes, the _cache
-     entries at the end;
+     onto 7 from the snapshot, 2 waves replayed); (e) qwen2.5-3b's train
+     step at full width and depth (B 4 x 1024, remat "full", bf16
+     weights, f32 moments), 4 steps eager, the initial state restored in
+     place, 4 steps captured; (f) build_cell's prefill through the
+     kernels at B 4 x 2048 for qwen2.5-3b, deepseek-v2-lite-16b (4
+     trustees) and falcon-mamba-7b, 3 calls each way on 3 distinct
+     batches; (g) phase 5's
+     paged decode, its model callback eager and captured (one program a
+     shape).  Gates: the tokens and the last step's logits, every
+     answer, table and stat, every train step's metrics and every leaf's
+     checksum, each prefill call's logits against the eager call's on
+     its batch, every paged decode output, the final KV pool and page
+     table bit for bit, the launch counts equal both ways, no
+     leaked page, and after the re-entrust no compiled round left on the
+     old addresses.  Readings: ms a step or ops/s, the host's issue time
+     a step (no synchronize), the busy share of 5 decode steps or 10
+     rounds (2 train steps, 1 prefill, a 4-request paged run), each
+     program's capture ms and
+     pool bytes, the train step's peak GB, the _cache entries at the
+     end.  The timed prefills of phases 6-8, 11 and 13 and the trainer of
+     phases 10 and 12 run captured too (each prefill's first call,
+     untimed, captures; the trainer's first step does), each timed
+     prefill held bit for bit to its eager check run's logits;
  10. qwen train — (a) repro_torch.launch.train on qwen2.5-3b at full width
      and depth (bf16 weights, f32 AdamW moments, remat "full", the
      synthetic stream, B 4 x 1024, 8 steps; weights drawn on the card
@@ -2291,6 +2307,46 @@ def busy_share(torch, run_round, rounds, top=0):
                         for e in dev_ops[:top]]
 
 
+def capture_first(torch, label, plan, params, batch):
+    """A prefill cell's first call, untimed: a captured program's first
+    call runs the step eagerly and captures it (``core.compiled``), so
+    the timed calls after it replay; the capture's time and pool are
+    printed apart."""
+    from repro_torch.core import compiled
+    n = len(compiled.captures())
+    plan.step_fn(params, batch)
+    torch.cuda.synchronize()
+    for c in compiled.captures()[n:]:
+        say(f"[compiled] {label}: {c['site']} captured in "
+            f"{c['capture_ms']:.1f} ms, pool {c['pool_bytes'] / 2 ** 20:.1f} "
+            f"MiB (the timed calls replay it)")
+
+
+def same_as_check(torch, label, got, ref):
+    """A timed call's output (a replay) against ``ref``, the eager check
+    run's on the same batch (kept on the host), bit for bit."""
+    got = got.cpu()
+    require(torch.equal(got, ref),
+            f"{label}: a timed call differs from the check run (max abs "
+            f"diff {float((got.float() - ref.float()).abs().max()):.3g})")
+
+
+def park(torch, tree, dev):
+    """``tree`` (tuples, lists and dicts; other leaves as they are) with
+    every tensor moved to ``dev``: kernel inputs kept for a later timing
+    wait on the host while a large model's step is captured beside its
+    weights (phase 9's during phases 11-15: qwen1.5-32b's prefill
+    program needs the ~3 GB they hold; phase 13's during its prefill's
+    capture)."""
+    if isinstance(tree, dict):
+        return {k: park(torch, v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(park(torch, v, dev) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    return tree
+
+
 def lane_lines(case, which):
     """The flat table lines (int64, shard * K + key) that the rows of lane
     ``which`` read, in row order: an index for index_select / index_add_."""
@@ -2948,12 +3004,13 @@ def paged_inputs(torch, dev, seed=2026):
     return CONFIG, params, xs, reqs
 
 
-def paged_run(torch, dev, inputs, check=False, n_requests=None):
+def paged_run(torch, dev, inputs, check=False, n_requests=None,
+              record=False):
     from repro_torch.launch.paged_decode import run_decode
     cfg, params, xs, reqs = inputs
     return run_decode(cfg, requests=reqs[:n_requests], dtype=torch.bfloat16,
                       device=dev, params=params, xs=xs, check=check,
-                      **PAGED)
+                      record=record, **PAGED)
 
 
 PT_STATE = ("used", "chains", "chain_len", "last_used", "clock",
@@ -3213,6 +3270,8 @@ def phase_qwen(torch, dev, gpu, report, errs):
         f"layer's call == plain (max abs err {c['flash_max_abs_err']:.3g}); "
         f"logits ({b}, {cfg.vocab_size}) f32, finite")
 
+    ref = logits.cpu()
+    capture_first(torch, "qwen prefill", plan, params, {"tokens": tokens})
     secs = []
     for _ in range(QWEN_TIMED_RUNS):
         kops.reset_launch_counts()
@@ -3227,6 +3286,7 @@ def phase_qwen(torch, dev, gpu, report, errs):
                 f"launches, want {cfg.n_layers}")
         require(bool(torch.isfinite(again).all()),
                 "prefill timed run: logits not finite")
+        same_as_check(torch, "qwen prefill", again, ref)
     say(f"[main path] qwen prefill launches (each of {QWEN_TIMED_RUNS} timed "
         f"runs): {json.dumps(counts)}")
     med = sorted(secs)[len(secs) // 2]
@@ -3235,6 +3295,7 @@ def phase_qwen(torch, dev, gpu, report, errs):
         + ", ".join(f"{x * 1e3:.3f}" for x in secs)
         + f" ms; median {b * s / med:.1f} tokens/s")
     chk_inputs = chk.first
+    plan.release()
     del params, logits, again
 
     prompt_len = QWEN_SERVE["prompt_len"]
@@ -3560,8 +3621,11 @@ def phase_deepseek(torch, dev, gpu, report, errs):
     # the stacked leaf, so the leaf can be freed)
     mla_inputs = fchk.first
     gmm_prefill = (gchk.first[0], gchk.first[1].clone(), gchk.first[2])
+    ref = logits.cpu()
     del fchk, gchk, pchk, logits
 
+    capture_first(torch, "deepseek prefill", plan, params,
+                  {"tokens": tokens})
     secs = []
     for _ in range(DS_TIMED_RUNS):
         kops.reset_launch_counts()
@@ -3578,6 +3642,7 @@ def phase_deepseek(torch, dev, gpu, report, errs):
                     f"{counts[k]} {k} launches, want {want}")
         require(bool(torch.isfinite(again).all()),
                 "deepseek prefill timed run: logits not finite")
+        same_as_check(torch, "deepseek prefill", again, ref)
     say(f"[main path] deepseek prefill launches (each of {DS_TIMED_RUNS} "
         f"timed runs): {json.dumps(counts)}")
     prefill_counts = dict(counts)
@@ -3586,6 +3651,7 @@ def phase_deepseek(torch, dev, gpu, report, errs):
     say(f"[deepseek] {gpu} | prefill B {b} x {s}: "
         + ", ".join(f"{x * 1e3:.3f}" for x in secs)
         + f" ms; median {b * s / med:.1f} tokens/s")
+    plan.release()
     del params, again
     torch.cuda.empty_cache()
 
@@ -4169,8 +4235,10 @@ def phase_falcon(torch, dev, gpu, report, errs, busy=False):
         f"f32, finite; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     scan_inputs = chk.first
+    ref = logits.cpu()
     del chk, logits
 
+    capture_first(torch, "falcon prefill", plan, params, {"tokens": tokens})
     secs = []
     for _ in range(FM_TIMED_RUNS):
         kops.reset_launch_counts()
@@ -4185,6 +4253,7 @@ def phase_falcon(torch, dev, gpu, report, errs, busy=False):
                 f"launches, want {cfg.n_layers}")
         require(bool(torch.isfinite(again).all()),
                 "falcon prefill timed run: logits not finite")
+        same_as_check(torch, "falcon prefill", again, ref)
     say(f"[main path] falcon prefill launches (each of {FM_TIMED_RUNS} timed "
         f"runs): {json.dumps(counts)}")
     prefill_counts = dict(counts)
@@ -4193,6 +4262,7 @@ def phase_falcon(torch, dev, gpu, report, errs, busy=False):
     say(f"[falcon] {gpu} | prefill B {b} x {s}: "
         + ", ".join(f"{x * 1e3:.3f}" for x in secs)
         + f" ms; median {b * s / med:.1f} tokens/s")
+    plan.release()
     del params, again
     torch.cuda.empty_cache()
 
@@ -4593,6 +4663,7 @@ def phase_train(torch, dev, gpu, report):
     import tempfile
     from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
     from repro_torch.configs.registry import get_arch
+    from repro_torch.core import compiled
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import train
@@ -4614,11 +4685,13 @@ def phase_train(torch, dev, gpu, report):
     t = TRAIN
     torch.cuda.reset_peak_memory_stats()
     kops.reset_launch_counts()
+    compiled.reset_captures()
     stats = {}
     t0 = time.perf_counter()
     hist = train.main(train_argv(), stats=stats)
     wall = time.perf_counter() - t0
     launches = kops.launch_counts()
+    (cap,) = [c for c in compiled.captures() if c["site"] == "train_step"]
     for m in stats["metrics"]:
         require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
                 f"qwen train: a loss or grad_norm is not finite: {m}")
@@ -4626,14 +4699,19 @@ def phase_train(torch, dev, gpu, report):
         * 1e3
     tokens = t["batch"] * t["seq"]
     peak = torch.cuda.max_memory_allocated() / 1e9
-    report["qwen_train"] = {"tokens_per_s": tokens / step_ms * 1e3}
+    report["qwen_train"] = {"tokens_per_s": tokens / step_ms * 1e3,
+                            "capture_ms": cap["capture_ms"],
+                            "pool_bytes": cap["pool_bytes"]}
     say(f"[train] {gpu} | qwen2.5-3b train ({stats['n_params'] / 1e9:.3f} B "
         f"params, bf16, AdamW f32 moments, remat {t['remat']}, B "
         f"{t['batch']} x {t['seq']}): losses "
         f"{[round(l, 4) for _, l in hist]}, grad norms "
         f"{[round(m['grad_norm'], 3) for m in stats['metrics']]}; "
-        f"{step_ms:.1f} ms a step (median of steps 2-{t['steps']}; steps "
-        f"{[round(s * 1e3, 1) for s in stats['step_s']]} ms), "
+        f"{step_ms:.1f} ms a step (median of steps 2-{t['steps']}, the "
+        f"captured step replayed; steps "
+        f"{[round(s * 1e3, 1) for s in stats['step_s']]} ms, the first "
+        f"running eagerly and capturing: {cap['capture_ms']:.1f} ms "
+        f"capture, pool {cap['pool_bytes'] / 1e9:.2f} GB), "
         f"{tokens / step_ms * 1e3:.1f} tokens/s, peak allocated {peak:.2f} "
         f"GB, {wall:.1f} s in all (weights drawn on the card included)")
     params, opt = stats.pop("state")
@@ -4662,6 +4740,7 @@ def phase_train(torch, dev, gpu, report):
         if busy > 0 else "device busy share not measured (the profiler "
                          "recorded no device activity)"))
     report["qwen_train"]["busy"] = busy / bwall if busy > 0 else None
+    plan.release()
     del opt
     torch.cuda.empty_cache()
     loss0, _, grads = value_and_grad(params, batch, plan.cfg, plan.run)
@@ -4995,6 +5074,8 @@ def phase_zoo_arch(torch, dev, gpu, report, errs, arch):
         f"err {c['flash_max_abs_err']:.3g}); "
         + ("the encoder memory" if encdec else "the last position's logits")
         + f" {want}, finite")
+    ref = res.cpu()
+    capture_first(torch, f"{arch} prefill", plan, params, batch)
     secs = []
     for _ in range(ZOO_TIMED_RUNS):
         kops.reset_launch_counts()
@@ -5008,10 +5089,12 @@ def phase_zoo_arch(torch, dev, gpu, report, errs, arch):
                 and bool(torch.isfinite(timed).all()),
                 f"{arch} prefill timed run: {counts['flash_attention']} "
                 f"flash launches, want {n_layers}")
+        same_as_check(torch, f"{arch} prefill", timed, ref)
     say(f"[main path] {arch} prefill launches (each of {ZOO_TIMED_RUNS} "
         f"timed runs): {json.dumps(counts)}")
     med = sorted(secs)[len(secs) // 2]
     report[f"{arch}_prefill"] = dict(seconds=secs, tokens_per_s=b * s / med)
+    plan.release()
     del timed
     launches = n_layers
 
@@ -5731,12 +5814,15 @@ def phase_hybrid_arch(torch, dev, gpu, report, errs, arch, n_layers):
         f"dropped fraction mean {m['moe_dropped_frac_mean']:.6f}, max "
         f"{m['moe_dropped_frac_max']:.6f}, max load {m['moe_max_load']:.0f} "
         f"rows; launches {json.dumps(counts)}")
-    # the first call of each timed kernel, its weights copied out of the
-    # stacked leaf so the leaf can be freed
-    fa_first = fchk.first
-    gmm_first = (gchk.first[0], gchk.first[1].clone(), gchk.first[2])
-    # the checks keep their first calls' arguments: views of the weights
+    # the first call of each timed kernel, on the host until (c): the
+    # prefill's program is captured with nothing of the check run on the
+    # card (arctic's first gmm weights alone are 8.9 GB, and what the
+    # check run leaves on the card pins the segments the capture needs)
+    fa_first, gmm_first = park(torch, (fchk.first, gchk.first), "cpu")
+    ref = logits.cpu()
     del logits, fchk, gchk, pchk, schk, moe
+    torch.cuda.empty_cache()
+    capture_first(torch, f"{arch} prefill", plan, params, {"tokens": tokens})
     secs = []
     for _ in range(HY_TIMED_RUNS):
         kops.reset_launch_counts()
@@ -5749,10 +5835,12 @@ def phase_hybrid_arch(torch, dev, gpu, report, errs, arch, n_layers):
         require(all(counts[k] == n for k, n in want.items())
                 and bool(torch.isfinite(timed).all()),
                 f"{arch} prefill timed run: launches {counts}, want {want}")
+        same_as_check(torch, f"{arch} prefill", timed, ref)
     say(f"[main path] {arch} prefill launches (each of {HY_TIMED_RUNS} "
         f"timed runs): {json.dumps(counts)}")
     med = sorted(secs)[len(secs) // 2]
     report[f"{arch}_prefill"] = dict(seconds=secs, tokens_per_s=b * s / med)
+    plan.release()
     del timed
     prompt = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(pl, nb)).T, device=dev)
@@ -5781,6 +5869,7 @@ def phase_hybrid_arch(torch, dev, gpu, report, errs, arch, n_layers):
     torch.cuda.empty_cache()
 
     # (c) the kernels at the new shapes, nothing else on the card
+    fa_first, gmm_first = park(torch, (fa_first, gmm_first), dev)
     phase_flash_times(torch, dev, gpu, fa_first, n_attn,
                       label=f"{arch} prefill")
     phase_gmm_times(torch, dev, gpu, gmm_first, 3 * n_moe,
@@ -6162,7 +6251,9 @@ CP_PAPER_ROUNDS = 20
 CP_MUX_STEPS = 8
 CP_DRAIN_STEPS = 8
 CP_FO = dict(waves=8, snap_every=4, kill=(6, 3))
-CP_BUSY_STEPS = 10
+# the serves' busy share: 5 decode steps (10 until the script reached
+# 1208.4 s on a slow host)
+CP_BUSY_STEPS = 5
 
 
 def cp_serve_argv(arch):
@@ -6454,9 +6545,306 @@ def cp_failover(torch, dev, gpu, report):
     return counts
 
 
+# (e) the train step: qwen2.5-3b at full width and depth, phase 10's cell
+CP_TRAIN = dict(batch=4, seq=1024, steps=4, remat="full", busy_steps=2)
+# (f) the prefills at B 4 x 2048 (deepseek's experts over 4 trustees):
+# one eager call's logits against three captured calls'
+CP_PREFILL = dict(batch=4, seq=2048, calls=3)
+CP_PREFILL_ARCHS = (("qwen2.5-3b", 1), ("deepseek-v2-lite-16b", 4),
+                    ("falcon-mamba-7b", 1))
+# (g) the busy share's run, both ways: the profiler's records of a paged
+# run's many small host ops are slow to read back (phase 9 reads a
+# 32-request run's, captured); at 16 requests the two readings took most
+# of (g)'s 170.7-239.0 s, and the whole script 1208.4 s on a slow host
+CP_PAGED_BUSY_REQUESTS = 4
+_INT_OF = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
+
+
+def leaf_checksums(torch, leaves, block=1 << 26):
+    """Each leaf's bits as integers, summed weighted by position mod 8191
+    (int64, wrapping): equal tensors give equal sums, a change of one
+    element or an exchange of two changes it.  In blocks, so the
+    temporaries stay small beside a full-width model's state."""
+    sums = []
+    for x in leaves:
+        bits = x.detach().reshape(-1).view(
+            getattr(torch, _INT_OF[x.element_size()]))
+        total = torch.zeros((), dtype=torch.int64, device=x.device)
+        for i in range(0, bits.numel(), block):
+            part = bits[i:i + block].long()
+            w = torch.arange(i, i + part.numel(), device=x.device) % 8191 + 1
+            total += (part * w).sum()
+        sums.append(total)
+    return torch.stack(sums).tolist()
+
+
+def ms_median(xs):
+    xs = sorted(xs)
+    return 1e3 * xs[len(xs) // 2]
+
+
+def cp_train(torch, dev, gpu, report):
+    """(e) qwen2.5-3b's train cell at full width and depth (bf16 weights,
+    f32 moments, remat "full", B 4 x 1024), CP_TRAIN["steps"] steps
+    under compiled.disable(), the initial state restored IN PLACE (the
+    weights from a host copy, the moments and the step count zeroed, as
+    init_adamw made them: the addresses kept), the same steps captured
+    (one program: the first call runs eagerly and captures, the rest
+    replay).  Gates: every step's metrics (loss, nll, accuracy,
+    grad_norm, lr) and every leaf's checksum after the steps equal bit
+    for bit, launches equal (none).  Readings: ms a step and host issue
+    ms a step (median of steps 2-4), the busy share of CP_TRAIN
+    ["busy_steps"] more steps, capture ms, pool bytes, peak GB."""
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.optim import init_adamw
+    from repro_torch.optim.optimizer import tree_leaves
+    q = CP_TRAIN
+    cfg = get_arch("qwen2.5-3b")
+    shape = ShapeConfig("cp", q["seq"], q["batch"], "train")
+    run = RunConfig(model=cfg, shape=shape,
+                    mesh=MeshConfig((1, 1), ("data", "model")),
+                    learning_rate=3e-3, remat=q["remat"])
+    torch.cuda.empty_cache()
+    plan = build_cell(cfg, shape, run)
+    params = M.init_params(cfg, run, dev)
+    opt = init_adamw(params, dtype_of(run.opt_dtype))
+    host = [p.detach().to("cpu", copy=True) for p in tree_leaves(params)]
+    pipe = TokenPipeline(DataConfig(seed=run.seed,
+                                    vocab_size=cfg.vocab_size), cfg, shape)
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in pipe.model_batch_at(i).items()}
+               for i in range(q["steps"])]
+    state = {"opt": opt}
+
+    def one_step(batch):
+        _p, state["opt"], m = plan.step_fn(params, state["opt"], batch)
+        return m
+
+    def run_steps(eager):
+        for p, h in zip(tree_leaves(params), host):
+            p.detach().copy_(h)
+        for x in tree_leaves(tuple(opt)):
+            x.zero_()
+        state["opt"] = opt
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, issue, step = [], [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            m = one_step(batch)
+            issue.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            step.append(time.perf_counter() - t0)
+            metrics.append({k: v.clone() for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        sums = leaf_checksums(torch, tree_leaves(params)
+                              + tree_leaves(tuple(state["opt"])))
+        busy = busy_share(torch, lambda: float(one_step(batches[0])["loss"]),
+                          q["busy_steps"])
+        progs = list(plan.step_fn.__wrapped__.programs.values())
+        return dict(metrics=metrics, sums=sums, issue=issue, step=step,
+                    peak=peak, busy=busy, programs=len(progs),
+                    replays=[p.replays for p in progs])
+    got = cp_both(torch, run_steps)
+
+    def same(a, b):
+        return (a["sums"] == b["sums"]
+                and all(sorted(x) == sorted(y) and all(
+                    torch.equal(x[k], y[k]) for k in x)
+                    for x, y in zip(a["metrics"], b["metrics"])))
+    counts, caps = cp_gates("qwen2.5-3b train", got, same)
+    e, c = got["eager"][0], got["captured"][0]
+    require(e["programs"] == 0 and c["programs"] == 1
+            and c["replays"][0] >= q["steps"] - 1,
+            f"compiled train: programs eager {e['programs']}, captured "
+            f"{c['programs']} replayed {c['replays']} times")
+    require(not any(counts.values()), f"compiled train: the training path "
+            f"launched a kernel: {counts}")
+    (cap,) = [x for x in caps if x["site"] == "train_step"]
+    plan.release()
+    del params, opt, state, host, batches
+    torch.cuda.empty_cache()
+
+    def later(xs):
+        return ms_median(xs[1:])
+    report["compiled_qwen_train"] = dict(
+        ms_per_step={"eager": later(e["step"]), "captured": later(c["step"])},
+        issue_ms_per_step={"eager": later(e["issue"]),
+                           "captured": later(c["issue"])},
+        first_step_ms={"eager": 1e3 * e["step"][0],
+                       "captured": 1e3 * c["step"][0]},
+        busy={"eager": list(e["busy"]), "captured": list(c["busy"])},
+        peak_gb={"eager": e["peak"], "captured": c["peak"]},
+        capture_ms=cap["capture_ms"], pool_bytes=cap["pool_bytes"])
+    say(f"[compiled qwen2.5-3b train] {gpu} | B {q['batch']} x {q['seq']}, "
+        f"remat {q['remat']}, bf16 weights, f32 moments, {q['steps']} steps "
+        f"eager, the initial state restored in place, {q['steps']} steps "
+        f"captured: every step's metrics (losses "
+        f"{[round(float(m['loss']), 6) for m in c['metrics']]}, grad norms "
+        f"{[round(float(m['grad_norm']), 4) for m in c['metrics']]}, lr "
+        f"{[float(m['lr']) for m in c['metrics']]}) and all "
+        f"{len(c['sums'])} leaves' checksums equal bit for bit, no kernel "
+        f"launched; ms a step (median of steps 2-{q['steps']}) eager "
+        f"{later(e['step']):.3f}, captured {later(c['step']):.3f}; host "
+        f"issue a step (no synchronize) eager {later(e['issue']):.3f} ms, "
+        f"captured {later(c['issue']):.3f} ms; the first step eager "
+        f"{1e3 * e['step'][0]:.3f} ms, captured {1e3 * c['step'][0]:.3f} ms "
+        f"(its eager run and the capture: {cap['capture_ms']:.1f} ms, pool "
+        f"{cap['pool_bytes'] / 1e9:.3f} GB); busy over {q['busy_steps']} "
+        f"steps eager {busy_text(e['busy'])}, captured "
+        f"{busy_text(c['busy'])}; peak allocated eager {e['peak']:.2f} GB, "
+        f"captured {c['peak']:.2f} GB (the first call's warm-up, then its "
+        f"pool)")
+    return counts
+
+
+def cp_prefill(torch, dev, gpu, arch, t, report):
+    """(f) ``build_cell``'s prefill at B 4 x 2048 through the kernels
+    (use_pallas), the serve's weights (seed 0): CP_PREFILL["calls"] calls
+    eager and as many captured (the first runs eagerly and captures, the
+    rest replay), call i on batch i of as many distinct token batches.
+    Gates: each captured call's logits equal the eager call's on the same
+    batch bit for bit (so a replay recomputes from its own inputs: the
+    batches' logits differ), launches equal.  Readings: ms a call
+    (median), the busy share of one call, capture ms, pool bytes."""
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as M
+    q = CP_PREFILL
+    cfg = get_arch(arch)
+    run = RunConfig(model=cfg, shape=ShapeConfig("cp", q["seq"], q["batch"],
+                                                 "prefill"),
+                    mesh=MeshConfig((1, t), ("data", "model")),
+                    remat="none", use_pallas=True)
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, run, dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size,
+                                        (q["batch"], q["seq"]),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)}
+               for _ in range(q["calls"])]
+
+    def calls(_eager):
+        plan = build_cell(cfg, run.shape, run)
+        outs, secs = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(plan.step_fn(params, batch))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        busy = busy_share(torch, lambda: plan.step_fn(params, batches[0]), 1)
+        plan.release()
+        return outs, secs, busy
+    got = cp_both(torch, calls)
+    want = got["eager"][0][0]
+    require(not any(torch.equal(want[i], want[j])
+                    for i in range(len(want)) for j in range(i)),
+            f"compiled {arch} prefill: two distinct batches gave the same "
+            f"logits, so the gate could not tell a stale replay")
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a[0], b[0])) \
+            and len(a[0]) == len(b[0]) == len(batches)
+    counts, caps = cp_gates(f"{arch} prefill", got, same)
+    (cap,) = [x for x in caps if x["site"] == "prefill_step"]
+    (_, se, be), (_, sc, bc) = got["eager"][0], got["captured"][0]
+    del params, got, want, batches
+    torch.cuda.empty_cache()
+    report[f"compiled_{arch}_prefill"] = dict(
+        ms={"eager": ms_median(se), "captured": ms_median(sc[1:])},
+        first_ms={"eager": 1e3 * se[0], "captured": 1e3 * sc[0]},
+        busy={"eager": list(be), "captured": list(bc)},
+        capture_ms=cap["capture_ms"], pool_bytes=cap["pool_bytes"])
+    say(f"[compiled {arch} prefill] {gpu} | B {q['batch']} x {q['seq']} over "
+        f"{t} trustee(s), {q['calls']} calls each way on {q['calls']} "
+        f"distinct batches: each call's logits equal the eager call's on "
+        f"its batch bit for bit, launches equal "
+        f"({json.dumps({k: v for k, v in counts.items() if v})}); ms a call "
+        f"eager {ms_median(se):.3f} (median), captured "
+        f"{ms_median(sc[1:]):.3f} (median of the replays; the first "
+        f"{1e3 * sc[0]:.3f}: its eager run and the capture, "
+        f"{cap['capture_ms']:.1f} ms); busy eager {busy_text(be)}, captured "
+        f"{busy_text(bc)}; pool {cap['pool_bytes'] / 2 ** 20:.1f} MiB")
+    return counts
+
+
+def cp_paged(torch, dev, gpu, report):
+    """(g) phase 5's paged decode (128 requests over 8 trustees at
+    qwen2.5-3b attention width, bf16), its model callback eager and
+    captured (one program a shape of its inputs), keeping every decode
+    output (``record``).  Gates: every decode output, the final KV pool
+    and the final page table bit for bit, no leaked page, every request
+    served, launches equal.  Readings: tokens/s,
+    the busy share of a CP_PAGED_BUSY_REQUESTS-request run, the
+    programs' count, their total capture ms and pool bytes."""
+    inputs = paged_inputs(torch, dev)
+
+    def run(_eager):
+        stats = paged_run(torch, dev, inputs, record=True)
+        busy = busy_share(torch, lambda: paged_run(
+            torch, dev, inputs, n_requests=CP_PAGED_BUSY_REQUESTS), 1)
+        return stats, busy
+    got = cp_both(torch, run)
+
+    def same(a, b):
+        a, b = a[0], b[0]
+        return (len(a["ys"]) == len(b["ys"])
+                and all(np.array_equal(x, y) for x, y in zip(a["ys"], b["ys"]))
+                and all(torch.equal(a["pool"][k], b["pool"][k])
+                        for k in b["pool"])
+                and all(np.array_equal(a["dump"][k], b["dump"][k])
+                        for k in b["dump"])
+                and a["tokens"] == b["tokens"])
+    counts, caps = cp_gates("paged_decode", got, same)
+    (e, be), (c, bc) = got["eager"][0], got["captured"][0]
+    for st in (e, c):
+        a = st["audit"]
+        require(st["completed"] == N_REQUESTS and st["failed"] == 0
+                and a["consistent"] and a["leaked"] == 0
+                and a["allocated"] == 0,
+                f"compiled paged_decode: {st['completed']} completed, "
+                f"{st['failed']} failed, audit {a}")
+    pr = c["programs"]
+    require(e["programs"]["count"] == 0 and pr["count"] > 0,
+            f"compiled paged_decode: programs eager {e['programs']}, "
+            f"captured {pr}")
+    del inputs, got
+    torch.cuda.empty_cache()
+    report["compiled_paged_decode"] = dict(
+        tokens_per_s={"eager": e["tokens_per_s"],
+                      "captured": c["tokens_per_s"]},
+        busy={"eager": list(be), "captured": list(bc)}, programs=pr)
+    say(f"[compiled paged_decode] {gpu} | {N_REQUESTS} requests, "
+        f"{c['tokens']} tokens, eager and captured (keeping the outputs): "
+        f"every decode output ({len(c['ys'])} calls), the final KV pool and "
+        f"page table equal bit for bit, no leaked page, launches equal "
+        f"({json.dumps({k: v for k, v in counts.items() if v})}); "
+        f"{e['tokens_per_s']:.1f} tokens/s eager, {c['tokens_per_s']:.1f} "
+        f"captured (its captures included); host time in the callbacks "
+        f"eager {e['host']['prefill_s'] + e['host']['decode_s']:.3f} s, "
+        f"captured {c['host']['prefill_s'] + c['host']['decode_s']:.3f} s; "
+        f"busy over a {CP_PAGED_BUSY_REQUESTS}-request run eager "
+        f"{busy_text(be)}, captured "
+        f"{busy_text(bc)}; {pr['count']} programs (one a shape), capture "
+        f"{pr['capture_ms']:.1f} ms and pool "
+        f"{pr['pool_bytes'] / 2 ** 20:.1f} MiB in all")
+    return counts
+
+
 def phase_compiled(torch, dev, gpu, report):
     """Phase 15: each path eager (``compiled.disable()``) and captured on
-    the same weights and traffic.  Returns the launches of both ways."""
+    the same weights and traffic: the serves, the KV rounds, the train
+    step, the prefills and the paged decode.  Each model's weights and
+    programs are freed before the next is drawn.  Returns the launches
+    of both ways."""
     total = {k: 0 for k in SOURCES}
     t0 = [time.perf_counter()]
 
@@ -6490,6 +6878,10 @@ def phase_compiled(torch, dev, gpu, report):
                       overflow="defer", local_shortcut=False)],
                   drain, report, drain[0]))
     add(cp_failover(torch, dev, gpu, report))
+    add(cp_train(torch, dev, gpu, report))
+    for arch, t in CP_PREFILL_ARCHS:
+        add(cp_prefill(torch, dev, gpu, arch, t, report))
+    add(cp_paged(torch, dev, gpu, report))
     return total
 
 
@@ -6717,6 +7109,9 @@ def main(argv=None):
         for k, v in falcon[0].items():
             launches[k] += v
         say(f"[time] through phase 8: {time.perf_counter() - started:.1f} s")
+    # phase 9's kernel inputs wait on the host (moved back below)
+    qwen, deep, falcon = park(torch, (qwen, deep, falcon), "cpu")
+    torch.cuda.empty_cache()
     if "11" in phases:
         t0 = time.perf_counter()
         n_zoo = phase_zoo(torch, dev, gpu, report, errs)
@@ -6767,7 +7162,8 @@ def main(argv=None):
         say(f"[main path] phase 15 launches (every path eager and "
             f"captured): {json.dumps(counts)}")
         for k in ("delegation_pack", "gather", "scatter_last",
-                  "segmented_add", "grouped_matmul"):
+                  "segmented_add", "grouped_matmul", "flash_attention",
+                  "selective_scan", "paged_attention", "pagetable_serve"):
             require(counts[k] > 0, f"kernel {k} was not launched on the "
                     f"phase 15 paths")
         for k, v in counts.items():
@@ -6779,6 +7175,7 @@ def main(argv=None):
         f"prefill call in phases 6, 7, 8 and each of 11's; 4a, 4b and the "
         f"session serve included): {json.dumps(launches)}")
 
+    qwen, deep, falcon = park(torch, (qwen, deep, falcon), dev)
     if "9" in phases:
         require(phases >= set("2345678"),
                 "phase 9 reports the main paths' launches and the kernels' "

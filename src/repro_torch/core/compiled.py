@@ -1,8 +1,12 @@
 """Captured programs — the counterpart of ``jax.jit`` for one function.
 
-JAX runs every serve step and every channel round as a compiled program
-(``repro.launch.steps`` jits ``serve_step``, ``repro.core.engine`` keeps a
-compiled-program cache).  On the card the counterpart is a CUDA graph: the
+JAX runs every model step and every channel round as a compiled program
+(``repro.launch.steps`` jits ``train_step``, ``prefill_step`` and
+``serve_step``, ``repro.core.engine`` keeps a compiled-program cache, the
+paged-decode example jits its attention step).  The port's call sites:
+``launch.steps.CompiledStep`` / ``CompiledCell`` (train and prefill),
+the engine's ``_cache`` and ``launch.paged_decode``'s ``write_kv``.  On
+the card the counterpart is a CUDA graph: the
 launches of one call captured once and replayed as one launch, the same
 kernels on the same addresses.  A ``Program`` is one call site of one key:
 
@@ -57,7 +61,9 @@ of the side channels (``side_channel``: the channel's transposes and
 implementation events).  Each program keeps a private memory pool for
 the intermediates of its graph (``pool_bytes``), freed with it.
 ``captures()`` lists every capture made (site, capture ms, pool bytes);
-each program keeps its own, with ``replays``.
+each program keeps its own, with ``replays``; ``release()`` drops a
+program and its pool at once (a caller that rebinds the held state
+keys a new program and releases the old).
 """
 from __future__ import annotations
 
@@ -270,6 +276,16 @@ class Program:
         self._in: Optional[list] = None
         self._out = None              # (spec, leaves) of the static outputs
         self._cuda = None
+
+    def release(self) -> None:
+        """Drop the graph, its static buffers and its private pool (the
+        pool's blocks go back to the allocator's cache, which
+        ``torch.cuda.empty_cache()`` returns to the card).  The program
+        then refuses every call."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self._in = self._out = None
+        self.error = CaptureError(f"{self.site}: the program was released")
 
     # -- plumbing shared by the card and the stand-in -----------------------
     def _load_inputs(self, inputs) -> Any:

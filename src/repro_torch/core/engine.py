@@ -172,12 +172,17 @@ class DelegationEngine:
     """Session-wide execution engine for delegation rounds
     (``TrustSession``)."""
 
-    def __init__(self, planner: Optional[CapacityPlanner] = None):
+    def __init__(self, planner: Optional[CapacityPlanner] = None,
+                 donate_states: bool = False):
         self._trusts: Dict[int, Any] = {}
         self._next_token = 0
         self._dirty: List[int] = []
         self._cache: Dict[Any, _Compiled] = {}
         self.planner = planner if planner is not None else CapacityPlanner()
+        # JAX's keyword, taken and dropped: the port's rounds write the
+        # state in place either way, so ``trust.state()`` stays live (a
+        # settled divergence, ROADMAP.md)
+        del donate_states
         self.rounds_dispatched = 0
         self._last_step_stats: Dict[str, Dict[str, Any]] = {}
         self._stats_owner: Dict[str, int] = {}

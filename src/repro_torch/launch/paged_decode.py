@@ -13,6 +13,18 @@ real paged KV pool:
   on_decode   runs one ``paged_decode_attention`` step per sequence over
               the block-sparse page list the same round served
 
+Both callbacks go through one function, ``write_kv`` (gather the new
+tokens' embeddings from the stream, write their K/V rows into the pool,
+attend), which JAX's example jits and retraces for each shape: here it
+is a captured program (``core.compiled``: a CUDA graph on the card, the
+stand-in on the CPU) keyed by the shapes of its inputs (the sequence
+slots, the positions and the chains), so a run makes at most
+``max_seqs`` of them.  The pool is its state, written in place; the
+attention weights and the embedding stream are fixed; the output comes
+back fresh each call.  ``compiled.disable()`` runs it eagerly.  The run
+releases its programs when it ends; ``stats["programs"]`` has their
+count, total capture ms and total pool bytes.
+
 It runs on ``cuda`` unless given ``device="cpu"`` (and raises without a
 card rather than fall back).  With ``check=True`` it also holds every
 wave's page-table responses against a replay of the same op batches
@@ -26,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -34,7 +47,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..core import DelegatedPageTable, StackedMesh
+from ..core import DelegatedPageTable, StackedMesh, compiled
 from ..core.meshctx import resolve_device, to_device_async, use_session
 from ..models import attention as att
 from ..testing.attention import AttentionCheck
@@ -59,6 +72,15 @@ def make_requests(rng: np.random.Generator, n: int,
                           gen_len=int(rng.integers(*gen)),
                           user=f"u{i % n_users}")
             for i in range(n)]
+
+
+def _write_kv_body(cfg, pool, fixed, inputs):
+    """One attention step as a captured program's function: (pool, y)."""
+    params, xs = fixed
+    s, p, tbl = inputs
+    y, pool = att.paged_decode_attention(params, xs[s.long(), p.long()], p,
+                                         pool, tbl, cfg)
+    return pool, y
 
 
 class _RecordingDriver(PagedDecodeDriver):
@@ -97,10 +119,11 @@ def run_decode(cfg: Optional[ModelConfig] = None,
     ``numpy.random.default_rng(seed)``, the stream first.  ``params`` are
     attention weights in the JAX layout (random from ``seed`` when None).
     ``check`` adds the oracle replay and the kernel-vs-plain attention
-    check (``stats["check"]``); ``record`` keeps every decode call's output
-    (``stats["ys"]``), every wave's page-table responses
-    (``stats["pt_responses"]``) and the final state (``stats["dump"]``),
-    on the host."""
+    check (``stats["check"]``) and every wave's page-table responses
+    (``stats["pt_responses"]``); ``record`` keeps every decode call's
+    output (``stats["ys"]``), the final page-table state
+    (``stats["dump"]``) and the final KV pool (``stats["pool"]``, its
+    tensors in their dtype), on the host."""
     cfg = cfg or demo_config()
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -118,14 +141,21 @@ def run_decode(cfg: Optional[ModelConfig] = None,
     spans = {"prefill_s": 0.0, "decode_s": 0.0, "prefill_calls": 0,
              "decode_calls": 0}
     acc = {"kv_writes": 0, "ysum": torch.zeros((), device=dev), "ys": []}
+    # JAX's jitted step: one program a shape of the inputs
+    programs: Dict[Any, compiled.Program] = {}
+    body = functools.partial(_write_kv_body, cfg)
 
     def write_kv(seqs, positions, chains):
-        s, p, tbl = (to_device_async(a, dev)
-                     for a in (seqs, positions, chains))
-        y, _ = att.paged_decode_attention(params, xs[s.long(), p.long()], p,
-                                          pool, tbl, cfg)
+        inputs = tuple(to_device_async(a, dev)
+                       for a in (seqs, positions, chains))
         acc["kv_writes"] += len(seqs)
-        return y
+        if not compiled.enabled():
+            return body(pool, (params, xs), inputs)[1]
+        key = compiled.signature(inputs)
+        prog = programs.get(key)
+        if prog is None:
+            prog = programs[key] = compiled.Program(body, "paged_write_kv")
+        return prog(pool, (params, xs), inputs)[1]
 
     def on_prefill(seqs, lengths, chains):
         t0 = time.perf_counter()
@@ -160,7 +190,7 @@ def run_decode(cfg: Optional[ModelConfig] = None,
                   on_prefill=on_prefill, on_decode=on_decode,
                   max_active=max_seqs)
         log: List = []
-        if check or record:
+        if check:
             record_submissions(pt, log)
             drv = _RecordingDriver(pt, log, **kw)
         else:
@@ -181,17 +211,24 @@ def run_decode(cfg: Optional[ModelConfig] = None,
         stats["y_checksum"] = float(acc["ysum"])
         stats["audit"] = pt.audit()
         stats["device"] = str(dev)
+        stats["programs"] = {
+            "count": len(programs),
+            "capture_ms": sum(p.capture_ms for p in programs.values()),
+            "pool_bytes": sum(p.pool_bytes for p in programs.values())}
         if record:
             stats["ys"] = [y.float().cpu().numpy() for y in acc["ys"]]
+            stats["pool"] = {k: v.cpu() for k, v in pool.items()}
+            stats["dump"] = pt.dump()
+        if check:
             stats["pt_responses"] = [
                 [(op, pt.globalize(fut.result(), seqs))
                  for op, seqs, _, fut in wave] for wave in drv.waves]
-            stats["dump"] = pt.dump()
-        if check:
             stats["check"] = {
                 "waves": len(drv.waves),
                 "rows_replayed": replay_waves(pt, drv.waves),
                 **attention_check.summary()}
+    for prog in programs.values():
+        prog.release()
     return stats
 
 

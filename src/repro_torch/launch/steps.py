@@ -1,11 +1,21 @@
 """Step functions of the model path: the train, prefill and decode cells
 of ``repro.launch.steps.build_cell`` (the port's one card needs no
-shardings).  JAX jits each step; here the decode step is a captured
-program (``core.compiled``: a CUDA graph on the card, replayed; the
-stand-in on the CPU) keyed by the tokens' and positions' shapes and
-dtypes and the addresses of the weights and the cache, which it writes
-in place as JAX's donated cache.  The prefill and train steps run
-eagerly.  ``compiled.disable()`` runs the decode step eagerly too.
+shardings).  JAX jits each step; here each is a captured program
+(``core.compiled``: a CUDA graph on the card, captured after one eager
+call and replayed; the stand-in on the CPU):
+
+  * decode (``CompiledStep``): keyed by the tokens' and positions' shapes
+    and dtypes and the addresses of the weights and the cache, which it
+    writes in place as JAX's donated cache;
+  * train (``CompiledCell``): keyed by the batch's shapes and dtypes and
+    the addresses of the parameters and the optimizer state, which it
+    writes in place as JAX's donated ``(params, opt_state)``;
+  * prefill (``CompiledCell``): keyed by the batch's shapes and dtypes
+    and the weights' addresses; no state.
+
+The train and prefill cells keep one program each (a new key releases
+the old); ``plan.release()`` drops a cell's programs and their pools.
+``compiled.disable()`` runs every step eagerly.
 
     plan = build_cell(cfg, ShapeConfig("t", 1024, 4, "train"), run)
     params, opt_state, metrics = plan.step_fn(params, opt_state, batch)
@@ -45,7 +55,8 @@ from ..core import compiled, meshctx
 from ..models import model as M
 from ..models.layers import dtype_of
 from ..optim import AdamWConfig, adamw_update
-from ..optim.optimizer import tree_leaves, tree_map, tree_unflatten
+from ..optim.optimizer import (AdamWState, tree_leaves, tree_map,
+                               tree_unflatten)
 
 
 class CellPlan(NamedTuple):
@@ -53,6 +64,10 @@ class CellPlan(NamedTuple):
     shape: ShapeConfig
     run: RunConfig
     step_fn: Any
+
+    def release(self) -> None:
+        """Drop the step's captured programs and their pools."""
+        self.step_fn.__wrapped__.release()
 
 
 @torch.no_grad()
@@ -155,16 +170,29 @@ def _decode_body(fn, cache, params, inputs):
     return cache, next_tok
 
 
-class CompiledStep:
+class _Programs:
+    """A step's captured programs, in ``programs`` by key."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.programs: Dict[Any, compiled.Program] = {}
+
+    def release(self) -> None:
+        """Drop every program and its pool (returned to the card)."""
+        cuda = any(p.graph is not None for p in self.programs.values())
+        for prog in self.programs.values():
+            prog.release()
+        self.programs.clear()
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+class CompiledStep(_Programs):
     """``serve_step`` with ``cfg`` and ``run`` bound, as captured programs:
     one ``compiled.Program`` a (tokens and positions shape and dtype,
     weights' and cache's addresses, device) key, in ``programs``.  The
     cache is held (written in place); the next token comes back fresh
     each call.  Under ``compiled.disable()`` the step runs eagerly."""
-
-    def __init__(self, fn):
-        self.fn = fn
-        self.programs: Dict[Any, compiled.Program] = {}
 
     def __call__(self, params, cache, tokens, pos):
         if not compiled.enabled():
@@ -179,6 +207,79 @@ class CompiledStep:
                 functools.partial(_decode_body, self.fn), "serve_step")
         cache, next_tok = prog(cache, params, (tokens, pos))
         return next_tok, cache
+
+
+def _device(tree) -> torch.device:
+    for x in tree_leaves(tree):
+        if isinstance(x, torch.Tensor):
+            return x.device
+    raise ValueError("a step takes at least one tensor")
+
+
+def _train_body(fn, state, _fixed, batch):
+    """A train step as a captured program's function: the state is
+    (params, (step, m, v)), the moments and step of ``AdamWState`` as a
+    plain tuple (a program's trees are dicts, lists and tuples)."""
+    params, opt = state
+    params, opt, metrics = fn(params, AdamWState(*opt), batch)
+    return (params, tuple(opt)), metrics
+
+
+def _prefill_body(fn, state, params, batch):
+    """A prefill step as a captured program's function: no state."""
+    return state, fn(params, batch)
+
+
+class CompiledCell(_Programs):
+    """``train_step`` (``site`` "train_step"; cfg, run and the AdamW config
+    bound) or ``prefill_step`` ("prefill_step"), as ONE captured program
+    a cell, keyed by (the batch's shapes and dtypes, the held tensors'
+    addresses, device); a call with a new key (another batch shape, or a
+    restore onto new tensors, as ``TrainLoop`` does on a restart) first
+    releases the program before it with its pool: a full-width model's
+    pool takes GBs, and two would not fit beside its weights (and
+    moments).
+
+      * train: ``(params, opt_state, batch) -> (params, opt_state,
+        metrics)``.  The parameters and moments are held and written in
+        place (AdamW's own writes), the new step count copied back into
+        ``opt_state.step`` (JAX's donated arguments); the step, learning
+        rate and bias corrections stay device tensors, so a replay
+        follows the schedule.
+      * prefill: ``(params, batch) -> out``.  The weights are held, read
+        only; no state.
+
+    The batch is copied into the program's buffers; the metrics, logits
+    or encoder memory come back fresh each call.  Under
+    ``compiled.disable()`` the step runs eagerly and nothing is
+    cached."""
+
+    def __init__(self, fn, site: str):
+        super().__init__(fn)
+        self.site = site
+        self.train = site == "train_step"
+        self.body = functools.partial(
+            _train_body if self.train else _prefill_body, fn)
+
+    def __call__(self, *args):
+        *held, batch = args
+        dev = _device(batch)
+        if not compiled.enabled() or dev.type == "meta":
+            return self.fn(*args)
+        if self.train:
+            params, opt_state = held
+            state, fixed = (params, tuple(opt_state)), ()
+        else:
+            state, (fixed,) = (), held
+        key = (compiled.signature(batch), compiled.addresses((state, fixed)),
+               str(dev))
+        prog = self.programs.get(key)
+        if prog is None:
+            self.release()
+            prog = self.programs[key] = compiled.Program(self.body,
+                                                         self.site)
+        _, out = prog(state, fixed, batch)
+        return (params, opt_state, out) if self.train else out
 
 
 def _in_context(fn, axes, mesh):
@@ -218,11 +319,13 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig,
         if shape.global_batch % max(1, run.grad_accum):
             raise ValueError(f"batch {shape.global_batch} does not split "
                              f"into {run.grad_accum} microbatches")
-        return CellPlan(cfg, shape, run, _in_context(functools.partial(
-            train_step, cfg=cfg, run=run, acfg=adamw_config(run)), axes,
-            mesh))
+        return CellPlan(cfg, shape, run, _in_context(CompiledCell(
+            functools.partial(train_step, cfg=cfg, run=run,
+                              acfg=adamw_config(run)), "train_step"),
+            axes, mesh))
     if shape.kind == "prefill":
-        fn = functools.partial(prefill_step, cfg=cfg, run=run)
+        fn = CompiledCell(functools.partial(prefill_step, cfg=cfg, run=run),
+                          "prefill_step")
     elif shape.kind == "decode":
         fn = CompiledStep(functools.partial(serve_step, cfg=cfg, run=run))
     else:

@@ -6,7 +6,9 @@
 
 Builds the requested arch (full or smoke config) with random weights
 drawn on the device, the train cell (``launch.steps.build_cell``: value
-and grad of ``forward_loss`` through the plain versions, then AdamW), the
+and grad of ``forward_loss`` through the plain versions, then AdamW, one
+captured program: a CUDA graph on the card from the second step on;
+``core.compiled.disable()`` runs it eagerly), the
 deterministic token pipeline, and with ``--ckpt-dir`` the fault-tolerant
 ``TrainLoop`` (a checkpoint every ``--ckpt-every`` steps, resume on
 restart, ``--inject-failure-at`` a simulated failure).  ``--mesh-model

@@ -207,7 +207,10 @@ def blockwise_attention(q, k, v, causal: bool = True, scale=None,
     for j in range(0, skv, block_k):
         args = (qf, k[:, :, j:j + block_k], v[:, :, j:j + block_k], m, l,
                 acc, qpos, j, causal)
-        m, l, acc = checkpoint(_block_step, *args, use_reentrant=False) \
+        # no random numbers: the generator's state is not saved (a
+        # captured train step may not read it)
+        m, l, acc = checkpoint(_block_step, *args, use_reentrant=False,
+                               preserve_rng_state=False) \
             if remat else _block_step(*args)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, hq, sq, dh).to(q.dtype)

@@ -294,8 +294,11 @@ def delegated_softmax_xent(x: torch.Tensor, w_out: torch.Tensor,
     if c == s:
         nll, acc = _xent_chunk(x, w_l, labels, softcap)
     else:
+        # no random numbers: the generator's state is not saved (a
+        # captured train step may not read it)
         outs = [checkpoint(_xent_chunk, x[:, i:i + c], w_l,
-                           labels[:, i:i + c], softcap, use_reentrant=False)
+                           labels[:, i:i + c], softcap, use_reentrant=False,
+                           preserve_rng_state=False)
                 for i in range(0, s, c)]
         nll = torch.cat([o[0] for o in outs], dim=1)
         acc = torch.cat([o[1] for o in outs], dim=1)

@@ -249,11 +249,16 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _remat(fn, remat: str):
     """``fn`` under ``torch.utils.checkpoint`` for ``remat`` "full" (save
-    nothing inside) or "dots" (save only the matmul outputs)."""
+    nothing inside) or "dots" (save only the matmul outputs).  The model
+    draws no random numbers, so the generator's state is not saved for
+    the recomputation (``preserve_rng_state=False``: the same values, and
+    no read of the CUDA generator's seed, which a CUDA-graph capture of
+    the train step refuses)."""
     if remat == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
     return functools.partial(
-        checkpoint, fn, use_reentrant=False,
+        checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
         context_fn=functools.partial(create_selective_checkpoint_contexts,
                                      _dots_policy))
 

@@ -206,7 +206,11 @@ class TrainLoop:
     tensors in place (the port's AdamW does): with an injector, the loop
     keeps a host copy of the initial state, which a restart with no
     checkpoint on disk begins from, as JAX's loop restarts from its
-    (immutable) initial arrays.
+    (immutable) initial arrays.  A restart binds the state to new tensors
+    (``ckpt.restore``, or the host copy placed anew): a captured train
+    step (``launch.steps.CompiledCell``, one program a cell) then
+    captures on the new addresses and releases the program, and the
+    pool, of the old ones.
     """
 
     def __init__(self, cfg: TrainLoopConfig, step_fn: Callable,

@@ -761,3 +761,124 @@ def test_captured_round_holds_every_kernel_launch(cuda, tmp_path):
                              ("segmented_add", "segmented_add_kernel", 1)):
         assert deltas[name] > 0, name
         assert dot.count(label) >= per * deltas[name], (name, deltas)
+
+
+# ---------------------------------------------------------------------------
+# the captured train, prefill and paged steps (launch/steps.CompiledCell,
+# paged_decode's write_kv), equal to the eager path
+# ---------------------------------------------------------------------------
+
+def _smoke_cell(arch, t, kind, s=32, b=2, **kw):
+    from repro_torch.configs.base import MeshConfig, RunConfig, ShapeConfig
+    from repro_torch.configs.registry import get_smoke_arch
+    cfg = get_smoke_arch(arch)
+    run = RunConfig(model=cfg, shape=ShapeConfig("c", s, b, kind),
+                    mesh=MeshConfig((1, t), ("data", "model")), **kw)
+    return cfg, run
+
+
+@pytest.mark.parametrize("arch,t,remat,accum", [
+    ("qwen2.5-3b", 1, "full", 2), ("qwen2.5-3b", 1, "dots", 1),
+    ("deepseek-v2-lite-16b", 4, "none", 1), ("falcon-mamba-7b", 1, "full", 1)])
+def test_captured_smoke_train_equals_eager(cuda, arch, t, remat, accum):
+    """Three SMOKE train steps on the card, captured (one CUDA graph of
+    the forward, the backward and AdamW, replayed) and eager from the same
+    weights: every parameter, moment, step count and metric bit for bit;
+    no kernel launched.  The replays' learning rate follows ``schedule``
+    through the warm-up, where it changes every step (a rate frozen into
+    the graph at capture would repeat the first step's)."""
+    from repro_torch.launch.steps import adamw_config, build_cell
+    from repro_torch.models import model as TM
+    from repro_torch.optim import init_adamw, schedule
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    cfg, run = _smoke_cell(arch, t, "train", remat=remat, grad_accum=accum,
+                           xent_chunk=16)
+    init = TM.init_params(cfg, run, device="cpu")
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(3):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 33))
+                               .astype(np.int32), device=cuda)
+        batches.append({"tokens": toks[:, :-1].contiguous(),
+                        "labels": toks[:, 1:].contiguous()})
+
+    def run_steps():
+        plan = build_cell(cfg, run.shape, run)
+        params = tree_map(lambda p: p.to(cuda, copy=True), init)
+        opt = init_adamw(params)
+        ms = []
+        for batch in batches:
+            params, opt, m = plan.step_fn(params, opt, batch)
+            ms.append({k: v.clone() for k, v in m.items()})
+        progs = plan.step_fn.__wrapped__.programs
+        return (tree_leaves(params) + tree_leaves(tuple(opt)), ms,
+                [p.replays for p in progs.values()])
+    (got, cg), (want, cw) = _captured_and_eager(run_steps)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(got[1], want[1])
+               for k in a)
+    # one program: the first call ran it eagerly and captured, two replays
+    assert got[2] == [2] and want[2] == []
+    assert cg == cw and not any(cg.values()), cg
+    acfg = adamw_config(run)
+    lrs = [m["lr"] for m in got[1]]
+    for i, lr in enumerate(lrs):
+        want_lr = schedule(acfg, torch.tensor(i + 1, dtype=torch.int32,
+                                              device=cuda))
+        assert torch.equal(lr, want_lr), (i, lr, want_lr)
+    assert len({float(lr) for lr in lrs}) == len(lrs)
+
+
+@pytest.mark.parametrize("arch,t,pallas", [
+    ("qwen2.5-3b", 1, False), ("deepseek-v2-lite-16b", 4, False),
+    ("falcon-mamba-7b", 1, True), ("jamba-v0.1-52b", 4, False),
+    ("seamless-m4t-large-v2", 1, False)])
+def test_captured_smoke_prefill_equals_eager(cuda, arch, t, pallas):
+    """Three SMOKE prefills on the card, captured and eager on the same
+    bf16 weights and batches: the logits (the encoder memory) bit for bit
+    and the launch counts equal (falcon through the scan kernel; the
+    flash kernel refuses SMOKE's head dim, so the others run plain)."""
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import model as TM
+    cfg, run = _smoke_cell(arch, t, "prefill", use_pallas=pallas)
+    params = TM.init_params(cfg, run, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    batches = []
+    for _ in range(3):
+        batch = {}
+        for name, (shp, dtype) in TM.input_specs(cfg, run.shape,
+                                                 run).items():
+            batch[name] = (torch.randn(shp, generator=gen, device=cuda)
+                           * 0.02).to(dtype) if dtype.is_floating_point \
+                else torch.randint(0, cfg.vocab_size, shp, generator=gen,
+                                   device=cuda, dtype=dtype)
+        batches.append(batch)
+
+    def run_prefills():
+        plan = build_cell(cfg, run.shape, run)
+        outs = [plan.step_fn(params, b) for b in batches]
+        return outs, [p.replays for p in
+                      plan.step_fn.__wrapped__.programs.values()]
+    (got, cg), (want, cw) = _captured_and_eager(run_prefills)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    assert got[1] == [2] and want[1] == []
+    assert cg == cw, (cg, cw)
+    if pallas:
+        assert cg["selective_scan"] > 0
+
+
+def test_captured_paged_callbacks_equal_eager_on_card(cuda):
+    """The paged decode (the JAX example's geometry) on the card, its
+    attention callback captured (one CUDA graph a shape) and eager: every
+    decode output, the final pool and page table bit for bit, the launch
+    counts equal, no leaked page."""
+    from repro_torch.launch.paged_decode import run_decode
+    kw = dict(n_requests=16, device=cuda, record=True, seed=2)
+    (got, cg), (want, cw) = _captured_and_eager(lambda: run_decode(**kw))
+    assert got["programs"]["count"] > 1 and want["programs"]["count"] == 0
+    assert len(got["ys"]) == len(want["ys"]) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(got["ys"], want["ys"]))
+    assert all(torch.equal(got["pool"][k], want["pool"][k])
+               for k in ("k", "v"))
+    assert cg == cw and cg["paged_attention"] > 0, (cg, cw)
+    assert got["audit"]["leaked"] == 0 and got["audit"]["consistent"]
